@@ -45,6 +45,13 @@ _declare("DL4J_TORCH_FAULT_SPEC", "str", "",
          "Deterministic fault-injection plan (testing/faults.py), e.g. "
          "'queue-overflow@0,slow-request@1:0.2'; empty disables every "
          "injection point. Counterpart: DL4J_TPU_FAULT_SPEC.")
+_declare("DL4J_TORCH_FLASH_BWD", "str", "auto",
+         "Flash-attention backward route: 'scan' differentiates the plain "
+         "forward recurrence (blockwise attention; dense attention with a "
+         "window) by autograd, on CPU tensors only (on the card it "
+         "raises); any other value ('auto') takes the dQ and dK/dV CUDA "
+         "kernels for a CUDA tensor and their plain twin for a CPU "
+         "tensor. Counterpart: DL4J_TPU_FLASH_BWD.")
 _declare("DL4J_TORCH_LM_ATTN", "str", "auto",
          "TransformerLM block attention route when block_size is set: "
          "'scan' takes the plain blockwise recurrence (CPU tensors only: "

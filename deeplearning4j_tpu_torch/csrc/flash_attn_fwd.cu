@@ -31,25 +31,17 @@
 // Interface: a plain C function, bound from Python with ctypes. It launches
 // on the caller's stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::NEG_INF;
+using flash::from_f32;
+using flash::to_f32;
 
 constexpr int BM = 64;     // query rows per block
 constexpr int BN = 64;     // keys per K/V tile
 constexpr int NT = 128;    // threads per block: 16 row groups x 8 column groups
-constexpr float NEG_INF = -1e30f;   // the reference's mask value
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int DP>
 constexpr size_t smem_bytes() {

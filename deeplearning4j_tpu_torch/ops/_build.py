@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` holds one kernel family behind a plain C entry
-point. It is compiled with ``nvcc`` for ``sm_90a`` into
-``_build/<name>-<hash>.so`` inside the package (a directory git ignores),
-where the hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is reused. Nothing is built at import:
+point of the same name; the sources share ``csrc/*.cuh`` headers. It is
+compiled with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so``
+inside the package (a directory git ignores), where the hash covers the
+source, every header and the flags, so an edited source or header builds
+anew and an unchanged one is reused. Nothing is built at import:
 the first wrapper call on a CUDA tensor builds, or :func:`build_all`
 builds every kernel at once, one ``nvcc`` process per source, all
 started together.
@@ -34,6 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (argtypes of its C entry point of the same name)
 KERNELS = {
     "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "flash_attn_dq": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+    "flash_attn_dkv": (_P,) * 8 + (_I,) * 6 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -49,8 +52,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

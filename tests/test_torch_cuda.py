@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel against its plain twin, on the card.
+"""The CUDA flash-attention kernels against their plain twins, on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere. They import neither
 JAX nor the JAX package, so they run where only PyTorch is installed::
@@ -8,14 +8,19 @@ JAX nor the JAX package, so they run where only PyTorch is installed::
 Tolerances: f32 1e-5 abs (summation order only); bf16 O 1e-2 abs (the
 kernel rounds O to bf16, the twin's f32 O is not rounded: half a bf16
 step at |O| < 2 is 2^-8); lse 1e-5 abs in both (f32 on both sides).
+Backward: f32 dq/dk/dv within 1e-5 of each gradient's max abs (summation
+order only; f32 against float64 sits near 1e-6 of it at these shapes);
+bf16 within one bf16 step of the twin's bf16 result, 1e-5 max|g| +
+2^-7 |g| element by element (both round nearly equal f32 values).
 """
 
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
-from deeplearning4j_tpu_torch.ops.flash_attention import (_flash_forward,
-                                                          flash_attention)
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    _flash_forward, _kernel_backward, flash_attention,
+    flash_attention_bwd_plain)
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
@@ -107,3 +112,81 @@ def test_kernel_skips_lse_when_not_asked(cuda_device):
     torch.cuda.synchronize()
     assert lse is None
     assert torch.equal(o, want)
+
+
+# (n, kv_n, T, d, causal, window, dtype): ragged T, GQA 2 and 4, windows
+# 1 and 24, non-causal, every head-dim instantiation
+BWD_CASES = [
+    (16, 16, 512, 64, True, None, torch.float32),
+    (16, 16, 511, 64, True, None, torch.bfloat16),
+    (8, 4, 500, 64, True, 24, torch.float32),
+    (8, 2, 333, 16, False, None, torch.float32),
+    (8, 8, 200, 128, True, None, torch.bfloat16),
+    (8, 2, 100, 32, True, 1, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kv_n,t,d,causal,window,dtype", BWD_CASES)
+def test_backward_kernels_match_twin_on_card(cuda_device, monkeypatch, n,
+                                             kv_n, t, d, causal, window,
+                                             dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    std = 1.0 if dtype == torch.float32 else 0.5
+    q, do = ((std * torch.randn((n, t, d), generator=g, device=cuda_device))
+             .to(dtype) for _ in range(2))
+    k, v = ((std * torch.randn((kv_n, t, d), generator=g,
+                               device=cuda_device)).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, kv_group=n // kv_n)
+    o, lse = _flash_forward(q, k, v, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+    def no_twin(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+    monkeypatch.setattr(port_fa, "flash_attention_bwd_plain", no_twin)
+    before = (flash_attention.dq_launches, flash_attention.dkv_launches)
+    got = _kernel_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.dq_launches, flash_attention.dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs()
+        limit = 1e-5 * scale + (0 if dtype == torch.float32 else 2.0 ** -7) \
+            * b.float().abs()
+        assert bool(torch.isfinite(a).all()), name
+        assert bool((err <= limit).all()), (name, err.max().item(), scale)
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels_on_card(cuda_device,
+                                                    monkeypatch):
+    """``torch.autograd.grad`` through the public wrapper on the model's
+    transposed views launches the two backward kernels once each, never
+    the twin, and gives the twin's gradients."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, t, h, d = 2, 130, 4, 64
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=cuda_device,
+                      requires_grad=True)
+    cot = torch.randn((b, h, t, d), generator=g, device=cuda_device)
+
+    def heads(x):
+        return [a.reshape(b, t, h, d).transpose(1, 2)
+                for a in torch.split(x, h * d, dim=-1)]
+    want = torch.autograd.grad(
+        (flash_attention(*heads(qkv.cpu()), causal=True) * cot.cpu()).sum(),
+        qkv)[0]
+
+    def no_twin(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+    monkeypatch.setattr(port_fa, "flash_attention_bwd_plain", no_twin)
+    before = (flash_attention.dq_launches, flash_attention.dkv_launches)
+    got = torch.autograd.grad(
+        (flash_attention(*heads(qkv), causal=True) * cot).sum(), qkv)[0]
+    torch.cuda.synchronize()
+    assert (flash_attention.dq_launches, flash_attention.dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert (got - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()

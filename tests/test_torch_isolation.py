@@ -3,9 +3,11 @@
 - no file of ``deeplearning4j_tpu_torch/``, nor ``chip_smoke.py``,
   imports ``jax``, ``jaxlib`` or ``deeplearning4j_tpu`` (AST scan), and
   importing the whole package in a fresh interpreter loads no ``jax``;
-- a CPU tensor never touches the kernel: the wrapper's launch count does
-  not move and the kernel library is never loaded; the model's ``scan``
-  parity route refuses a tensor that is not on the CPU;
+- a CPU tensor never touches a kernel: no launch count moves and no
+  kernel library is loaded, forward, backward or a training step; the
+  ``scan`` parity routes (``DL4J_TORCH_LM_ATTN``, ``DL4J_TORCH_FLASH_BWD``)
+  refuse a tensor that is not on the CPU; each kernel's boundary refuses
+  what its kernel cannot take before any pointer is passed;
 - with no CUDA present, the entry points without ``device="cpu"`` raise
   instead of running on the CPU.
 """
@@ -85,16 +87,22 @@ def test_import_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def _launches():
+    return (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches)
+
+
 def test_cpu_tensors_never_touch_the_kernel(monkeypatch):
     def no_kernel(name):
         raise AssertionError(f"kernel {name} loaded for a CPU tensor")
     monkeypatch.setattr(_build, "load", no_kernel)
-    before = flash_attention.launches
-    q = torch.randn(2, 4, 24, 8)
-    flash_attention(q, q, q, causal=True)
+    before = _launches()
+    q = torch.randn(2, 4, 24, 8, requires_grad=True)
+    torch.autograd.grad(flash_attention(q, q, q, causal=True).sum(), q)
     lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
     lm.output(np.zeros((2, 16), np.int32))
-    assert flash_attention.launches == before
+    lm.fit_batch(np.ones((2, 17), np.int32))
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("window", [None, 3])
@@ -113,6 +121,24 @@ def test_scan_route_refuses_device_tensors(monkeypatch, window):
     q = torch.zeros(1, 2, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CPU only"):
         tr._blockwise_route(c, q, q, q)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_flash_bwd_scan_route_refuses_device_tensors(monkeypatch, window):
+    """``DL4J_TORCH_FLASH_BWD=scan`` is a CPU parity route too: a device
+    tensor (``meta`` stands in for the card) raises before it reaches
+    the plain recurrence or the plain backward."""
+    def no_plain(*args, **kw):
+        raise AssertionError("plain attention reached by a device tensor")
+    for name in ("blockwise_attention", "dense_attention",
+                 "flash_attention_bwd_plain"):
+        monkeypatch.setattr(port_fa, name, no_plain)
+    monkeypatch.setenv("DL4J_TORCH_FLASH_BWD", "scan")
+    q = torch.zeros(4, 16, 8, device="meta")
+    lse = torch.zeros(4, 16, device="meta")
+    with pytest.raises(ValueError, match="CPU only"):
+        port_fa._flash_backward(q, q, q, q, lse, q, causal=True,
+                                window=window, kv_group=1, block_k=8)
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed", "strided", "head_dim",
@@ -140,11 +166,11 @@ def test_kernel_boundary_refuses_what_the_kernel_cannot_take(monkeypatch,
         k = v = torch.zeros(1, 16, 8)
     else:
         k = v = torch.zeros(2, 15, 8)
-    before = flash_attention.launches
+    before = _launches()
     with pytest.raises(err):
         port_fa._kernel_forward(q, k, v, causal=True, window=None,
                                 kv_group=2)
-    assert flash_attention.launches == before
+    assert _launches() == before
 
 
 @pytest.fixture
@@ -176,6 +202,49 @@ def test_server_refuses_a_model_on_another_device():
     lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
     with pytest.raises(ValueError, match="lives on"):
         InferenceServer(lm, device="meta")
+
+
+BWD_CASES = ["dtype", "mixed", "strided_do", "head_dim", "kv_heads",
+             "do_shape", "lse_dtype", "lse_shape", "delta_strided"]
+
+
+@pytest.mark.parametrize("entry", ["_kernel_dq", "_kernel_dkv"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_boundaries_refuse_what_the_kernels_cannot_take(
+        monkeypatch, entry, case):
+    """The dQ and dK/dV wrappers check every input before the kernel
+    library is loaded, so they are held here on CPU tensors."""
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a refused call")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    q, do = torch.zeros(4, 16, 8), torch.zeros(4, 16, 8)
+    k = v = torch.zeros(2, 16, 8)
+    lse, delta = torch.zeros(4, 16), torch.zeros(4, 16)
+    err = ValueError
+    if case == "dtype":
+        q, k, v, do, err = q.half(), k.half(), v.half(), do.half(), TypeError
+    elif case == "mixed":
+        do, err = do.to(torch.bfloat16), TypeError
+    elif case == "strided_do":
+        do = torch.zeros(4, 8, 16).transpose(1, 2)
+    elif case == "head_dim":
+        q, do = torch.zeros(4, 16, 129), torch.zeros(4, 16, 129)
+        k = v = torch.zeros(2, 16, 129)
+    elif case == "kv_heads":
+        k = v = torch.zeros(1, 16, 8)
+    elif case == "do_shape":
+        do = torch.zeros(4, 15, 8)
+    elif case == "lse_dtype":
+        lse = lse.double()
+    elif case == "lse_shape":
+        lse = torch.zeros(4, 15)
+    else:
+        delta = torch.zeros(16, 4).t()
+    before = _launches()
+    with pytest.raises(err):
+        getattr(port_fa, entry)(q, k, v, do, lse, delta, causal=True,
+                                window=None, kv_group=2)
+    assert _launches() == before
 
 
 def test_build_directory_is_git_ignored():
