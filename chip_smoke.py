@@ -17,7 +17,11 @@ Phases, each fatal on failure:
    against the plain backward, each with its time, the twin's, one
    PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take; and the public wrapper on bf16 q/k/v
-   laid out as the model hands them over;
+   laid out as the model hands them over; then the LSTM cell's forward and
+   backward kernels against their twins at the char-RNN's cell step
+   (B 32, H 200, peepholes, f32) and at edge cases (no peepholes, bf16,
+   B 1, B 7 x H 37, B 64 x H 1024), with cuDNN's LSTM per step (another
+   function: no peepholes) as a yardstick;
 3. slice — a full-width TransformerLM (V 32768, T 512, d 512, L 8, H 8,
    ff 2048, bf16 compute, flash block 128; random weights from a seed)
    behind ``InferenceServer`` answers 16 concurrent 512-token requests.
@@ -31,7 +35,19 @@ Phases, each fatal on failure:
    kernels once per layer, and every parameter must get a non-zero
    gradient; it reports step time, tokens/s, MFU, peak memory and a step
    breakdown. A 2-layer f32 copy then takes one step's gradients on the
-   card and on the CPU from the same weights, which must agree.
+   card and on the CPU from the same weights, which must agree;
+5. charrnn — ``zoo.char_rnn`` at full width (vocab 77, hidden 200, tBPTT
+   50; rmsprop at lr 0.01) trains through ``MultiLayerNetwork.fit`` on
+   batches of 32 x 200 characters of a seeded Markov chain: 2 warm-up and
+   8 timed batches. Each timed batch must launch the LSTM forward and
+   backward kernels 400 times each (2 layers x 200 steps) and no flash
+   kernel, every parameter leaf must get a finite, non-zero gradient in
+   every window, and the loss must fall; it reports characters/s, ms per
+   batch and per window, a window split by CUDA events and peak memory.
+   Then ``output()`` on a batch, 200 ``rnn_time_step`` calls generating
+   characters (their outputs must equal ``output()`` of the same
+   sequence), and one f32 window of a fresh copy on the card and on the
+   CPU from the same weights, which must agree.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -92,6 +108,34 @@ KERNEL_CASES = [
     ("train", 256, 256, 511, 64, True, None),
 ]
 
+# the char-RNN phase: bench.py's full-width sizing of zoo.char_rnn
+CHARRNN = dict(vocab_size=77, hidden=200, tbptt_length=50, batch=32,
+               seq_len=200, learning_rate=0.01)
+CHARRNN_WARMUP = 2
+CHARRNN_BATCHES = 8
+CHARRNN_GENERATE = 200     # rnn_time_step calls
+# LSTM cell kernel cases: (name, B, H, peepholes, dtype); "main" is the
+# char-RNN's cell step
+LSTM_CASES = [
+    ("main", 32, 200, True, "float32"),
+    ("no_peephole", 32, 200, False, "float32"),
+    ("bf16", 32, 200, True, "bfloat16"),
+    ("b1", 1, 200, True, "float32"),
+    ("ragged", 7, 37, True, "float32"),
+    ("wide", 64, 1024, True, "float32"),
+]
+# f32 h/c within 1e-6 abs up to H 200 (summation order only), and
+# 1e-6 sqrt(H / 200) beyond: the rounding of the H-term dot products grows
+# with the square root of their length (c also reaches |c| ~ 4 there);
+# f32 gradients within 1e-5 of each output's max abs
+LSTM_FWD_TOL, LSTM_BWD_RTOL = 1e-6, 1e-5
+# stepwise rnn_time_step against output() of the same sequence: f32
+# probabilities, the input projection taken at another batch shape
+RNN_STEP_TOL = 1e-5
+# one f32 window, card against CPU: loss 1e-5 abs; each updated parameter
+# leaf within 1e-4 of its max abs
+CHARRNN_LOSS_TOL, CHARRNN_PARAM_RTOL = 1e-5, 1e-4
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -120,6 +164,35 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=50, reps=5):
+    """Device time of one ``fn`` call with the host taken out: ``iters``
+    calls captured into one CUDA graph, replayed ``reps`` times between
+    CUDA events. A small kernel behind a Python wrapper is otherwise timed
+    at the host's pace (``time_ms`` then reads the wrapper's cost)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def _pairs(t, window, causal):
@@ -421,16 +494,169 @@ def wrapper_on_model_views(card, g):
 
 def reset_launches():
     from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
     flash_attention.launches = 0
     flash_attention.dq_launches = 0
     flash_attention.dkv_launches = 0
+    lstm_cell.launches = 0
+    lstm_cell.bwd_launches = 0
 
 
 def read_launches():
-    """(forward, dQ, dK/dV) launch counts."""
+    """(forward, dQ, dK/dV) flash-attention launch counts."""
     from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
     return (flash_attention.launches, flash_attention.dq_launches,
             flash_attention.dkv_launches)
+
+
+def read_lstm_launches():
+    """(forward, backward) LSTM cell kernel calls."""
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
+    return lstm_cell.launches, lstm_cell.bwd_launches
+
+
+def lstm_bounds(b, h, peep, dtype_name):
+    """Least times of one cell step's forward and backward calls: each
+    input read once and each output written once at the memory rate,
+    against the products at the type's peak (2 ops per multiply-add; the
+    forward's h_prev·RW, and the backward's recomputed z, dz·RWᵀ and
+    h_prevᵀ·dz). Both take f32 CUDA-core rates for f32."""
+    es = 4 if dtype_name == "float32" else 2
+    p = 3 * h if peep else 0
+    fwd_in = b * 4 * h + 2 * b * h + h * 4 * h + p
+    fwd = _bound((fwd_in + 2 * b * h) * es, 2 * b * h * 4 * h, dtype_name)
+    bwd_in = fwd_in + 2 * b * h                       # + dh, dc
+    bwd_out = b * 4 * h + 2 * b * h + h * 4 * h + p   # dzx, dh, dc, dRW, dP
+    bwd = _bound((bwd_in + bwd_out) * es, 3 * 2 * b * h * 4 * h, dtype_name)
+    return fwd, bwd
+
+
+def check_lstm(got, want, want_f32, dtype, scale_rel, fwd_tol):
+    """A cell output against the twin's on the same inputs: (max abs error,
+    the largest error over its limit, ok). f32: ``scale_rel`` times the
+    output's max abs (forward: the absolute ``fwd_tol``, scale_rel None);
+    bf16: one bf16 step of the twin's bf16 result, element by element, and
+    2^-7 of the output's max abs against the twin's unrounded f32 result."""
+    import torch
+    scale = want_f32.abs().max().item()
+    err = (got.float() - want.float()).abs()
+    base = fwd_tol if scale_rel is None else scale_rel * scale
+    ok_f32 = True
+    if dtype == torch.float32:
+        limit = torch.full_like(err, base)
+    else:
+        limit = base + BF16_RTOL * want.float().abs()
+        ok_f32 = (got.float() - want_f32).abs().max().item() <= \
+            BF16_RTOL * max(scale, 1e-30)
+    ratio = (err / limit).max().item()
+    return err.max().item(), ratio, ratio <= 1.0 and ok_f32 and \
+        bool(torch.isfinite(got).all())
+
+
+def lstm_case(card, g, name, b, h, peep, dtype):
+    """Forward and backward kernels of one case against their twins, with
+    times (CUDA events, many back-to-back calls), the twins' and bounds."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm_cell as lc
+
+    dev = torch.device(DEVICE)
+    dname = str(dtype).split(".")[1]
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    zx, hp, cp = rnd(b, 4 * h), rnd(b, h, std=0.5), rnd(b, h)
+    rw = rnd(h, 4 * h, std=h ** -0.5)
+    p = rnd(3, h, std=0.1) if peep else None
+    dh, dc = rnd(b, h), rnd(b, h)
+    args = (zx, hp, cp, rw, p)
+    got_f = lc._kernel_forward(*args)
+    got_b = lc._kernel_backward(*args, dh, dc)
+    torch.cuda.synchronize()
+    want_f = lc.lstm_cell_plain(*args)
+    want_b = lc.lstm_cell_bwd_plain(*args, dh, dc)
+    up = [None if t is None else t.float() for t in (*args, dh, dc)]
+    want_f32_f = lc.lstm_cell_plain(*up[:5]) if dtype != torch.float32 \
+        else want_f
+    want_f32_b = lc.lstm_cell_bwd_plain(*up) if dtype != torch.float32 \
+        else want_b
+    fwd_tol = LSTM_FWD_TOL * max(1.0, (h / 200) ** 0.5)
+    errs, ok = {}, True
+    for gname, got, want, w32, rel in (
+            ("h", got_f[0], want_f[0], want_f32_f[0], None),
+            ("c", got_f[1], want_f[1], want_f32_f[1], None),
+            *[(n, a, w, w2, LSTM_BWD_RTOL) for n, a, w, w2 in zip(
+                ("dzx", "dh_prev", "dc_prev", "dRW", "dP"), got_b, want_b,
+                want_f32_b) if w is not None]):
+        err, ratio, good = check_lstm(got, want, w32.float(), dtype, rel,
+                                      fwd_tol)
+        errs[gname] = {"max_abs_err": err, "err_over_limit": ratio}
+        ok = ok and good and got.shape == want.shape and got.dtype == \
+            want.dtype
+    ok = ok and (got_b[4] is None) == (p is None)
+    del want_f, want_b, want_f32_f, want_f32_b
+    # the kernels' and twins' device time (graph replay), and a wrapper
+    # call's cost back to back, host included
+    fwd_ms = graph_ms(lambda: lc._kernel_forward(*args))
+    bwd_ms = graph_ms(lambda: lc._kernel_backward(*args, dh, dc))
+    fwd_call_ms = time_ms(lambda: lc._kernel_forward(*args), iters=200,
+                          warmup=10)
+    bwd_call_ms = time_ms(lambda: lc._kernel_backward(*args, dh, dc),
+                          iters=200, warmup=10)
+    plain_fwd_ms = graph_ms(lambda: lc.lstm_cell_plain(*args))
+    plain_bwd_ms = graph_ms(lambda: lc.lstm_cell_bwd_plain(*args, dh, dc))
+    (fb, fby, fbytes, fops), (bb, bby, bbytes, bops) = lstm_bounds(
+        b, h, peep, dname)
+    rec = {"phase": "kernel_lstm", "case": name, "dtype": dname,
+           "shape": {"B": b, "H": h, "peephole": peep}, "errors": errs,
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+           "fwd_call_ms": fwd_call_ms, "bwd_call_ms": bwd_call_ms,
+           "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+           "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_bytes": fbytes,
+           "fwd_ops": fops, "bwd_bound_ms": bb, "bwd_bound_by": bby,
+           "bwd_bytes": bbytes, "bwd_ops": bops, "card": card, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"LSTM cell kernels disagree with their "
+                             f"twins: {rec}")
+    return rec
+
+
+def cudnn_lstm_yardstick(card):
+    """The library yardstick, a different function (no peepholes, and it
+    includes its own input projection): ``torch.nn.LSTM`` (cuDNN) over one
+    50-step window of one layer at the char-RNN's width, forward and
+    forward + backward, per step. The port never calls it."""
+    import torch
+    b, t, h = CHARRNN["batch"], CHARRNN["tbptt_length"], CHARRNN["hidden"]
+    torch.manual_seed(SEED)
+    rnn = torch.nn.LSTM(h, h, batch_first=True).to(DEVICE)
+    x = torch.randn((b, t, h), device=DEVICE, requires_grad=True)
+    with torch.no_grad():
+        fwd = time_ms(lambda: rnn(x), iters=50, warmup=5)
+
+    def fwd_bwd():
+        out, _ = rnn(x)
+        out.sum().backward()
+    both = time_ms(fwd_bwd, iters=50, warmup=5)
+    rec = {"phase": "kernel_lstm_library", "what": "torch.nn.LSTM (cuDNN), "
+           "no peepholes, input projection included",
+           "shape": {"B": b, "T": t, "n_in": h, "H": h, "dtype": "float32"},
+           "window_fwd_ms": fwd, "window_fwd_bwd_ms": both,
+           "per_step_fwd_ms": fwd / t, "per_step_bwd_ms": (both - fwd) / t,
+           "card": card}
+    emit(rec)
+    return rec
+
+
+def phase_lstm_kernels(card):
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    results = {}
+    for name, b, h, peep, dtype_name in LSTM_CASES:
+        results[name] = lstm_case(card, g, name, b, h, peep,
+                                  getattr(torch, dtype_name))
+    results["library"] = cudnn_lstm_yardstick(card)
+    return results
 
 
 def phase_slice(card):
@@ -701,6 +927,290 @@ def phase_train(card):
     return rec
 
 
+def markov_batches(n_batches, rng):
+    """One-hot [B, T, V] batches of a seeded first-order Markov chain over
+    V symbols: each symbol has three likely successors (0.6, 0.25, 0.1),
+    and 5% of the mass is spread over all symbols. Returns (DataSets, the
+    chain's entropy rate in nats per character: the loss floor)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    v, b, t = CHARRNN["vocab_size"], CHARRNN["batch"], CHARRNN["seq_len"]
+    trans = np.full((v, v), 0.05 / v)
+    for sym in range(v):
+        trans[sym, rng.choice(v, 3, replace=False)] += [0.6, 0.25, 0.1]
+    trans /= trans.sum(1, keepdims=True)
+    cdf = trans.cumsum(1)
+    eye = np.eye(v, dtype=np.float32)
+    out = []
+    for _ in range(n_batches):
+        ids = np.empty((b, t + 1), np.int64)
+        ids[:, 0] = rng.randint(0, v, b)
+        for j in range(1, t + 1):
+            u = rng.rand(b)[:, None]
+            ids[:, j] = np.minimum((u > cdf[ids[:, j - 1]]).sum(1), v - 1)
+        out.append(DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    # stationary distribution by power iteration, then the entropy rate
+    pi = np.full(v, 1.0 / v)
+    for _ in range(500):
+        pi = pi @ trans
+    rate = float(-(pi[:, None] * trans * np.log(trans)).sum())
+    return out, rate
+
+
+class _WindowRecorder:
+    """Keeps each window's device score and gradients (no host read)."""
+
+    def __init__(self):
+        self.scores, self.grads = [], []
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(model._score)
+        self.grads.append(model._last_gradients)
+
+
+def charrnn_window_breakdown(net, ds):
+    """One more tBPTT window (the batch's first) split by CUDA events into
+    the forward (loss), the backward (``torch.autograd.grad``) and the
+    update, with every LSTM kernel call inside timed by its own events."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm_cell as lc
+
+    seg = CHARRNN["tbptt_length"]
+    x = net._tensor(ds.features[:, :seg])
+    y = net._tensor(ds.labels[:, :seg])
+    spans = {"_kernel_forward": [], "_kernel_backward": []}
+    real = {name: getattr(lc, name) for name in spans}
+
+    def timed(name):
+        def call(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = real[name](*a, **kw)
+            e.record()
+            spans[name].append((s, e))
+            return out
+        return call
+    carries = [l.initial_carry(x.shape[0], x.dtype, x.device)
+               if hasattr(l, "initial_carry") else None for l in net.layers]
+    leaves = [(i, k, v) for i, p in enumerate(net.params_list)
+              for k, v in p.items()]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for name in spans:
+        setattr(lc, name, timed(name))
+    try:
+        torch.cuda.synchronize()
+        ev[0].record()
+        with torch.enable_grad():
+            score, (states, new_carries) = net._loss_fn(
+                net.params_list, net.states_list, x, y, None, None, None,
+                True, carries)
+            ev[1].record()
+            flat = torch.autograd.grad(score, [v for _, _, v in leaves])
+        ev[2].record()
+        grads = [{} for _ in net.params_list]
+        for (i, k, _), g in zip(leaves, flat):
+            grads[i][k] = g
+        net._apply_update(score.detach(), grads, states, new_carries,
+                          carries, True)
+        ev[3].record()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(lc, name, fn)
+
+    def total(name):
+        return sum(s.elapsed_time(e) for s, e in spans[name])
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "lstm_forward_kernel_ms": total("_kernel_forward"),
+            "lstm_forward_calls": len(spans["_kernel_forward"]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "lstm_backward_kernel_ms": total("_kernel_backward"),
+            "lstm_backward_calls": len(spans["_kernel_backward"]),
+            "update_ms": ev[2].elapsed_time(ev[3])}
+
+
+def charrnn_device_share(net, ds, ms_per_batch):
+    """One more batch under ``torch.profiler``: the device time of every
+    kernel (one stream, so they do not overlap) against the timed run's
+    ms per batch gives the card's busy share; the kernels ranked by device
+    time. None where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit_batch(ds.features, ds.labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # the device-side events themselves (kernels, copies, memsets); a CPU
+    # op's entry repeats the time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    return {"profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if events else None,
+            "busy_share_of_timed_batch":
+                busy_ms / ms_per_batch if events else None,
+            "top_device_ops": [{"name": e.key[:80], "calls": e.count,
+                                "device_ms": device_us(e) / 1e3}
+                               for e in top]}
+
+
+def charrnn_generate(net, rng):
+    """``rnn_time_step`` one character at a time, sampling each next
+    character from the step's output, then ``output()`` of the same
+    sequence: the stepwise distributions must equal it."""
+    import numpy as np
+    v = CHARRNN["vocab_size"]
+    eye = np.eye(v, dtype=np.float32)
+    net.rnn_clear_previous_state()
+    before = read_lstm_launches()
+    seq, steps = [int(rng.randint(v))], []
+    t0 = time.perf_counter()
+    for _ in range(CHARRNN_GENERATE):
+        p = net.rnn_time_step(eye[seq[-1]][None])[0]
+        steps.append(p)
+        seq.append(int(rng.choice(v, p=p / p.sum())))
+    gen_s = time.perf_counter() - t0
+    fwd, bwd = (a - b for a, b in zip(read_lstm_launches(), before))
+    whole = net.output(eye[seq[:-1]][None])[0]
+    err = float(np.abs(whole - np.stack(steps)).max())
+    n_layers = sum(hasattr(l, "initial_carry") for l in net.layers)
+    assert (fwd, bwd) == (n_layers * CHARRNN_GENERATE, 0), (fwd, bwd)
+    assert np.isfinite(whole).all() and err <= RNN_STEP_TOL, err
+    return {"steps": CHARRNN_GENERATE, "seconds": gen_s,
+            "chars_per_s": CHARRNN_GENERATE / gen_s,
+            "lstm_forward_calls": fwd, "lstm_backward_calls": bwd,
+            "stepwise_vs_output_max_abs_err": err,
+            "distinct_chars": len(set(seq))}
+
+
+def charrnn_card_vs_cpu(conf, ds):
+    """One f32 tBPTT window (2 rows x 50 steps) of a fresh full-width
+    char-RNN on the card (the kernels) and on the CPU (their twins) from
+    the same weights: the loss and every updated parameter leaf."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    seg = CHARRNN["tbptt_length"]
+    card = MultiLayerNetwork(conf, device=DEVICE).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    x, y = ds.features[:2, :seg], ds.labels[:2, :seg]
+    before = read_lstm_launches()
+    got = float(card.fit_batch(x, y))
+    after = read_lstm_launches()
+    want = float(cpu.fit_batch(x, y))
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    assert [a - b for a, b in zip(after, before)] == [n_layers * seg] * 2, \
+        (before, after)
+    rel = {}
+    for i, (pg, pc) in enumerate(zip(card.params_list, cpu.params_list)):
+        for k in pg:
+            w = pc[k].detach().numpy()
+            rel[f"{i}.{k}"] = float(np.abs(pg[k].detach().cpu().numpy() - w)
+                                    .max() / max(np.abs(w).max(), 1e-30))
+    worst = max(rel, key=rel.get)
+    loss_err = abs(got - want)
+    assert loss_err <= CHARRNN_LOSS_TOL and rel[worst] <= CHARRNN_PARAM_RTOL, \
+        (loss_err, worst, rel[worst])
+    return {"rows": 2, "steps": seg, "dtype": "float32", "loss_card": got,
+            "loss_cpu": want, "loss_abs_err": loss_err,
+            "param_max_rel_err": rel[worst], "param_worst_leaf": worst}
+
+
+def phase_charrnn(card):
+    import math
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+
+    conf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                        hidden=CHARRNN["hidden"],
+                        tbptt_length=CHARRNN["tbptt_length"],
+                        learning_rate=CHARRNN["learning_rate"])
+    rng = np.random.RandomState(SEED + 3)
+    data, floor = markov_batches(CHARRNN_WARMUP + CHARRNN_BATCHES, rng)
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    rec = _WindowRecorder()
+    net.set_listeners(rec)
+    net.fit(ListDataSetIterator(data[:CHARRNN_WARMUP]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()   # earlier phases' leftovers
+    reset_launches()                           # the main path starts here
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(data[CHARRNN_WARMUP:]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = read_lstm_launches()           # ... and ends here
+    flash = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    net.set_listeners([])
+
+    seg, t = CHARRNN["tbptt_length"], CHARRNN["seq_len"]
+    windows = t // seg
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    per_batch = n_layers * t
+    assert (fwd, bwd) == (per_batch * CHARRNN_BATCHES,) * 2, (fwd, bwd)
+    assert flash == (0, 0, 0), flash
+    scores = [float(s) for s in rec.scores]
+    per_char = [sum(scores[i:i + windows]) / (windows * seg)
+                for i in range(0, len(scores), windows)]
+    assert len(per_char) == CHARRNN_WARMUP + CHARRNN_BATCHES
+    assert all(math.isfinite(x) for x in scores), scores
+    assert sum(per_char[-2:]) < sum(per_char[:2]), per_char
+    timed_grads = rec.grads[CHARRNN_WARMUP * windows:]
+    flags = torch.stack([torch.isfinite(g).all() & (g.abs().max() > 0)
+                         for w in timed_grads for layer in w
+                         for g in layer.values()]).cpu().numpy()
+    n_leaves = sum(len(layer) for layer in timed_grads[0])
+    assert flags.all(), f"{int((~flags).sum())} leaf gradients zero or " \
+        "not finite"
+    del rec, timed_grads
+
+    breakdown = charrnn_window_breakdown(net, data[-1])
+    chars = CHARRNN["batch"] * t * CHARRNN_BATCHES
+    share = charrnn_device_share(net, data[-2],
+                                 wall / CHARRNN_BATCHES * 1e3)
+    out = net.output(data[0].features)
+    assert out.shape == (CHARRNN["batch"], t, CHARRNN["vocab_size"]) and \
+        np.isfinite(out).all()
+    result = {"phase": "charrnn", "config": CHARRNN,
+              "params": net.num_params(), "warmup_batches": CHARRNN_WARMUP,
+              "timed_batches": CHARRNN_BATCHES, "wall_s": wall,
+              "chars_per_s": chars / wall,
+              "ms_per_batch": wall / CHARRNN_BATCHES * 1e3,
+              "ms_per_window": wall / (CHARRNN_BATCHES * windows) * 1e3,
+              "loss_per_char_by_batch": per_char,
+              "loss_floor_per_char": floor,
+              "uniform_loss_per_char": math.log(CHARRNN["vocab_size"]),
+              "kernel_launches": {"lstm_cell_fwd": fwd, "lstm_cell_bwd": bwd,
+                                  "flash_attention": list(flash)},
+              "launches_per_batch": {"lstm_cell_fwd": fwd / CHARRNN_BATCHES,
+                                     "lstm_cell_bwd": bwd / CHARRNN_BATCHES},
+              "leaves_with_nonzero_gradient_per_window": n_leaves,
+              "peak_memory_bytes": peak_bytes,
+              "peak_above_start_bytes": peak_bytes - start_bytes,
+              "window_breakdown": breakdown,
+              "device_share": share,
+              "generate": charrnn_generate(net, rng),
+              "card": card}
+    del net
+    result["f32_card_vs_cpu"] = charrnn_card_vs_cpu(conf, data[0])
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -728,10 +1238,13 @@ def main():
 
     phase_build(card)
     kernels = phase_kernels(card)
+    lstm = phase_lstm_kernels(card)
     sl = phase_slice(card)
     tr = phase_train(card)
+    cr = phase_charrnn(card)
 
-    # each kernel at the train path's shape (the main path of this slice)
+    # the flash kernels at the TransformerLM train path's shape, the LSTM
+    # kernels at the char-RNN's
     fwd = kernels[("train", "bfloat16")]
     bwd = kernels[("train", "bfloat16", "bwd")]
     src = "deeplearning4j_tpu_torch/csrc/"
@@ -760,6 +1273,28 @@ def main():
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
          "library_ms": bwd["library_bwd_ms"]},
+        # the char-RNN's cell step; no PyTorch call computes the peephole
+        # cell, so library_ms is null and cuDNN's LSTM (another function)
+        # is reported per step beside it
+        {"name": "lstm_cell_fwd", "route": "cuda",
+         "source": src + "lstm_cell_fwd.cu", "replaces": ref + "508",
+         "launches": cr["kernel_launches"]["lstm_cell_fwd"],
+         "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
+                            for g in ("h", "c")),
+         "ms": lstm["main"]["fwd_ms"], "plain_ms": lstm["main"]["plain_fwd_ms"],
+         "bound_ms": lstm["main"]["fwd_bound_ms"],
+         "bound_by": lstm["main"]["fwd_bound_by"], "library_ms": None,
+         "cudnn_lstm_step_ms": lstm["library"]["per_step_fwd_ms"]},
+        {"name": "lstm_cell_bwd", "route": "cuda",
+         "source": src + "lstm_cell_bwd.cu", "replaces": ref + "540",
+         "launches": cr["kernel_launches"]["lstm_cell_bwd"],
+         "max_abs_err": max(e["max_abs_err"] for g, e in
+                            lstm["main"]["errors"].items()
+                            if g not in ("h", "c")),
+         "ms": lstm["main"]["bwd_ms"], "plain_ms": lstm["main"]["plain_bwd_ms"],
+         "bound_ms": lstm["main"]["bwd_bound_ms"],
+         "bound_by": lstm["main"]["bwd_bound_by"], "library_ms": None,
+         "cudnn_lstm_step_ms": lstm["library"]["per_step_bwd_ms"]},
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,9 +59,21 @@ _declare("DL4J_TORCH_LM_ATTN", "str", "auto",
          "('auto') goes through ops.flash_attention (the CUDA kernel for "
          "a CUDA tensor, its plain twin for a CPU tensor). Counterpart: "
          "DL4J_TPU_LM_ATTN.")
+_declare("DL4J_TORCH_LSTM_KERNEL", "str", "auto",
+         "LSTM time-step route: 'builtin' differentiates the plain "
+         "recurrence (LSTM._scan_builtin) by autograd, on CPU tensors only "
+         "(on the card it raises); any other value ('auto') takes "
+         "ops.lstm_cell (the CUDA kernels for a CUDA tensor, their plain "
+         "twins for a CPU tensor) wherever the layer has sigmoid gates "
+         "and a tanh cell. Counterpart: DL4J_TPU_LSTM_KERNEL.")
 _declare("DL4J_TORCH_METRICS", "flag", True,
          "Record into the obs metric registry; 0 turns every record into "
          "a no-op. Counterpart: DL4J_TPU_METRICS.")
+_declare("DL4J_TORCH_NANGUARD", "flag", True,
+         "Non-finite guard in MultiLayerNetwork's train step: a step whose "
+         "loss or gradients are not finite is reverted on the device "
+         "(params, updater state, tBPTT carries, iteration) and counted. "
+         "Counterpart: DL4J_TPU_NANGUARD.")
 _declare("DL4J_TORCH_SERVE_BUCKETS", "str", "8",
          "Batch-size bucket ladder (comma-separated ints) the serving "
          "batcher pads request batches into. Counterpart: "

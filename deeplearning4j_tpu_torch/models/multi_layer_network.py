@@ -1,0 +1,603 @@
+"""MultiLayerNetwork: the sequential model, the port of
+``deeplearning4j_tpu/models/multi_layer_network.py``
+(``nn/multilayer/MultiLayerNetwork.java``).
+
+The reference's train step is one jitted program; here the same body runs
+eagerly: rng draw, loss and gradients (``torch.autograd.grad``), the
+per-layer updater rule, tBPTT carries detached, and the non-finite
+guard's select-revert, all on the network's device. ``fit_batch`` takes
+one minibatch (tBPTT models: one update per window of
+``tbptt_fwd_length`` steps, carries zero at the start of each call);
+``fit`` walks a DataSet or an iterator. Inference: ``output``,
+``feed_forward``, ``score``, ``rnn_time_step``, ``evaluate``.
+
+Parameters are per-layer dicts of f32 tensors under the reference's names
+and layouts; :func:`params_from_numpy` and :func:`updater_state_from_numpy`
+carry a JAX net's parameters and updater state across, and ``params()``
+/``set_params()`` use the reference's flat vector. The network runs on
+the card unless the caller passes ``device="cpu"``; its randomness (init,
+dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
+
+Not in this slice (ROADMAP.md, queue 1): ``fit_fused`` and the fused
+tBPTT scan (a captured CUDA graph is their counterpart), the async
+prefetch wrap of ``fit``, line-search solvers, pretraining and
+checkpoints.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
+                                                       DataSetIterator)
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.models._device_state import (
+    DeviceStateMixin, nanguard_enabled, step_all_finite, tree_where)
+from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+    MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer, LossLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    LSTM, GravesBidirectionalLSTM)
+from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
+from deeplearning4j_tpu_torch.testing import faults
+from deeplearning4j_tpu_torch.utils import flat_params
+
+__all__ = ["MultiLayerNetwork", "params_from_numpy",
+           "updater_state_from_numpy"]
+
+
+def _leaves(params, device):
+    """Trainable f32 leaves on ``device`` from a dict of arrays/tensors."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v, np.float32)))
+            .to(device=device, dtype=torch.float32).detach().clone()
+            .requires_grad_(True) for k, v in params.items()}
+
+
+def params_from_numpy(layers, params_list, device=None):
+    """The port's parameters from a JAX net's ``params_list`` given as
+    dicts of numpy arrays (``[{k: np.asarray(v)} for ...]``). The layouts
+    are the same (Dense ``W [n_in, n_out]``, LSTM ``W [n_in, 4H]`` and
+    ``RW [H, 4H]`` with gates ``[i, f, g, o]``, ``P [3, H]``): nothing is
+    transposed. Keys are checked against each layer's ``param_shapes``."""
+    dev = resolve_device(device)
+    out = []
+    for layer, p in zip(layers, params_list):
+        shapes = layer.param_shapes()
+        if set(p) != set(shapes) or any(
+                tuple(np.shape(p[k])) != tuple(s) for k, s in shapes.items()):
+            raise ValueError(
+                f"{type(layer).__name__}: params "
+                f"{ {k: tuple(np.shape(v)) for k, v in p.items()} } do not "
+                f"match its shapes {shapes}")
+        out.append(_leaves(p, dev))
+    return out
+
+
+def updater_state_from_numpy(updater_states, device=None):
+    """The port's updater state from a JAX net's ``updater_states``
+    (per layer ``{rule key: {param name: array}}``, e.g. rmsprop's
+    ``{"r": {...}}``), so that a JAX run continues in the port."""
+    dev = resolve_device(device)
+    return [{key: {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                   for k, v in sub.items()} for key, sub in s.items()}
+            for s in updater_states]
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _is_carry_layer(layer):
+    return isinstance(layer, LSTM) and \
+        not isinstance(layer, GravesBidirectionalLSTM)
+
+
+class MultiLayerNetwork(DeviceStateMixin):
+    def __init__(self, conf: MultiLayerConfiguration, *, device=None):
+        self.conf = conf
+        self.layers = conf.layers
+        self.device = resolve_device(device)
+        self.params_list = None
+        self.states_list = None
+        self.updater_states = None
+        self.iteration = 0
+        self.epoch_count = 0
+        self.listeners = []
+        self._rng = None
+        self._rnn_carries = None
+        self._last_gradients = None
+        self._last_batch_size = None
+
+    # ------------------------------------------------------------------
+    # init & parameter API
+    # ------------------------------------------------------------------
+    def init(self, params=None):
+        """Parameters and updater state (MultiLayerNetwork.init): drawn
+        layer by layer from a ``torch.Generator`` seeded with
+        ``conf.seed`` on the network's device, which then serves dropout."""
+        g = torch.Generator(device=self.device).manual_seed(self.conf.seed)
+        self._rng = g
+        self.params_list = [_leaves(l.init_params(g), self.device)
+                            for l in self.layers]
+        self.states_list = [l.init_state() for l in self.layers]
+        self.reset_updater_state()
+        self.iteration = 0
+        self._iter_dev = None
+        if params is not None:
+            self.set_params(params)
+        return self
+
+    def reset_updater_state(self):
+        self.updater_states = [
+            updaters_mod.init_state(
+                l.updater_config(self.conf.max_iterations), p)
+            for l, p in zip(self.layers, self.params_list)]
+
+    def num_params(self):
+        return flat_params.n_params(self.layers)
+
+    def params(self):
+        """The flattened parameter vector (reference params()), as numpy."""
+        with torch.no_grad():
+            return _host(flat_params.params_to_vector(self.layers,
+                                                      self.params_list))
+
+    def set_params(self, vec):
+        vec = torch.as_tensor(_host(vec).astype(np.float32)).to(self.device)
+        self.params_list = [
+            {k: v.requires_grad_(True) for k, v in p.items()}
+            for p in flat_params.vector_to_params(self.layers, vec)]
+
+    def get_layer_params(self, i):
+        """Copies of layer ``i``'s parameters."""
+        return {k: v.detach().clone() for k, v in self.params_list[i].items()}
+
+    def set_listeners(self, listeners):
+        self.listeners = list(listeners) \
+            if isinstance(listeners, (list, tuple)) else [listeners]
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def _layer_forward(self, layer, train, rng):
+        """The layer's forward, under ``torch.utils.checkpoint`` when the
+        configuration asks for remat. A recomputation draws its dropout
+        masks from the generator state the first run started from."""
+        def fwd(p, x, s, m):
+            return layer.forward(p, x, s, train=train, rng=rng, mask=m)
+        if not (self.conf.remat and train):
+            return fwd
+        start = None if rng is None else rng.get_state()
+
+        def replay(p, x, s, m):
+            if start is None:
+                return fwd(p, x, s, m)
+            after = rng.get_state()
+            rng.set_state(start)
+            try:
+                return fwd(p, x, s, m)
+            finally:
+                if recomputing[0]:
+                    rng.set_state(after)
+                recomputing[0] = True
+        recomputing = [False]
+        return lambda p, x, s, m: checkpoint(replay, p, x, s, m,
+                                             use_reentrant=False)
+
+    def _forward_layers(self, params_list, states_list, x, *, train, rngs,
+                        fmask, carries=None):
+        """Walk preprocessors and layers; returns (acts, preout,
+        new_states, out_mask, new_carries); ``acts[0]`` is the input."""
+        acts = [x]
+        new_states = []
+        new_carries = [None] * len(self.layers) if carries is None \
+            else list(carries)
+        mask = fmask
+        n = len(self.layers)
+        preout = None
+        for i, layer in enumerate(self.layers):
+            pre = self.conf.input_preprocessors.get(i)
+            if pre is not None:
+                x = pre.pre_process(x, mask)
+                mask = pre.feed_forward_mask(mask)
+            rng_i = None if rngs is None else rngs[i]
+            is_last = i == n - 1
+            if is_last and isinstance(layer, BaseOutputLayer):
+                x_in = layer.apply_dropout(x, train=train, rng=rng_i)
+                preout = layer.pre_output(params_list[i], x_in)
+                x = layer.activation_fn()(preout)
+                new_states.append(states_list[i])
+            elif is_last and isinstance(layer, LossLayer):
+                preout = x
+                x, s = layer.forward(params_list[i], x, states_list[i],
+                                     train=train, rng=rng_i, mask=mask)
+                new_states.append(s)
+            elif carries is not None and _is_carry_layer(layer):
+                x_in = layer.apply_dropout(x, train=train, rng=rng_i)
+                carry = new_carries[i]
+                if carry is None:
+                    carry = layer.initial_carry(x_in.shape[0], x_in.dtype,
+                                                x_in.device)
+                out, (hf, cf) = layer._scan(params_list[i], x_in, *carry,
+                                            mask)
+                new_carries[i] = (hf, cf)
+                x = out
+                new_states.append(states_list[i])
+            else:
+                x, s = self._layer_forward(layer, train, rng_i)(
+                    params_list[i], x, states_list[i], mask)
+                new_states.append(s)
+            mask = layer.feed_forward_mask(mask)
+            acts.append(x)
+        return acts, preout, new_states, mask, new_carries
+
+    def _output_layer(self):
+        last = self.layers[-1]
+        if not isinstance(last, (BaseOutputLayer, LossLayer)):
+            raise ValueError("Last layer is not an output/loss layer; no "
+                             "loss defined")
+        return last
+
+    def _loss_fn(self, params_list, states_list, x, y, fmask, lmask, rngs,
+                 train=True, carries=None, ew=None):
+        master_params = params_list
+        cd = self._compute_dtype()
+        if cd is not None:   # mixed precision: forward in cd, f32 loss
+            params_list = self._cast_floats(params_list, cd)
+            if x.is_floating_point():
+                x = x.to(cd)
+            if carries is not None:
+                carries = self._cast_floats(carries, cd)
+        acts, preout, new_states, _, new_carries = self._forward_layers(
+            params_list, states_list, x, train=train, rngs=rngs, fmask=fmask,
+            carries=carries)
+        if cd is not None:
+            preout = preout.to(torch.float32)
+        out_layer = self._output_layer()
+        if ew is None:
+            score = out_layer.compute_score(y, preout, mask=lmask,
+                                            average=True)
+            denom = x.shape[0]
+        else:
+            # row-padded batch: ``ew`` [batch] zeroes the padding out of
+            # the loss; average over the real examples
+            denom = torch.clamp(ew.sum(), min=1.0)
+            score = out_layer.compute_score(y, preout, mask=ew,
+                                            average=False) / denom
+        for layer, p in zip(self.layers, master_params):
+            if p:
+                score = score + updaters_mod.l1_l2_score(
+                    p, l1=layer.l1 or 0.0, l2=layer.l2 or 0.0,
+                    l1_bias=layer.l1_bias or 0.0,
+                    l2_bias=layer.l2_bias or 0.0) / denom
+        return score, (new_states, new_carries)
+
+    # ------------------------------------------------------------------
+    # the train step
+    # ------------------------------------------------------------------
+    def _uses_dropout(self):
+        return any((l.dropout or 0.0) not in (0.0, 1.0) for l in self.layers)
+
+    def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew):
+        """(score, (new_states, new_carries), grads as a list of dicts) at
+        the current parameters."""
+        leaves = [(i, k, v) for i, p in enumerate(self.params_list)
+                  for k, v in p.items()]
+        with torch.enable_grad():
+            score, aux = self._loss_fn(self.params_list, self.states_list, x,
+                                       y, fmask, lmask, rngs, train, carries,
+                                       ew)
+            flat = torch.autograd.grad(score, [v for _, _, v in leaves],
+                                       allow_unused=True)
+        grads = [{} for _ in self.params_list]
+        for (i, k, v), g in zip(leaves, flat):
+            grads[i][k] = torch.zeros_like(v) if g is None else g
+        return score.detach(), aux, grads
+
+    def _train_step(self, x, y, fmask, lmask, ew, carries, tbptt):
+        """One update, eagerly: the body of the reference's
+        ``_build_train_step``. Returns (score, grads, new carries)."""
+        rng = self._rng if self._uses_dropout() else None
+        rng_start = None if rng is None else rng.get_state()
+        rngs = None if rng is None else [rng] * len(self.layers)
+        score, (new_states, new_carries), grads = self._value_and_grad(
+            x, y, fmask, lmask, rngs, True, carries, ew)
+        new_carries = self._apply_update(score, grads, new_states,
+                                         new_carries, carries, tbptt,
+                                         rng_start)
+        return score, grads, new_carries
+
+    def _apply_update(self, score, grads, new_states, new_carries, carries,
+                      tbptt, rng_start=None):
+        """The update half of the step: each layer's updater rule, the
+        tBPTT carries detached, and the non-finite guard's select-revert
+        (``rng_start``: the generator state before the step, when dropout
+        drew from it). Returns the carries the next window starts from."""
+        guard = nanguard_enabled()
+        it = self._device_iteration()
+        confs = [l.updater_config(self.conf.max_iterations)
+                 for l in self.layers]
+        with torch.no_grad():
+            steps, new_upd = [], []
+            for conf_u, p, g, s in zip(confs, self.params_list, grads,
+                                       self.updater_states):
+                if not p:
+                    steps.append(None)
+                    new_upd.append(s)
+                    continue
+                upd, s2 = updaters_mod.compute_updates(conf_u, g, s, it,
+                                                       params=p)
+                steps.append(upd)
+                new_upd.append(s2)
+            if tbptt:
+                # truncation: the next window starts from these values,
+                # without their graph
+                new_carries = [None if c is None else
+                               tuple(t.detach() for t in c)
+                               for c in new_carries]
+            if guard:
+                # a non-finite step is reverted on the device: params,
+                # layer state, updater state, carries and iteration, and
+                # counted; the host reads the counter one step late
+                ok = step_all_finite(score, grads)
+                for p, upd in zip(self.params_list, steps):
+                    for k, upd_k in (upd or {}).items():
+                        p[k].copy_(torch.where(ok, p[k] - upd_k, p[k]))
+                new_states = tree_where(ok, new_states, self.states_list)
+                new_upd = tree_where(ok, new_upd, self.updater_states)
+                if tbptt:
+                    new_carries = tree_where(ok, new_carries, carries)
+                self._iter_dev = torch.where(ok, it + 1, it)
+                self._nanguard_record(self._nan_skipped_arg()
+                                      + (~ok).to(torch.int32))
+                # the generator cannot be selected on the device: when
+                # dropout drew from it, one host read decides
+                if rng_start is not None and not bool(ok):
+                    self._rng.set_state(rng_start)
+            else:
+                for p, upd in zip(self.params_list, steps):
+                    for k, upd_k in (upd or {}).items():
+                        p[k].sub_(upd_k)
+                self._iter_dev = it + 1
+        self.states_list = new_states
+        self.updater_states = new_upd
+        return new_carries
+
+    def _after_update(self, score, grads, batch):
+        self.score_ = score   # device scalar; read lazily
+        self._last_gradients = grads
+        self._last_batch_size = int(batch)
+        self.iteration += 1
+        self._iter_dev_py = self.iteration
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    def _tensor(self, a):
+        """``a`` on the network's device (float64 arrays become f32, as
+        the reference's default precision makes them)."""
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            t = a
+        else:
+            arr = np.asarray(a)
+            if arr.dtype == np.float64:
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if t.dtype == torch.float64:
+            t = t.to(torch.float32)
+        return t.to(self.device)
+
+    def _check_solver_supported(self):
+        algo = self.conf.optimization_algo
+        if algo != "stochastic_gradient_descent":
+            raise NotImplementedError(
+                f"optimization_algo={algo!r}: the line-search solvers are "
+                "not ported to the PyTorch package yet (ROADMAP.md, "
+                "queue 1)")
+
+    def fit_batch(self, x, y, fmask=None, lmask=None, ew=None):
+        """One parameter update on one minibatch (tBPTT models: one update
+        per window). Returns the score as a device scalar (also kept as
+        ``score_``, read lazily).
+
+        ``ew`` ([batch] example weights) zeroes padded rows out of the
+        loss and the gradient (the maskless SGD path only)."""
+        if self.params_list is None:
+            self.init()
+        x, y = self._tensor(x), self._tensor(y)
+        if faults.fire("nan-step") is not None:
+            # poison this step's float inputs with NaN so the loss and
+            # gradients go non-finite and the guard must catch it
+            if x.is_floating_point():
+                x = torch.full_like(x, float("nan"))
+            else:
+                y = torch.full_like(y, float("nan"))
+        fmask, lmask = self._tensor(fmask), self._tensor(lmask)
+        self._check_solver_supported()
+        if ew is not None:
+            if lmask is not None:
+                raise ValueError("example weights (ew) apply only to the "
+                                 "maskless SGD path (tBPTT included)")
+            ew = self._tensor(ew)
+        if self.conf.backprop_type == "tbptt" and x.ndim == 3:
+            return self._fit_tbptt(x, y, fmask, lmask, ew)
+        score, grads, _ = self._train_step(x, y, fmask, lmask, ew, None,
+                                           False)
+        self._after_update(score, grads, x.shape[0])
+        return score
+
+    def _fit_tbptt(self, x, y, fmask, lmask, ew=None):
+        """Truncated BPTT (doTruncatedBPTT): one update per window of
+        ``tbptt_fwd_length`` steps, the LSTM carries starting at zero and
+        passed on, detached, from window to window."""
+        t = x.shape[1]
+        seg = self.conf.tbptt_fwd_length
+        carries = [layer.initial_carry(x.shape[0], x.dtype, x.device)
+                   if _is_carry_layer(layer) else None
+                   for layer in self.layers]
+        last_score = None
+        for start in range(0, t, seg):
+            xs = x[:, start:start + seg]
+            ys = y[:, start:start + seg] if y.ndim == 3 else y
+            fm = None if fmask is None else fmask[:, start:start + seg]
+            lm = None if lmask is None else lmask[:, start:start + seg]
+            score, grads, carries = self._train_step(xs, ys, fm, lm, ew,
+                                                     carries, True)
+            last_score = score
+            self._after_update(score, grads, xs.shape[0])
+        self.score_ = last_score
+        return last_score
+
+    # ------------------------------------------------------------------
+    # public training API
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, *, epochs=1):
+        """fit(DataSetIterator) / fit(DataSet) / fit(X, y): ``conf.iterations``
+        updates per minibatch, ``epochs`` passes over an iterator."""
+        if self.params_list is None:
+            self.init()
+        if self.conf.pretrain:
+            raise NotImplementedError(
+                "layer-wise pretraining is not ported to the PyTorch "
+                "package yet (ROADMAP.md, queue 1)")
+        if labels is not None:
+            data = DataSet(data, labels)
+        if isinstance(data, DataSet):
+            for _ in range(self.conf.iterations):
+                self.fit_batch(data.features, data.labels,
+                               data.features_mask, data.labels_mask)
+            self._nanguard_flush()
+            return self
+        if isinstance(data, DataSetIterator) or hasattr(data, "__iter__"):
+            for _ in range(epochs):
+                for ds in data:
+                    ew = getattr(ds, "example_weights", None)
+                    for _ in range(self.conf.iterations):
+                        self.fit_batch(ds.features, ds.labels,
+                                       ds.features_mask, ds.labels_mask,
+                                       ew=ew)
+                for lst in self.listeners:
+                    if hasattr(lst, "on_epoch_end"):
+                        lst.on_epoch_end(self)
+                self.epoch_count += 1
+            self._nanguard_flush()
+            return self
+        raise ValueError(f"Cannot fit on {type(data)}")
+
+    # ------------------------------------------------------------------
+    # inference / scoring
+    # ------------------------------------------------------------------
+    def output(self, x, train=False, fmask=None):
+        """Inference output (MultiLayerNetwork.output) as host numpy."""
+        x, fmask = self._tensor(x), self._tensor(fmask)
+        with torch.no_grad():
+            acts, _, _, _, _ = self._forward_layers(
+                self.params_list, self.states_list, x, train=False,
+                rngs=None, fmask=fmask)
+            return _host(acts[-1])
+
+    def feed_forward(self, x, train=False):
+        """All layer activations, input first, as host numpy."""
+        x = self._tensor(x)
+        rngs = [self._rng] * len(self.layers) if train else None
+        with torch.no_grad():
+            acts, _, _, _, _ = self._forward_layers(
+                self.params_list, self.states_list, x, train=train,
+                rngs=rngs, fmask=None)
+        return [_host(a) for a in acts]
+
+    def score(self, dataset: DataSet, train=False):
+        """Loss on a dataset without updating params."""
+        with torch.no_grad():
+            score, _ = self._loss_fn(
+                self.params_list, self.states_list,
+                self._tensor(dataset.features), self._tensor(dataset.labels),
+                self._tensor(dataset.features_mask),
+                self._tensor(dataset.labels_mask), None, train=False)
+        return float(score)
+
+    def compute_gradient_and_score(self, x, y, fmask=None, lmask=None):
+        """Per-layer gradients and score without updating params
+        (computeGradientAndScore)."""
+        score, _, grads = self._value_and_grad(
+            self._tensor(x), self._tensor(y), self._tensor(fmask),
+            self._tensor(lmask), None, False, None, None)
+        self._last_gradients = grads
+        self.score_ = float(score)
+        return grads, self.score_
+
+    def gradient(self):
+        """Most recent per-layer gradients (Model.gradient())."""
+        return self._last_gradients
+
+    def gradient_vector(self):
+        if self._last_gradients is None:
+            return None
+        return _host(flat_params.params_to_vector(self.layers,
+                                                  self._last_gradients))
+
+    # ------------------------------------------------------------------
+    # rnn stateful inference
+    # ------------------------------------------------------------------
+    def rnn_clear_previous_state(self):
+        self._rnn_carries = None
+
+    def rnn_time_step(self, x):
+        """Stateful stepping inference (rnnTimeStep): [B, F] for one step
+        or [B, T, F]; the LSTM carries persist between calls."""
+        x = self._tensor(x)
+        single = x.ndim == 2
+        if single:
+            x = x[:, None, :]
+        if self._rnn_carries is None:
+            self._rnn_carries = [
+                l.initial_carry(x.shape[0], x.dtype, x.device)
+                if _is_carry_layer(l) else None for l in self.layers]
+        with torch.no_grad():
+            acts, _, _, _, self._rnn_carries = self._forward_layers(
+                self.params_list, self.states_list, x, train=False,
+                rngs=None, fmask=None, carries=self._rnn_carries)
+        out = _host(acts[-1])
+        return out[:, 0] if single and out.ndim == 3 else out
+
+    # ------------------------------------------------------------------
+    # evaluation / misc
+    # ------------------------------------------------------------------
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        ev = Evaluation()
+        for ds in iterator:
+            out = self.output(ds.features)
+            ev.eval(_host(ds.labels), out,
+                    mask=None if ds.labels_mask is None
+                    else _host(ds.labels_mask))
+        return ev
+
+    def clone(self):
+        """An independent copy: parameters, layer and updater state,
+        iteration and generator state."""
+        net = MultiLayerNetwork(self.conf, device=self.device)
+        net.params_list = [_leaves(p, self.device) for p in self.params_list]
+        net.states_list = [{k: v.clone() for k, v in s.items()}
+                           for s in self.states_list]
+        net.updater_states = [
+            {key: {k: v.clone() for k, v in sub.items()}
+             for key, sub in s.items()} for s in self.updater_states]
+        net.iteration = self.iteration
+        net._rng = torch.Generator(device=self.device)
+        net._rng.set_state(self._rng.get_state())
+        return net
+
+    def summary(self):
+        lines = ["idx  type                        n_params   shapes"]
+        for i, l in enumerate(self.layers):
+            lines.append(f"{i:<4d} {type(l).__name__:<27s} "
+                         f"{l.n_params():<10d} "
+                         f"{ {k: v for k, v in l.param_shapes().items()} }")
+        lines.append(f"total params: {self.num_params()}")
+        return "\n".join(lines)

@@ -37,6 +37,8 @@ KERNELS = {
     "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "flash_attn_dq": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
     "flash_attn_dkv": (_P,) * 8 + (_I,) * 6 + (_F, _I, _P),
+    "lstm_cell_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
+    "lstm_cell_bwd": (_P,) * 14 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

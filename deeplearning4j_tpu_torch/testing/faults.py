@@ -16,7 +16,7 @@ Spec grammar (``DL4J_TORCH_FAULT_SPEC`` or :func:`install`/:func:`inject`)::
     N        := 0-based occurrence index at which the fault triggers
     param    := site-specific argument (e.g. a sleep duration)
 
-Wired sites (all in ``serving/``):
+Wired sites (``serving/`` and ``models/multi_layer_network.py``):
 
 =====================  =====================================================
 ``queue-overflow``     submit N sees a full request queue and fails fast
@@ -33,6 +33,10 @@ Wired sites (all in ``serving/``):
 ``expire-deadline``    deadline-sweep check N treats its request as
                        expired: it fails ``ServeDeadlineError`` before
                        dispatch
+``nan-step``           ``MultiLayerNetwork.fit_batch`` call N poisons its
+                       float inputs with NaN (its labels when the
+                       features are integers), so the non-finite guard
+                       must revert that step (every tBPTT window of it)
 =====================  =====================================================
 
 Tests prefer the :func:`inject` context manager, which arms a plan and

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels against their plain twins, on the card.
+"""The CUDA kernels (flash attention, the LSTM cell) against their plain
+twins, on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere. They import neither
 JAX nor the JAX package, so they run where only PyTorch is installed::
@@ -12,12 +13,17 @@ Backward: f32 dq/dk/dv within 1e-5 of each gradient's max abs (summation
 order only; f32 against float64 sits near 1e-6 of it at these shapes);
 bf16 within one bf16 step of the twin's bf16 result, 1e-5 max|g| +
 2^-7 |g| element by element (both round nearly equal f32 values).
+LSTM cell: f32 h/c 1e-6 abs up to H 200 (1e-6 sqrt(H/200) beyond: the
+dot products' rounding grows with their length), gradients 1e-5 of each
+output's max abs; bf16 within one bf16 step of the twin's bf16 result.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
+from deeplearning4j_tpu_torch.ops import lstm_cell as port_lc
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     _flash_forward, _kernel_backward, flash_attention,
     flash_attention_bwd_plain)
@@ -190,3 +196,90 @@ def test_autograd_runs_the_backward_kernels_on_card(cuda_device,
         (before[0] + 1, before[1] + 1)
     assert (got - want).abs().max().item() <= \
         1e-5 * want.abs().max().item()
+
+
+# (B, H, peepholes, dtype): the char-RNN's cell step and edge cases
+LSTM_CASES = [
+    (32, 200, True, torch.float32),
+    (32, 200, False, torch.float32),
+    (32, 200, True, torch.bfloat16),
+    (1, 200, True, torch.float32),
+    (7, 37, True, torch.float32),
+    (64, 1024, True, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,peep,dtype", LSTM_CASES)
+def test_lstm_kernels_match_twins_on_card(cuda_device, monkeypatch, b, h,
+                                          peep, dtype):
+    """``lstm_cell`` on CUDA tensors under autograd: one forward and one
+    backward kernel call, never a twin, the twins' values."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=g, device=cuda_device)) \
+            .to(dtype)
+    args = [rnd(b, 4 * h), rnd(b, h, std=0.5), rnd(b, h),
+            rnd(h, 4 * h, std=h ** -0.5), rnd(3, h, std=0.1) if peep
+            else None]
+    dh, dc = rnd(b, h), rnd(b, h)
+    want_f = port_lc.lstm_cell_plain(*args)
+    want_b = port_lc.lstm_cell_bwd_plain(*args, dh, dc)
+
+    def no_twin(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+    monkeypatch.setattr(port_lc, "lstm_cell_plain", no_twin)
+    monkeypatch.setattr(port_lc, "lstm_cell_bwd_plain", no_twin)
+    leaves = [None if a is None else a.clone().requires_grad_()
+              for a in args]
+    before = (port_lc.lstm_cell.launches, port_lc.lstm_cell.bwd_launches)
+    hn, cn = port_lc.lstm_cell(*leaves)
+    grads = torch.autograd.grad((hn, cn), [a for a in leaves
+                                           if a is not None], (dh, dc))
+    torch.cuda.synchronize()
+    assert (port_lc.lstm_cell.launches,
+            port_lc.lstm_cell.bwd_launches) == (before[0] + 1, before[1] + 1)
+    fwd_tol = 1e-6 * max(1.0, np.sqrt(h / 200))
+    for name, got, want in (("h", hn, want_f[0]), ("c", cn, want_f[1])):
+        err = (got.float() - want.float()).abs()
+        limit = fwd_tol if dtype == torch.float32 else \
+            1e-5 + 2.0 ** -7 * want.float().abs()
+        assert got.dtype == dtype and bool((err <= limit).all()), \
+            (name, err.max().item())
+    # dP's gradient is the Function's fifth output; it is absent without
+    # peepholes
+    for name, got, want in zip(("dzx", "dh_prev", "dc_prev", "dRW", "dP"),
+                               grads, [w for w in want_b if w is not None]):
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs()
+        limit = 1e-5 * scale + (0 if dtype == torch.float32 else
+                                2.0 ** -7 * want.float().abs())
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert bool((err <= limit).all()), (name, err.max().item(), scale)
+
+
+@pytest.mark.cuda
+def test_charrnn_window_on_card_matches_cpu(cuda_device):
+    """One tBPTT ``fit_batch`` of a small char-RNN on the card (the
+    kernels) and on the CPU (the twins) from the same weights: the loss
+    1e-5 relative, every updated leaf 1e-4 of its max abs."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    conf = zoo.char_rnn(vocab_size=20, hidden=32, tbptt_length=10,
+                        learning_rate=0.01)
+    card = MultiLayerNetwork(conf, device=cuda_device).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    r = np.random.RandomState(0)
+    x = np.eye(20, dtype=np.float32)[r.randint(0, 20, (4, 20))]
+    before = port_lc.lstm_cell.launches
+    got, want = float(card.fit_batch(x, x)), float(cpu.fit_batch(x, x))
+    assert port_lc.lstm_cell.launches - before == 2 * 20
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for pg, pc in zip(card.params_list, cpu.params_list):
+        for k in pg:
+            w = pc[k].detach()
+            assert (pg[k].detach().cpu() - w).abs().max() <= \
+                1e-4 * w.abs().max()

@@ -22,12 +22,19 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.models.multi_layer_network import (
+    MultiLayerNetwork, params_from_numpy as mln_params_from_numpy,
+    updater_state_from_numpy)
 from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          TransformerLM,
                                                          params_from_numpy)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
+from deeplearning4j_tpu_torch.ops import lstm_cell as port_lc
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
 from deeplearning4j_tpu_torch.serving import InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -253,3 +260,106 @@ def test_build_directory_is_git_ignored():
     assert _build.SRC_DIR == PKG / "csrc"
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
         sorted(_build.KERNELS)
+
+
+def _lstm_launches():
+    return lstm_cell.launches, lstm_cell.bwd_launches
+
+
+def test_cpu_char_rnn_never_touches_the_lstm_kernels(monkeypatch):
+    """Training, inference and stepping a char-RNN on the CPU move no LSTM
+    launch count and load no kernel library."""
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _lstm_launches()
+    net = MultiLayerNetwork(zoo.char_rnn(vocab_size=8, hidden=6,
+                                         tbptt_length=4),
+                            device="cpu").init()
+    x = np.eye(8, dtype=np.float32)[np.random.RandomState(0).randint(
+        0, 8, (2, 9))]
+    net.fit_batch(x, x)
+    net.output(x)
+    net.rnn_time_step(x[:, 0])
+    assert _lstm_launches() == before
+
+
+def test_builtin_lstm_route_refuses_device_tensors(monkeypatch):
+    """``DL4J_TORCH_LSTM_KERNEL=builtin`` is a CPU parity route: a tensor
+    on any other device (``meta`` stands in for the card) raises before
+    the plain recurrence runs."""
+    monkeypatch.setenv("DL4J_TORCH_LSTM_KERNEL", "builtin")
+    layer = GravesLSTM(n_in=5, n_out=6, activation="tanh")
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain recurrence ran for a device tensor")
+    monkeypatch.setattr(GravesLSTM, "_scan_builtin", no_plain)
+    params = {k: torch.zeros(s, device="meta")
+              for k, s in layer.param_shapes().items()}
+    z = torch.zeros(3, 6, device="meta")
+    with pytest.raises(ValueError, match="CPU only"):
+        layer._scan(params, torch.zeros(3, 7, 5, device="meta"), z, z, None)
+
+
+def test_mln_without_device_refuses_the_cpu(no_cuda):
+    conf = zoo.char_rnn(vocab_size=8, hidden=6)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiLayerNetwork(conf, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mln_params_from_numpy(conf.layers, [{} for _ in conf.layers])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        updater_state_from_numpy([{}])
+
+
+LSTM_CASES = ["dtype", "mixed", "zx_strided", "zx_width", "rw_shape",
+              "peep_shape", "c_shape", "devices", "grad_shape",
+              "grad_strided"]
+
+
+@pytest.mark.parametrize("entry", ["_kernel_forward", "_kernel_backward"])
+@pytest.mark.parametrize("case", LSTM_CASES)
+def test_lstm_boundaries_refuse_what_the_kernels_cannot_take(monkeypatch,
+                                                             entry, case):
+    """The LSTM wrappers check every input before the kernel library is
+    loaded, so they are held here on CPU tensors."""
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a refused call")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    b, h = 4, 6
+    zx, rw = torch.zeros(b, 4 * h), torch.zeros(h, 4 * h)
+    hp, cp, p = torch.zeros(b, h), torch.zeros(b, h), torch.zeros(3, h)
+    dh, dc = torch.zeros(b, h), torch.zeros(b, h)
+    err = ValueError
+    if case == "dtype":
+        zx, hp, cp, rw, p, dh, dc = (t.half() for t in
+                                     (zx, hp, cp, rw, p, dh, dc))
+        err = TypeError
+    elif case == "mixed":
+        rw, err = rw.double(), TypeError
+    elif case == "zx_strided":
+        zx = torch.zeros(4 * h, b).t()
+    elif case == "zx_width":
+        zx = torch.zeros(b, 4 * h + 1)
+    elif case == "rw_shape":
+        rw = torch.zeros(4 * h, h)
+    elif case == "peep_shape":
+        p = torch.zeros(4, h)
+    elif case == "c_shape":
+        cp = torch.zeros(b, h + 1)
+    elif case == "devices":
+        rw = torch.zeros(h, 4 * h, device="meta")
+    elif case == "grad_shape":
+        dh = torch.zeros(b + 1, h)
+    else:
+        dc = torch.zeros(h, b).t()
+    args = (zx, hp, cp, rw, p)
+    if entry == "_kernel_backward":
+        args += (dh, dc)
+    elif case.startswith("grad"):
+        args = (zx, hp, cp, rw, torch.zeros(3, h + 1))   # still refused
+    before = _lstm_launches()
+    with pytest.raises(err):
+        getattr(port_lc, entry)(*args)
+    assert _lstm_launches() == before
