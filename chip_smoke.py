@@ -13,11 +13,21 @@ Phases, each fatal on failure:
    nvcc (one process per source, started together) and report the time;
 2. kernels — each kernel on the card against its plain PyTorch twin on
    the same inputs, at the serving and training paths' shapes and a few
-   edge shapes: the forward, and the two backward kernels (dQ, dK/dV)
-   against the plain backward, each with its time, the twin's, one
-   PyTorch library call's (a yardstick the port never calls) and the
-   least time the card could take; and the public wrapper on bf16 q/k/v
-   laid out as the model hands them over; then the LSTM cell's forward and
+   edge shapes (T 1, T 65, d 36, a q view with a storage offset): the
+   forward, and the two backward kernels (dQ, dK/dV) against the plain
+   backward, each with its time, the twin's, one PyTorch library call's
+   (a yardstick the port never calls) and the least time the card could
+   take; and the public wrapper on bf16 q/k/v laid out as the model hands
+   them over. In bf16 the forward and dK/dV run on the tensor cores
+   (mma.sync, cp.async) and round P, Pᵀ and dSᵀ to bf16 before their
+   products: they are held to the bars of ``ops/flash_attention.py``
+   (``BF16_O_BAR``, ``BF16_DKV_BAR``) against the twin's unrounded f32
+   result, with the old one-bf16-step ratio and the error of PyTorch's
+   ``scaled_dot_product_attention`` against the same f32 twin printed
+   beside (anchors, not gates); f32 and dQ keep their bars. The build
+   phase shows from ptxas that each redesigned source holds a tensor-core
+   kernel per head dim and CUDA-core kernels for float only; then the LSTM
+   cell's forward and
    backward kernels against their twins at the char-RNN's cell step
    (B 32, H 200, peepholes, f32) and at edge cases (no peepholes, bf16,
    B 1, B 7 x H 37, B 64 x H 1024), with cuDNN's LSTM per step (another
@@ -70,11 +80,16 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}   # dense, published
 F32_TOL = 1e-5     # summation order only
-# bf16 O against the twin's O rounded to bf16: two roundings of nearly
-# equal f32 values land at most one bf16 step apart, and a step is at most
-# 2^-7 |O|; so |err| <= BF16_ATOL + BF16_RTOL |want| element by element
+# The one-bf16-step bar: a bf16 result against the twin's result rounded to
+# bf16, |err| <= BF16_ATOL + BF16_RTOL |want| element by element (two
+# roundings of nearly equal f32 values land at most one bf16 step apart,
+# and a step is at most 2^-7 |want|). The CUDA-core kernels (dQ, the LSTM
+# cell) are held to it. The bf16 forward and dK/dV kernels run on the
+# tensor cores and round P, Pᵀ and dSᵀ to bf16 before their products, so
+# they are held to the bars derived in ops/flash_attention.py against the
+# twin's unrounded f32 result (BF16_O_BAR, BF16_DKV_BAR); their one-step
+# ratio is printed beside, not gated.
 BF16_ATOL, BF16_RTOL = 1e-5, 2.0 ** -7
-BF16_TOL = 1e-2    # and against the twin's unrounded f32 O: half a step
 CPU_GPU_TOL = 1e-4  # f32 logits, CPU vs card, eight layers deep
 # backward kernels: f32 dq/dk/dv within 1e-5 of each gradient's max abs
 # (summation order only); bf16 within one bf16 step of the twin's bf16
@@ -98,15 +113,25 @@ TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
 CPU_CHECK_T = 128   # the f32 card-against-CPU step: 2 rows of 128 inputs
 
-# kernel cases: (name, n q-heads, kv-heads, T, d, causal, window)
+# kernel cases: (name, n q-heads, kv-heads, T, d, causal, window, q with
+# a storage offset)
 KERNEL_CASES = [
-    ("main", 64, 64, 512, 64, True, None),     # 8 requests x 8 heads
-    ("gqa2_window24_T500", 64, 32, 500, 64, True, 24),
-    ("d16", 64, 64, 512, 16, True, None),
-    ("d128", 32, 32, 512, 128, True, None),
+    ("main", 64, 64, 512, 64, True, None, False),    # 8 requests x 8 heads
+    ("gqa2_window24_T500", 64, 32, 500, 64, True, 24, False),
+    ("d16", 64, 64, 512, 16, True, None, False),
+    ("d128", 32, 32, 512, 128, True, None, False),
+    # edges of the tensor-core kernels: one key, a second tile of one row,
+    # rows of 72 bytes (not on 16-byte boundaries), a q view one element
+    # into its storage
+    ("t1", 8, 8, 1, 64, True, None, False),
+    ("t65", 16, 16, 65, 64, True, None, False),
+    ("d36", 16, 16, 300, 36, True, None, False),
+    ("q_offset", 16, 16, 512, 64, True, None, True),
     # the train phase's attention: 32 rows x 8 heads, T = 512 - 1
-    ("train", 256, 256, 511, 64, True, None),
+    ("train", 256, 256, 511, 64, True, None, False),
 ]
+# what the kernels line says of the two redesigned flash kernels
+TC_DESIGN = "mma.sync bf16 tensor cores, cp.async"
 
 # the char-RNN phase: bench.py's full-width sizing of zoo.char_rnn
 CHARRNN = dict(vocab_size=77, hidden=200, tbptt_length=50, batch=32,
@@ -262,6 +287,32 @@ def output_breakdown(lm, x, n_batches, wall):
             "device_busy_share": forward_ms * 1e-3 * n_batches / wall}
 
 
+# the redesigned flash kernels: entry point -> (the tensor-core kernel's
+# name, the CUDA-core kernel's name)
+TC_KERNELS = {"flash_attn_fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
+              "flash_attn_dkv": ("flash_dkv_mma_kernel", "flash_dkv_kernel")}
+
+
+def kernel_routes(name, log):
+    """From ptxas's entry functions of a redesigned flash source: the
+    tensor-core kernels (one per head-dim instance) and the CUDA-core ones,
+    which must all be the float instances (mangled ``...kernelIf...``), so
+    no bf16 call can reach the CUDA cores. None for another source or a
+    library that was already built (no log)."""
+    import re
+    if name not in TC_KERNELS or not log:
+        return None
+    tc, cc = TC_KERNELS[name]
+    entries = re.findall(r"entry function '([^']+)'", log)
+    routes = {"bfloat16": [e for e in entries if tc in e],
+              "float32": [e for e in entries if cc + "I" in e]}
+    assert len(routes["bfloat16"]) == 4, (name, entries)
+    assert routes["float32"] and all(cc + "If" in e
+                                     for e in routes["float32"]), \
+        (name, entries)
+    return routes
+
+
 def phase_build(card):
     from deeplearning4j_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -271,34 +322,72 @@ def phase_build(card):
         usage = [ln.strip() for ln in log.splitlines()
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln]
-        emit({"phase": "build", "kernel": name, "ptxas": usage})
+        emit({"phase": "build", "kernel": name, "ptxas": usage,
+              "routes": kernel_routes(name, log)})
     emit({"phase": "build", "seconds": seconds, "card": card})
 
 
-def check_o(got, want, dtype):
-    """Kernel O against the twin's O in the same dtype: (max abs error,
-    the largest error over its limit, ok). f32: 1e-5 abs; bf16: one bf16
-    step, BF16_ATOL + BF16_RTOL |want| element by element."""
+def check_o(got, want, want_f32, v, kv_group):
+    """Kernel O against the twin's: (max abs error against the twin's O in
+    the same dtype, the largest error over the kernel's limit, the same
+    over the one-bf16-step limit, ok). f32: 1e-5 abs. bf16 (tensor
+    cores): |O - O_f32| <= BF16_O_BAR (max|V| of the kv head + |O_f32|)
+    against the twin's unrounded f32 O, element by element; the one-step
+    ratio (BF16_ATOL + BF16_RTOL |want|) is reported, not gated."""
     import torch
+    from deeplearning4j_tpu_torch.ops.flash_attention import bf16_o_limit
     err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        limit = torch.full_like(err, F32_TOL)
+    if got.dtype == torch.float32:
+        ratio = one_step = (err / F32_TOL).max().item()
     else:
-        limit = BF16_ATOL + BF16_RTOL * want.float().abs()
-    ratio = (err / limit).max().item()
-    return err.max().item(), ratio, ratio <= 1.0 and \
+        ratio = ((got.float() - want_f32).abs()
+                 / bf16_o_limit(v, want_f32, kv_group)).max().item()
+        one_step = (err / (BF16_ATOL + BF16_RTOL * want.float().abs())) \
+            .max().item()
+    return err.max().item(), ratio, one_step, ratio <= 1.0 and \
         bool(torch.isfinite(got).all())
+
+
+def _offset_view(x):
+    """x's values in a tensor whose data start one element into its
+    storage: contiguous, but its rows are off 16-byte boundaries."""
+    buf = x.new_empty(x.numel() + 1)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def sdpa(q, k, v, causal, window):
+    """A call, with no arguments, of PyTorch's
+    ``scaled_dot_product_attention`` on [n, T, d] q and [kv_n, T, d] k/v
+    (a window as a mask built once here): the library yardstick and error
+    anchor, which the port never calls. Returns O [1, n, T, d]."""
+    import torch
+    import torch.nn.functional as F
+    n, t, _ = q.shape
+    # the library's kernels assume aligned rows: a view one element into
+    # its storage goes in as an aligned copy of the same values
+    q4, k4, v4 = (x.clone()[None] if x.storage_offset() else x[None]
+                  for x in (q, k, v))
+    gqa = k.shape[0] != n
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, enable_gqa=gqa)
+    pos = torch.arange(t, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & \
+        (pos[:, None] - pos[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=gqa)
 
 
 def phase_kernels(card):
     import torch
-    import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
-    for name, n, kv_n, t, d, causal, window in KERNEL_CASES:
+    for name, n, kv_n, t, d, causal, window, offset in KERNEL_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             # unit normals in f32; in bf16 the size of the serving path's
@@ -307,43 +396,44 @@ def phase_kernels(card):
             q, k, v = (std * torch.randn(s, generator=g, device=dev)
                        for s in ((n, t, d), (kv_n, t, d), (kv_n, t, d)))
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            if offset:
+                q = _offset_view(q)
             kw = dict(causal=causal, window=window, kv_group=n // kv_n)
             out, lse = fa._flash_forward(q, k, v, **kw)
             torch.cuda.synchronize()
             want_o, want_lse = fa.flash_attention_plain(q, k, v, **kw)
-            err_o, limit_ratio, ok = check_o(out, want_o, dtype)
             # the twin's f32 O before its rounding to the input dtype
             want_f32, _ = fa._plain_forward(q, k, v, **kw)
+            err_o, limit_ratio, one_step, ok = check_o(
+                out, want_o, want_f32, v, n // kv_n)
             err_f32 = (out.float() - want_f32).abs().max().item()
             err_lse = (lse - want_lse).abs().max().item()
-            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            ok = ok and err_f32 <= tol and err_lse <= F32_TOL
+            ok = ok and err_lse <= F32_TOL
+            # the anchor: the library's O against the same f32 twin
+            library = sdpa(q, k, v, causal, window)
+            lib_o = library()[0]
+            _, lib_ratio, _, _ = check_o(lib_o, want_o, want_f32, v,
+                                         n // kv_n)
+            lib_err = (lib_o.float() - want_f32).abs().max().item()
+            del lib_o
 
             kernel_ms = time_ms(lambda: fa._flash_forward(q, k, v, **kw))
             plain_ms = time_ms(lambda: fa._plain_forward(q, k, v, **kw))
-            q4, k4, v4 = q[None], k[None], v[None]
-            if window is None:
-                def library():
-                    return F.scaled_dot_product_attention(
-                        q4, k4, v4, is_causal=causal,
-                        enable_gqa=kv_n != n)
-            else:
-                pos = torch.arange(t, device=dev)
-                mask = (pos[:, None] >= pos[None, :]) & \
-                    (pos[:, None] - pos[None, :] < window)
-
-                def library():
-                    return F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask, enable_gqa=kv_n != n)
             library_ms = time_ms(library)
             bound_ms, bound_by, nbytes, ops = attention_bound(
                 n, kv_n, t, d, window, causal, dname)
             rec = {"phase": "kernel", "case": name, "dtype": dname,
                    "shape": {"n": n, "kv_heads": kv_n, "T": t, "d": d,
-                             "causal": causal, "window": window},
+                             "causal": causal, "window": window,
+                             "q_storage_offset": q.storage_offset()},
+                   "design": "cuda cores" if dtype == torch.float32
+                   else TC_DESIGN,
                    "max_abs_err": err_o, "err_over_limit": limit_ratio,
+                   "err_over_one_step_limit": one_step,
                    "max_abs_err_vs_f32_twin": err_f32,
-                   "lse_max_abs_err": err_lse, "tol_vs_f32_twin": tol,
+                   "lse_max_abs_err": err_lse,
+                   "sdpa_max_abs_err_vs_f32_twin": lib_err,
+                   "sdpa_err_over_limit": lib_ratio,
                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "bytes": nbytes, "ops": ops,
@@ -361,22 +451,35 @@ def phase_kernels(card):
     return results
 
 
-def check_grad(got, want, want_f32, dtype):
+def check_grad(got, want, want_f32, tensor_cores, size):
     """A backward kernel's gradient against the plain backward's on the
-    same inputs: (max abs error, the largest error over its limit, max
-    abs error against the unrounded f32 result, ok)."""
+    same inputs: (max abs error, the largest error over its limit, the
+    same over the one-bf16-step limit, max abs error against the unrounded
+    f32 result, ok). f32: 1e-5 of the gradient's max abs. bf16 on the CUDA
+    cores (dQ): the one-step limit element by element, and 2^-7 max|g_f32|
+    against the f32 result. bf16 on the tensor cores (dK, dV): max|g -
+    g_f32| <= BF16_DKV_BAR max|g_f32|; the one-step ratio is reported, not
+    gated. A gradient that cancels to f32 rounding (one key a row: its max
+    abs at most GRAD_CANCEL of ``size``, its terms' size) is held to
+    |g - g_f32| <= GRAD_CANCEL size instead."""
     import torch
-    scale = want_f32.abs().max().item()
+    from deeplearning4j_tpu_torch.ops.flash_attention import (BF16_DKV_BAR,
+                                                              GRAD_CANCEL)
+    scale = max(want_f32.abs().max().item(), 1e-30)
     err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        limit = torch.full_like(err, BWD_F32_RTOL * scale)
-        err_f32, ok_f32 = err.max().item(), True
+    err_f32 = (got.float() - want_f32).abs().max().item()
+    if scale <= GRAD_CANCEL * size:
+        ratio = err_f32 / (GRAD_CANCEL * size)
+        one_step = (err / (BWD_F32_RTOL * scale + BF16_RTOL
+                           * want.float().abs())).max().item()
+    elif got.dtype == torch.float32:
+        ratio = one_step = (err / (BWD_F32_RTOL * scale)).max().item()
     else:
-        limit = BWD_F32_RTOL * scale + BF16_RTOL * want.float().abs()
-        err_f32 = (got.float() - want_f32).abs().max().item()
-        ok_f32 = err_f32 <= BF16_RTOL * scale
-    ratio = (err / limit).max().item()
-    return err.max().item(), ratio, err_f32, ratio <= 1.0 and ok_f32 and \
+        one_step = (err / (BWD_F32_RTOL * scale + BF16_RTOL
+                           * want.float().abs())).max().item()
+        ratio = err_f32 / (BF16_DKV_BAR * scale) if tensor_cores else \
+            max(one_step, err_f32 / (BF16_RTOL * scale))
+    return err.max().item(), ratio, one_step, err_f32, ratio <= 1.0 and \
         bool(torch.isfinite(got).all())
 
 
@@ -385,9 +488,9 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
     same q, k, v, the forward kernel's O and lse, and a random dO; with
     their times, the plain backward's, and the backward of PyTorch's
     ``scaled_dot_product_attention`` (the forward outside the timed
-    region) as the library yardstick."""
+    region) as the library yardstick, whose gradients' errors against the
+    same f32 twin are reported as anchors."""
     import torch
-    import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     n, t, d = q.shape
@@ -406,31 +509,34 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
     want_f32 = want if dtype == torch.float32 else \
         fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                      out.float(), lse, do.float(), **kw)
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    o4 = sdpa(q4[0], k4[0], v4[0], causal, window)()
+    lib = [x[0] for x in torch.autograd.grad(o4, (q4, k4, v4), do[None],
+                                             retain_graph=True)]
+    sizes = fa.bwd_term_sizes(q, k, v, out, lse, do, **kw)
     errs = {}
     ok = True
-    for gname, got, w, w32 in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
-                                  want_f32):
-        err, ratio, err_f32, good = check_grad(got, w, w32, dtype)
+    for gname, got, w, w32, gl, size in zip(
+            ("dq", "dk", "dv"), (dq, dk, dv), want, want_f32, lib, sizes):
+        err, ratio, one_step, err_f32, good = check_grad(
+            got, w, w32, gname != "dq", size)
+        scale = w32.abs().max().item()
+        lib_err = (gl.float() - w32).abs().max().item()
         errs[gname] = {"max_abs_err": err, "err_over_limit": ratio,
-                       "max_abs_err_vs_f32_twin": err_f32,
-                       "scale": w32.abs().max().item()}
+                       "err_over_one_step_limit": one_step,
+                       "max_abs_err_vs_f32_twin": err_f32, "scale": scale,
+                       "term_size": size,
+                       "cancels": scale <= fa.GRAD_CANCEL * size,
+                       "sdpa_max_abs_err_vs_f32_twin": lib_err,
+                       "sdpa_err_over_bf16_dkv_bar": lib_err
+                       / (fa.BF16_DKV_BAR * max(scale, 1e-30))}
         ok = ok and good and got.shape == w.shape and got.dtype == dtype
-    del want, want_f32
+    del want, want_f32, lib
 
     dq_ms = time_ms(lambda: fa._kernel_dq(q, k, v, do, lse, delta, **kw))
     dkv_ms = time_ms(lambda: fa._kernel_dkv(q, k, v, do, lse, delta, **kw))
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do, **kw), iters=5, warmup=1)
-    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
-    if window is None:
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                            enable_gqa=kv_n != n)
-    else:
-        pos = torch.arange(t, device=q.device)
-        mask = (pos[:, None] >= pos[None, :]) & \
-            (pos[:, None] - pos[None, :] < window)
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                            enable_gqa=kv_n != n)
     library_ms = time_ms(lambda: torch.autograd.grad(
         o4, (q4, k4, v4), do[None], retain_graph=True))
     del o4, q4, k4, v4
@@ -439,7 +545,11 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
         n, kv_n, t, d, window, causal, dname)
     rec = {"phase": "kernel_bwd", "case": name, "dtype": dname,
            "shape": {"n": n, "kv_heads": kv_n, "T": t, "d": d,
-                     "causal": causal, "window": window},
+                     "causal": causal, "window": window,
+                     "q_storage_offset": q.storage_offset()},
+           "design": {"dq": "cuda cores",
+                      "dkv": "cuda cores" if dtype == torch.float32
+                      else TC_DESIGN},
            "errors": errs, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
            "plain_bwd_ms": plain_ms, "library_bwd_ms": library_ms,
            "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
@@ -473,10 +583,12 @@ def wrapper_on_model_views(card, g):
     assert not q.is_contiguous()
     out = fa.flash_attention(q, k, v, causal=True, block_q=blk, block_k=blk)
     torch.cuda.synchronize()
-    want, _ = fa.flash_attention_plain(
-        *(x.reshape(-1, t, hd) for x in (q, k, v)), causal=True)
-    err_o, limit_ratio, ok = check_o(out.reshape(-1, t, hd), want,
-                                     torch.bfloat16)
+    q3, k3, v3 = (x.reshape(-1, t, hd) for x in (q, k, v))
+    want, _ = fa.flash_attention_plain(q3, k3, v3, causal=True)
+    want_f32, _ = fa._plain_forward(q3, k3, v3, causal=True, window=None,
+                                    kv_group=1)
+    err_o, limit_ratio, one_step, ok = check_o(out.reshape(-1, t, hd), want,
+                                               want_f32, v3, 1)
     ok = ok and out.shape == q.shape and out.dtype == torch.bfloat16
     wrapper_ms = time_ms(lambda: fa.flash_attention(
         q, k, v, causal=True, block_q=blk, block_k=blk))
@@ -484,7 +596,7 @@ def wrapper_on_model_views(card, g):
            "shape": {"B": b, "H": h, "T": t, "hd": hd, "causal": True,
                      "layout": "[B, T, H, hd] viewed [B, H, T, hd]"},
            "max_abs_err": err_o, "err_over_limit": limit_ratio,
-           "wrapper_ms": wrapper_ms, "card": card, "ok": ok}
+           "err_over_one_step_limit": one_step, "wrapper_ms": wrapper_ms, "card": card, "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"flash_attention on the model's views "
@@ -1257,7 +1369,8 @@ def main():
          "launches_serve": sl["kernel_launches"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]},
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "design": fwd["design"], "f32_route": "cuda cores"},
         {"name": "flash_attn_dq", "route": "cuda",
          "source": src + "flash_attn_dq.cu", "replaces": ref + "185",
          "launches": launches["flash_attn_dq"],
@@ -1272,7 +1385,8 @@ def main():
                             for g in ("dk", "dv")),
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
-         "library_ms": bwd["library_bwd_ms"]},
+         "library_ms": bwd["library_bwd_ms"],
+         "design": bwd["design"]["dkv"], "f32_route": "cuda cores"},
         # the char-RNN's cell step; no PyTorch call computes the peephole
         # cell, so library_ms is null and cuDNN's LSTM (another function)
         # is reported per step beside it

@@ -26,6 +26,16 @@ Semantics both sides hold, as the reference kernels do:
 - GQA maps flattened q-head ``b`` to kv-head ``b // kv_group``; dK/dV of
   a kv head sum its group's q-heads in f32 and are rounded once.
 
+On the card the kernels split by dtype. f32 runs on the CUDA cores and
+holds the twins within 1e-5 (summation order only). bf16 runs the forward
+and the dK/dV pass on the tensor cores, which take bf16 operands: the
+forward rounds P to bf16 before ``P·V``, and dK/dV rounds ``Pᵀ`` and
+``dSᵀ`` to bf16 before ``Pᵀ·dO`` and ``dSᵀ·Q``, where the reference (and
+the twins) multiply those in f32. Scores, the softmax statistics (so lse)
+and every accumulation stay f32. :data:`BF16_O_BAR` and
+:data:`BF16_DKV_BAR` bound what that rounding may move; the dQ kernel
+still runs on the CUDA cores in both dtypes.
+
 ``block_q``/``block_k`` are the reference's tile sizes, kept in the
 signature so callers port unchanged; results do not depend on them. The
 reference clamps them to T and pads T up to a block (falling back to
@@ -53,6 +63,37 @@ __all__ = ["flash_attention", "flash_attention_bwd_plain",
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+
+# Bars of the bf16 tensor-core kernels against the plain twin's unrounded
+# f32 result on the same bf16 inputs.
+# Forward O: rounding p_j to bf16 moves each term p_j v_j of the convex
+# combination O = sum_j p_j v_j / l by at most 2^-9 p_j |v_j|, so O moves by
+# at most 2^-9 max|V| (l is summed from the unrounded P); O's own rounding
+# to bf16 adds at most 2^-9 |O|. The bar is twice that sum, element-wise:
+# |O - O_f32| <= BF16_O_BAR (max|V| of the kv head + |O_f32|).
+BF16_O_BAR = 2.0 ** -8
+# dK, dV: rounding Pᵀ and dSᵀ moves each term of the sums over queries by
+# at most 2^-9 of its size; the moves are unbiased and independent, so they
+# add like a random walk, far below 2^-9 of the sum of the terms' sizes;
+# the result's own rounding adds half a step. The bar is one bf16 step at
+# the gradient's scale: max|g - g_f32| <= BF16_DKV_BAR max|g_f32|.
+BF16_DKV_BAR = 2.0 ** -7
+# A gradient that cancels: where each query sees one key (T 1, window 1) O
+# is that key's V, so dP = delta and dS = P∘(dP - delta) is 0 in exact
+# arithmetic; dQ and dK are then f32 rounding of the cancelled terms,
+# summed in another order by each side, and no bar relative to their own
+# size can hold. A gradient whose twin's max abs is at most GRAD_CANCEL of
+# the size of its terms (:func:`bwd_term_sizes`) is held instead to
+# |g - g_f32| <= GRAD_CANCEL x that size, 2^8 above f32's step; every
+# other gradient keeps its bar.
+GRAD_CANCEL = 2.0 ** -16
+
+
+def bf16_o_limit(v, o_f32, kv_group):
+    """Element-wise limit of |O - O_f32| for the bf16 forward kernel
+    (:data:`BF16_O_BAR`): v [n // kv_group, T, d], o_f32 [n, T, d]."""
+    vmax = v.float().abs().amax(dim=(1, 2)).repeat_interleave(kv_group)
+    return BF16_O_BAR * (vmax[:, None, None] + o_f32.float().abs())
 
 
 def _scale(q):
@@ -134,6 +175,31 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
         dk = dk.reshape(n // kv_group, kv_group, t, d).sum(1)
         dv = dv.reshape(n // kv_group, kv_group, t, d).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_term_sizes(q, k, v, o, lse, do, *, causal=False, window=None,
+                   kv_group=1):
+    """The plain backward on absolute values: the largest sum of term
+    sizes each of dQ, dK and dV takes before anything cancels, with
+    ``P (|dO||V|ᵀ + |delta|) scale`` for dS. Returns three floats."""
+    n, t, d = q.shape
+    scale = _bwd_scale(d)
+    kf, vf = (x.float().repeat_interleave(kv_group, dim=0) for x in (k, v))
+    ga = do.float().abs()
+    delta = (do.float() * o.float()).sum(-1).abs()
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    keep = _keep(t, causal, window, q.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    ds = p * (torch.matmul(ga, vf.abs().transpose(-1, -2))
+              + delta[..., None]) * scale
+    dq = torch.matmul(ds, kf.abs())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().abs())
+    dv = torch.matmul(p.transpose(-1, -2), ga)
+    if kv_group > 1:
+        dk = dk.reshape(n // kv_group, kv_group, t, d).sum(1)
+        dv = dv.reshape(n // kv_group, kv_group, t, d).sum(1)
+    return tuple(x.max().item() for x in (dq, dk, dv))
 
 
 def _check_kernel_inputs(what, q, k, v, kv_group, *same_as_q):
