@@ -18,20 +18,23 @@ Phases, each fatal on failure:
    backward, each with its time, the twin's, one PyTorch library call's
    (a yardstick the port never calls) and the least time the card could
    take; and the public wrapper on bf16 q/k/v laid out as the model hands
-   them over. In bf16 the forward and dK/dV run on the tensor cores
-   (mma.sync, cp.async) and round P, Pᵀ and dSᵀ to bf16 before their
+   them over. In bf16 all three flash kernels run on the tensor cores
+   (mma.sync, cp.async) and round P, Pᵀ, dSᵀ and dS to bf16 before their
    products: they are held to the bars of ``ops/flash_attention.py``
-   (``BF16_O_BAR``, ``BF16_DKV_BAR``) against the twin's unrounded f32
-   result, with the old one-bf16-step ratio and the error of PyTorch's
-   ``scaled_dot_product_attention`` against the same f32 twin printed
-   beside (anchors, not gates); f32 and dQ keep their bars. The build
-   phase shows from ptxas that each redesigned source holds a tensor-core
-   kernel per head dim and CUDA-core kernels for float only; then the LSTM
-   cell's forward and
+   (``BF16_O_BAR``, ``BF16_DKV_BAR``, ``BF16_DQ_BAR``) against the twin's
+   unrounded f32 result, with the old one-bf16-step ratio and the error
+   of PyTorch's ``scaled_dot_product_attention`` against the same f32
+   twin printed beside (anchors, not gates); f32 keeps its 1e-5 bars. The
+   build phase shows from ptxas that each flash source holds a
+   tensor-core kernel per head dim and CUDA-core kernels for float only,
+   and from the machine code (cuobjdump) that only the bf16 kernels issue
+   tensor-core instructions (HMMA); then the LSTM cell's forward and
    backward kernels against their twins at the char-RNN's cell step
    (B 32, H 200, peepholes, f32) and at edge cases (no peepholes, bf16,
    B 1, B 7 x H 37, B 64 x H 1024), with cuDNN's LSTM per step (another
-   function: no peepholes) as a yardstick;
+   function: no peepholes) as a yardstick; each call's CUDA kernels are
+   counted by ``torch.profiler`` (one each), and the backward is shown
+   bit-identical from call to call and under CUDA-graph replay;
 3. slice — a full-width TransformerLM (V 32768, T 512, d 512, L 8, H 8,
    ff 2048, bf16 compute, flash block 128; random weights from a seed)
    behind ``InferenceServer`` answers 16 concurrent 512-token requests.
@@ -83,18 +86,17 @@ F32_TOL = 1e-5     # summation order only
 # The one-bf16-step bar: a bf16 result against the twin's result rounded to
 # bf16, |err| <= BF16_ATOL + BF16_RTOL |want| element by element (two
 # roundings of nearly equal f32 values land at most one bf16 step apart,
-# and a step is at most 2^-7 |want|). The CUDA-core kernels (dQ, the LSTM
-# cell) are held to it. The bf16 forward and dK/dV kernels run on the
-# tensor cores and round P, Pᵀ and dSᵀ to bf16 before their products, so
-# they are held to the bars derived in ops/flash_attention.py against the
-# twin's unrounded f32 result (BF16_O_BAR, BF16_DKV_BAR); their one-step
-# ratio is printed beside, not gated.
+# and a step is at most 2^-7 |want|). The CUDA-core LSTM cell kernels are
+# held to it. The bf16 flash kernels run on the tensor cores and round P,
+# Pᵀ, dSᵀ and dS to bf16 before their products, so they are held to the
+# bars derived in ops/flash_attention.py against the twin's unrounded f32
+# result (BF16_O_BAR, BF16_DKV_BAR, BF16_DQ_BAR); their one-step ratio is
+# printed beside, not gated.
 BF16_ATOL, BF16_RTOL = 1e-5, 2.0 ** -7
 CPU_GPU_TOL = 1e-4  # f32 logits, CPU vs card, eight layers deep
 # backward kernels: f32 dq/dk/dv within 1e-5 of each gradient's max abs
-# (summation order only); bf16 within one bf16 step of the twin's bf16
-# result (1e-5 max|g| + 2^-7 |g| element by element), and within one bf16
-# step at the gradient's scale (2^-7 max|g|) of its unrounded f32 result
+# (summation order only); bf16 within one bf16 step at the gradient's scale
+# of its unrounded f32 result (BF16_DQ_BAR, BF16_DKV_BAR)
 BWD_F32_RTOL = 1e-5
 # f32 training step, card against CPU, two layers: loss 1e-5 abs; each
 # gradient leaf within 1e-4 of its max abs (cuBLAS and the CPU's BLAS sum
@@ -130,8 +132,10 @@ KERNEL_CASES = [
     # the train phase's attention: 32 rows x 8 heads, T = 512 - 1
     ("train", 256, 256, 511, 64, True, None, False),
 ]
-# what the kernels line says of the two redesigned flash kernels
+# what the kernels line says of the bf16 flash kernels and the LSTM
+# backward
 TC_DESIGN = "mma.sync bf16 tensor cores, cp.async"
+LSTM_BWD_DESIGN = "one cooperative launch, two phases split by a grid sync"
 
 # the char-RNN phase: bench.py's full-width sizing of zoo.char_rnn
 CHARRNN = dict(vocab_size=77, hidden=200, tbptt_length=50, batch=32,
@@ -191,11 +195,9 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters=50, reps=5):
-    """Device time of one ``fn`` call with the host taken out: ``iters``
-    calls captured into one CUDA graph, replayed ``reps`` times between
-    CUDA events. A small kernel behind a Python wrapper is otherwise timed
-    at the host's pace (``time_ms`` then reads the wrapper's cost)."""
+def captured(fn, iters=1):
+    """A CUDA graph of ``iters`` calls of ``fn`` (after three warm-up calls
+    on a side stream), and the last captured call's outputs."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -206,7 +208,17 @@ def graph_ms(fn, iters=50, reps=5):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, iters=50, reps=5):
+    """Device time of one ``fn`` call with the host taken out: ``iters``
+    calls captured into one CUDA graph, replayed ``reps`` times between
+    CUDA events. A small kernel behind a Python wrapper is otherwise timed
+    at the host's pace (``time_ms`` then reads the wrapper's cost)."""
+    import torch
+    graph, _ = captured(fn, iters)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -287,18 +299,22 @@ def output_breakdown(lm, x, n_batches, wall):
             "device_busy_share": forward_ms * 1e-3 * n_batches / wall}
 
 
-# the redesigned flash kernels: entry point -> (the tensor-core kernel's
-# name, the CUDA-core kernel's name)
+# the flash kernels: entry point -> (the tensor-core kernel's name, the
+# CUDA-core kernel's name)
 TC_KERNELS = {"flash_attn_fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
+              "flash_attn_dq": ("flash_dq_mma_kernel", "flash_dq_kernel"),
               "flash_attn_dkv": ("flash_dkv_mma_kernel", "flash_dkv_kernel")}
 
 
 def kernel_routes(name, log):
-    """From ptxas's entry functions of a redesigned flash source: the
-    tensor-core kernels (one per head-dim instance) and the CUDA-core ones,
-    which must all be the float instances (mangled ``...kernelIf...``), so
-    no bf16 call can reach the CUDA cores. None for another source or a
-    library that was already built (no log)."""
+    """From ptxas's entry functions of a flash source: the tensor-core
+    kernels (one per head-dim instance) and the CUDA-core ones, which must
+    all be the float instances (mangled ``...kernelIf...``), so no bf16
+    call can reach the CUDA cores; and from the library's machine code,
+    each entry's count of tensor-core instructions (HMMA), which must be
+    non-zero in every tensor-core kernel and zero in every CUDA-core one.
+    None for another source or a library that was already built (no
+    log)."""
     import re
     if name not in TC_KERNELS or not log:
         return None
@@ -310,7 +326,39 @@ def kernel_routes(name, log):
     assert routes["float32"] and all(cc + "If" in e
                                      for e in routes["float32"]), \
         (name, entries)
+    hmma = sass_hmma_counts(name)
+    routes["hmma_per_entry"] = hmma
+    if hmma is not None:
+        assert all(hmma.get(e, 0) > 0 for e in routes["bfloat16"]), \
+            (name, hmma)
+        assert all(hmma.get(e, 0) == 0 for e in routes["float32"]), \
+            (name, hmma)
     return routes
+
+
+def sass_hmma_counts(name):
+    """{entry function: HMMA instructions in its machine code} of kernel
+    library ``name``, by ``cuobjdump -sass``; None where the toolkit has
+    no cuobjdump."""
+    import os
+    import shutil
+    from deeplearning4j_tpu_torch.ops import _build
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 def phase_build(card):
@@ -451,20 +499,18 @@ def phase_kernels(card):
     return results
 
 
-def check_grad(got, want, want_f32, tensor_cores, size):
+def check_grad(got, want, want_f32, bar, size):
     """A backward kernel's gradient against the plain backward's on the
     same inputs: (max abs error, the largest error over its limit, the
     same over the one-bf16-step limit, max abs error against the unrounded
-    f32 result, ok). f32: 1e-5 of the gradient's max abs. bf16 on the CUDA
-    cores (dQ): the one-step limit element by element, and 2^-7 max|g_f32|
-    against the f32 result. bf16 on the tensor cores (dK, dV): max|g -
-    g_f32| <= BF16_DKV_BAR max|g_f32|; the one-step ratio is reported, not
-    gated. A gradient that cancels to f32 rounding (one key a row: its max
-    abs at most GRAD_CANCEL of ``size``, its terms' size) is held to
-    |g - g_f32| <= GRAD_CANCEL size instead."""
+    f32 result, ok). f32: 1e-5 of the gradient's max abs. bf16 (tensor
+    cores): max|g - g_f32| <= ``bar`` max|g_f32| (BF16_DQ_BAR for dQ,
+    BF16_DKV_BAR for dK and dV); the one-step ratio is reported, not gated.
+    A gradient that cancels to f32 rounding (one key a row: its max abs at
+    most GRAD_CANCEL of ``size``, its terms' size) is held to |g - g_f32|
+    <= GRAD_CANCEL size instead."""
     import torch
-    from deeplearning4j_tpu_torch.ops.flash_attention import (BF16_DKV_BAR,
-                                                              GRAD_CANCEL)
+    from deeplearning4j_tpu_torch.ops.flash_attention import GRAD_CANCEL
     scale = max(want_f32.abs().max().item(), 1e-30)
     err = (got.float() - want.float()).abs()
     err_f32 = (got.float() - want_f32).abs().max().item()
@@ -477,8 +523,7 @@ def check_grad(got, want, want_f32, tensor_cores, size):
     else:
         one_step = (err / (BWD_F32_RTOL * scale + BF16_RTOL
                            * want.float().abs())).max().item()
-        ratio = err_f32 / (BF16_DKV_BAR * scale) if tensor_cores else \
-            max(one_step, err_f32 / (BF16_RTOL * scale))
+        ratio = err_f32 / (bar * scale)
     return err.max().item(), ratio, one_step, err_f32, ratio <= 1.0 and \
         bool(torch.isfinite(got).all())
 
@@ -514,12 +559,14 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
     lib = [x[0] for x in torch.autograd.grad(o4, (q4, k4, v4), do[None],
                                              retain_graph=True)]
     sizes = fa.bwd_term_sizes(q, k, v, out, lse, do, **kw)
+    bars = {"dq": fa.BF16_DQ_BAR, "dk": fa.BF16_DKV_BAR,
+            "dv": fa.BF16_DKV_BAR}
     errs = {}
     ok = True
     for gname, got, w, w32, gl, size in zip(
             ("dq", "dk", "dv"), (dq, dk, dv), want, want_f32, lib, sizes):
         err, ratio, one_step, err_f32, good = check_grad(
-            got, w, w32, gname != "dq", size)
+            got, w, w32, bars[gname], size)
         scale = w32.abs().max().item()
         lib_err = (gl.float() - w32).abs().max().item()
         errs[gname] = {"max_abs_err": err, "err_over_limit": ratio,
@@ -528,8 +575,8 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
                        "term_size": size,
                        "cancels": scale <= fa.GRAD_CANCEL * size,
                        "sdpa_max_abs_err_vs_f32_twin": lib_err,
-                       "sdpa_err_over_bf16_dkv_bar": lib_err
-                       / (fa.BF16_DKV_BAR * max(scale, 1e-30))}
+                       "sdpa_err_over_bf16_bar": lib_err
+                       / (bars[gname] * max(scale, 1e-30))}
         ok = ok and good and got.shape == w.shape and got.dtype == dtype
     del want, want_f32, lib
 
@@ -547,9 +594,7 @@ def backward_case(card, g, name, q, k, v, out, lse, causal, window, std):
            "shape": {"n": n, "kv_heads": kv_n, "T": t, "d": d,
                      "causal": causal, "window": window,
                      "q_storage_offset": q.storage_offset()},
-           "design": {"dq": "cuda cores",
-                      "dkv": "cuda cores" if dtype == torch.float32
-                      else TC_DESIGN},
+           "design": "cuda cores" if dtype == torch.float32 else TC_DESIGN,
            "errors": errs, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
            "plain_bwd_ms": plain_ms, "library_bwd_ms": library_ms,
            "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
@@ -665,9 +710,45 @@ def check_lstm(got, want, want_f32, dtype, scale_rel, fwd_tol):
         bool(torch.isfinite(got).all())
 
 
+def cuda_kernels_of_one_call(fn, tries=5):
+    """Names of the CUDA kernels one ``fn()`` call launches, by
+    ``torch.profiler`` (after a warm-up call outside the profile). A
+    profile that recorded no device event at all saw nothing (its device
+    tracing did not start, as seen in a run of the card tests) and is
+    taken again, up to ``tries`` times; [] if none recorded anything."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            return names
+    return []
+
+
+def graph_replayed(fn):
+    """``fn()``'s outputs from a CUDA graph that captured one call,
+    replayed twice."""
+    import torch
+    graph, out = captured(fn)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def lstm_case(card, g, name, b, h, peep, dtype):
     """Forward and backward kernels of one case against their twins, with
-    times (CUDA events, many back-to-back calls), the twins' and bounds."""
+    times (CUDA events, many back-to-back calls), the twins' and bounds;
+    the CUDA kernels one call of each launches (torch.profiler), and
+    whether the backward gives bit-identical results on a second call and
+    from a replayed CUDA graph."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm_cell as lc
 
@@ -706,6 +787,18 @@ def lstm_case(card, g, name, b, h, peep, dtype):
             want.dtype
     ok = ok and (got_b[4] is None) == (p is None)
     del want_f, want_b, want_f32_f, want_f32_b
+
+    def same(outs):
+        return all(torch.equal(a, o) for a, o in zip(got_b, outs)
+                   if a is not None)
+    repeat_identical = same(lc._kernel_backward(*args, dh, dc))
+    graph_identical = same(graph_replayed(
+        lambda: lc._kernel_backward(*args, dh, dc)))
+    fwd_kernels = cuda_kernels_of_one_call(lambda: lc._kernel_forward(*args))
+    bwd_kernels = cuda_kernels_of_one_call(
+        lambda: lc._kernel_backward(*args, dh, dc))
+    ok = ok and repeat_identical and graph_identical and \
+        len(fwd_kernels) == 1 and len(bwd_kernels) == 1
     # the kernels' and twins' device time (graph replay), and a wrapper
     # call's cost back to back, host included
     fwd_ms = graph_ms(lambda: lc._kernel_forward(*args))
@@ -725,11 +818,18 @@ def lstm_case(card, g, name, b, h, peep, dtype):
            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
            "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_bytes": fbytes,
            "fwd_ops": fops, "bwd_bound_ms": bb, "bwd_bound_by": bby,
-           "bwd_bytes": bbytes, "bwd_ops": bops, "card": card, "ok": ok}
+           "bwd_bytes": bbytes, "bwd_ops": bops,
+           "fwd_launches_per_call": len(fwd_kernels),
+           "bwd_launches_per_call": len(bwd_kernels),
+           "bwd_kernels": bwd_kernels,
+           "bwd_repeat_bit_identical": repeat_identical,
+           "bwd_graph_replay_bit_identical": graph_identical,
+           "card": card, "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"LSTM cell kernels disagree with their "
-                             f"twins: {rec}")
+                             f"twins, or a call is not one launch or not "
+                             f"reproducible: {rec}")
     return rec
 
 
@@ -1377,7 +1477,8 @@ def main():
          "max_abs_err": bwd["errors"]["dq"]["max_abs_err"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
-         "library_ms": bwd["library_bwd_ms"]},
+         "library_ms": bwd["library_bwd_ms"],
+         "design": bwd["design"], "f32_route": "cuda cores"},
         {"name": "flash_attn_dkv", "route": "cuda",
          "source": src + "flash_attn_dkv.cu", "replaces": ref + "235",
          "launches": launches["flash_attn_dkv"],
@@ -1386,7 +1487,7 @@ def main():
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
-         "design": bwd["design"]["dkv"], "f32_route": "cuda cores"},
+         "design": bwd["design"], "f32_route": "cuda cores"},
         # the char-RNN's cell step; no PyTorch call computes the peephole
         # cell, so library_ms is null and cuDNN's LSTM (another function)
         # is reported per step beside it
@@ -1408,7 +1509,9 @@ def main():
          "ms": lstm["main"]["bwd_ms"], "plain_ms": lstm["main"]["plain_bwd_ms"],
          "bound_ms": lstm["main"]["bwd_bound_ms"],
          "bound_by": lstm["main"]["bwd_bound_by"], "library_ms": None,
-         "cudnn_lstm_step_ms": lstm["library"]["per_step_bwd_ms"]},
+         "cudnn_lstm_step_ms": lstm["library"]["per_step_bwd_ms"],
+         "launches_per_call": lstm["main"]["bwd_launches_per_call"],
+         "call_ms": lstm["main"]["bwd_call_ms"], "design": LSTM_BWD_DESIGN},
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

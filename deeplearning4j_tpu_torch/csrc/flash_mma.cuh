@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 flash-attention kernels (forward
-// and dK/dV): asynchronous global-to-shared copies (cp.async), shared-memory
-// fragment loads (ldmatrix), the m16n8k16 bf16 product with f32 accumulation
-// (mma.sync), and a tile loader that stages rows of a [t, d] bf16 matrix.
+// Tensor-core building blocks of the bf16 flash-attention kernels (forward,
+// dQ and dK/dV): asynchronous global-to-shared copies (cp.async, from
+// cp_async.cuh), shared-memory fragment loads (ldmatrix), the m16n8k16
+// bf16 product with f32 accumulation (mma.sync), and a tile loader that
+// stages rows of a [t, d] bf16 matrix.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + tq, g = lane / 4,
 // tq = lane % 4), which the kernels rely on:
@@ -24,38 +25,18 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace flash {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes past src_bytes (0 or 16) are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// 4 bytes global -> shared; zero-filled when src_bytes is 0
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using cpasync::cp_async16;
+using cpasync::cp_async4;
+using cpasync::cp_async_commit;
+using cpasync::cp_async_wait;
+using cpasync::smem_u32;
 
 // four 8 x 8 b16 matrices; lanes 8m .. 8m+7 give the row addresses of
 // matrix m, and register m of each lane receives its (lane / 4, 2 (lane % 4)

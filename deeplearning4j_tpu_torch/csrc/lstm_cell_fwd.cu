@@ -30,9 +30,65 @@
 
 namespace {
 
-using lstm::BT;
-using lstm::JT;
 using lstm::NT;
+using lstm::to_f32;
+
+constexpr int JT = 32;   // hidden units per block (one per lane)
+constexpr int BT = 8;    // batch rows per pass (one per warp)
+constexpr int KT = 32;   // reduction depth staged in shared memory
+static_assert(JT * BT == NT, "one (b, j) a thread");
+
+// Shared-memory staging for gate_dots: a [BT][KT] tile of h_prev and a
+// [KT][4][JT] tile of RW's four gate column slices.
+struct DotSmem {
+  float h[BT][KT];
+  float rw[KT][4][JT];
+};
+
+// acc[g] = sum_k h_prev[b, k] * RW[k, g*H + j] for this thread's b = b0 + ty
+// and j = j0 + tx, in f32 FMAs in k order. Every thread of the block calls
+// it (it synchronises); rows b >= B and columns j >= H read zeros.
+template <typename T>
+__device__ __forceinline__ void gate_dots(const T* __restrict__ h_prev,
+                                          const T* __restrict__ rw, int B, int H,
+                                          int b0, int j0, DotSmem& s, float acc[4]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % JT, ty = tid / JT;
+  const size_t H4 = (size_t)4 * H;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) acc[g] = 0.f;
+  for (int k0 = 0; k0 < H; k0 += KT) {
+    // start every load of the tile before the first shared-memory store,
+    // so their latencies overlap instead of adding up
+    float hv, rv[KT * 4 * JT / NT];
+    {
+      const int r = tid / KT, kk = tid % KT;   // BT x KT = NT: one each
+      const int b = b0 + r, k = k0 + kk;
+      hv = (b < B && k < H) ? to_f32(h_prev[(size_t)b * H + k]) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < KT * 4 * JT / NT; ++q) {
+      const int i = tid + q * NT;
+      const int jj = i % JT, g = (i / JT) % 4, kk = i / (4 * JT);
+      const int k = k0 + kk, j = j0 + jj;
+      rv[q] = (k < H && j < H) ? to_f32(rw[(size_t)k * H4 + (size_t)g * H + j]) : 0.f;
+    }
+    __syncthreads();   // the previous tile is no longer read
+    s.h[tid / KT][tid % KT] = hv;
+#pragma unroll
+    for (int q = 0; q < KT * 4 * JT / NT; ++q) {
+      const int i = tid + q * NT;
+      s.rw[i / (4 * JT)][(i / JT) % 4][i % JT] = rv[q];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < KT; ++kk) {
+      const float h = s.h[ty][kk];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[g] = fmaf(h, s.rw[kk][g][tx], acc[g]);
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -40,11 +96,11 @@ lstm_fwd_kernel(const T* __restrict__ zx, const T* __restrict__ h_prev,
                 const T* __restrict__ c_prev, const T* __restrict__ rw,
                 const T* __restrict__ peep, T* __restrict__ h_out,
                 T* __restrict__ c_out, int B, int H) {
-  __shared__ lstm::DotSmem s;
+  __shared__ DotSmem s;
   const int j0 = blockIdx.x * JT, b0 = blockIdx.y * BT;
   const int j = j0 + threadIdx.x % JT, b = b0 + threadIdx.x / JT;
   float acc[4];
-  lstm::gate_dots(h_prev, rw, B, H, b0, j0, s, acc);
+  gate_dots(h_prev, rw, B, H, b0, j0, s, acc);
   if (b >= B || j >= H) return;
 
   const size_t row = (size_t)b * 4 * H;

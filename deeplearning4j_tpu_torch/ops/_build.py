@@ -40,6 +40,12 @@ KERNELS = {
     "lstm_cell_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
     "lstm_cell_bwd": (_P,) * 14 + (_I,) * 3 + (_P,),
 }
+# further C functions of a kernel's library: name -> {function: (argtypes,
+# restype)}
+HELPERS = {
+    "lstm_cell_bwd": {"lstm_cell_bwd_scratch_floats": ((_I, _I),
+                                                       ctypes.c_longlong)},
+}
 
 _lock = threading.Lock()
 _libs = {}
@@ -101,7 +107,7 @@ def build_all():
 def load(name):
     """The loaded ``ctypes.CDLL`` of kernel ``name``, building it first
     if needed; its entry point ``name`` has its argtypes and an int
-    (cudaError_t) restype set."""
+    (cudaError_t) restype set, and so do its :data:`HELPERS`."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -113,5 +119,8 @@ def load(name):
         fn = getattr(lib, name)
         fn.argtypes = KERNELS[name]
         fn.restype = ctypes.c_int
+        for helper, (argtypes, restype) in HELPERS.get(name, {}).items():
+            fn = getattr(lib, helper)
+            fn.argtypes, fn.restype = argtypes, restype
         _libs[name] = lib
         return lib

@@ -21,13 +21,11 @@ and ``csrc/lstm_cell_bwd.cu``; a CPU tensor goes to the plain twins
 :func:`lstm_cell_plain` and :func:`lstm_cell_bwd_plain`. There is no
 fallback between the two: a CUDA call launches the kernel or raises.
 ``lstm_cell.launches`` and ``lstm_cell.bwd_launches`` count the kernel
-calls (one backward call is three CUDA launches on one stream, see
-``csrc/lstm_cell_bwd.cu``).
+calls; each call is one CUDA launch (the backward a cooperative launch
+with one grid-wide barrier inside, see ``csrc/lstm_cell_bwd.cu``).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -154,20 +152,12 @@ def _kernel_forward(zx, h_prev, c_prev, rw, peep):
     return h_out, c_out
 
 
-def _scratch_floats(lib, b, h):
-    """f32 scratch the backward needs beside dz (its partial sums), as the
-    library itself sizes it."""
-    fn = lib.lstm_cell_bwd_scratch_floats
-    fn.argtypes = (ctypes.c_int, ctypes.c_int)
-    fn.restype = ctypes.c_longlong
-    return fn(b, h)
-
-
 def _kernel_backward(zx, h_prev, c_prev, rw, peep, dh, dc):
-    """Launch the backward kernels on contiguous CUDA tensors; returns
-    (dzx, dh_prev, dc_prev, dRW, dP or None). For bf16 the kernels also
-    keep the unrounded f32 dz in scratch: the products take dz before its
-    rounding, as the reference's single kernel does."""
+    """Launch the backward kernel on contiguous CUDA tensors; returns
+    (dzx, dh_prev, dc_prev, dRW, dP or None). For bf16 the kernel also
+    keeps the unrounded f32 dz in scratch: the products take dz before its
+    rounding, as the reference's kernel does. The f32 scratch of the dP
+    partials is sized by the library itself."""
     _check_kernel_inputs("lstm_cell_bwd", zx, h_prev, c_prev, rw, peep,
                          dh, dc)
     b, h = h_prev.shape
@@ -175,8 +165,8 @@ def _kernel_backward(zx, h_prev, c_prev, rw, peep, dh, dc):
     dzx = torch.empty_like(zx)
     dz32 = dzx if zx.dtype == torch.float32 else \
         torch.empty(zx.shape, dtype=torch.float32, device=zx.device)
-    scratch = torch.empty(_scratch_floats(lib, b, h), dtype=torch.float32,
-                          device=zx.device)
+    scratch = torch.empty(lib.lstm_cell_bwd_scratch_floats(b, h),
+                          dtype=torch.float32, device=zx.device)
     dhp, dcp = torch.empty_like(h_prev), torch.empty_like(c_prev)
     drw = torch.empty_like(rw)
     dp = None if peep is None else torch.empty_like(peep)

@@ -40,29 +40,26 @@ VARIANTS = {
     "dkv_exp2f": ("flash_attn_dkv", [
         ("expf(s[j][e] * scale - lst[qc])",
          "exp2f((s[j][e] * scale - lst[qc]) * 1.4426950408889634f)")]),
+    "dq_2_blocks_per_sm": ("flash_attn_dq", [
+        ("__launch_bounds__(NT, DP <= 64 ? 4 : 2)", "__launch_bounds__(NT, 2)")]),
+    "dq_3_blocks_per_sm": ("flash_attn_dq", [
+        ("__launch_bounds__(NT, DP <= 64 ? 4 : 2)",
+         "__launch_bounds__(NT, DP <= 64 ? 3 : 2)")]),
+    "dq_one_pass_of_64": ("flash_attn_dq", [
+        ("constexpr int KW = 32;", "constexpr int KW = DP > 64 ? 32 : 64;")]),
+    "dq_expf": ("flash_attn_dq", [
+        ("exp2f((s[j][e] * scale - lse_r[r]) * LOG2E)",
+         "expf(s[j][e] * scale - lse_r[r])")]),
 }
 N, T, D = 256, 511, 64
 
 
-def time_ms(fn, iters=20, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def build(build_dir, build_mod):
-    """Start one nvcc per variant; returns {name: (library path, process)}."""
+def build(build_dir, build_mod, variants=None):
+    """Start one nvcc per variant of ``variants`` (default
+    :data:`VARIANTS`: name -> (kernel source, patches)); returns {name:
+    (library path, process)}."""
     started = {}
-    for name, (src, patches) in VARIANTS.items():
+    for name, (src, patches) in (variants or VARIANTS).items():
         d = build_dir / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(build_mod.SRC_DIR, d)
@@ -93,6 +90,7 @@ def main():
         print("flash_variants: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from chip_smoke import time_ms
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
@@ -104,11 +102,14 @@ def main():
     o, lse = fa._kernel_forward(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     dk, dv = fa._kernel_dkv(q, k, v, do, lse, delta, **kw)
+    dq = fa._kernel_dq(q, k, v, do, lse, delta, **kw)
     stream = torch.cuda.current_stream().cuda_stream
 
     def package():
         return {"flash_attn_fwd": time_ms(
                     lambda: fa._kernel_forward(q, k, v, **kw)),
+                "flash_attn_dq": time_ms(
+                    lambda: fa._kernel_dq(q, k, v, do, lse, delta, **kw)),
                 "flash_attn_dkv": time_ms(
                     lambda: fa._kernel_dkv(q, k, v, do, lse, delta, **kw))}
     out = {"shape": {"n": N, "T": T, "d": D, "causal": True,
@@ -131,6 +132,15 @@ def main():
                           got.data_ptr(), got_lse.data_ptr(), N, T, D, 1, 1,
                           0, fa._scale(q), 1, stream)
             want = ((got, o), (got_lse, lse))
+        elif src == "flash_attn_dq":
+            gq = torch.empty_like(q)
+
+            def call():
+                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          gq.data_ptr(), N, T, D, 1, 1, 0, fa._bwd_scale(D),
+                          1, stream)
+            want = ((gq, dq),)
         else:
             gk, gv = torch.empty_like(k), torch.empty_like(v)
 

@@ -1,20 +1,22 @@
 """The bars of the bf16 tensor-core flash kernels, derived and held on the
 CPU.
 
-On the card the bf16 forward rounds P to bf16 before ``P·V``, and the
-dK/dV pass rounds ``Pᵀ`` and ``dSᵀ`` to bf16 before ``Pᵀ·dO`` and
-``dSᵀ·Q``; the reference (and the port's plain twins) multiply them in
-f32. This file repeats those kernels' arithmetic in plain torch, tile by
-tile as the kernels walk it (64-key tiles, an online softmax whose row sum
-is taken from the unrounded P, padded rows and keys masked to exact
-zeros), and holds the result against the twin's unrounded f32 result on
-adversarial inputs: one-key rows, window 1, GQA, fully masked padded rows,
-rows with no visible key, a large-|V| outlier. It shows that the bars of
-``ops/flash_attention.py`` (``BF16_O_BAR``, ``BF16_DKV_BAR``) hold with
-margin, and that the element-wise one-bf16-step bar the CUDA-core kernels
-met does not. The JAX package's Pallas forward in bf16 (interpret mode)
-sits within the same O bar of the same twin, so the bar is one the
-reference meets too, not one tuned to the port.
+On the card the bf16 forward rounds P to bf16 before ``P·V``, the dK/dV
+pass rounds ``Pᵀ`` and ``dSᵀ`` to bf16 before ``Pᵀ·dO`` and ``dSᵀ·Q``, and
+the dQ pass rounds ``dS`` to bf16 before ``dS·K``; the reference (and the
+port's plain twins) multiply them in f32. This file repeats those
+kernels' arithmetic in plain torch, tile by tile as the kernels walk it
+(64-key tiles, an online softmax whose row sum is taken from the
+unrounded P, padded rows and keys masked to exact zeros), and holds the
+result against the twin's unrounded f32 result on adversarial inputs:
+one-key rows, window 1, GQA, fully masked padded rows, rows with no
+visible key, a large-|V| outlier. It shows that the bars of
+``ops/flash_attention.py`` (``BF16_O_BAR``, ``BF16_DKV_BAR``,
+``BF16_DQ_BAR``) hold with margin, and that the element-wise
+one-bf16-step bar the CUDA-core kernels met does not. The JAX package's
+Pallas forward in bf16 (interpret mode) sits within the same O bar of the
+same twin, so the bar is one the reference meets too, not one tuned to
+the port.
 """
 
 import math
@@ -27,7 +29,7 @@ import torch
 from deeplearning4j_tpu.ops import pallas_kernels as jax_pk
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
 from deeplearning4j_tpu_torch.ops.flash_attention import (
-    BF16_DKV_BAR, GRAD_CANCEL, NEG_INF, bf16_o_limit, bwd_term_sizes,
+    BF16_DKV_BAR, BF16_DQ_BAR, GRAD_CANCEL, NEG_INF, bf16_o_limit, bwd_term_sizes,
     flash_attention_bwd_plain)
 
 TILE = 64          # the kernels' query and key tiles
@@ -110,6 +112,28 @@ def emulate_dkv(q, k, v, o, lse, do, *, causal, window, kv_group,
         dk = dk.reshape(n // kv_group, kv_group, t, d).sum(1)
         dv = dv.reshape(n // kv_group, kv_group, t, d).sum(1)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def emulate_dq(q, k, v, o, lse, do, *, causal, window, kv_group,
+               round_=True):
+    """The bf16 dQ kernel's arithmetic: S in f32 times the unrounded
+    scale, P = exp(S - lse) with masked entries an exact 0, dS in f32, and
+    dS rounded to bf16 (``round_``) before dS·K; dQ accumulated in f32 and
+    rounded once."""
+    n, t, d = q.shape
+    keep, _ = _padded_keep(t, causal, window)
+    keep = keep[:t, :t]
+    scale = 1.0 / math.sqrt(d)
+    qf, gf = q.float(), do.float()
+    kf = k.float().repeat_interleave(kv_group, dim=0)
+    vf = v.float().repeat_interleave(kv_group, dim=0)
+    delta = (gf * o.float()).sum(-1)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.tensor(0.0))
+    ds = p * (gf @ vf.transpose(-1, -2) - delta[..., None]) * scale
+    if round_:
+        ds = _round(ds)
+    return (ds @ kf).to(q.dtype)
 
 
 def _inputs(n, kv_n, t, d, seed, std=0.5, outlier=None):
@@ -206,6 +230,39 @@ def test_dkv_rounding_breaks_the_one_step_bar(name):
     assert max(old for _, old in ratios.values()) > 1.0, ratios
 
 
+def _dq_ratios(name):
+    """(share of BF16_DQ_BAR used against the twin's unrounded f32 dQ,
+    share of the old element-wise one-step bar used against the twin's
+    bf16 dQ) of the emulated tensor-core dQ."""
+    q, k, v, do, o, lse, want_f32, want_lse, kw = _forward_case(name)
+    got = emulate_dq(q, k, v, o, lse, do, **kw)
+    dq_bf16, _, _ = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    dq32, _, _ = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
+    scale = dq32.abs().max().item()
+    new = (got.float() - dq32).abs().max().item() / (BF16_DQ_BAR * scale)
+    old_limit = 1e-5 * scale + 2.0 ** -7 * dq_bf16.float().abs()
+    old = ((got.float() - dq_bf16.float()).abs() / old_limit).max().item()
+    return new, old
+
+
+# the cases whose dQ is a real gradient (one key, window 1: it cancels to
+# f32 rounding and the cancellation rule holds it instead)
+DQ_CASES = [name for name in CASES if name not in ("one_key", "window1")]
+
+
+@pytest.mark.parametrize("name", DQ_CASES)
+def test_dq_rounding_stays_within_the_bar(name):
+    new, _ = _dq_ratios(name)
+    assert new <= MARGIN, new
+
+
+@pytest.mark.parametrize("name", OLD_BAR_FAILS)
+def test_dq_rounding_breaks_the_one_step_bar(name):
+    _, old = _dq_ratios(name)
+    assert old > 1.0, old
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_cancellation_rule_holds_only_where_rows_see_one_key(name):
     """Where every row sees one key (T 1, window 1) dQ and dK cancel to f32
@@ -215,17 +272,18 @@ def test_cancellation_rule_holds_only_where_rows_see_one_key(name):
     q, k, v, do, o, lse, _, _, kw = _forward_case(name)
     sizes = bwd_term_sizes(q, k, v, o, lse, do, **kw)
     dk, dv = emulate_dkv(q, k, v, o, lse, do, **kw)
+    dq = emulate_dq(q, k, v, o, lse, do, **kw)
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                      o.float(), lse, do.float(), **kw)
     one_key = name in ("one_key", "window1")
-    for gname, got, g32, size in zip(("dq", "dk", "dv"), (None, dk, dv),
+    for gname, got, g32, size in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                      want, sizes):
         scale = g32.abs().max().item()
         cancels = scale <= GRAD_CANCEL * size
         assert cancels == (one_key and gname != "dv"), (gname, scale, size)
         if not cancels:
             assert scale >= 2 ** 8 * GRAD_CANCEL * size, (gname, scale, size)
-        elif got is not None:
+        else:
             err = (got.float() - g32).abs().max().item()
             assert err <= GRAD_CANCEL * size / 2 ** 4, (gname, err, size)
 
@@ -244,8 +302,10 @@ def test_emulation_without_rounding_is_the_twin(name):
     assert (o - want_o).abs().max().item() <= F32_TOL
     assert (lse - want_lse).abs().max().item() <= F32_TOL
     dk, dv = emulate_dkv(q, k, v, o, lse, do, round_=False, **kw)
-    _, want_dk, want_dv = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    for got, want in ((dk, want_dk), (dv, want_dv)):
+    dq = emulate_dq(q, k, v, o, lse, do, round_=False, **kw)
+    want_dq, want_dk, want_dv = flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do, **kw)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert (got - want).abs().max().item() <= \
             F32_TOL * want.abs().max().item()
 
@@ -253,14 +313,16 @@ def test_emulation_without_rounding_is_the_twin(name):
 def test_rows_with_no_visible_key_stay_exact_zeros():
     """An empty window (called on the emulation directly: no public call
     makes one) leaves every row without a key: O = 0 and lse = +1e30
-    exactly, and the backward's P = exp(s - 1e30) is an exact 0, so dK and
-    dV are exact zeros, through the bf16 rounding."""
+    exactly, and the backward's P = exp(s - 1e30) is an exact 0, so dQ, dK
+    and dV are exact zeros, through the bf16 rounding."""
     q, k, v, do = _inputs(4, 4, 70, 16, seed=9)
     kw = dict(causal=True, window=0, kv_group=1)
     o, lse = emulate_forward(q, k, v, **kw)
     assert torch.equal(o, torch.zeros_like(o))
     assert torch.all(lse == -NEG_INF)
     dk, dv = emulate_dkv(q, k, v, o, lse, do, **kw)
+    dq = emulate_dq(q, k, v, o, lse, do, **kw)
+    assert torch.equal(dq, torch.zeros_like(dq))
     assert torch.equal(dk, torch.zeros_like(dk))
     assert torch.equal(dv, torch.zeros_like(dv))
 

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-- no file of ``deeplearning4j_tpu_torch/``, nor ``chip_smoke.py``,
+- no file of ``deeplearning4j_tpu_torch/``, nor ``chip_smoke.py`` or the
+  design-variant timers ``flash_variants.py`` and ``lstm_variants.py``,
   imports ``jax``, ``jaxlib`` or ``deeplearning4j_tpu`` (AST scan), and
   importing the whole package in a fresh interpreter loads no ``jax``;
 - a CPU tensor never touches a kernel: no launch count moves and no
@@ -45,8 +46,10 @@ SMALL = dict(vocab_size=32, max_len=16, d_model=16, n_heads=2, n_layers=1,
 
 
 def _port_sources():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10 and files[-1].exists()
+    scripts = [REPO / name for name in ("chip_smoke.py", "flash_variants.py",
+                                        "lstm_variants.py")]
+    files = sorted(PKG.rglob("*.py")) + scripts
+    assert len(files) > 10 and all(p.exists() for p in scripts)
     return files
 
 
