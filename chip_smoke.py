@@ -28,12 +28,15 @@ Phases, each fatal on failure:
    build phase shows from ptxas that each flash source holds a
    tensor-core kernel per head dim and CUDA-core kernels for float only,
    and from the machine code (cuobjdump) that only the bf16 kernels issue
-   tensor-core instructions (HMMA); then the LSTM cell's forward and
-   backward kernels against their twins at the char-RNN's cell step
-   (B 32, H 200, peepholes, f32) and at edge cases (no peepholes, bf16,
-   B 1, B 7 x H 37, B 64 x H 1024), with cuDNN's LSTM per step (another
-   function: no peepholes) as a yardstick; each call's CUDA kernels are
-   counted by ``torch.profiler`` (one each), and the backward is shown
+   tensor-core instructions (HMMA); then the LSTM kernels against their
+   twins: the sequence kernel (a layer's whole tBPTT window in one
+   launch) at the char-RNN's window (T 50, B 32, H 200, peepholes, f32)
+   and at edge cases (no peepholes, B 1, T 7 x B 7 x H 37, T 8 x B 64 x
+   H 1024, a masked window walked in reverse, and T 1 in f32 and bf16,
+   the generation step), and the cell backward at each case's step, with
+   cuDNN's LSTM over the same window (another function: no peepholes) as
+   a yardstick; each call's CUDA kernels are counted by
+   ``torch.profiler`` (one each), and both kernels are shown
    bit-identical from call to call and under CUDA-graph replay;
 3. slice — a full-width TransformerLM (V 32768, T 512, d 512, L 8, H 8,
    ff 2048, bf16 compute, flash block 128; random weights from a seed)
@@ -52,15 +55,17 @@ Phases, each fatal on failure:
 5. charrnn — ``zoo.char_rnn`` at full width (vocab 77, hidden 200, tBPTT
    50; rmsprop at lr 0.01) trains through ``MultiLayerNetwork.fit`` on
    batches of 32 x 200 characters of a seeded Markov chain: 2 warm-up and
-   8 timed batches. Each timed batch must launch the LSTM forward and
-   backward kernels 400 times each (2 layers x 200 steps) and no flash
-   kernel, every parameter leaf must get a finite, non-zero gradient in
+   8 timed batches. Each timed batch must launch the LSTM sequence kernel
+   8 times (2 layers x 4 windows), the backward kernel 400 times (2
+   layers x 200 steps) and no flash kernel, every parameter leaf must get
+   a finite, non-zero gradient in
    every window, and the loss must fall; it reports characters/s, ms per
    batch and per window, a window split by CUDA events and peak memory.
    Then ``output()`` on a batch, 200 ``rnn_time_step`` calls generating
-   characters (their outputs must equal ``output()`` of the same
-   sequence), and one f32 window of a fresh copy on the card and on the
-   CPU from the same weights, which must agree.
+   characters (one sequence launch of T 1 a layer a character; their
+   outputs must equal ``output()`` of the same sequence), and one f32
+   window of a fresh copy on the card and on the CPU from the same
+   weights, which must agree.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -133,8 +138,12 @@ KERNEL_CASES = [
     ("train", 256, 256, 511, 64, True, None, False),
 ]
 # what the kernels line says of the bf16 flash kernels and the LSTM
-# backward
+# kernels
 TC_DESIGN = "mma.sync bf16 tensor cores, cp.async"
+LSTM_FWD_DESIGN = ("one persistent cooperative launch a tBPTT window: T steps "
+                   "in a loop, RW slice resident in shared memory, c in "
+                   "registers, h exchanged through L2 behind per-batch-tile "
+                   "arrival counters")
 LSTM_BWD_DESIGN = "one cooperative launch, two phases split by a grid sync"
 
 # the char-RNN phase: bench.py's full-width sizing of zoo.char_rnn
@@ -143,20 +152,25 @@ CHARRNN = dict(vocab_size=77, hidden=200, tbptt_length=50, batch=32,
 CHARRNN_WARMUP = 2
 CHARRNN_BATCHES = 8
 CHARRNN_GENERATE = 200     # rnn_time_step calls
-# LSTM cell kernel cases: (name, B, H, peepholes, dtype); "main" is the
-# char-RNN's cell step
+# LSTM kernel cases: (name, T, B, H, peepholes, dtype, masked, reverse);
+# "main" is the char-RNN's layer window, "t1" its generation step; the
+# backward kernel runs at each case's step (zx_t[0], h0, c0)
 LSTM_CASES = [
-    ("main", 32, 200, True, "float32"),
-    ("no_peephole", 32, 200, False, "float32"),
-    ("bf16", 32, 200, True, "bfloat16"),
-    ("b1", 1, 200, True, "float32"),
-    ("ragged", 7, 37, True, "float32"),
-    ("wide", 64, 1024, True, "float32"),
+    ("main", 50, 32, 200, True, "float32", False, False),
+    ("no_peephole", 50, 32, 200, False, "float32", False, False),
+    ("bf16", 1, 32, 200, True, "bfloat16", False, False),
+    ("b1", 50, 1, 200, True, "float32", False, False),
+    ("ragged", 7, 7, 37, True, "float32", False, False),
+    ("wide", 8, 64, 1024, True, "float32", False, False),
+    ("masked_reverse", 50, 32, 200, True, "float32", True, True),
+    ("t1", 1, 32, 200, True, "float32", False, False),
 ]
-# f32 h/c within 1e-6 abs up to H 200 (summation order only), and
-# 1e-6 sqrt(H / 200) beyond: the rounding of the H-term dot products grows
-# with the square root of their length (c also reaches |c| ~ 4 there);
-# f32 gradients within 1e-5 of each output's max abs
+# f32 h/c of one step within 1e-6 abs up to H 200 (summation order only),
+# and 1e-6 sqrt(H / 200) beyond: the rounding of the H-term dot products
+# grows with the square root of their length (c also reaches |c| ~ 4
+# there); a window's out, h and c within F32_WINDOW_TOL (ops/lstm_cell.py,
+# derived from the twin's own rounding over the window), with the same
+# growth beyond H 200; f32 gradients within 1e-5 of each output's max abs
 LSTM_FWD_TOL, LSTM_BWD_RTOL = 1e-6, 1e-5
 # stepwise rnn_time_step against output() of the same sequence: f32
 # probabilities, the input projection taken at another batch shape
@@ -651,11 +665,12 @@ def wrapper_on_model_views(card, g):
 
 def reset_launches():
     from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
-    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (lstm_cell,
+                                                        lstm_sequence)
     flash_attention.launches = 0
     flash_attention.dq_launches = 0
     flash_attention.dkv_launches = 0
-    lstm_cell.launches = 0
+    lstm_sequence.launches = 0
     lstm_cell.bwd_launches = 0
 
 
@@ -667,22 +682,30 @@ def read_launches():
 
 
 def read_lstm_launches():
-    """(forward, backward) LSTM cell kernel calls."""
-    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
-    return lstm_cell.launches, lstm_cell.bwd_launches
+    """(sequence forward, cell backward) LSTM kernel launches."""
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (lstm_cell,
+                                                        lstm_sequence)
+    return lstm_sequence.launches, lstm_cell.bwd_launches
 
 
-def lstm_bounds(b, h, peep, dtype_name):
-    """Least times of one cell step's forward and backward calls: each
-    input read once and each output written once at the memory rate,
-    against the products at the type's peak (2 ops per multiply-add; the
-    forward's h_prev·RW, and the backward's recomputed z, dz·RWᵀ and
-    h_prevᵀ·dz). Both take f32 CUDA-core rates for f32."""
+def lstm_bounds(t, b, h, peep, dtype_name, kept_rows):
+    """Least times of one sequence call over a window of t steps and of one
+    cell step's backward: each input read once and each output written
+    once at the memory rate (the window reads zx_t, h0, c0, RW, P and the
+    keep mask, and writes out and every step's (h, c)), against the
+    products at the type's peak (2 ops per multiply-add: h_prev·RW for
+    each row a step keeps, ``kept_rows`` over the window; the backward's
+    recomputed z, dz·RWᵀ and h_prevᵀ·dz). Both take f32 CUDA-core rates
+    for f32."""
     es = 4 if dtype_name == "float32" else 2
     p = 3 * h if peep else 0
-    fwd_in = b * 4 * h + 2 * b * h + h * 4 * h + p
-    fwd = _bound((fwd_in + 2 * b * h) * es, 2 * b * h * 4 * h, dtype_name)
-    bwd_in = fwd_in + 2 * b * h                       # + dh, dc
+    fwd_in = t * b * 4 * h + 2 * b * h + h * 4 * h + p
+    fwd_out = t * b * h + 2 * (t + 1) * b * h
+    keep_bytes = t * b if kept_rows < t * b else 0
+    fwd = _bound((fwd_in + fwd_out) * es + keep_bytes,
+                 kept_rows * 2 * h * 4 * h, dtype_name)
+    step_in = b * 4 * h + 2 * b * h + h * 4 * h + p
+    bwd_in = step_in + 2 * b * h                      # + dh, dc
     bwd_out = b * 4 * h + 2 * b * h + h * 4 * h + p   # dzx, dh, dc, dRW, dP
     bwd = _bound((bwd_in + bwd_out) * es, 3 * 2 * b * h * 4 * h, dtype_name)
     return fwd, bwd
@@ -743,12 +766,14 @@ def graph_replayed(fn):
     return out
 
 
-def lstm_case(card, g, name, b, h, peep, dtype):
-    """Forward and backward kernels of one case against their twins, with
-    times (CUDA events, many back-to-back calls), the twins' and bounds;
-    the CUDA kernels one call of each launches (torch.profiler), and
-    whether the backward gives bit-identical results on a second call and
-    from a replayed CUDA graph."""
+def lstm_case(card, g, name, t, b, h, peep, dtype, masked, reverse):
+    """The sequence kernel over one window and the backward kernel at the
+    window's first step against their twins, with times (CUDA-graph
+    replay: the kernels' device time; and a wrapper call back to back,
+    host included), the twins' and bounds; the CUDA kernels one call of
+    each launches (torch.profiler), and whether each gives bit-identical
+    results on a second call and from a replayed CUDA graph. bf16 cases
+    run at T 1, where the one-step bars hold."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm_cell as lc
 
@@ -757,26 +782,34 @@ def lstm_case(card, g, name, b, h, peep, dtype):
 
     def rnd(*shape, std=1.0):
         return (std * torch.randn(shape, generator=g, device=dev)).to(dtype)
-    zx, hp, cp = rnd(b, 4 * h), rnd(b, h, std=0.5), rnd(b, h)
+    zx_t, hp, cp = rnd(t, b, 4 * h), rnd(b, h, std=0.5), rnd(b, h)
     rw = rnd(h, 4 * h, std=h ** -0.5)
     p = rnd(3, h, std=0.1) if peep else None
+    keep = None
+    if masked:   # two rows pre-padded by 10 steps, then a sixth at random
+        keep = torch.rand((t, b), generator=g, device=dev) > 1 / 6
+        keep[:min(t, 10), :2] = False
     dh, dc = rnd(b, h), rnd(b, h)
-    args = (zx, hp, cp, rw, p)
-    got_f = lc._kernel_forward(*args)
-    got_b = lc._kernel_backward(*args, dh, dc)
+    seq = (zx_t, hp, cp, rw, p, keep, reverse)
+    step = (zx_t[0], hp, cp, rw, p)
+    got_f = lc._kernel_sequence(*seq)
+    got_b = lc._kernel_backward(*step, dh, dc)
     torch.cuda.synchronize()
-    want_f = lc.lstm_cell_plain(*args)
-    want_b = lc.lstm_cell_bwd_plain(*args, dh, dc)
-    up = [None if t is None else t.float() for t in (*args, dh, dc)]
-    want_f32_f = lc.lstm_cell_plain(*up[:5]) if dtype != torch.float32 \
-        else want_f
-    want_f32_b = lc.lstm_cell_bwd_plain(*up) if dtype != torch.float32 \
-        else want_b
-    fwd_tol = LSTM_FWD_TOL * max(1.0, (h / 200) ** 0.5)
-    errs, ok = {}, True
+    want_f = lc.lstm_sequence_plain(*seq, with_states=True)
+    want_b = lc.lstm_cell_bwd_plain(*step, dh, dc)
+
+    def up(x):
+        return x if x is None or not x.is_floating_point() else x.float()
+    want_f32_f = want_f if dtype == torch.float32 else \
+        lc.lstm_sequence_plain(*map(up, seq[:6]), reverse, with_states=True)
+    want_f32_b = want_b if dtype == torch.float32 else \
+        lc.lstm_cell_bwd_plain(*map(up, (*step, dh, dc)))
+    fwd_tol = (LSTM_FWD_TOL if t == 1 else lc.F32_WINDOW_TOL) * \
+        max(1.0, (h / 200) ** 0.5)
+    errs, ok = {}, dtype == torch.float32 or t == 1
     for gname, got, want, w32, rel in (
-            ("h", got_f[0], want_f[0], want_f32_f[0], None),
-            ("c", got_f[1], want_f[1], want_f32_f[1], None),
+            *[(n, a, w, w2, None) for n, a, w, w2 in zip(
+                ("out", "h", "c"), got_f, want_f, want_f32_f)],
             *[(n, a, w, w2, LSTM_BWD_RTOL) for n, a, w, w2 in zip(
                 ("dzx", "dh_prev", "dc_prev", "dRW", "dP"), got_b, want_b,
                 want_f32_b) if w is not None]):
@@ -786,34 +819,45 @@ def lstm_case(card, g, name, b, h, peep, dtype):
         ok = ok and good and got.shape == want.shape and got.dtype == \
             want.dtype
     ok = ok and (got_b[4] is None) == (p is None)
+    if keep is not None:   # dropped steps emit exactly 0
+        ok = ok and bool((got_f[0][~keep] == 0).all())
     del want_f, want_b, want_f32_f, want_f32_b
 
-    def same(outs):
-        return all(torch.equal(a, o) for a, o in zip(got_b, outs)
+    def fwd():
+        return lc._kernel_sequence(*seq)
+
+    def bwd():
+        return lc._kernel_backward(*step, dh, dc)
+
+    def same(outs, ref):
+        return all(torch.equal(a, o) for a, o in zip(ref, outs)
                    if a is not None)
-    repeat_identical = same(lc._kernel_backward(*args, dh, dc))
-    graph_identical = same(graph_replayed(
-        lambda: lc._kernel_backward(*args, dh, dc)))
-    fwd_kernels = cuda_kernels_of_one_call(lambda: lc._kernel_forward(*args))
-    bwd_kernels = cuda_kernels_of_one_call(
-        lambda: lc._kernel_backward(*args, dh, dc))
-    ok = ok and repeat_identical and graph_identical and \
-        len(fwd_kernels) == 1 and len(bwd_kernels) == 1
+    identical = {"fwd_repeat": same(fwd(), got_f),
+                 "fwd_graph_replay": same(graph_replayed(fwd), got_f),
+                 "bwd_repeat": same(bwd(), got_b),
+                 "bwd_graph_replay": same(graph_replayed(bwd), got_b)}
+    fwd_kernels = cuda_kernels_of_one_call(fwd)
+    bwd_kernels = cuda_kernels_of_one_call(bwd)
+    ok = ok and all(identical.values()) and len(fwd_kernels) == 1 and \
+        len(bwd_kernels) == 1
     # the kernels' and twins' device time (graph replay), and a wrapper
     # call's cost back to back, host included
-    fwd_ms = graph_ms(lambda: lc._kernel_forward(*args))
-    bwd_ms = graph_ms(lambda: lc._kernel_backward(*args, dh, dc))
-    fwd_call_ms = time_ms(lambda: lc._kernel_forward(*args), iters=200,
-                          warmup=10)
-    bwd_call_ms = time_ms(lambda: lc._kernel_backward(*args, dh, dc),
-                          iters=200, warmup=10)
-    plain_fwd_ms = graph_ms(lambda: lc.lstm_cell_plain(*args))
-    plain_bwd_ms = graph_ms(lambda: lc.lstm_cell_bwd_plain(*args, dh, dc))
+    fwd_ms = graph_ms(fwd)
+    bwd_ms = graph_ms(bwd)
+    fwd_call_ms = time_ms(fwd, iters=200, warmup=10)
+    bwd_call_ms = time_ms(bwd, iters=200, warmup=10)
+    plain_fwd_ms = graph_ms(
+        lambda: lc.lstm_sequence_plain(*seq, with_states=True),
+        iters=max(2, 50 // t))
+    plain_bwd_ms = graph_ms(lambda: lc.lstm_cell_bwd_plain(*step, dh, dc))
+    kept = t * b if keep is None else int(keep.sum())
     (fb, fby, fbytes, fops), (bb, bby, bbytes, bops) = lstm_bounds(
-        b, h, peep, dname)
+        t, b, h, peep, dname, kept)
     rec = {"phase": "kernel_lstm", "case": name, "dtype": dname,
-           "shape": {"B": b, "H": h, "peephole": peep}, "errors": errs,
-           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+           "shape": {"T": t, "B": b, "H": h, "peephole": peep,
+                     "masked": masked, "reverse": reverse},
+           "kept_rows": kept, "errors": errs,
+           "fwd_ms": fwd_ms, "fwd_step_ms": fwd_ms / t, "bwd_ms": bwd_ms,
            "fwd_call_ms": fwd_call_ms, "bwd_call_ms": bwd_call_ms,
            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
            "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_bytes": fbytes,
@@ -821,15 +865,13 @@ def lstm_case(card, g, name, b, h, peep, dtype):
            "bwd_bytes": bbytes, "bwd_ops": bops,
            "fwd_launches_per_call": len(fwd_kernels),
            "bwd_launches_per_call": len(bwd_kernels),
-           "bwd_kernels": bwd_kernels,
-           "bwd_repeat_bit_identical": repeat_identical,
-           "bwd_graph_replay_bit_identical": graph_identical,
-           "card": card, "ok": ok}
+           "fwd_kernels": fwd_kernels, "bwd_kernels": bwd_kernels,
+           "bit_identical": identical, "card": card, "ok": ok}
     emit(rec)
     if not ok:
-        raise AssertionError(f"LSTM cell kernels disagree with their "
-                             f"twins, or a call is not one launch or not "
-                             f"reproducible: {rec}")
+        raise AssertionError(f"LSTM kernels disagree with their twins, or a "
+                             f"call is not one launch or not reproducible: "
+                             f"{rec}")
     return rec
 
 
@@ -864,9 +906,9 @@ def phase_lstm_kernels(card):
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     results = {}
-    for name, b, h, peep, dtype_name in LSTM_CASES:
-        results[name] = lstm_case(card, g, name, b, h, peep,
-                                  getattr(torch, dtype_name))
+    for name, t, b, h, peep, dtype_name, masked, reverse in LSTM_CASES:
+        results[name] = lstm_case(card, g, name, t, b, h, peep,
+                                  getattr(torch, dtype_name), masked, reverse)
     results["library"] = cudnn_lstm_yardstick(card)
     return results
 
@@ -1183,14 +1225,15 @@ class _WindowRecorder:
 def charrnn_window_breakdown(net, ds):
     """One more tBPTT window (the batch's first) split by CUDA events into
     the forward (loss), the backward (``torch.autograd.grad``) and the
-    update, with every LSTM kernel call inside timed by its own events."""
+    update, with every LSTM kernel call inside (a sequence launch a layer
+    forward, a backward launch a step) timed by its own events."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm_cell as lc
 
     seg = CHARRNN["tbptt_length"]
     x = net._tensor(ds.features[:, :seg])
     y = net._tensor(ds.labels[:, :seg])
-    spans = {"_kernel_forward": [], "_kernel_backward": []}
+    spans = {"_kernel_sequence": [], "_launch_backward": []}
     real = {name: getattr(lc, name) for name in spans}
 
     def timed(name):
@@ -1233,11 +1276,11 @@ def charrnn_window_breakdown(net, ds):
     def total(name):
         return sum(s.elapsed_time(e) for s, e in spans[name])
     return {"forward_ms": ev[0].elapsed_time(ev[1]),
-            "lstm_forward_kernel_ms": total("_kernel_forward"),
-            "lstm_forward_calls": len(spans["_kernel_forward"]),
+            "lstm_forward_kernel_ms": total("_kernel_sequence"),
+            "lstm_forward_calls": len(spans["_kernel_sequence"]),
             "backward_ms": ev[1].elapsed_time(ev[2]),
-            "lstm_backward_kernel_ms": total("_kernel_backward"),
-            "lstm_backward_calls": len(spans["_kernel_backward"]),
+            "lstm_backward_kernel_ms": total("_launch_backward"),
+            "lstm_backward_calls": len(spans["_launch_backward"]),
             "update_ms": ev[2].elapsed_time(ev[3])}
 
 
@@ -1294,6 +1337,7 @@ def charrnn_generate(net, rng):
     whole = net.output(eye[seq[:-1]][None])[0]
     err = float(np.abs(whole - np.stack(steps)).max())
     n_layers = sum(hasattr(l, "initial_carry") for l in net.layers)
+    # one sequence launch of T 1 a layer a character, no backward
     assert (fwd, bwd) == (n_layers * CHARRNN_GENERATE, 0), (fwd, bwd)
     assert np.isfinite(whole).all() and err <= RNN_STEP_TOL, err
     return {"steps": CHARRNN_GENERATE, "seconds": gen_s,
@@ -1320,8 +1364,9 @@ def charrnn_card_vs_cpu(conf, ds):
     after = read_lstm_launches()
     want = float(cpu.fit_batch(x, y))
     n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
-    assert [a - b for a, b in zip(after, before)] == [n_layers * seg] * 2, \
-        (before, after)
+    # a sequence launch a layer, a backward launch a layer a step
+    assert [a - b for a, b in zip(after, before)] == \
+        [n_layers, n_layers * seg], (before, after)
     rel = {}
     for i, (pg, pc) in enumerate(zip(card.params_list, cpu.params_list)):
         for k in pg:
@@ -1372,8 +1417,11 @@ def phase_charrnn(card):
     seg, t = CHARRNN["tbptt_length"], CHARRNN["seq_len"]
     windows = t // seg
     n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
-    per_batch = n_layers * t
-    assert (fwd, bwd) == (per_batch * CHARRNN_BATCHES,) * 2, (fwd, bwd)
+    # a batch: a sequence launch a layer a window, a backward launch a
+    # layer a step
+    per_batch = (n_layers * windows, n_layers * t)
+    assert (fwd, bwd) == tuple(n * CHARRNN_BATCHES for n in per_batch), \
+        (fwd, bwd)
     assert flash == (0, 0, 0), flash
     scores = [float(s) for s in rec.scores]
     per_char = [sum(scores[i:i + windows]) / (windows * seg)
@@ -1488,18 +1536,23 @@ def main():
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
          "design": bwd["design"], "f32_route": "cuda cores"},
-        # the char-RNN's cell step; no PyTorch call computes the peephole
-        # cell, so library_ms is null and cuDNN's LSTM (another function)
-        # is reported per step beside it
+        # the char-RNN's layer window (the sequence kernel) and cell step
+        # (the backward); no PyTorch call computes the peephole cell, so
+        # library_ms is null and cuDNN's LSTM (another function) is
+        # reported beside them
         {"name": "lstm_cell_fwd", "route": "cuda",
          "source": src + "lstm_cell_fwd.cu", "replaces": ref + "508",
          "launches": cr["kernel_launches"]["lstm_cell_fwd"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
-                            for g in ("h", "c")),
-         "ms": lstm["main"]["fwd_ms"], "plain_ms": lstm["main"]["plain_fwd_ms"],
+                            for g in ("out", "h", "c")),
+         "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
+         "t1_ms": lstm["t1"]["fwd_ms"],
+         "plain_ms": lstm["main"]["plain_fwd_ms"],
          "bound_ms": lstm["main"]["fwd_bound_ms"],
          "bound_by": lstm["main"]["fwd_bound_by"], "library_ms": None,
-         "cudnn_lstm_step_ms": lstm["library"]["per_step_fwd_ms"]},
+         "cudnn_lstm_window_fwd_ms": lstm["library"]["window_fwd_ms"],
+         "launches_per_call": lstm["main"]["fwd_launches_per_call"],
+         "call_ms": lstm["main"]["fwd_call_ms"], "design": LSTM_FWD_DESIGN},
         {"name": "lstm_cell_bwd", "route": "cuda",
          "source": src + "lstm_cell_bwd.cu", "replaces": ref + "540",
          "launches": cr["kernel_launches"]["lstm_cell_bwd"],

@@ -51,9 +51,13 @@
 //  window replays it.
 // bf16 inputs are converted on load and accumulate in f32; each output is
 // rounded once to its input's type (dP to RW's). Ragged edges are masked in
-// the kernel. Tensor cores (TF32 would break the f32 parity bar), and
-// accumulating dRW over a whole window in place instead of one fresh
-// [H, 4H] per step, are later work.
+// the kernel. Tensor cores (TF32 would break the f32 parity bar) are later
+// work.
+// With `accumulate` set, dRW and dP are added to what the buffers hold: a
+// tBPTT window's backward calls the kernel once a step into one pair of
+// buffers. Each element has one owning thread, so the sum runs in step
+// order and is bit-stable; the step's term is rounded to the storage type
+// before the add, as adding two tensors of that type rounds it.
 //
 // Interface: a plain C function, bound from Python with ctypes. It launches
 // on the caller's stream, allocates nothing (the caller passes the f32
@@ -365,7 +369,7 @@ struct DrwSmem {
 template <typename T>
 __device__ void drw_item(const T* __restrict__ h_prev, const float* dz32,
                          T* __restrict__ drw, int B, int H, int k0, int c0,
-                         bool vec, DrwSmem& s) {
+                         bool vec, bool accum, DrwSmem& s) {
   const int tk = threadIdx.x / 16, tc = threadIdx.x % 16;
   const size_t H4 = (size_t)4 * H;
   float acc[4][4] = {};   // [k][c]
@@ -397,7 +401,11 @@ __device__ void drw_item(const T* __restrict__ h_prev, const float* dz32,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + 4 * tc + e;
-      if (c < (int)H4) drw[(size_t)k * H4 + c] = from_f32<T>(acc[a][e]);
+      if (c < (int)H4) {
+        T* d = drw + (size_t)k * H4 + c;
+        *d = accum ? from_f32<T>(to_f32(from_f32<T>(acc[a][e])) + to_f32(*d))
+                   : from_f32<T>(acc[a][e]);
+      }
     }
   }
 }
@@ -422,7 +430,8 @@ lstm_bwd_kernel(const T* __restrict__ zx, const T* __restrict__ h_prev,
                 const T* __restrict__ peep, const T* __restrict__ dh,
                 const T* __restrict__ dc, T* dzx, float* dz32,
                 T* __restrict__ dc_prev, float* dp_part, T* __restrict__ dh_prev,
-                T* __restrict__ drw, T* __restrict__ dp, int B, int H, int vec) {
+                T* __restrict__ drw, T* __restrict__ dp, int B, int H, int vec,
+                int accumulate) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
   const int n_chunks = cdiv(B, BC);
@@ -437,7 +446,8 @@ lstm_bwd_kernel(const T* __restrict__ zx, const T* __restrict__ h_prev,
     for (int i = blockIdx.x * NT + threadIdx.x; i < 3 * H; i += gridDim.x * NT) {
       float sum = 0.f;
       for (int c = 0; c < n_chunks; ++c) sum += __ldcg(dp_part + (size_t)c * 3 * H + i);
-      dp[i] = from_f32<T>(sum);
+      dp[i] = accumulate ? from_f32<T>(to_f32(from_f32<T>(sum)) + to_f32(dp[i]))
+                         : from_f32<T>(sum);
     }
   }
   const int tk_dh = cdiv(H, DK);
@@ -451,41 +461,26 @@ lstm_bwd_kernel(const T* __restrict__ zx, const T* __restrict__ h_prev,
     } else {
       const int t = it - n_dh;
       drw_item(h_prev, dz32, drw, B, H, (t / tc_rw) * WT, (t % tc_rw) * WT,
-               vec != 0, s.drw);
+               vec != 0, accumulate != 0, s.drw);
     }
   }
 }
 
-// Blocks of lstm_bwd_kernel<T> the card holds at once, asked once (after
-// raising the kernel's dynamic shared memory limit): the most a
-// cooperative launch may start.
+// Blocks of lstm_bwd_kernel<T> the current device holds at once: the most
+// a cooperative launch may start. Asked per device (lstm::coresident_blocks:
+// each device gets its own raised shared-memory limit and its own cap).
 template <typename T>
 cudaError_t resident_blocks(int* blocks) {
-  static int cached = 0;
-  if (cached < 1) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_bwd_kernel<T>,
-                                                          NT, SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
-    cached = sms * per_sm;
-  }
-  *blocks = cached;
-  return cudaSuccess;
+  static lstm::CoresidentCache cache;
+  return lstm::coresident_blocks(cache, reinterpret_cast<const void*>(lstm_bwd_kernel<T>), NT,
+                                 SMEM_BYTES, blocks);
 }
 
 template <typename T>
 cudaError_t launch(const void* zx, const void* h, const void* c, const void* rw,
                    const void* p, const void* dh, const void* dc, void* dzx,
                    void* dz32, void* scratch, void* dhp, void* dcp, void* drw,
-                   void* dp, int B, int H, cudaStream_t stream) {
+                   void* dp, int B, int H, int accumulate, cudaStream_t stream) {
   int most = 0;
   cudaError_t err = resident_blocks<T>(&most);
   if (err != cudaSuccess) return err;
@@ -514,7 +509,7 @@ cudaError_t launch(const void* zx, const void* h, const void* c, const void* rw,
   T* drw_ = static_cast<T*>(drw);
   T* dp_ = static_cast<T*>(dp);
   void* args[] = {&zx_, &h_, &c_, &rw_, &p_, &dh_, &dc_, &dzx_, &dz32_, &dcp_,
-                  &part_, &dhp_, &drw_, &dp_, &B, &H, &vec};
+                  &part_, &dhp_, &drw_, &dp_, &B, &H, &vec, &accumulate};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_bwd_kernel<T>),
                                     dim3(grid), dim3(NT), args, SMEM_BYTES, stream);
   if (err != cudaSuccess) return err;
@@ -533,13 +528,14 @@ extern "C" long long lstm_cell_bwd_scratch_floats(int B, int H) {
 // is float32), 16-byte aligned; scratch: lstm_cell_bwd_scratch_floats(B, H)
 // f32; h_prev, c_prev, dh, dc, dh_prev, dc_prev: [B, H]; rw, drw: [H, 4H];
 // p, dp: [3, H], or both null for no peepholes. All contiguous; every tensor
-// but the scratch of one type. dtype: 0 = float32, 1 = bfloat16. One
-// cooperative launch. Returns a cudaError_t (0 on success).
+// but the scratch of one type. accumulate: 0 writes dRW and dP, 1 adds to
+// them. dtype: 0 = float32, 1 = bfloat16. One cooperative launch. Returns a
+// cudaError_t (0 on success).
 extern "C" int lstm_cell_bwd(const void* zx, const void* h_prev, const void* c_prev,
                              const void* rw, const void* p, const void* dh,
                              const void* dc, void* dzx, void* dz32, void* scratch,
                              void* dh_prev, void* dc_prev, void* drw, void* dp, int B,
-                             int H, int dtype, void* stream) {
+                             int H, int accumulate, int dtype, void* stream) {
   if (B < 1 || H < 1 || (p == nullptr) != (dp == nullptr) ||
       (reinterpret_cast<uintptr_t>(dz32) & 15) != 0 ||
       (long long)B * 4 * H > 2147483647LL || (long long)H * 4 * H > 2147483647LL)
@@ -547,9 +543,10 @@ extern "C" int lstm_cell_bwd(const void* zx, const void* h_prev, const void* c_p
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(zx, h_prev, c_prev, rw, p, dh, dc, dzx, dz32, scratch,
-                              dh_prev, dc_prev, drw, dp, B, H, s);
+                              dh_prev, dc_prev, drw, dp, B, H, accumulate, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(zx, h_prev, c_prev, rw, p, dh, dc, dzx, dz32,
-                                      scratch, dh_prev, dc_prev, drw, dp, B, H, s);
+                                      scratch, dh_prev, dc_prev, drw, dp, B, H, accumulate,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,16 +7,16 @@ features]``; gates packed ``[i, f, g, o]`` in ``W [n_in, 4H]`` and
 masked step emits 0 and holds (h, c).
 
 The input projection of every time step is one matmul, laid out once as a
-contiguous ``[T, B, 4H]``; a Python loop then walks the time steps. Routing
-(``LSTM._scan``):
+contiguous ``[T, B, 4H]``. Routing (``LSTM._scan``):
 
 - a layer with sigmoid gates and a tanh cell (``lstm_cell_supported``)
-  calls ``ops.lstm_cell`` once per step, an autograd Function: on a CUDA
-  tensor it launches the hand-written forward and backward kernels, on a
-  CPU tensor it runs their plain twins;
-- any other activations take ``_scan_builtin``, the plain recurrence under
-  autograd, on either device (routing by configuration, as the reference's
-  ``lstm_cell_supported`` routes);
+  calls ``ops.lstm_sequence`` once per window and direction, an autograd
+  Function: on a CUDA tensor it launches the hand-written sequence kernel
+  (every step of the window in one launch) and, in the backward, the cell
+  backward kernel once a step; on a CPU tensor it runs their plain twins;
+- any other activations take ``_scan_builtin``, a Python loop over the
+  steps of the plain recurrence under autograd, on either device (routing
+  by configuration, as the reference's ``lstm_cell_supported`` routes);
 - ``DL4J_TORCH_LSTM_KERNEL=builtin`` takes ``_scan_builtin`` for CPU
   tensors and raises for any other device.
 
@@ -36,8 +36,8 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import (FeedForward,
                                                          Recurrent)
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, register_layer
 from deeplearning4j_tpu_torch.ops import activations as activations_mod
-from deeplearning4j_tpu_torch.ops.lstm_cell import (lstm_cell,
-                                                    lstm_cell_supported)
+from deeplearning4j_tpu_torch.ops.lstm_cell import (lstm_cell_supported,
+                                                    lstm_sequence)
 
 __all__ = ["GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
            "LastTimeStepLayer"]
@@ -151,8 +151,8 @@ class LSTM(BaseLayer):
         return self._scan_builtin(params, x, h0, c0, mask, reverse)
 
     def _walk(self, zx_t, h0, c0, mask, reverse, cell):
-        """The time loop shared by both routes: ``cell(z_t, h, c)`` gives
-        the new (h, c); masked steps hold (h, c) and emit 0."""
+        """The plain route's time loop: ``cell(z_t, h, c)`` gives the new
+        (h, c); masked steps hold (h, c) and emit 0."""
         keeps = _step_mask(mask)
         steps = range(zx_t.shape[0])
         outs = [None] * zx_t.shape[0]
@@ -170,13 +170,17 @@ class LSTM(BaseLayer):
         return torch.stack(outs, dim=1), (h, c)
 
     def _scan_kernel(self, params, x, h0, c0, mask, reverse=False):
-        """The reference's ``_scan_pallas``: each step one
-        ``ops.lstm_cell`` call (forward kernel, backward kernel)."""
+        """The reference's ``_scan_pallas``: one ``ops.lstm_sequence``
+        call over the window (one forward launch; a backward launch a
+        step)."""
         zx_t = _time_major_projection(params, x, self.n_out)
-        rw, peep = params["RW"], params.get("P")
-        return self._walk(zx_t, h0.contiguous(), c0.contiguous(), mask,
-                          reverse,
-                          lambda z, h, c: lstm_cell(z, h, c, rw, peep))
+        keep = None if mask is None else \
+            (torch.as_tensor(mask, device=x.device) > 0).transpose(0, 1) \
+            .contiguous()
+        out, carry = lstm_sequence(zx_t, h0.contiguous(), c0.contiguous(),
+                                   params["RW"], params.get("P"), keep,
+                                   reverse)
+        return out.transpose(0, 1), carry
 
     def _scan_builtin(self, params, x, h0, c0, mask, reverse=False):
         """The reference's ``_scan_builtin``: the plain gate math per step,

@@ -37,12 +37,14 @@ KERNELS = {
     "flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "flash_attn_dq": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
     "flash_attn_dkv": (_P,) * 8 + (_I,) * 6 + (_F, _I, _P),
-    "lstm_cell_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "lstm_cell_bwd": (_P,) * 14 + (_I,) * 3 + (_P,),
+    "lstm_cell_fwd": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "lstm_cell_bwd": (_P,) * 14 + (_I,) * 4 + (_P,),
 }
 # further C functions of a kernel's library: name -> {function: (argtypes,
 # restype)}
 HELPERS = {
+    "lstm_cell_fwd": {"lstm_cell_fwd_scratch_ints": ((_I, _I),
+                                                     ctypes.c_longlong)},
     "lstm_cell_bwd": {"lstm_cell_bwd_scratch_floats": ((_I, _I),
                                                        ctypes.c_longlong)},
 }

@@ -15,13 +15,19 @@ head + |O_f32|) element by element, dQ within ``BF16_DQ_BAR`` max|g_f32|,
 dK and dV within ``BF16_DKV_BAR`` max|g_f32|. Backward: f32 dq/dk/dv
 within 1e-5 of each gradient's max abs (summation order only; f32 against
 float64 sits near 1e-6 of it at these shapes).
-LSTM cell: f32 h/c 1e-6 abs up to H 200 (1e-6 sqrt(H/200) beyond: the
-dot products' rounding grows with their length), gradients 1e-5 of each
-output's max abs; bf16 within one bf16 step of the twin's bf16 result.
-The backward kernels sum in a fixed order (no atomics): two calls on the
-same inputs, and a CUDA graph's replay of the LSTM backward, give
-bit-identical results.
+LSTM cell step: f32 h/c 1e-6 abs up to H 200 (1e-6 sqrt(H/200) beyond:
+the dot products' rounding grows with their length), gradients 1e-5 of
+each output's max abs; bf16 within one bf16 step of the twin's bf16
+result. LSTM window (the sequence kernel, T > 1): f32 out/h/c within
+``F32_WINDOW_TOL`` (times sqrt(H/200) beyond H 200), bf16 within
+``BF16_WINDOW_BAR`` of each output's max abs, both derived on the CPU in
+``ops/lstm_cell.py`` (each step's rounding feeds the next); the window's
+f32 gradients within 1e-5 of each gradient's max abs. The kernels sum in
+a fixed order (no atomics): two calls on the same inputs, and a CUDA
+graph's replay, give bit-identical results.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -261,9 +267,16 @@ def test_autograd_runs_the_backward_kernels_on_card(cuda_device,
     def heads(x):
         return [a.reshape(b, t, h, d).transpose(1, 2)
                 for a in torch.split(x, h * d, dim=-1)]
+    # the reference: causal softmax attention in float64 on the CPU, so it
+    # sits far below the bar and does not move between runs
+    qkv64 = qkv.detach().cpu().double().requires_grad_()
+    q64, k64, v64 = heads(qkv64)
+    s64 = torch.matmul(q64, k64.transpose(-1, -2)) / math.sqrt(d)
+    s64 = s64.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(),
+                          float("-inf"))
     want = torch.autograd.grad(
-        (flash_attention(*heads(qkv.cpu()), causal=True) * cot.cpu()).sum(),
-        qkv)[0]
+        (torch.matmul(torch.softmax(s64, dim=-1), v64) *
+         cot.cpu().double()).sum(), qkv64)[0]
 
     def no_twin(*a, **kw):
         raise AssertionError("a CUDA tensor reached the plain twin")
@@ -274,7 +287,7 @@ def test_autograd_runs_the_backward_kernels_on_card(cuda_device,
     torch.cuda.synchronize()
     assert (flash_attention.dq_launches, flash_attention.dkv_launches) == \
         (before[0] + 1, before[1] + 1)
-    assert (got - want).abs().max().item() <= \
+    assert (got.cpu().double() - want).abs().max().item() <= \
         1e-5 * want.abs().max().item()
 
 
@@ -315,8 +328,9 @@ LSTM_CASES = [
 @pytest.mark.parametrize("b,h,peep,dtype", LSTM_CASES)
 def test_lstm_kernels_match_twins_on_card(cuda_device, monkeypatch, b, h,
                                           peep, dtype):
-    """``lstm_cell`` on CUDA tensors under autograd: one forward and one
-    backward kernel call, never a twin, the twins' values."""
+    """``lstm_cell`` on CUDA tensors under autograd: one forward (the
+    sequence kernel over one step) and one backward kernel call, never a
+    twin, the twins' values."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
 
     def rnd(*shape, std=1.0):
@@ -333,14 +347,15 @@ def test_lstm_kernels_match_twins_on_card(cuda_device, monkeypatch, b, h,
         raise AssertionError("a CUDA tensor reached a plain twin")
     monkeypatch.setattr(port_lc, "lstm_cell_plain", no_twin)
     monkeypatch.setattr(port_lc, "lstm_cell_bwd_plain", no_twin)
+    monkeypatch.setattr(port_lc, "lstm_sequence_plain", no_twin)
     leaves = [None if a is None else a.clone().requires_grad_()
               for a in args]
-    before = (port_lc.lstm_cell.launches, port_lc.lstm_cell.bwd_launches)
+    before = (port_lc.lstm_sequence.launches, port_lc.lstm_cell.bwd_launches)
     hn, cn = port_lc.lstm_cell(*leaves)
     grads = torch.autograd.grad((hn, cn), [a for a in leaves
                                            if a is not None], (dh, dc))
     torch.cuda.synchronize()
-    assert (port_lc.lstm_cell.launches,
+    assert (port_lc.lstm_sequence.launches,
             port_lc.lstm_cell.bwd_launches) == (before[0] + 1, before[1] + 1)
     fwd_tol = 1e-6 * max(1.0, np.sqrt(h / 200))
     for name, got, want in (("h", hn, want_f[0]), ("c", cn, want_f[1])):
@@ -376,9 +391,12 @@ def test_charrnn_window_on_card_matches_cpu(cuda_device):
     cpu.set_params(card.params())
     r = np.random.RandomState(0)
     x = np.eye(20, dtype=np.float32)[r.randint(0, 20, (4, 20))]
-    before = port_lc.lstm_cell.launches
+    before = (port_lc.lstm_sequence.launches, port_lc.lstm_cell.bwd_launches)
     got, want = float(card.fit_batch(x, x)), float(cpu.fit_batch(x, x))
-    assert port_lc.lstm_cell.launches - before == 2 * 20
+    # 2 layers x 2 windows of 10 steps: a forward launch a window, a
+    # backward launch a step
+    assert (port_lc.lstm_sequence.launches - before[0],
+            port_lc.lstm_cell.bwd_launches - before[1]) == (2 * 2, 2 * 20)
     assert abs(got - want) <= 1e-5 * abs(want)
     for pg, pc in zip(card.params_list, cpu.params_list):
         for k in pg:
@@ -449,3 +467,168 @@ def test_lstm_backward_graph_replay_equals_eager_on_card(cuda_device, dtype):
         for name, a, c in zip(("dzx", "dh_prev", "dc_prev", "dRW", "dP"),
                               eager, captured):
             assert torch.equal(a, c), name
+
+
+# the sequence kernel: (name, T, B, H, peepholes, dtype, mask, reverse);
+# "main" is the char-RNN's layer window
+SEQ_CASES = [
+    ("main", 50, 32, 200, True, torch.float32, None, False),
+    ("no_peephole", 50, 32, 200, False, torch.float32, None, False),
+    ("bf16", 50, 32, 200, True, torch.bfloat16, None, False),
+    ("bf16_t1", 1, 32, 200, True, torch.bfloat16, None, False),
+    ("b1", 50, 1, 200, True, torch.float32, None, False),
+    ("ragged", 7, 7, 37, True, torch.float32, None, False),
+    ("wide", 8, 64, 1024, True, torch.float32, None, False),
+    ("masked", 50, 32, 200, True, torch.float32, "mask", False),
+    ("reverse", 50, 32, 200, True, torch.float32, None, True),
+    ("masked_reverse", 50, 32, 200, True, torch.float32, "mask", True),
+    ("t1", 1, 32, 200, True, torch.float32, None, False),
+]
+SEQ_IDS = [c[0] for c in SEQ_CASES]
+
+
+def _seq_inputs(device, t, b, h, peep, dtype, mask, seed):
+    """(zx_t, h0, c0, RW, P, keep), and the cotangents of (out, h_T, c_T).
+    The mask drops the first 10 steps of two rows (pre-padding) and a
+    sixth of the rest at random."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=g, device=device)) \
+            .to(dtype)
+    args = (rnd(t, b, 4 * h), rnd(b, h, std=0.5), rnd(b, h),
+            rnd(h, 4 * h, std=h ** -0.5), rnd(3, h, std=0.1) if peep
+            else None)
+    keep = None
+    if mask:
+        keep = torch.rand((t, b), generator=g, device=device) > 1 / 6
+        keep[:min(t, 10), :2] = False
+    return args + (keep,), (rnd(t, b, h), rnd(b, h), rnd(b, h))
+
+
+def _seq_bar(t, h, dtype, want):
+    """The largest error a window output may show against the twin's."""
+    if dtype == torch.float32:
+        tol = 1e-6 if t == 1 else port_lc.F32_WINDOW_TOL
+        return tol * max(1.0, math.sqrt(h / 200))
+    if t == 1:   # one bf16 step, element by element
+        return 1e-5 + 2.0 ** -7 * want.float().abs()
+    return port_lc.BF16_WINDOW_BAR * want.float().abs().max().item()
+
+
+def _no_twin(monkeypatch):
+    def no_twin(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+    for name in ("lstm_sequence_plain", "lstm_cell_plain",
+                 "lstm_cell_bwd_plain"):
+        monkeypatch.setattr(port_lc, name, no_twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,t,b,h,peep,dtype,mask,reverse", SEQ_CASES,
+                         ids=SEQ_IDS)
+def test_sequence_kernel_matches_twin_on_card(cuda_device, monkeypatch, name,
+                                              t, b, h, peep, dtype, mask,
+                                              reverse):
+    """``lstm_sequence`` on CUDA tensors: one launch for the window, never
+    a twin; its outputs and every step's (h, c) against the twin's."""
+    args, _ = _seq_inputs(cuda_device, t, b, h, peep, dtype, mask, seed=9)
+    want = port_lc.lstm_sequence_plain(*args, reverse, with_states=True)
+    _no_twin(monkeypatch)
+    before = port_lc.lstm_sequence.launches
+    out, (h_t, c_t) = port_lc.lstm_sequence(*args, reverse=reverse)
+    states = port_lc._kernel_sequence(*args, reverse)
+    torch.cuda.synchronize()
+    assert port_lc.lstm_sequence.launches == before + 2
+    got = (out, states[1], states[2])
+    assert torch.equal(h_t, states[1][-1]) and torch.equal(c_t, states[2][-1])
+    assert torch.equal(out, states[0])
+    for what, a, w in zip(("out", "h_all", "c_all"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, what
+        err = (a.float() - w.float()).abs()
+        assert bool(torch.isfinite(a).all()), what
+        assert bool((err <= _seq_bar(t, h, dtype, w)).all()), \
+            (what, err.max().item())
+    if mask:   # dropped steps emit exactly 0
+        assert bool((out[~args[5]] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,t,b,h,peep,dtype,mask,reverse",
+                         [c for c in SEQ_CASES if c[5] == torch.float32],
+                         ids=[c[0] for c in SEQ_CASES
+                              if c[5] == torch.float32])
+def test_sequence_gradients_match_twin_on_card(cuda_device, monkeypatch,
+                                               name, t, b, h, peep, dtype,
+                                               mask, reverse):
+    """The sequence Function's backward on the card (the cell backward
+    kernel once a step, dRW and dP summed in place) against the same
+    Function on CPU copies (the twins): every input's gradient, with
+    cotangents on out, h_T and c_T, within 1e-5 of its max abs."""
+    args, cots = _seq_inputs(cuda_device, t, b, h, peep, dtype, mask,
+                             seed=10)
+
+    def grads(device):
+        leaves = [None if a is None else a.to(device).requires_grad_()
+                  for a in args[:5]]
+        keep = None if args[5] is None else args[5].to(device)
+        out, (h_t, c_t) = port_lc.lstm_sequence(*leaves, keep, reverse)
+        return torch.autograd.grad(
+            (out, h_t, c_t), [a for a in leaves if a is not None],
+            [c.to(device) for c in cots])
+    want = grads("cpu")
+    _no_twin(monkeypatch)
+    before = (port_lc.lstm_sequence.launches, port_lc.lstm_cell.bwd_launches)
+    got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert (port_lc.lstm_sequence.launches - before[0],
+            port_lc.lstm_cell.bwd_launches - before[1]) == (1, t)
+    for what, a, w in zip(("dzx", "dh0", "dc0", "dRW", "dP"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, what
+        scale = w.abs().max().item()
+        err = (a.cpu() - w).abs().max().item()
+        assert bool(torch.isfinite(a).all()) and err <= 1e-5 * scale, \
+            (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["main", "bf16", "wide", "masked_reverse",
+                                  "t1"])
+def test_sequence_kernel_is_one_launch_and_bit_identical_on_card(
+        cuda_device, name):
+    """The sequence kernel sums in a fixed order, with no atomics: a second
+    call and a CUDA graph's replays give the first call's bits; a call is
+    one CUDA kernel (``torch.profiler``; a profile that recorded no device
+    event at all saw nothing and is taken again, up to five times)."""
+    from torch.profiler import ProfilerActivity, profile
+    _, t, b, h, peep, dtype, mask, reverse = SEQ_CASES[SEQ_IDS.index(name)]
+    args, _ = _seq_inputs(cuda_device, t, b, h, peep, dtype, mask, seed=11)
+
+    def call():
+        return port_lc._kernel_sequence(*args, reverse)
+    first = call()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            second = call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")]
+        if kernels:
+            break
+    assert len(kernels) == 1, kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for what, a, c, r in zip(("out", "h_all", "c_all"), first, second,
+                                 captured):
+            assert torch.equal(a, c) and torch.equal(a, r), what

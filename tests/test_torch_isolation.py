@@ -35,7 +35,7 @@ from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
 from deeplearning4j_tpu_torch.ops import lstm_cell as port_lc
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
-from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell
+from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell, lstm_sequence
 from deeplearning4j_tpu_torch.serving import InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -266,7 +266,7 @@ def test_build_directory_is_git_ignored():
 
 
 def _lstm_launches():
-    return lstm_cell.launches, lstm_cell.bwd_launches
+    return lstm_sequence.launches, lstm_cell.bwd_launches
 
 
 def test_cpu_char_rnn_never_touches_the_lstm_kernels(monkeypatch):

@@ -583,9 +583,10 @@ def test_lstm_route_carries_the_gradient_through_the_kernel_seam(
         monkeypatch):
     """The kernels return tensors with no autograd graph. With graph-less
     stand-ins at the kernel entry points (reached from CPU tensors by
-    routing the Function there), a GravesLSTM layer's parameters and input
-    still get the builtin route's gradients, by way of the backward
-    entry point, never a plain twin called by the route."""
+    routing the Functions there), a GravesLSTM layer's parameters and input
+    still get the builtin route's gradients, by way of one sequence launch
+    forward and the step backward once a step, never a plain twin called
+    by the route."""
     from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
     layer = GravesLSTM(n_in=5, n_out=6, activation="tanh")
     r = np.random.RandomState(0)
@@ -606,30 +607,34 @@ def test_lstm_route_carries_the_gradient_through_the_kernel_seam(
     monkeypatch.delenv("DL4J_TORCH_LSTM_KERNEL")
 
     calls = []
-    plain_fwd, plain_bwd = plc.lstm_cell_plain, plc.lstm_cell_bwd_plain
+    plain_seq, plain_bwd = plc.lstm_sequence_plain, plc.lstm_cell_bwd_plain
 
-    def kernel_forward(*a):
+    def kernel_sequence(*a):
         calls.append("fwd")
         with torch.no_grad():   # as the ctypes kernel: no graph
-            return plain_fwd(*a)
+            return plain_seq(*a, with_states=True)
 
-    def kernel_backward(*a):
-        calls.append("bwd")
-        with torch.no_grad():
-            return plain_bwd(*a)
+    def step_backward(zx_t, rw, peep):
+        def kernel_backward(zx, hp, cp, dh, dc, dzx, drw, dp):
+            calls.append("bwd")
+            with torch.no_grad():
+                g = plain_bwd(zx, hp, cp, rw, peep, dh, dc)
+                dzx.copy_(g[0])
+                if drw is None:
+                    return g[1:]
+                return g[1], g[2], drw + g[3], dp + g[4]
+        return kernel_backward
 
     def twin(*a, **kw):
         raise AssertionError("a plain twin ran on the kernel route")
-    monkeypatch.setattr(plc, "_kernel_forward", kernel_forward)
-    monkeypatch.setattr(plc, "_kernel_backward", kernel_backward)
-    monkeypatch.setattr(plc, "lstm_cell_plain", twin)
+    monkeypatch.setattr(plc, "_kernel_sequence", kernel_sequence)
+    monkeypatch.setattr(plc, "lstm_sequence_plain", twin)
     monkeypatch.setattr(plc, "lstm_cell_bwd_plain", twin)
-    monkeypatch.setattr(plc, "_cell_forward",
-                        lambda *a: plc._kernel_forward(*a))
-    monkeypatch.setattr(plc, "_cell_backward",
-                        lambda *a: plc._kernel_backward(*a))
+    monkeypatch.setattr(plc, "_sequence_forward",
+                        lambda *a: plc._kernel_sequence(*a))
+    monkeypatch.setattr(plc, "_step_backward", step_backward)
     got = grads()
-    assert calls.count("fwd") == 7 and calls.count("bwd") == 7
+    assert calls.count("fwd") == 1 and calls.count("bwd") == 7
     for g, w in zip(got, want):
         assert g is not None
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()

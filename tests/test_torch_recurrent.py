@@ -3,8 +3,8 @@
 Each layer gets the same parameters and inputs (numpy, seeded). The JAX
 side runs its layer with ``DL4J_TPU_LSTM_KERNEL=pallas`` (the fused Pallas
 cell in interpret mode) or ``builtin`` (its plain scan); the port runs its
-default route (``ops.lstm_cell``, whose CPU path is the kernels' plain
-twins behind the autograd Function) or ``DL4J_TORCH_LSTM_KERNEL=builtin``
+default route (``ops.lstm_sequence``, whose CPU path is the kernels'
+plain twins behind the autograd Function) or ``DL4J_TORCH_LSTM_KERNEL=builtin``
 (its plain recurrence under autograd). Every pairing must agree.
 
 Tolerances: outputs and final carries 1e-6 abs (activations in (-1, 1)
@@ -151,13 +151,13 @@ def test_scan_final_carries_match_jax(routes, reverse, mask):
 
 def test_exotic_activation_takes_the_builtin_recurrence(monkeypatch):
     """A cell activation outside the kernels' sigmoid/tanh contract routes
-    to the plain recurrence on any device, by configuration: no cell
+    to the plain recurrence on any device, by configuration: no sequence
     call, and the JAX layer's output."""
     monkeypatch.setenv("DL4J_TPU_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("DL4J_TPU_LSTM_KERNEL", "pallas")
     calls = []
-    real = prec.lstm_cell
-    monkeypatch.setattr(prec, "lstm_cell",
+    real = prec.lstm_sequence
+    monkeypatch.setattr(prec, "lstm_sequence",
                         lambda *a: calls.append(1) or real(*a))
     jl, pl = _layers("LSTM", activation="softsign")
     assert not plc.lstm_cell_supported(pl.gate_activation, pl.activation)
@@ -174,15 +174,17 @@ def test_exotic_activation_takes_the_builtin_recurrence(monkeypatch):
 
 
 def test_supported_layer_calls_the_cell_once_per_step(monkeypatch):
+    """The kernel route runs a window as one ``lstm_sequence`` call per
+    direction (the sequence Function steps through the cell inside)."""
     calls = []
-    real = prec.lstm_cell
-    monkeypatch.setattr(prec, "lstm_cell",
-                        lambda *a: calls.append(1) or real(*a))
+    real = prec.lstm_sequence
+    monkeypatch.setattr(prec, "lstm_sequence",
+                        lambda *a: calls.append(a[6]) or real(*a))
     _, pl = _layers("Bidirectional_add")
     params = {k: torch.from_numpy(v)
               for k, v in _params(pl, seed=4).items()}
     pl.forward(params, torch.zeros(B, T, N_IN), {})
-    assert len(calls) == 2 * T   # both directions
+    assert calls == [False, True]   # forward, then reverse
 
 
 @pytest.mark.parametrize("mask", [None, "holes", "pre_padded"])
