@@ -55,13 +55,25 @@ Phases, each fatal on failure:
 5. charrnn — ``zoo.char_rnn`` at full width (vocab 77, hidden 200, tBPTT
    50; rmsprop at lr 0.01) trains through ``MultiLayerNetwork.fit`` on
    batches of 32 x 200 characters of a seeded Markov chain: 2 warm-up and
-   8 timed batches. Each timed batch must launch the LSTM sequence kernel
-   8 times (2 layers x 4 windows), the backward kernel 400 times (2
-   layers x 200 steps) and no flash kernel, every parameter leaf must get
-   a finite, non-zero gradient in
-   every window, and the loss must fall; it reports characters/s, ms per
-   batch and per window, a window split by CUDA events and peak memory.
-   Then ``output()`` on a batch, 200 ``rnn_time_step`` calls generating
+   8 timed batches, in four turns from the same parameters: the fused
+   loop at its default K 8 (the main path: the prefetcher stacks the 8
+   batches into one group, and each tBPTT window's whole train step is
+   one captured CUDA graph, replayed), the per-batch loop
+   (``DL4J_TORCH_FUSE_STEPS=1``) twice, the fused loop again. The fused
+   turns must capture one graph (one window signature), in the warm-up,
+   and call no kernel wrapper in the timed run (every window a replay);
+   the main path's timed run is profiled, and ``torch.profiler`` must
+   count the LSTM sequence kernel 8 times a batch (2 layers x 4 windows)
+   and the backward kernel 400 times (2 layers x 200 steps) in it, as
+   the per-batch turns' wrapper calls and a profile of two more
+   per-batch batches must; no flash kernel runs; every parameter leaf
+   must get a finite, non-zero gradient in every window of the per-batch
+   run and in the fused group's last window, and the loss must fall. It
+   reports characters/s, ms per batch and per window of each turn, the
+   parameters' largest difference between the turns after the same
+   batches, the busy share of each path, a window graph's replay time, a
+   per-batch window split by CUDA events, and peak memory. Then
+   ``output()`` on a batch, 200 ``rnn_time_step`` calls generating
    characters (one sequence launch of T 1 a layer a character; their
    outputs must equal ``output()`` of the same sequence), and one f32
    window of a fresh copy on the card and on the CPU from the same
@@ -77,6 +89,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1266,7 +1279,7 @@ def charrnn_window_breakdown(net, ds):
         for (i, k, _), g in zip(leaves, flat):
             grads[i][k] = g
         net._apply_update(score.detach(), grads, states, new_carries,
-                          carries, True)
+                          carries, guard=True)
         ev[3].record()
         torch.cuda.synchronize()
     finally:
@@ -1284,37 +1297,74 @@ def charrnn_window_breakdown(net, ds):
             "update_ms": ev[2].elapsed_time(ev[3])}
 
 
-def charrnn_device_share(net, ds, ms_per_batch):
-    """One more batch under ``torch.profiler``: the device time of every
-    kernel (one stream, so they do not overlap) against the timed run's
-    ms per batch gives the card's busy share; the kernels ranked by device
-    time. None where the profiler records no device time."""
+def profiled(fn):
+    """``fn()`` once under ``torch.profiler``: (its wall seconds, the names
+    of the run's device-side events, and ``(name, calls, device µs)`` of
+    each device-side op with device time: kernels, copies, memsets). A
+    CPU op's entry repeats the time of the kernels it launched, so only
+    the device-side entries count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.fit_batch(ds.features, ds.labels)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
 
     def device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    # the device-side events themselves (kernels, copies, memsets); a CPU
-    # op's entry repeats the time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:8]
-    return {"profiled_wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if events else None,
-            "busy_share_of_timed_batch":
-                busy_ms / ms_per_batch if events else None,
-            "top_device_ops": [{"name": e.key[:80], "calls": e.count,
-                                "device_ms": device_us(e) / 1e3}
-                               for e in top]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    ops = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    return wall, names, ops
+
+
+def lstm_kernels(names):
+    """(sequence, backward) LSTM kernels among a profile's device events
+    (a replayed CUDA graph's kernels included)."""
+    return (sum("lstm_seq_kernel" in n for n in names),
+            sum("lstm_bwd_kernel" in n for n in names))
+
+
+def device_share(names, ops, n_batches, ms_per_batch):
+    """The card's share of a profiled run of ``n_batches`` batches: the
+    device time of its ops a batch (one stream, so they do not overlap)
+    against ``ms_per_batch``, the LSTM kernels and all device events a
+    batch, and the ops ranked by device time."""
+    busy_ms = sum(us for _, _, us in ops) / 1e3 / n_batches
+    seq, bwd = lstm_kernels(names)
+    top = sorted(ops, key=lambda o: o[2], reverse=True)[:8]
+    return {"device_busy_ms_per_batch": busy_ms,
+            "busy_share_of_timed_batch": busy_ms / ms_per_batch,
+            "cuda_kernels_per_batch": {"lstm_seq_kernel": seq / n_batches,
+                                       "lstm_bwd_kernel": bwd / n_batches,
+                                       "all": len(names) / n_batches},
+            "top_device_ops": [{"name": name[:80], "calls": calls,
+                                "device_ms": us / 1e3}
+                               for name, calls, us in top]}
+
+
+def fused_window_graph_ms(net, reps=20):
+    """Device time of one replay of the net's captured window graph, by
+    CUDA events over ``reps`` replays with an all-zero example weight (the
+    padding-step revert: every state stays as it was)."""
+    import torch
+    (win,) = net._fused.graphs.values()
+    win.ew.zero_()
+    win.graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        win.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def charrnn_generate(net, rng):
@@ -1382,14 +1432,136 @@ def charrnn_card_vs_cpu(conf, ds):
             "param_max_rel_err": rel[worst], "param_worst_leaf": worst}
 
 
-def phase_charrnn(card):
-    import math
-    import numpy as np
+def _fit_path(fused):
+    """Select the path of ``fit()``: the fused loop at its default K
+    (``DL4J_TORCH_FUSE_STEPS`` unset) or the per-batch loop (1)."""
+    import os
+    if fused:
+        os.environ.pop("DL4J_TORCH_FUSE_STEPS", None)
+    else:
+        os.environ["DL4J_TORCH_FUSE_STEPS"] = "1"
+
+
+def charrnn_turn(conf, data, fused, main=False, tries=5):
+    """One turn of the phase: a fresh net from the configuration's seed
+    (every turn starts from the same parameters), CHARRNN_WARMUP batches,
+    then CHARRNN_BATCHES timed batches through ``fit()`` on the fused or
+    the per-batch path. ``main``: this turn drives the main path, so the
+    launch counts are set to 0 just before its timed run, and that run is
+    profiled: a replay of a captured window calls no wrapper, so the
+    LSTM kernels it launched are counted by name in its profile. A
+    profile that recorded no device event at all saw nothing (its device
+    tracing did not start), and the turn runs again, up to ``tries``
+    times; the phase fails if none recorded anything."""
     import torch
     from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
-    from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
+    _fit_path(fused)
+    try:
+        for _ in range(tries if main else 1):
+            net = MultiLayerNetwork(conf, device=DEVICE).init()
+            rec = _WindowRecorder()
+            net.set_listeners(rec)
+            net.fit(ListDataSetIterator(data[:CHARRNN_WARMUP]))
+            torch.cuda.synchronize()
+            captures_warm = net._fused.captures if net._fused else 0
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
+
+            def timed():
+                net.fit(ListDataSetIterator(data[CHARRNN_WARMUP:]))
+            if main:
+                reset_launches()              # the main path starts here
+            before = read_lstm_launches()
+            if main:
+                wall, names, ops = profiled(timed)
+            else:
+                t0 = time.perf_counter()
+                timed()
+                torch.cuda.synchronize()
+                wall, names, ops = time.perf_counter() - t0, None, None
+            calls = tuple(a - b for a, b in zip(read_lstm_launches(), before))
+            flash = read_launches()           # ... and ends here
+            peak_bytes = torch.cuda.max_memory_allocated()
+            net.set_listeners([])
+            if names is None or names:
+                break
+        else:
+            raise AssertionError(f"torch.profiler recorded no device event "
+                                 f"in {tries} runs of the main path")
+    finally:
+        _fit_path(True)
+    seg, t = CHARRNN["tbptt_length"], CHARRNN["seq_len"]
+    windows = t // seg
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    # a batch: a sequence launch a layer a window, a backward launch a
+    # layer a step
+    want = (n_layers * windows * CHARRNN_BATCHES,
+            n_layers * t * CHARRNN_BATCHES)
+    # the per-batch loop calls the wrappers for every launch; the fused
+    # loop calls none in the timed run, whose every window is a replay
+    # of the graph captured in the warm-up
+    assert calls == ((0, 0) if fused else want), (fused, calls)
+    chars = CHARRNN["batch"] * t * CHARRNN_BATCHES
+    ms_per_batch = wall / CHARRNN_BATCHES * 1e3
+    share = None
+    if main:
+        launches = lstm_kernels(names)
+        assert launches == want, (fused, launches, want)
+        assert flash == (0, 0, 0), flash
+        share = {"profiled_batches": CHARRNN_BATCHES,
+                 **device_share(names, ops, CHARRNN_BATCHES, ms_per_batch)}
+    scores = [float(s) for s in rec.scores]
+    per_char = [sum(scores[i:i + windows]) / (windows * seg)
+                for i in range(0, len(scores), windows)]
+    assert len(per_char) == CHARRNN_WARMUP + CHARRNN_BATCHES
+    assert all(math.isfinite(x) for x in scores), scores
+    assert sum(per_char[-2:]) < sum(per_char[:2]), per_char
+    captures = net._fused.captures if net._fused else 0
+    if fused:
+        # one window signature (T 200 in windows of 50): captured once, in
+        # the warm-up
+        assert captures_warm == captures == len(net._fused.graphs) == 1, \
+            (captures_warm, captures)
+        assert net._last_fuse_stats["fused_groups"] == 1
+    else:
+        assert net._fused is None and captures == 0
+    out = {"net": net, "recorder": rec, "path":
+           "fused" if fused else "per_batch", "profiled": main,
+           "wall_s": wall, "chars_per_s": chars / wall,
+           "ms_per_batch": ms_per_batch,
+           "ms_per_window": ms_per_batch / windows,
+           "loss_per_char_by_batch": per_char,
+           "wrapper_calls_per_batch": {
+               "lstm_cell_fwd": calls[0] / CHARRNN_BATCHES,
+               "lstm_cell_bwd": calls[1] / CHARRNN_BATCHES},
+           "graphs_captured_in_warmup": captures_warm,
+           "graphs_captured": captures,
+           "fuse_stats": net._last_fuse_stats,
+           "peak_memory_bytes": peak_bytes,
+           "peak_above_start_bytes": peak_bytes - start_bytes,
+           "device_share": share}
+    if main:
+        out["kernel_launches"] = {
+            "lstm_cell_fwd": launches[0], "lstm_cell_bwd": launches[1],
+            "counted_by": "torch.profiler, the timed run",
+            "flash_attention": list(flash)}
+    return out
+
+
+def _leaf_flags(grads):
+    """Per leaf of each window's gradients: finite and not all zero."""
+    import torch
+    return torch.stack([torch.isfinite(g).all() & (g.abs().max() > 0)
+                        for w in grads for layer in w
+                        for g in layer.values()]).cpu().numpy()
+
+
+def phase_charrnn(card):
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
 
     conf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
                         hidden=CHARRNN["hidden"],
@@ -1397,75 +1569,92 @@ def phase_charrnn(card):
                         learning_rate=CHARRNN["learning_rate"])
     rng = np.random.RandomState(SEED + 3)
     data, floor = markov_batches(CHARRNN_WARMUP + CHARRNN_BATCHES, rng)
-    net = MultiLayerNetwork(conf, device=DEVICE).init()
-    rec = _WindowRecorder()
-    net.set_listeners(rec)
-    net.fit(ListDataSetIterator(data[:CHARRNN_WARMUP]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start_bytes = torch.cuda.memory_allocated()   # earlier phases' leftovers
-    reset_launches()                           # the main path starts here
-    t0 = time.perf_counter()
-    net.fit(ListDataSetIterator(data[CHARRNN_WARMUP:]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd, bwd = read_lstm_launches()           # ... and ends here
-    flash = read_launches()
-    peak_bytes = torch.cuda.max_memory_allocated()
-    net.set_listeners([])
-
-    seg, t = CHARRNN["tbptt_length"], CHARRNN["seq_len"]
-    windows = t // seg
-    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
-    # a batch: a sequence launch a layer a window, a backward launch a
-    # layer a step
-    per_batch = (n_layers * windows, n_layers * t)
-    assert (fwd, bwd) == tuple(n * CHARRNN_BATCHES for n in per_batch), \
-        (fwd, bwd)
-    assert flash == (0, 0, 0), flash
-    scores = [float(s) for s in rec.scores]
-    per_char = [sum(scores[i:i + windows]) / (windows * seg)
-                for i in range(0, len(scores), windows)]
-    assert len(per_char) == CHARRNN_WARMUP + CHARRNN_BATCHES
-    assert all(math.isfinite(x) for x in scores), scores
-    assert sum(per_char[-2:]) < sum(per_char[:2]), per_char
-    timed_grads = rec.grads[CHARRNN_WARMUP * windows:]
-    flags = torch.stack([torch.isfinite(g).all() & (g.abs().max() > 0)
-                         for w in timed_grads for layer in w
-                         for g in layer.values()]).cpu().numpy()
-    n_leaves = sum(len(layer) for layer in timed_grads[0])
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    # in turns, each from the same parameters: fused (the main path),
+    # per-batch, per-batch, fused
+    turns = [charrnn_turn(conf, data, True, main=True),
+             charrnn_turn(conf, data, False),
+             charrnn_turn(conf, data, False),
+             charrnn_turn(conf, data, True)]
+    fused, plain = turns[0], turns[1]
+    net = fused["net"]
+    # every window of the per-batch run hands its own gradients to the
+    # listeners; a fused group hands its last window's, for every update
+    flags = _leaf_flags(plain["recorder"].grads[CHARRNN_WARMUP * windows:])
     assert flags.all(), f"{int((~flags).sum())} leaf gradients zero or " \
-        "not finite"
-    del rec, timed_grads
+        "not finite (per-batch run)"
+    group_flags = _leaf_flags([net._last_gradients])
+    assert group_flags.all(), "the fused group's last gradients"
+    n_leaves = len(group_flags)
+    params = [t["net"].params() for t in turns]
 
-    breakdown = charrnn_window_breakdown(net, data[-1])
-    chars = CHARRNN["batch"] * t * CHARRNN_BATCHES
-    share = charrnn_device_share(net, data[-2],
-                                 wall / CHARRNN_BATCHES * 1e3)
+    def diff(a, b):
+        return float(np.abs(params[a] - params[b]).max())
+    same = {"fused_vs_per_batch": diff(0, 1),
+            "fused_vs_fused": diff(0, 3),
+            "per_batch_vs_per_batch": diff(1, 2)}
+    bitwise = {k: v == 0.0 for k, v in same.items()}
+    for t in turns:
+        t["net"].set_listeners([])
+        del t["recorder"]
+
+    seg = CHARRNN["tbptt_length"]
+    window_graph_ms = fused_window_graph_ms(net)
+
+    def fit_last_two():
+        _fit_path(False)
+        try:
+            plain["net"].fit(ListDataSetIterator(data[-2:]))
+        finally:
+            _fit_path(True)
+    # the per-batch path's share: two more batches under the profiler,
+    # against the unprofiled turn's ms per batch
+    for _ in range(5):
+        wall, names, ops = profiled(fit_last_two)
+        if names:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device event in "
+                             "five profiles of the per-batch fit")
+    plain_share = {"profiled_batches": 2,
+                   "profiled_wall_ms_per_batch": wall / 2 * 1e3,
+                   **device_share(names, ops, 2, plain["ms_per_batch"])}
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    assert lstm_kernels(names) == (2 * n_layers * windows,
+                                   2 * n_layers * CHARRNN["seq_len"]), \
+        plain_share["cuda_kernels_per_batch"]
+    breakdown = charrnn_window_breakdown(plain["net"], data[-1])
     out = net.output(data[0].features)
-    assert out.shape == (CHARRNN["batch"], t, CHARRNN["vocab_size"]) and \
-        np.isfinite(out).all()
+    assert out.shape == (CHARRNN["batch"], CHARRNN["seq_len"],
+                         CHARRNN["vocab_size"]) and np.isfinite(out).all()
+    keys = ("profiled", "chars_per_s", "ms_per_batch", "ms_per_window",
+            "wall_s", "wrapper_calls_per_batch", "graphs_captured_in_warmup",
+            "graphs_captured", "loss_per_char_by_batch")
     result = {"phase": "charrnn", "config": CHARRNN,
               "params": net.num_params(), "warmup_batches": CHARRNN_WARMUP,
-              "timed_batches": CHARRNN_BATCHES, "wall_s": wall,
-              "chars_per_s": chars / wall,
-              "ms_per_batch": wall / CHARRNN_BATCHES * 1e3,
-              "ms_per_window": wall / (CHARRNN_BATCHES * windows) * 1e3,
-              "loss_per_char_by_batch": per_char,
+              "timed_batches": CHARRNN_BATCHES, "path": "fused",
+              **{k: fused[k] for k in (
+                  "wall_s", "chars_per_s", "ms_per_batch", "ms_per_window",
+                  "loss_per_char_by_batch", "kernel_launches",
+                  "wrapper_calls_per_batch", "graphs_captured_in_warmup",
+                  "graphs_captured", "fuse_stats", "peak_memory_bytes",
+                  "peak_above_start_bytes", "device_share")},
               "loss_floor_per_char": floor,
               "uniform_loss_per_char": math.log(CHARRNN["vocab_size"]),
-              "kernel_launches": {"lstm_cell_fwd": fwd, "lstm_cell_bwd": bwd,
-                                  "flash_attention": list(flash)},
-              "launches_per_batch": {"lstm_cell_fwd": fwd / CHARRNN_BATCHES,
-                                     "lstm_cell_bwd": bwd / CHARRNN_BATCHES},
-              "leaves_with_nonzero_gradient_per_window": n_leaves,
-              "peak_memory_bytes": peak_bytes,
-              "peak_above_start_bytes": peak_bytes - start_bytes,
-              "window_breakdown": breakdown,
-              "device_share": share,
+              "window_graph_replay_ms": window_graph_ms,
+              "window_steps": seg,
+              "leaves_with_nonzero_gradient": n_leaves,
+              "turns": [{k: t[k] for k in ("path",) + keys} | {
+                  "busy_share": (fused["device_share"] if i == 0 else
+                                 plain_share if i == 1 else {}).get(
+                                     "busy_share_of_timed_batch")}
+                        for i, t in enumerate(turns)],
+              "param_max_abs_diff": same, "param_bitwise": bitwise,
+              "per_batch_device_share": plain_share,
+              "per_batch_window_breakdown": breakdown,
               "generate": charrnn_generate(net, rng),
               "card": card}
-    del net
+    del net, fused, plain, turns
     result["f32_card_vs_cpu"] = charrnn_card_vs_cpu(conf, data[0])
     emit(result)
     return result
@@ -1543,6 +1732,7 @@ def main():
         {"name": "lstm_cell_fwd", "route": "cuda",
          "source": src + "lstm_cell_fwd.cu", "replaces": ref + "508",
          "launches": cr["kernel_launches"]["lstm_cell_fwd"],
+         "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -1556,6 +1746,7 @@ def main():
         {"name": "lstm_cell_bwd", "route": "cuda",
          "source": src + "lstm_cell_bwd.cu", "replaces": ref + "540",
          "launches": cr["kernel_launches"]["lstm_cell_bwd"],
+         "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

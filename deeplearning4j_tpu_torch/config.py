@@ -20,7 +20,8 @@ import os
 import warnings
 from dataclasses import dataclass
 
-__all__ = ["Knob", "KNOBS", "env_flag", "env_int", "env_float", "env_str"]
+__all__ = ["Knob", "KNOBS", "env_flag", "env_int", "env_float", "env_is_set",
+           "env_str"]
 
 
 @dataclass(frozen=True)
@@ -52,6 +53,26 @@ _declare("DL4J_TORCH_FLASH_BWD", "str", "auto",
          "raises); any other value ('auto') takes the dQ and dK/dV CUDA "
          "kernels for a CUDA tensor and their plain twin for a CPU "
          "tensor. Counterpart: DL4J_TPU_FLASH_BWD.")
+_declare("DL4J_TORCH_FUSE_ADAPT", "flag", True,
+         "Adaptive fused-loop grouping: only the trailing group of a shape "
+         "bucket is padded to its full K; a mid-stream rebucket flush emits "
+         "the partial group at the next power of 2 (per batch at length "
+         "1), and a bucket that thrashes halves its K toward 1; 0 pads "
+         "every short group to K. Counterpart: DL4J_TPU_FUSE_ADAPT.")
+_declare("DL4J_TORCH_FUSE_AUTOTUNE", "flag", False,
+         "First-compile fusion autotuner: not ported yet (ROADMAP.md, queue "
+         "1); when set, fit() of an iterator raises NotImplementedError. "
+         "Counterpart: DL4J_TPU_FUSE_AUTOTUNE.")
+_declare("DL4J_TORCH_FUSE_STEPS", "int", 8,
+         "Fused-loop group size K for MultiLayerNetwork.fit(iterator): the "
+         "prefetch worker stacks up to K same-shape batches into one "
+         "StackedDataSet that fit_fused trains in one pass (on the card, "
+         "a replayed CUDA graph a tBPTT window); 1 keeps the per-batch "
+         "loop. Counterpart: DL4J_TPU_FUSE_STEPS.")
+_declare("DL4J_TORCH_FUSE_TBPTT", "flag", True,
+         "Let tBPTT models take the fused loop (each window's train step "
+         "one captured CUDA graph on the card); 0 keeps them on the "
+         "per-batch host window loop. Counterpart: DL4J_TPU_FUSE_TBPTT.")
 _declare("DL4J_TORCH_LM_ATTN", "str", "auto",
          "TransformerLM block attention route when block_size is set: "
          "'scan' takes the plain blockwise recurrence (CPU tensors only: "
@@ -91,6 +112,13 @@ _declare("DL4J_TORCH_SERVE_WAIT", "float", 0.002,
          "Batcher linger (seconds): how long the batch loop waits for "
          "more same-shape requests before dispatching a partial (padded) "
          "batch. Counterpart: DL4J_TPU_SERVE_WAIT.")
+_declare("DL4J_TORCH_TRANSFER_STAGE", "int", 8,
+         "Super-batch staging factor of fit(iterator)'s prefetch: up to "
+         "this many equal-shape maskless batches travel to the device in "
+         "one copy; 1 disables. Counterpart: DL4J_TPU_TRANSFER_STAGE.")
+_declare("DL4J_TORCH_TRANSFER_STAGE_BYTES", "int", 256 * 1024 * 1024,
+         "Byte cap on one staged or stacked transfer (and about twice this "
+         "on queued batches). Counterpart: DL4J_TPU_TRANSFER_STAGE_BYTES.")
 _declare("DL4J_TORCH_TRACE_DIR", "str", "",
          "Directory for Chrome trace-event span files (obs/tracing.py, "
          "one trace_<pid>.json per process); empty disables span "
@@ -135,6 +163,13 @@ def env_int(name, *, minimum=None):
         _warn(name, raw, "int", knob.default)
         return knob.default
     return v if minimum is None else max(minimum, v)
+
+
+def env_is_set(name):
+    """Whether a declared knob is set (non-empty) in the environment: the
+    operator chose a value, as opposed to the default applying."""
+    KNOBS[name]   # undeclared names raise, as for every reader
+    return bool(os.environ.get(name, "").strip())
 
 
 def env_float(name, *, minimum=None):

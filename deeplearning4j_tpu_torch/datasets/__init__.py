@@ -1,7 +1,8 @@
 """Data contracts of the port: DataSet and its iterators."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (
-    ArrayDataSetIterator, DataSet, DataSetIterator, ListDataSetIterator)
+    ArrayDataSetIterator, DataSet, DataSetIterator, ListDataSetIterator,
+    StackedDataSet)
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator"]
+           "ListDataSetIterator", "StackedDataSet"]

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator"]
+           "ListDataSetIterator", "StackedDataSet"]
 
 
 def _as_batch_array(a):
@@ -69,6 +69,31 @@ class DataSet:
             None if datasets[0].features_mask is None else np.concatenate([d.features_mask for d in datasets]),
             None if datasets[0].labels_mask is None else np.concatenate([d.labels_mask for d in datasets]),
         )
+
+
+class StackedDataSet:
+    """K same-shape minibatches stacked on a leading step axis [K, B, ...]:
+    the unit of the fused training loop (``MultiLayerNetwork.fit_fused``).
+
+    ``weights`` is a [K, B] per-example weight array: shape-bucket padding
+    (a ragged batch padded up to B rows, a short trailing group padded up
+    to K steps) carries zero weight, so padded rows and steps contribute
+    no loss, no gradient and no update. ``n_steps`` is the number of REAL
+    steps, which lead the stack; listeners are replayed for exactly
+    those."""
+
+    def __init__(self, features, labels, weights, n_steps):
+        self.features = features
+        self.labels = labels
+        self.weights = weights
+        self.n_steps = int(n_steps)
+
+    def num_steps(self):
+        return self.n_steps
+
+    def num_examples(self):
+        """Real examples across the whole stack (the weights' sum)."""
+        return int(float(self.weights[:self.n_steps].sum()))
 
 
 class _PreProcessorMixin:

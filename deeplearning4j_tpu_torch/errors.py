@@ -1,7 +1,8 @@
-"""Typed failures of the serving tier.
+"""Typed failures of the port: the serving tier's and the prefetch
+iterator's.
 
 All of them subclass ``RuntimeError``, so ``except RuntimeError`` call
-sites keep working. Each concrete class declares its wire semantics as
+sites keep working. Each concrete serving class declares its wire semantics as
 class attributes: ``http_status`` (the status an HTTP front end answers
 with) and ``retryable`` (whether the caller may resubmit the same
 request).
@@ -9,8 +10,15 @@ request).
 
 from __future__ import annotations
 
-__all__ = ["ServingError", "ServeQueueFullError", "ServeStoppedError",
-           "ServeDeadlineError"]
+__all__ = ["PrefetchWorkerDiedError", "ServingError", "ServeQueueFullError",
+           "ServeStoppedError", "ServeDeadlineError"]
+
+
+class PrefetchWorkerDiedError(RuntimeError):
+    """The async prefetch worker thread died without emitting its
+    end-of-stream sentinel (a hard crash, or the ``kill-worker`` fault).
+    The consumer's bounded ``queue.get`` loop sees the dead thread and
+    raises this, naming the worker, instead of blocking forever."""
 
 
 class ServingError(RuntimeError):

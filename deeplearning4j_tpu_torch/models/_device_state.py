@@ -9,8 +9,11 @@ train path needs.
   guard reverts also reverts it without a host read;
 - the non-finite guard (``DL4J_TORCH_NANGUARD``, default on): the step
   computes ``step_all_finite`` on the device and selects the old or the
-  new state with ``torch.where``; a device counter counts skipped steps,
-  and the host reads it one dispatch late and warns for each new one;
+  new state with ``torch.where``; a device counter, bumped in place,
+  counts skipped steps, and the host reads it one dispatch late (a step,
+  or a fused group: one read a group, not one a step) and warns for each
+  new one;
+- the fused loop's gate (:func:`fuse_allowed`);
 - mixed precision: ``_compute_dtype``/``_cast_floats``.
 
 Not ported here: the solver plumbing, checkpointing and the guard's
@@ -26,8 +29,8 @@ import torch
 
 from deeplearning4j_tpu_torch.config import env_flag
 
-__all__ = ["DeviceStateMixin", "nanguard_enabled", "step_all_finite",
-           "tree_where"]
+__all__ = ["DeviceStateMixin", "fuse_allowed", "nanguard_enabled",
+           "step_all_finite", "uses_dropout"]
 
 
 def nanguard_enabled():
@@ -46,16 +49,30 @@ def step_all_finite(score, grads):
     return ok
 
 
-def tree_where(ok, new, old):
-    """``torch.where(ok, new, old)`` leaf by leaf over nested dicts, lists
-    and tuples (None leaves stay None)."""
-    if isinstance(new, dict):
-        return {k: tree_where(ok, new[k], old[k]) for k in new}
-    if isinstance(new, (list, tuple)):
-        return type(new)(tree_where(ok, n, o) for n, o in zip(new, old))
-    if new is None:
-        return None
-    return torch.where(ok, new, old)
+def uses_dropout(layers):
+    """Whether any layer drops inputs in training."""
+    return any((l.dropout or 0.0) not in (0.0, 1.0) for l in layers)
+
+
+def fuse_allowed(conf, layers):
+    """Whether ``fit()`` may train K updates a pass through the fused loop
+    for this model: the single-update SGD path only (line-search solvers
+    and multi-iteration configs interleave host logic between updates).
+    tBPTT fuses unless ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch back
+    to the host window loop.
+
+    Two differences from the reference's gate: a model with dropout is
+    declined (a captured step cannot revert a ``torch.Generator`` on the
+    device, and the per-batch path computes the same numbers; ROADMAP.md
+    lists dropout inside the captured step), and there is no
+    batch-statistics layer to decline yet (BatchNormalization comes with
+    the LeNet path)."""
+    if (conf.optimization_algo != "stochastic_gradient_descent"
+            or conf.iterations != 1):
+        return False
+    if conf.backprop_type == "tbptt" and not env_flag("DL4J_TORCH_FUSE_TBPTT"):
+        return False
+    return not uses_dropout(layers)
 
 
 class DeviceStateMixin:
@@ -97,12 +114,13 @@ class DeviceStateMixin:
                                             device=self.device)
         return self._nan_skipped
 
-    def _nanguard_record(self, skipped):
-        """Keep a step's counter and read the PREVIOUS one on the host, so
-        the read lands on work the card has finished."""
+    def _nanguard_record(self):
+        """After a step or a fused group: keep a copy of the device
+        counter (the next dispatch bumps it in place) for the deferred
+        read, and read the previous dispatch's copy on the host, so the
+        read lands on work the card has finished."""
         pending = self._nan_pending
-        self._nan_skipped = skipped
-        self._nan_pending = skipped
+        self._nan_pending = self._nan_skipped_arg().clone()
         if pending is not None:
             self._nanguard_eval(pending)
 

@@ -8,8 +8,19 @@ per-layer updater rule, tBPTT carries detached, and the non-finite
 guard's select-revert, all on the network's device. ``fit_batch`` takes
 one minibatch (tBPTT models: one update per window of
 ``tbptt_fwd_length`` steps, carries zero at the start of each call);
-``fit`` walks a DataSet or an iterator. Inference: ``output``,
-``feed_forward``, ``score``, ``rnn_time_step``, ``evaluate``.
+``fit`` walks a DataSet or an iterator.
+
+``fit(iterator)`` follows the reference's default path: the iterator is
+wrapped in an ``AsyncDataSetIterator`` that groups up to
+``DL4J_TORCH_FUSE_STEPS`` same-shape batches into a ``StackedDataSet``,
+and ``fit_fused`` trains each group. Its unit is a window's whole train
+step (a tBPTT window, or the whole batch for standard backprop) written
+over static tensors updated in place (:class:`_FusedLoop`): on the card
+it is captured once per window signature in a CUDA graph and replayed;
+on the CPU the same function is called directly. Masked batches, models
+``fuse_allowed`` declines and ``DL4J_TORCH_FUSE_STEPS=1`` keep the
+per-batch path. Inference: ``output``, ``feed_forward``, ``score``,
+``rnn_time_step``, ``evaluate``.
 
 Parameters are per-layer dicts of f32 tensors under the reference's names
 and layouts; :func:`params_from_numpy` and :func:`updater_state_from_numpy`
@@ -18,23 +29,28 @@ carry a JAX net's parameters and updater state across, and ``params()``
 the card unless the caller passes ``device="cpu"``; its randomness (init,
 dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
 
-Not in this slice (ROADMAP.md, queue 1): ``fit_fused`` and the fused
-tBPTT scan (a captured CUDA graph is their counterpart), the async
-prefetch wrap of ``fit``, line-search solvers, pretraining and
-checkpoints.
+Not in this slice (ROADMAP.md, queue 1): line-search solvers,
+pretraining, checkpoints (``fit``'s ``checkpoint_every``/``resume_from``)
+and the fusion autotuner.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.datasets.async_iterator import (
+    AsyncDataSetIterator, default_stage)
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
-                                                       DataSetIterator)
+                                                       DataSetIterator,
+                                                       StackedDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models._device_state import (
-    DeviceStateMixin, nanguard_enabled, step_all_finite, tree_where)
+    DeviceStateMixin, nanguard_enabled, step_all_finite, uses_dropout)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer, LossLayer
@@ -42,10 +58,20 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 from deeplearning4j_tpu_torch.testing import faults
+from deeplearning4j_tpu_torch.tuning import autotuner
 from deeplearning4j_tpu_torch.utils import flat_params
 
 __all__ = ["MultiLayerNetwork", "params_from_numpy",
            "updater_state_from_numpy"]
+
+_OBS_GROUP_SECONDS = obs.histogram(
+    "train.dispatch_group_seconds",
+    "Host wall-clock of one fused dispatch group (its windows' graph "
+    "replays and their input copies)")
+_OBS_STEPS = obs.counter("train.steps_total",
+                         "Real (non-padding) parameter updates dispatched")
+_OBS_GROUPS = obs.counter("train.dispatch_groups_total",
+                          "Fused dispatch groups (fit_fused calls)")
 
 
 def _leaves(params, device):
@@ -96,6 +122,141 @@ def _is_carry_layer(layer):
         not isinstance(layer, GravesBidirectionalLSTM)
 
 
+def _tensor_leaves(tree):
+    """The tensors of nested dicts/lists/tuples, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s containers around the tensors drawn from ``leaves``, in
+    :func:`_tensor_leaves` order."""
+    if isinstance(tree, dict):
+        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}   # the tree's own key order
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return next(leaves) if isinstance(tree, torch.Tensor) else tree
+
+
+# warm-up calls of a window step on a side stream before its capture
+_GRAPH_WARMUP = 2
+
+
+def _captures_graphs(t):
+    """Whether window steps on ``t``'s device run as captured CUDA graphs
+    (the card) or as direct calls of the same function (the CPU)."""
+    return t.is_cuda
+
+
+class _WindowGraph:
+    """One window signature of the fused loop: static input buffers and,
+    on the card, the CUDA graph of the window step over them. Warm-up and
+    capture run with an all-zero ``ew``, so that the padding-step revert
+    leaves every state as it was; every real window fills x, y and ew and
+    replays."""
+
+    def __init__(self, xw, yw, ew):
+        self.x = torch.empty_like(xw, memory_format=torch.contiguous_format)
+        self.y = torch.empty_like(yw, memory_format=torch.contiguous_format)
+        self.ew = torch.zeros_like(ew)
+        self.graph = None
+
+    def capture(self, step):
+        """Warm ``step`` up on a side stream, then capture it. A failed
+        capture raises: there is no eager fallback on the card."""
+        dev = self.x.device
+        self.ew.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_GRAPH_WARMUP):
+                step(self)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(self)
+        self.graph = graph
+
+
+class _FusedLoop:
+    """The static tensors the fused window step reads and writes in place,
+    and its window graphs (one per signature; ``captures`` counts them).
+
+    The graphs point at the tensors they were captured over, so those are
+    kept: :meth:`bind` copies a rebound value (``init``,
+    ``reset_updater_state``, ``set_params``) into the bound tensor and
+    points the model back at it. The graph cache stays valid; a new model
+    (``clone``) starts its own."""
+
+    def __init__(self, device):
+        self.device = device
+        self.bound = {}        # model attribute -> the tensors bound
+        self.iteration = torch.zeros((), dtype=torch.int32, device=device)
+        self.skipped = torch.zeros((), dtype=torch.int32, device=device)
+        self.score = torch.zeros((), dtype=torch.float32, device=device)
+        self.last_grads = None
+        self.carries = {}      # (batch, dtype) -> (flat buffer, views)
+        self.graphs = {}       # window signature -> _WindowGraph
+        self.captures = 0
+
+    def bind(self, net):
+        """Point ``net`` at the bound tensors, copying in any value it was
+        given since the last group."""
+        for attr in ("params_list", "updater_states", "states_list"):
+            tree = getattr(net, attr)
+            cur = _tensor_leaves(tree)
+            bound = self.bound.setdefault(attr, cur)
+            if len(cur) != len(bound):
+                raise RuntimeError(f"the model's {attr} changed structure "
+                                   "under the fused loop")
+            if any(c is not b for c, b in zip(cur, bound)):
+                with torch.no_grad():
+                    for c, b in zip(cur, bound):
+                        if c is not b:
+                            b.copy_(c)
+                setattr(net, attr, _rebuild(tree, iter(bound)))
+        if self.last_grads is None:
+            self.last_grads = [{k: torch.zeros_like(v).detach()
+                                for k, v in p.items()}
+                               for p in net.params_list]
+        with torch.no_grad():
+            it = net._device_iteration()
+            if it is not self.iteration:
+                self.iteration.copy_(it)
+                net._iter_dev = self.iteration
+            sk = net._nan_skipped_arg()
+            if sk is not self.skipped:
+                self.skipped.copy_(sk)
+                net._nan_skipped = self.skipped
+
+    def batch_carries(self, net, batch, dtype):
+        """The carries of a batch's windows, zeroed: one flat buffer per
+        batch size, (h, c) views per carry layer, None elsewhere."""
+        key = (batch, dtype)
+        if key not in self.carries:
+            widths = [l.n_out if _is_carry_layer(l) else 0
+                      for l in net.layers]
+            flat = torch.zeros(2 * batch * sum(widths), dtype=dtype,
+                               device=self.device)
+            views, pos = [], 0
+            for w in widths:
+                if not w:
+                    views.append(None)
+                    continue
+                h = flat[pos:pos + batch * w].view(batch, w)
+                c = flat[pos + batch * w:pos + 2 * batch * w].view(batch, w)
+                views.append((h, c))
+                pos += 2 * batch * w
+            self.carries[key] = (flat, views)
+        flat, views = self.carries[key]
+        flat.zero_()
+        return views
+
+
 class MultiLayerNetwork(DeviceStateMixin):
     def __init__(self, conf: MultiLayerConfiguration, *, device=None):
         self.conf = conf
@@ -111,6 +272,8 @@ class MultiLayerNetwork(DeviceStateMixin):
         self._rnn_carries = None
         self._last_gradients = None
         self._last_batch_size = None
+        self._fused = None            # _FusedLoop, made by the first group
+        self._last_fuse_stats = None
 
     # ------------------------------------------------------------------
     # init & parameter API
@@ -280,7 +443,7 @@ class MultiLayerNetwork(DeviceStateMixin):
     # the train step
     # ------------------------------------------------------------------
     def _uses_dropout(self):
-        return any((l.dropout or 0.0) not in (0.0, 1.0) for l in self.layers)
+        return uses_dropout(self.layers)
 
     def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew):
         """(score, (new_states, new_carries), grads as a list of dicts) at
@@ -298,74 +461,70 @@ class MultiLayerNetwork(DeviceStateMixin):
             grads[i][k] = torch.zeros_like(v) if g is None else g
         return score.detach(), aux, grads
 
-    def _train_step(self, x, y, fmask, lmask, ew, carries, tbptt):
+    def _train_step(self, x, y, fmask, lmask, ew, carries):
         """One update, eagerly: the body of the reference's
-        ``_build_train_step``. Returns (score, grads, new carries)."""
+        ``_build_train_step``; tBPTT ``carries`` are updated in place to
+        the ones the next window starts from. Returns (score, grads)."""
         rng = self._rng if self._uses_dropout() else None
         rng_start = None if rng is None else rng.get_state()
         rngs = None if rng is None else [rng] * len(self.layers)
         score, (new_states, new_carries), grads = self._value_and_grad(
             x, y, fmask, lmask, rngs, True, carries, ew)
-        new_carries = self._apply_update(score, grads, new_states,
-                                         new_carries, carries, tbptt,
-                                         rng_start)
-        return score, grads, new_carries
+        guard = nanguard_enabled()
+        self._apply_update(score, grads, new_states, new_carries, carries,
+                           guard, rng_start=rng_start)
+        if guard:
+            # the host reads the counter one step late
+            self._nanguard_record()
+        return score, grads
 
     def _apply_update(self, score, grads, new_states, new_carries, carries,
-                      tbptt, rng_start=None):
-        """The update half of the step: each layer's updater rule, the
-        tBPTT carries detached, and the non-finite guard's select-revert
-        (``rng_start``: the generator state before the step, when dropout
-        drew from it). Returns the carries the next window starts from."""
-        guard = nanguard_enabled()
+                      guard, real=None, rng_start=None):
+        """The update half of the step, written in place into the
+        network's tensors: each layer's updater rule, the tBPTT
+        ``carries`` (None without tBPTT) set to the window's final ones
+        without their graph, and the iteration counter, all of it
+        select-reverted where ``keep`` is false. ``keep`` is ``real`` (the
+        fused loop's device bool: the window weighs anything) and, under
+        the guard, the step's loss and gradients being finite; a real,
+        non-finite step bumps the skipped counter. No host read, but one:
+        when dropout drew from the generator (``rng_start``, its state
+        before the step), the guard decides on the host whether to put it
+        back, since a generator cannot be selected on the device."""
         it = self._device_iteration()
-        confs = [l.updater_config(self.conf.max_iterations)
-                 for l in self.layers]
         with torch.no_grad():
-            steps, new_upd = [], []
-            for conf_u, p, g, s in zip(confs, self.params_list, grads,
-                                       self.updater_states):
-                if not p:
-                    steps.append(None)
-                    new_upd.append(s)
-                    continue
-                upd, s2 = updaters_mod.compute_updates(conf_u, g, s, it,
-                                                       params=p)
-                steps.append(upd)
-                new_upd.append(s2)
-            if tbptt:
-                # truncation: the next window starts from these values,
-                # without their graph
-                new_carries = [None if c is None else
-                               tuple(t.detach() for t in c)
-                               for c in new_carries]
+            keep = real
             if guard:
-                # a non-finite step is reverted on the device: params,
-                # layer state, updater state, carries and iteration, and
-                # counted; the host reads the counter one step late
                 ok = step_all_finite(score, grads)
-                for p, upd in zip(self.params_list, steps):
-                    for k, upd_k in (upd or {}).items():
-                        p[k].copy_(torch.where(ok, p[k] - upd_k, p[k]))
-                new_states = tree_where(ok, new_states, self.states_list)
-                new_upd = tree_where(ok, new_upd, self.updater_states)
-                if tbptt:
-                    new_carries = tree_where(ok, new_carries, carries)
-                self._iter_dev = torch.where(ok, it + 1, it)
-                self._nanguard_record(self._nan_skipped_arg()
-                                      + (~ok).to(torch.int32))
-                # the generator cannot be selected on the device: when
-                # dropout drew from it, one host read decides
-                if rng_start is not None and not bool(ok):
-                    self._rng.set_state(rng_start)
-            else:
-                for p, upd in zip(self.params_list, steps):
-                    for k, upd_k in (upd or {}).items():
-                        p[k].sub_(upd_k)
-                self._iter_dev = it + 1
-        self.states_list = new_states
-        self.updater_states = new_upd
-        return new_carries
+                keep = ok if real is None else real & ok
+                self._nan_skipped_arg().add_(
+                    (~ok if real is None else real & ~ok).to(torch.int32))
+
+            def put(old, new):
+                old.copy_(new if keep is None
+                          else torch.where(keep, new, old))
+            for layer, p, g, s in zip(self.layers, self.params_list, grads,
+                                      self.updater_states):
+                if not p:
+                    continue
+                upd, s2 = updaters_mod.compute_updates(
+                    layer.updater_config(self.conf.max_iterations), g, s, it,
+                    params=p)
+                for k in p:
+                    put(p[k], p[k] - upd[k])
+                for new, old in zip(_tensor_leaves(s2), _tensor_leaves(s)):
+                    put(old, new)
+            for new, old in zip(_tensor_leaves(new_states),
+                                _tensor_leaves(self.states_list)):
+                put(old, new)
+            if carries is not None:
+                # truncation: the next window starts from these values
+                for new, old in zip(_tensor_leaves(new_carries),
+                                    _tensor_leaves(carries)):
+                    put(old, new.detach())
+            put(it, it + 1)
+            if guard and rng_start is not None and not bool(ok):
+                self._rng.set_state(rng_start)
 
     def _after_update(self, score, grads, batch):
         self.score_ = score   # device scalar; read lazily
@@ -426,8 +585,7 @@ class MultiLayerNetwork(DeviceStateMixin):
             ew = self._tensor(ew)
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
             return self._fit_tbptt(x, y, fmask, lmask, ew)
-        score, grads, _ = self._train_step(x, y, fmask, lmask, ew, None,
-                                           False)
+        score, grads = self._train_step(x, y, fmask, lmask, ew, None)
         self._after_update(score, grads, x.shape[0])
         return score
 
@@ -446,12 +604,146 @@ class MultiLayerNetwork(DeviceStateMixin):
             ys = y[:, start:start + seg] if y.ndim == 3 else y
             fm = None if fmask is None else fmask[:, start:start + seg]
             lm = None if lmask is None else lmask[:, start:start + seg]
-            score, grads, carries = self._train_step(xs, ys, fm, lm, ew,
-                                                     carries, True)
+            score, grads = self._train_step(xs, ys, fm, lm, ew, carries)
             last_score = score
             self._after_update(score, grads, xs.shape[0])
         self.score_ = last_score
         return last_score
+
+    # ------------------------------------------------------------------
+    # the fused loop: a StackedDataSet, one window step at a time over
+    # static tensors (a replayed CUDA graph on the card)
+    # ------------------------------------------------------------------
+    def _tbptt_window_plan(self, xs):
+        """The tBPTT window plan ``(seg, full windows, remainder)`` of a
+        stacked [K, B, T, F] group, or None when the group trains standard
+        backprop; from the configuration and the group's shape only."""
+        if self.conf.backprop_type != "tbptt" or xs.ndim != 4:
+            return None
+        seg = int(self.conf.tbptt_fwd_length)
+        t = xs.shape[2]
+        return (seg, t // seg, t % seg)
+
+    def _fused_window_step(self, win, carries, guard):
+        """One window's update, written into the fused loop's static
+        tensors in place: loss and gradients, the per-layer update, the
+        tBPTT carries detached, and the select-revert of all of it (params,
+        layer and updater state, carries, iteration) where ``keep = real
+        and finite`` (``real``: a row of ``win.ew`` weighs more than 0),
+        the skipped counter bumped for a real, non-finite step, and the
+        last gradients taken where ``real``. No host read: a CUDA graph
+        holds it."""
+        fl = self._fused
+        score, (new_states, new_carries), grads = self._value_and_grad(
+            win.x, win.y, None, None, None, True, carries, win.ew)
+        with torch.no_grad():
+            real = (win.ew > 0).any()
+            self._apply_update(score, grads, new_states, new_carries,
+                               carries, guard, real=real)
+            for lg, g in zip(fl.last_grads, grads):
+                for k in lg:
+                    lg[k].copy_(torch.where(real, g[k], lg[k]))
+            fl.score.copy_(score)
+
+    def _fused_window(self, xw, yw, ew, carries, guard):
+        """Run one window of the fused loop: fill its signature's static
+        inputs and replay its graph (capturing it on first use), or on the
+        CPU call the step directly."""
+        fl = self._fused
+        sig = (tuple(xw.shape), xw.dtype, tuple(yw.shape), yw.dtype,
+               carries is not None, guard, xw.device)
+        win = fl.graphs.get(sig)
+        if win is None:
+            win = fl.graphs[sig] = _WindowGraph(xw, yw, ew)
+        win.x.copy_(xw)
+        win.y.copy_(yw)
+        if _captures_graphs(win.x):
+            if win.graph is None:
+                win.capture(lambda w: self._fused_window_step(w, carries,
+                                                              guard))
+                fl.captures += 1
+            win.ew.copy_(ew)
+            win.graph.replay()
+        else:
+            win.ew.copy_(ew)
+            self._fused_window_step(win, carries, guard)
+
+    def fit_fused(self, stacked):
+        """The real steps of a ``StackedDataSet`` ([K, B, ...] features and
+        labels, [K, B] weights, ``n_steps`` real steps leading): each
+        step's windows (tBPTT) or whole batch as one window step of the
+        fused loop. Padding steps are identity updates by contract, so
+        only the ``n_steps`` real ones run; padded rows (weight 0) leave
+        the loss through the example weights. Listeners are replayed
+        afterwards, one ``iteration_done`` per update. The ``nan-step``
+        fault fires once a group; its param is the step it poisons."""
+        if self.params_list is None:
+            self.init()
+        self._check_solver_supported()
+        if self._uses_dropout():
+            raise NotImplementedError(
+                "fit_fused with dropout: the captured step cannot revert "
+                "the generator on the device yet (ROADMAP.md, queue 1 "
+                "item 1); fit() keeps such models on the per-batch path")
+        xs, ys = self._tensor(stacked.features), self._tensor(stacked.labels)
+        ews = self._tensor(stacked.weights)
+        spec = faults.fire("nan-step")
+        step = None if spec is None else spec.param_int(0)
+        if step is not None and 0 <= step < xs.shape[0]:
+            if xs.is_floating_point():
+                xs = xs.clone()
+                xs[step] = float("nan")
+            else:
+                ys = ys.clone()
+                ys[step] = float("nan")
+        return self._fused_dispatch(xs, ys, ews, stacked.n_steps,
+                                    nanguard_enabled())
+
+    def _fused_dispatch(self, xs, ys, ews, k, guard):
+        """The ``k`` real steps of a group through the fused loop, then the
+        host bookkeeping: the guard's record (one deferred read a group),
+        metrics and span, fresh copies of the scores and last gradients,
+        and the listener replay (``k`` times the windows a batch)."""
+        t0 = time.perf_counter()
+        plan = self._tbptt_window_plan(xs)
+        windows = [slice(None)] if plan is None else \
+            [slice(a, a + plan[0]) for a in range(0, xs.shape[2], plan[0])]
+        n_w = len(windows)
+        ku = k * n_w
+        if self._fused is None:
+            self._fused = _FusedLoop(self.device)
+        fl = self._fused
+        fl.bind(self)
+        scores = torch.empty(ku, dtype=torch.float32, device=self.device)
+        for i in range(k):
+            x, y, ew = xs[i], ys[i], ews[i]
+            carries = None if plan is None else fl.batch_carries(
+                self, x.shape[0], x.dtype)
+            for j, w in enumerate(windows):
+                yw = y[:, w] if plan is not None and y.ndim == 3 else y
+                self._fused_window(x[:, w], yw, ew, carries, guard)
+                scores[i * n_w + j].copy_(fl.score)
+        if guard:
+            self._nanguard_record()
+        self._last_gradients = [{name: g.clone() for name, g in lg.items()}
+                                for lg in fl.last_grads]
+        dt = time.perf_counter() - t0
+        _OBS_GROUP_SECONDS.record(dt)
+        _OBS_GROUPS.inc()
+        _OBS_STEPS.inc(ku)
+        obs.add_span("fit.dispatch_group", t0, dt, steps=ku)
+        it0 = self.iteration
+        self._last_batch_size = int(xs.shape[1])
+        if self.listeners:
+            for i in range(ku):
+                self.iteration = it0 + i + 1
+                self._score = scores[i]
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration)
+        self.iteration = it0 + ku
+        self._iter_dev_py = self.iteration
+        self._score = scores[ku - 1]
+        return self._score
 
     # ------------------------------------------------------------------
     # public training API
@@ -474,9 +766,36 @@ class MultiLayerNetwork(DeviceStateMixin):
             self._nanguard_flush()
             return self
         if isinstance(data, DataSetIterator) or hasattr(data, "__iter__"):
+            return self._fit_iterator(data, epochs)
+        raise ValueError(f"Cannot fit on {type(data)}")
+
+    def _fit_iterator(self, data, epochs):
+        """The reference's ``fit(DataSetIterator)``: wrap a plain iterator
+        in the prefetcher with ``fuse_wrap_config``'s grouping, route each
+        ``StackedDataSet`` to ``fit_fused`` and every other batch to
+        ``fit_batch`` (with unit example weights where the run is bucketed,
+        so a row-padded ragged batch takes the same path)."""
+        wrapped = None
+        use_ew = False
+        self._last_fuse_stats = None
+        if isinstance(data, DataSetIterator) and \
+                not isinstance(data, AsyncDataSetIterator):
+            fuse, k_resolver, bucket_pad, _ = autotuner.fuse_wrap_config(self)
+            use_ew = bucket_pad
+            data = wrapped = AsyncDataSetIterator(
+                data, queue_size=4, stage=default_stage(), fuse=fuse,
+                k_resolver=k_resolver, bucket_pad=bucket_pad,
+                device=self.device)
+        try:
             for _ in range(epochs):
                 for ds in data:
+                    if isinstance(ds, StackedDataSet):
+                        self.fit_fused(ds)
+                        continue
                     ew = getattr(ds, "example_weights", None)
+                    if (ew is None and use_ew and ds.features_mask is None
+                            and ds.labels_mask is None):
+                        ew = np.ones(int(ds.features.shape[0]), np.float32)
                     for _ in range(self.conf.iterations):
                         self.fit_batch(ds.features, ds.labels,
                                        ds.features_mask, ds.labels_mask,
@@ -485,9 +804,15 @@ class MultiLayerNetwork(DeviceStateMixin):
                     if hasattr(lst, "on_epoch_end"):
                         lst.on_epoch_end(self)
                 self.epoch_count += 1
+            # the last group's counter must not ride past the fit unread
             self._nanguard_flush()
-            return self
-        raise ValueError(f"Cannot fit on {type(data)}")
+        finally:
+            if wrapped is not None:
+                wrapped.shutdown()
+                self._last_fuse_stats = wrapped.fuse_stats()
+            if obs.tracing.enabled():
+                obs.tracing.flush()
+        return self
 
     # ------------------------------------------------------------------
     # inference / scoring

@@ -19,7 +19,7 @@ from deeplearning4j_tpu_torch.obs import metrics, tracing
 from deeplearning4j_tpu_torch.obs.metrics import (counter, gauge, histogram,
                                                   metrics_snapshot,
                                                   reset_metrics)
-from deeplearning4j_tpu_torch.obs.tracing import span
+from deeplearning4j_tpu_torch.obs.tracing import add_span, span
 
-__all__ = ["metrics", "tracing", "counter", "gauge", "histogram",
+__all__ = ["metrics", "tracing", "add_span", "counter", "gauge", "histogram",
            "metrics_snapshot", "reset_metrics", "span"]

@@ -27,8 +27,8 @@ import time
 
 from deeplearning4j_tpu_torch.config import env_str
 
-__all__ = ["span", "enabled", "trace_dir", "flush", "reset_trace",
-           "event_count"]
+__all__ = ["add_span", "span", "enabled", "trace_dir", "flush",
+           "reset_trace", "event_count"]
 
 _MAX_EVENTS = 200_000
 
@@ -112,6 +112,21 @@ def span(name, **args):
     if not enabled():
         return _NULL_SPAN
     return _Span(name, args)
+
+
+def add_span(name, start, duration, **args):
+    """Record an externally timed span: ``start`` is a
+    ``time.perf_counter()`` reading and ``duration`` seconds (the clock
+    ``span`` reads), for code that times a stretch itself."""
+    if not enabled():
+        return
+    th = threading.current_thread()
+    event = {"ph": "X", "name": name, "cat": name.split(".")[0],
+             "ts": int(start * 1e6), "dur": int(duration * 1e6),
+             "pid": _PID, "tid": th.native_id}
+    if args:
+        event["args"] = args
+    _append(event, th.name)
 
 
 def event_count():

@@ -22,7 +22,8 @@ def learning_rate(policy, base_lr, iteration, *, decay_rate=0.0, steps=1.0,
     if policy == "none":
         return float(base_lr)
     it = torch.as_tensor(iteration).to(torch.float32)
-    lr = torch.tensor(base_lr, dtype=torch.float32, device=it.device)
+    # a fill, not a copy from the host: a CUDA graph can hold it
+    lr = torch.full((), float(base_lr), dtype=torch.float32, device=it.device)
     if policy == "exponential":
         return lr * torch.pow(torch.tensor(decay_rate, dtype=torch.float32),
                               it)
@@ -53,7 +54,7 @@ def learning_rate(policy, base_lr, iteration, *, decay_rate=0.0, steps=1.0,
         out = lr
         for k in sorted(int(k) for k in schedule):
             v = schedule[k] if k in schedule else schedule[str(k)]
-            out = torch.where(it >= k, torch.tensor(
-                float(v), dtype=torch.float32, device=it.device), out)
+            out = torch.where(it >= k, torch.full(
+                (), float(v), dtype=torch.float32, device=it.device), out)
         return out
     raise ValueError(f"Unknown lr policy: {policy!r}")

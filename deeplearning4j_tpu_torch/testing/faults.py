@@ -16,7 +16,8 @@ Spec grammar (``DL4J_TORCH_FAULT_SPEC`` or :func:`install`/:func:`inject`)::
     N        := 0-based occurrence index at which the fault triggers
     param    := site-specific argument (e.g. a sleep duration)
 
-Wired sites (``serving/`` and ``models/multi_layer_network.py``):
+Wired sites (``serving/``, ``datasets/async_iterator.py`` and
+``models/multi_layer_network.py``):
 
 =====================  =====================================================
 ``queue-overflow``     submit N sees a full request queue and fails fast
@@ -33,10 +34,20 @@ Wired sites (``serving/`` and ``models/multi_layer_network.py``):
 ``expire-deadline``    deadline-sweep check N treats its request as
                        expired: it fails ``ServeDeadlineError`` before
                        dispatch
-``nan-step``           ``MultiLayerNetwork.fit_batch`` call N poisons its
-                       float inputs with NaN (its labels when the
-                       features are integers), so the non-finite guard
-                       must revert that step (every tBPTT window of it)
+``nan-step``           train dispatch N poisons its float inputs with NaN
+                       (its labels when the features are integers), so
+                       the non-finite guard must revert it: a
+                       ``MultiLayerNetwork.fit_batch`` call (every tBPTT
+                       window of it) or a ``fit_fused`` group, where
+                       ``param`` is the step of the group (default 0)
+``iter-raise``         the prefetch worker raises ``RuntimeError`` instead
+                       of delivering base-iterator batch N (every pull
+                       counts)
+``slow-batch``         the prefetch worker sleeps ``param`` seconds
+                       (default 0.1) before handling batch N
+``kill-worker``        the prefetch worker thread exits WITHOUT its
+                       end-of-stream sentinel at batch N (a hard crash);
+                       the consumer raises ``PrefetchWorkerDiedError``
 =====================  =====================================================
 
 Tests prefer the :func:`inject` context manager, which arms a plan and
@@ -66,6 +77,12 @@ class FaultSpec:
     def param_float(self, default):
         try:
             return float(self.param)
+        except (TypeError, ValueError):
+            return default
+
+    def param_int(self, default):
+        try:
+            return int(self.param)
         except (TypeError, ValueError):
             return default
 

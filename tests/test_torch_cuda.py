@@ -632,3 +632,193 @@ def test_sequence_kernel_is_one_launch_and_bit_identical_on_card(
         for what, a, c, r in zip(("out", "h_all", "c_all"), first, second,
                                  captured):
             assert torch.equal(a, c) and torch.equal(a, r), what
+
+
+# ---------------------------------------------------------------------------
+# the fused loop on the card: a window's train step as one CUDA graph
+# ---------------------------------------------------------------------------
+def _card_charrnn(device, seg):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    conf = zoo.char_rnn(vocab_size=20, hidden=32, tbptt_length=seg,
+                        learning_rate=0.01)
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _card_batches(n, t, seed, rows=4):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    r = np.random.RandomState(seed)
+    eye = np.eye(20, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = r.randint(0, 20, (rows, t + 1))
+        out.append(DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    return out
+
+
+def _card_fit(net, batches, monkeypatch, k, epochs=1):
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    monkeypatch.setenv("DL4J_TORCH_FUSE_STEPS", str(k))
+    net.fit(ListDataSetIterator(batches), epochs=epochs)
+    torch.cuda.synchronize()
+    return net
+
+
+@pytest.mark.cuda
+def test_fused_fit_on_card_equals_per_batch_on_card(cuda_device,
+                                                    monkeypatch):
+    """Six batches and a ragged 3-row trailer, T 30 in windows of 10,
+    through the captured window graphs (K 4) and through the per-batch
+    loop (K 1) from the same parameters: parameters and rmsprop state
+    agree bitwise, the device iteration and the last score too."""
+    batches = _card_batches(6, 30, seed=1) + _card_batches(1, 30, 2, rows=3)
+    fused = _card_charrnn(cuda_device, 10)
+    plain = _card_charrnn(cuda_device, 10)
+    plain.set_params(fused.params())
+    _card_fit(fused, batches, monkeypatch, 4)
+    _card_fit(plain, batches, monkeypatch, 1)
+    assert fused._last_fuse_stats["fused_groups"] == 2
+    assert fused._fused.captures == 1 and plain._fused is None
+    assert fused.iteration == plain.iteration == 7 * 3
+    np.testing.assert_array_equal(fused.params(), plain.params())
+    for a, b in zip(fused.updater_states, plain.updater_states):
+        for key in a:
+            for k in a[key]:
+                assert torch.equal(a[key][k], b[key][k]), (key, k)
+    assert int(fused._iter_dev) == int(plain._iter_dev)
+    assert fused.score_ == plain.score_
+
+
+@pytest.mark.cuda
+def test_one_capture_per_window_signature_across_epochs(cuda_device,
+                                                        monkeypatch):
+    """T 12 in windows of 5, 5 and 2: two window signatures, so two
+    captures over two epochs, and none in a later fit after
+    ``set_params`` and ``reset_updater_state``, which the graphs see
+    (the next fit equals a fresh net's from the same parameters)."""
+    batches = _card_batches(6, 12, seed=3)
+    net = _card_charrnn(cuda_device, 5)
+    p0 = net.params()
+    _card_fit(net, batches, monkeypatch, 4, epochs=2)
+    assert net._fused.captures == len(net._fused.graphs) == 2
+    net.set_params(p0)
+    net.reset_updater_state()
+    net.iteration = 0
+    _card_fit(net, batches, monkeypatch, 4)
+    assert net._fused.captures == 2
+    fresh = _card_charrnn(cuda_device, 5)
+    fresh.set_params(p0)
+    _card_fit(fresh, batches, monkeypatch, 4)
+    np.testing.assert_array_equal(net.params(), fresh.params())
+
+
+@pytest.mark.cuda
+def test_replayed_window_runs_two_sequence_and_100_backward_kernels(
+        cuda_device, monkeypatch):
+    """A captured 50-step window of the two-layer char-RNN, replayed:
+    ``torch.profiler`` counts 2 sequence kernels and 100 backward kernels
+    (a profile that recorded no device event at all saw nothing and is
+    taken again, up to five times), while the wrappers' launch counters
+    stand still: a replay calls no wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    net = _card_charrnn(cuda_device, 50)
+    batch = _card_batches(1, 50, seed=4)
+    _card_fit(net, batch, monkeypatch, 8)            # captures
+    before = (port_lc.lstm_sequence.launches, port_lc.lstm_cell.bwd_launches)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _card_fit(net, batch, monkeypatch, 8)
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+    after = (port_lc.lstm_sequence.launches, port_lc.lstm_cell.bwd_launches)
+    assert net._fused.captures == 1
+    assert sum("lstm_seq_kernel" in n for n in names) == 2, names
+    assert sum("lstm_bwd_kernel" in n for n in names) == 100
+    assert after == before
+
+
+@pytest.mark.cuda
+def test_poisoned_step_on_card_equals_the_stream_without_it(cuda_device,
+                                                            monkeypatch):
+    """``nan-step@0:1`` under the guard on the card: the replayed windows
+    of the poisoned batch are reverted, so the run equals the stream
+    without that batch, bitwise, and counts its windows."""
+    import warnings
+    from deeplearning4j_tpu_torch.testing import faults
+    batches = _card_batches(4, 30, seed=5)
+    poisoned = _card_charrnn(cuda_device, 10)
+    control = _card_charrnn(cuda_device, 10)
+    control.set_params(poisoned.params())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with faults.inject("nan-step@0:1"):
+            _card_fit(poisoned, batches, monkeypatch, 4)
+    assert any("non-finite" in str(w.message) for w in caught)
+    _card_fit(control, [batches[0]] + batches[2:], monkeypatch, 4)
+    np.testing.assert_array_equal(poisoned.params(), control.params())
+    assert poisoned.nan_skipped_steps == 3
+    assert int(poisoned._iter_dev) == int(control._iter_dev)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_with_a_decaying_lr_on_card_equals_per_batch(cuda_device,
+                                                              monkeypatch):
+    """Standard backprop through the fused loop on the card (a batch is
+    one window graph), adam with an exponentially decaying learning rate
+    and gradient clipping, whose lr is computed on the card inside the
+    graph: the same bits as the per-batch loop."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    def net():
+        conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(0.05)
+                .updater("adam").learning_rate_policy("exponential")
+                .lr_policy_decay_rate(0.9)
+                .gradient_normalization("ClipL2PerLayer")
+                .gradient_normalization_threshold(1.0).list()
+                .layer(DenseLayer(n_in=12, n_out=32, activation="relu"))
+                .layer(OutputLayer(n_out=5, activation="softmax",
+                                   loss="mcxent"))
+                .build())
+        return MultiLayerNetwork(conf, device=cuda_device).init()
+    r = np.random.RandomState(7)
+    batches = [DataSet(r.rand(16, 12).astype(np.float32),
+                       np.eye(5, dtype=np.float32)[r.randint(0, 5, 16)])
+               for _ in range(5)]
+    fused, plain = net(), net()
+    plain.set_params(fused.params())
+    _card_fit(fused, batches, monkeypatch, 4, epochs=2)
+    _card_fit(plain, batches, monkeypatch, 1, epochs=2)
+    assert fused._fused.captures == 1
+    np.testing.assert_array_equal(fused.params(), plain.params())
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_nothing_runs_eagerly(cuda_device,
+                                                          monkeypatch):
+    """A window step that fails while it is being captured raises out of
+    ``fit``: no eager fallback updates the parameters (the warm-up runs
+    with zero weights, an identity update)."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    real = MultiLayerNetwork._fused_window_step
+
+    def failing(self, win, carries, guard):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture refused")
+        return real(self, win, carries, guard)
+    monkeypatch.setattr(MultiLayerNetwork, "_fused_window_step", failing)
+    net = _card_charrnn(cuda_device, 10)
+    p0 = net.params()
+    with pytest.raises(RuntimeError, match="capture refused"):
+        _card_fit(net, _card_batches(2, 30, seed=6), monkeypatch, 4)
+    assert net._fused.captures == 0
+    np.testing.assert_array_equal(net.params(), p0)

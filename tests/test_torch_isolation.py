@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-- no file of ``deeplearning4j_tpu_torch/``, nor ``chip_smoke.py`` or the
-  design-variant timers ``flash_variants.py`` and ``lstm_variants.py``,
-  imports ``jax``, ``jaxlib`` or ``deeplearning4j_tpu`` (AST scan), and
+- no file of ``deeplearning4j_tpu_torch/`` (the prefetcher
+  ``datasets/async_iterator.py`` and ``tuning/autotuner.py`` included),
+  nor ``chip_smoke.py`` or the design-variant timers ``flash_variants.py``
+  and ``lstm_variants.py``, imports ``jax``, ``jaxlib`` or
+  ``deeplearning4j_tpu`` (AST scan), and
   importing the whole package in a fresh interpreter loads no ``jax``;
 - a CPU tensor never touches a kernel: no launch count moves and no
   kernel library is loaded, forward, backward or a training step; the
@@ -50,6 +52,11 @@ def _port_sources():
                                         "lstm_variants.py")]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert len(files) > 10 and all(p.exists() for p in scripts)
+    # the fused loop's modules, carried over from jax-free reference
+    # modules, are scanned like every other
+    for mod in ("datasets/async_iterator.py", "tuning/autotuner.py",
+                "models/multi_layer_network.py"):
+        assert PKG / mod in files, mod
     return files
 
 
@@ -270,8 +277,12 @@ def _lstm_launches():
 
 
 def test_cpu_char_rnn_never_touches_the_lstm_kernels(monkeypatch):
-    """Training, inference and stepping a char-RNN on the CPU move no LSTM
-    launch count and load no kernel library."""
+    """Training (per batch and through the fused loop), inference and
+    stepping a char-RNN on the CPU move no LSTM launch count and load no
+    kernel library."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+
     def no_kernel(name):
         raise AssertionError(f"kernel {name} loaded for a CPU tensor")
     monkeypatch.setattr(_build, "load", no_kernel)
@@ -282,6 +293,8 @@ def test_cpu_char_rnn_never_touches_the_lstm_kernels(monkeypatch):
     x = np.eye(8, dtype=np.float32)[np.random.RandomState(0).randint(
         0, 8, (2, 9))]
     net.fit_batch(x, x)
+    net.fit(ListDataSetIterator([DataSet(x, x)] * 2))
+    assert net._last_fuse_stats["fused_groups"] == 1
     net.output(x)
     net.rnn_time_step(x[:, 0])
     assert _lstm_launches() == before

@@ -476,10 +476,13 @@ def test_fit_over_a_dataset_runs_conf_iterations():
 # ---------------------------------------------------------------------------
 # the non-finite guard
 # ---------------------------------------------------------------------------
-def test_nan_step_fault_equals_the_stream_without_that_batch():
-    """A guarded run whose batch 1 is poisoned (``nan-step@1``) reverts
+def test_nan_step_fault_equals_the_stream_without_that_batch(monkeypatch):
+    """A guarded run whose batch 1 is poisoned (``nan-step@1``: the
+    per-batch loop's ``fit_batch`` call 1, so the fused loop is off here;
+    ``tests/test_torch_fused.py`` holds its ``nan-step@0:1``) reverts
     every window of it: parameters, rmsprop state and the device
     iteration equal the same stream with batch 1 left out, bitwise."""
+    monkeypatch.setenv("DL4J_TORCH_FUSE_STEPS", "1")
     batches = [DataSet(x, y) for x, y in _char_batches(4, seed=6)]
     _, poisoned = _charrnn_pair()
     _, control = _charrnn_pair()
