@@ -77,7 +77,35 @@ Phases, each fatal on failure:
    characters (one sequence launch of T 1 a layer a character; their
    outputs must equal ``output()`` of the same sequence), and one f32
    window of a fresh copy on the card and on the CPU from the same
-   weights, which must agree.
+   weights, which must agree;
+6. lenet — ``zoo.lenet_mnist`` at full width (28x28x1; conv 5x5x20,
+   max-pool 2, conv 5x5x50, max-pool 2, dense 500, softmax 10; 431,080
+   parameters; Nesterov momentum 0.9, lr 0.01) on real MNIST digits
+   (``tests/fixtures/real_mnist`` through ``MnistDataSetIterator``):
+   (1) the fixture's 320 training digits tiled to 160 batches of 128
+   (bench.py's N) through ``fit()`` after 4 warm-up batches, in four
+   turns from the same parameters: fused (K 8, the main path: one
+   captured graph a whole batch step, replayed; its timed run is
+   profiled, and the counts of the package's five kernels, set to 0
+   just before it, must read 0 after: convolution, pooling and the GEMMs
+   are PyTorch's), per-batch, per-batch, fused; images/s, ms a batch,
+   graphs captured, the busy share and the top device ops, peak memory,
+   the parameters' largest difference between the turns; and the fused
+   loop against the per-batch loop over 16 batches, bitwise (under
+   ``cudnn.deterministic`` if the defaults differ); (2) a fresh net, 40
+   epochs at batch 64 (shuffle seed 5), must reach the reference's bars:
+   held-out accuracy >= 0.90 and pooled >= 0.97; (3) a narrow LeNet with
+   a BatchNormalization after each conv takes one f32 step on the card
+   and on the CPU from the same weights (loss, gradients and running
+   moments within the train phase's bars), and a max-pool over a blank
+   image routes its tied gradients alike on both; (4) the learned net,
+   written with ``write_model``, restored on the card gives the same
+   output bits on the 64 held-out digits (on the CPU within
+   CPU_GPU_TOL), and the reference's two committed archives restore on
+   the card to their recorded outputs within 1e-5; (5) 2 epochs of 20
+   batches with a checkpoint every 8 updates, and a fresh net resumed
+   from the first checkpoint, must end with the same parameters, bitwise
+   (under ``cudnn.deterministic`` if the defaults differ).
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -188,6 +216,19 @@ LSTM_FWD_TOL, LSTM_BWD_RTOL = 1e-6, 1e-5
 # stepwise rnn_time_step against output() of the same sequence: f32
 # probabilities, the input projection taken at another batch shape
 RNN_STEP_TOL = 1e-5
+
+# the LeNet phase: bench.py's bench_lenet sizing of zoo.lenet_mnist
+# (batch 128, N 160 batches, 4 warm-up batches), on the fixture's real
+# digits tiled to N; the learning run is the reference's real-MNIST gate
+LENET_BATCH = 128
+LENET_WARMUP = 4
+LENET_BATCHES = 160
+LENET_LEARN = dict(epochs=40, batch=64, shuffle_seed=5)
+LENET_HELD_OUT_BAR, LENET_POOLED_BAR = 0.90, 0.97
+LENET_RESUME = dict(epochs=2, batches=20, every=8)
+MNIST_FIXTURE = ("tests", "fixtures", "real_mnist")
+CKPT_FIXTURES = ("tests", "fixtures", "checkpoints")
+ARCHIVE_TOL = 1e-5   # the reference archives' recorded outputs
 # one f32 window, card against CPU: loss 1e-5 abs; each updated parameter
 # leaf within 1e-4 of its max abs
 CHARRNN_LOSS_TOL, CHARRNN_PARAM_RTOL = 1e-5, 1e-4
@@ -1660,6 +1701,440 @@ def phase_charrnn(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase lenet: zoo.lenet_mnist through fit() on real MNIST digits, then
+# learning, card against CPU, save and restore, resume
+# ---------------------------------------------------------------------------
+def _repo_path(*parts):
+    return str(Path(__file__).resolve().parent.joinpath(*parts))
+
+
+def lenet_images():
+    """The fixture's real MNIST digits (320 training, 64 held out) through
+    the port's ``MnistDataSetIterator``, and the training set tiled to
+    LENET_BATCHES batches of LENET_BATCH (bench.py's N)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        MnistDataSetIterator
+    fixture = _repo_path(*MNIST_FIXTURE)
+    train = MnistDataSetIterator(LENET_BATCH, data_dir=fixture)
+    test = MnistDataSetIterator(LENET_BATCH, train=False, data_dir=fixture)
+    assert not train.synthetic and train.features.shape == (320, 28, 28, 1)
+    n = LENET_BATCH * LENET_BATCHES
+    reps = -(-n // len(train.features))
+    return (train, test, np.tile(train.features, (reps, 1, 1, 1))[:n],
+            np.tile(train.labels, (reps, 1))[:n])
+
+
+class _ScoreRecorder:
+    """Keeps each update's device score (no host read)."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(model._score)
+
+
+def lenet_turn(conf, feats, labels, fused, main=False, tries=5):
+    """One throughput turn: a fresh net from the configuration's seed (the
+    same parameters every turn), LENET_WARMUP batches, then the
+    LENET_BATCHES timed batches through ``fit()`` on the fused or the
+    per-batch path. ``main``: the counts of the package's kernels are set
+    to 0 just before the timed run and read just after (the LeNet path
+    runs none of them: convolution, pooling and the GEMMs are PyTorch's),
+    and the timed run is profiled; a profile that recorded no device
+    event runs the turn again, up to ``tries`` times."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.config import env_int
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    warm = LENET_WARMUP * LENET_BATCH
+    _fit_path(fused)
+    try:
+        for _ in range(tries if main else 1):
+            net = MultiLayerNetwork(conf, device=DEVICE).init()
+            rec = _ScoreRecorder()
+            net.set_listeners(rec)
+            net.fit(ArrayDataSetIterator(feats[:warm], labels[:warm],
+                                         LENET_BATCH))
+            torch.cuda.synchronize()
+            captures_warm = net._fused.captures if net._fused else 0
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
+
+            def timed():
+                net.fit(ArrayDataSetIterator(feats, labels, LENET_BATCH))
+            if main:
+                reset_launches()              # the main path starts here
+                wall, names, ops = profiled(timed)
+            else:
+                t0 = time.perf_counter()
+                timed()
+                torch.cuda.synchronize()
+                wall, names, ops = time.perf_counter() - t0, None, None
+            package_kernels = read_launches() + read_lstm_launches()
+            peak_bytes = torch.cuda.max_memory_allocated()
+            net.set_listeners([])
+            if names is None or names:
+                break
+        else:
+            raise AssertionError(f"torch.profiler recorded no device event "
+                                 f"in {tries} runs of the main path")
+    finally:
+        _fit_path(True)
+    if main:
+        assert package_kernels == (0,) * 5, package_kernels
+    scores = np.array([float(s) for s in rec.scores])
+    assert len(scores) == LENET_WARMUP + LENET_BATCHES
+    assert np.isfinite(scores).all()
+    assert scores[-8:].mean() < scores[:8].mean(), scores
+    captures = net._fused.captures if net._fused else 0
+    if fused:
+        # one window signature (a whole 128-row batch), captured in the
+        # warm-up and replayed for every timed batch
+        assert captures_warm == captures == len(net._fused.graphs) == 1, \
+            (captures_warm, captures)
+        k = env_int("DL4J_TORCH_FUSE_STEPS")   # the default K
+        assert net._last_fuse_stats["fused_groups"] == \
+            -(-LENET_BATCHES // k), net._last_fuse_stats
+    else:
+        assert net._fused is None
+    ms_per_batch = wall / LENET_BATCHES * 1e3
+    out = {"net": net, "path": "fused" if fused else "per_batch",
+           "profiled": main, "wall_s": wall,
+           "images_per_s": LENET_BATCH * LENET_BATCHES / wall,
+           "ms_per_batch": ms_per_batch,
+           "loss_first_8": float(scores[:8].mean()),
+           "loss_last_8": float(scores[-8:].mean()),
+           "graphs_captured_in_warmup": captures_warm,
+           "graphs_captured": captures,
+           "peak_memory_bytes": peak_bytes,
+           "peak_above_start_bytes": peak_bytes - start_bytes}
+    if main:
+        out["package_kernel_launches"] = {
+            "flash_attention": list(package_kernels[:3]),
+            "lstm": list(package_kernels[3:]),
+            "counted_by": "the wrappers, the timed run"}
+        # no LSTM kernel on this path: device_share's LSTM counts read 0
+        out["device_share"] = {"profiled_batches": LENET_BATCHES,
+                               **device_share(names, ops, LENET_BATCHES,
+                                              ms_per_batch)}
+    return out
+
+
+def _bitwise_or_deterministic(run):
+    """``run()`` gives two parameter vectors that a contract says are
+    equal. Held bitwise under cuDNN's default algorithms; where that
+    fails, again under ``torch.backends.cudnn.deterministic``, which then
+    must hold. Returns what was needed and the differences seen."""
+    import numpy as np
+    import torch
+    a, b = run()
+    default_diff = float(np.abs(a - b).max())
+    out = {"default_max_abs_diff": default_diff,
+           "bitwise_under_defaults": default_diff == 0.0}
+    if default_diff == 0.0:
+        return out | {"needed": "defaults"}
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = run()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    det_diff = float(np.abs(a - b).max())
+    assert det_diff == 0.0, (default_diff, det_diff)
+    return out | {"needed": "torch.backends.cudnn.deterministic",
+                  "deterministic_max_abs_diff": det_diff}
+
+
+def lenet_fused_equals_per_batch(conf, feats, labels):
+    """The fused loop against the per-batch loop, 16 batches from the same
+    parameters: bitwise, as on the CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    n = 16 * LENET_BATCH
+
+    def run():
+        params = []
+        for fused in (True, False):
+            _fit_path(fused)
+            try:
+                net = MultiLayerNetwork(conf, device=DEVICE).init()
+                net.fit(ArrayDataSetIterator(feats[:n], labels[:n],
+                                             LENET_BATCH))
+                params.append(net.params())
+            finally:
+                _fit_path(True)
+        return params
+    return _bitwise_or_deterministic(run)
+
+
+def lenet_learn(conf, train, test):
+    """A fresh net, 40 epochs on the fixture at batch 64, shuffle seed 5
+    (the reference's real-MNIST accuracy gate): held-out and pooled
+    accuracy against the reference's bars."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    it = MnistDataSetIterator(LENET_LEARN["batch"], shuffle=True,
+                              seed=LENET_LEARN["shuffle_seed"],
+                              data_dir=_repo_path(*MNIST_FIXTURE))
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=LENET_LEARN["epochs"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tr = float((np.argmax(net.output(it.features), 1) == it.label_ids).mean())
+    te = float((np.argmax(net.output(test.features), 1)
+                == test.label_ids).mean())
+    pooled = (tr * len(it.label_ids) + te * len(test.label_ids)) \
+        / (len(it.label_ids) + len(test.label_ids))
+    assert te >= LENET_HELD_OUT_BAR and pooled >= LENET_POOLED_BAR, \
+        (te, pooled)
+    return net, {"epochs": LENET_LEARN["epochs"],
+                 "batch": LENET_LEARN["batch"],
+                 "updates": net.iteration, "seconds": seconds,
+                 "train_accuracy": tr, "held_out_accuracy": te,
+                 "pooled_accuracy": pooled,
+                 "bars": {"held_out": LENET_HELD_OUT_BAR,
+                          "pooled": LENET_POOLED_BAR}}
+
+
+def narrow_bn_lenet():
+    """LeNet's shape at 12x12 with a BatchNormalization after each conv:
+    conv 3x3x4 (relu, no bias), BN, max-pool 2, conv 3x3x6 (relu, no bias),
+    BN, max-pool 2, dense 16, softmax 10."""
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, DenseLayer, OutputLayer,
+        SubsamplingLayer)
+    b = (NeuralNetConfiguration.Builder().seed(SEED).learning_rate(0.01)
+         .updater("nesterovs").momentum(0.9).weight_init("xavier")
+         .activation("identity").list())
+    for n in (4, 6):
+        b = (b.layer(ConvolutionLayer(n_out=n, kernel_size=(3, 3),
+                                      activation="relu", has_bias=False))
+             .layer(BatchNormalization())
+             .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                     stride=(2, 2))))
+    return (b.layer(DenseLayer(n_out=16, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.convolutional(12, 12, 1)).build())
+
+
+def lenet_card_vs_cpu(train):
+    """One f32 step of the narrow BN LeNet (per batch: BN declines the
+    fused loop) on the card and on the CPU from the same weights: loss,
+    every gradient leaf and the running moments; then a max-pool over a
+    blank image, whose ties must route the gradient to the same element
+    on both."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models._device_state import fuse_allowed
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
+    conf = narrow_bn_lenet()
+    assert not fuse_allowed(conf, conf.layers)
+    card = MultiLayerNetwork(conf, device=DEVICE).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    x = np.ascontiguousarray(train.features[:32, 8:20, 8:20])
+    y = train.labels[:32]
+    got_loss = float(card.fit_batch(x, y))
+    want_loss = float(cpu.fit_batch(x, y))
+    rel = {}
+    for i, (g, w) in enumerate(zip(card.gradient(), cpu.gradient())):
+        for k in w:
+            rel[f"{i}.{k}"] = ((g[k].cpu() - w[k]).abs().max()
+                               / w[k].abs().max().clamp(min=1e-30)).item()
+    for i, (g, w) in enumerate(zip(card.states_list, cpu.states_list)):
+        for k in w:
+            rel[f"{i}.{k}"] = ((g[k].cpu() - w[k]).abs().max()
+                               / w[k].abs().max().clamp(min=1e-30)).item()
+    loss_err = abs(got_loss - want_loss)
+    worst = max(rel, key=rel.get)
+    assert loss_err <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_RTOL, \
+        (loss_err, worst, rel[worst])
+    pool = SubsamplingLayer(pooling_type="max")
+    blank = np.zeros((4, 24, 24, 20), np.float32)
+    blank[:, 5, 7] = 0.25
+    g = np.random.RandomState(SEED).rand(4, 12, 12, 20).astype(np.float32)
+    dx = []
+    for dev in (DEVICE, "cpu"):
+        xt = torch.tensor(blank, device=dev, requires_grad=True)
+        out, _ = pool.forward({}, xt, {})
+        (d,) = torch.autograd.grad((out * torch.tensor(g, device=dev)).sum(),
+                                   xt)
+        dx.append(d.cpu())
+    assert torch.equal(dx[0], dx[1]), "max-pool ties routed differently"
+    return {"config": "12x12x1, conv 3x3x4 + BN, conv 3x3x6 + BN, dense 16",
+            "batch": 32, "dtype": "float32", "loss_card": got_loss,
+            "loss_cpu": want_loss, "loss_abs_err": loss_err,
+            "grad_and_state_max_rel_err": rel[worst],
+            "worst_leaf": worst, "max_pool_ties_same_routing": True}
+
+
+def lenet_archives(net, test, tmp):
+    """The learned net written with ``write_model`` and restored on the
+    card (``output()`` bit-identical on the held-out digits) and on the
+    CPU (within CPU_GPU_TOL); the reference's two committed archives
+    restored on the card against their recorded outputs (the LSTM one
+    through the sequence kernel)."""
+    import os
+    import numpy as np
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    path = os.path.join(tmp, "lenet.zip")
+    t0 = time.perf_counter()
+    model_serializer.write_model(net, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = model_serializer.restore_multi_layer_network(path)
+    restore_s = time.perf_counter() - t0
+    want = net.output(test.features)
+    got = card.output(test.features)
+    assert card.device == net.device and np.array_equal(got, want)
+    cpu = model_serializer.restore_multi_layer_network(path, device="cpu")
+    cpu_err = float(np.abs(cpu.output(test.features) - want).max())
+    assert cpu_err <= CPU_GPU_TOL, cpu_err
+    fixtures = {}
+    for name in ("convbn_r3", "lstm_r3"):
+        before = read_lstm_launches()
+        restored = model_serializer.restore_model(
+            _repo_path(*CKPT_FIXTURES, f"{name}.zip"))
+        with np.load(_repo_path(*CKPT_FIXTURES,
+                                f"{name}_expected.npz")) as z:
+            probe, expected = z["probe"], z["out"]
+        err = float(np.abs(restored.output(probe) - expected).max())
+        seq = read_lstm_launches()[0] - before[0]
+        assert restored.device == net.device and err <= ARCHIVE_TOL, \
+            (name, err)
+        assert (seq > 0) == (name == "lstm_r3"), (name, seq)
+        fixtures[name] = {"max_abs_err": err, "lstm_sequence_launches": seq}
+    return {"archive_bytes": os.path.getsize(path), "write_s": write_s,
+            "restore_s": restore_s, "card_output_bit_identical": True,
+            "cpu_restore_max_abs_err": cpu_err, "reference_archives":
+            fixtures, "tolerance": ARCHIVE_TOL}
+
+
+def lenet_resume(conf, feats, labels, tmp):
+    """LENET_RESUME's epochs of its batches with a checkpoint every
+    ``every`` updates (one a group of K 8), uninterrupted; then a fresh
+    net resumed from the checkpoint written after the first group must
+    end with the same parameters."""
+    import os
+    import shutil
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.utils import training_checkpoint
+    n = LENET_RESUME["batches"] * LENET_BATCH
+    every, epochs = LENET_RESUME["every"], LENET_RESUME["epochs"]
+    seen = {}
+    # keep every checkpoint of the run: the first is the one resumed from
+    os.environ["DL4J_TORCH_CKPT_KEEP"] = "100"
+
+    def run():
+        full_dir = os.path.join(tmp, "full")
+        resume_dir = os.path.join(tmp, "resume")
+        for d in (full_dir, resume_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        full = MultiLayerNetwork(conf, device=DEVICE).init()
+        full.fit(ArrayDataSetIterator(feats[:n], labels[:n], LENET_BATCH),
+                 epochs=epochs, checkpoint_every=every,
+                 checkpoint_dir=full_dir)
+        files = training_checkpoint.checkpoint_files(full_dir)
+        assert files[0][0] == every, files
+        os.makedirs(resume_dir)
+        shutil.copy(os.path.join(full_dir, files[0][1]), resume_dir)
+        net = MultiLayerNetwork(conf, device=DEVICE).init()
+        t0 = time.perf_counter()
+        net.fit(ArrayDataSetIterator(feats[:n], labels[:n], LENET_BATCH),
+                epochs=epochs, checkpoint_every=every,
+                resume_from=resume_dir)
+        seen.update(checkpoints=[it for it, _ in files],
+                    resumed_from=files[0][0],
+                    resumed_fit_s=time.perf_counter() - t0,
+                    iterations=(full.iteration, net.iteration))
+        assert full.iteration == net.iteration == epochs * \
+            LENET_RESUME["batches"]
+        return net.params(), full.params()
+    try:
+        out = _bitwise_or_deterministic(run)
+    finally:
+        os.environ.pop("DL4J_TORCH_CKPT_KEEP", None)
+    return {**LENET_RESUME, **seen, **out}
+
+
+def phase_lenet(card):
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import zoo
+
+    conf = zoo.lenet_mnist()
+    train, test, feats, labels = lenet_images()
+    seconds = {}
+    t0 = time.perf_counter()
+    # in turns, each from the same parameters: fused (the main path),
+    # per-batch, per-batch, fused
+    turns = [lenet_turn(conf, feats, labels, True, main=True),
+             lenet_turn(conf, feats, labels, False),
+             lenet_turn(conf, feats, labels, False),
+             lenet_turn(conf, feats, labels, True)]
+    params = [t.pop("net").params() for t in turns]
+    seconds["turns"] = time.perf_counter() - t0
+
+    def diff(a, b):
+        return float(np.abs(params[a] - params[b]).max())
+    same = {"fused_vs_per_batch": diff(0, 1), "fused_vs_fused": diff(0, 3),
+            "per_batch_vs_per_batch": diff(1, 2)}
+    main_turn = turns[0]
+    result = {"phase": "lenet", "config": "zoo.lenet_mnist (28x28x1; conv "
+              "5x5x20, max-pool 2, conv 5x5x50, max-pool 2, dense 500, "
+              "softmax 10; nesterovs 0.9, lr 0.01)",
+              "params": int(params[0].size), "batch": LENET_BATCH,
+              "warmup_batches": LENET_WARMUP,
+              "timed_batches": LENET_BATCHES, "path": "fused",
+              **{k: main_turn[k] for k in (
+                  "images_per_s", "ms_per_batch", "wall_s",
+                  "graphs_captured_in_warmup", "graphs_captured",
+                  "peak_memory_bytes", "peak_above_start_bytes",
+                  "package_kernel_launches", "device_share")},
+              "turns": [{k: t[k] for k in (
+                  "path", "profiled", "images_per_s", "ms_per_batch",
+                  "wall_s", "graphs_captured", "loss_first_8",
+                  "loss_last_8", "peak_memory_bytes")} for t in turns],
+              "param_max_abs_diff_between_turns": same, "card": card}
+    steps = [("fused_equals_per_batch",
+              lambda: lenet_fused_equals_per_batch(conf, feats, labels)),
+             ("learning", lambda: lenet_learn(conf, train, test)),
+             ("f32_card_vs_cpu", lambda: lenet_card_vs_cpu(train))]
+    for key, step in steps:
+        t0 = time.perf_counter()
+        result[key] = step()
+        seconds[key] = time.perf_counter() - t0
+    net, result["learning"] = result["learning"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, step in (
+                ("save_restore", lambda: lenet_archives(net, test, tmp)),
+                ("resume", lambda: lenet_resume(conf, feats, labels, tmp))):
+            t0 = time.perf_counter()
+            result[key] = step()
+            seconds[key] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -1691,6 +2166,7 @@ def main():
     sl = phase_slice(card)
     tr = phase_train(card)
     cr = phase_charrnn(card)
+    phase_lenet(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
     # kernels at the char-RNN's

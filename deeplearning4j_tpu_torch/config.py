@@ -42,6 +42,23 @@ def _declare(name, kind, default, doc):
 
 
 # keep alphabetical
+_declare("DL4J_TORCH_CKPT_EVERY", "int", 0,
+         "Default periodic-checkpoint cadence (parameter updates between "
+         "training checkpoints) of fit(checkpoint_dir=...); 0 disables "
+         "unless fit's checkpoint_every argument sets one. Counterpart: "
+         "DL4J_TPU_CKPT_EVERY.")
+_declare("DL4J_TORCH_CKPT_KEEP", "int", 3,
+         "Rolling retention of training checkpoints: the newest K are kept "
+         "in a directory. Counterpart: DL4J_TPU_CKPT_KEEP.")
+_declare("DL4J_TORCH_CKPT_VERIFY", "flag", True,
+         "Check each payload's CRC-32 against the archive's manifest when "
+         "a checkpoint is restored; 0 skips that pass (a structurally "
+         "damaged archive still raises CheckpointCorruptError). "
+         "Counterpart: DL4J_TPU_CKPT_VERIFY.")
+_declare("DL4J_TORCH_DATA_DIR", "str", "",
+         "Root of the offline dataset files (e.g. <root>/mnist/ with the "
+         "idx files), searched before ~/.deeplearning4j_tpu. "
+         "Counterpart: DL4J_TPU_DATA_DIR.")
 _declare("DL4J_TORCH_FAULT_SPEC", "str", "",
          "Deterministic fault-injection plan (testing/faults.py), e.g. "
          "'queue-overflow@0,slow-request@1:0.2'; empty disables every "
@@ -95,6 +112,15 @@ _declare("DL4J_TORCH_NANGUARD", "flag", True,
          "loss or gradients are not finite is reverted on the device "
          "(params, updater state, tBPTT carries, iteration) and counted. "
          "Counterpart: DL4J_TPU_NANGUARD.")
+_declare("DL4J_TORCH_NANGUARD_CKPT", "str", "dl4j_tpu_diverged.zip",
+         "Path the non-finite guard writes the model (its last good "
+         "parameters) to before raising TrainingDivergedError. "
+         "Counterpart: DL4J_TPU_NANGUARD_CKPT.")
+_declare("DL4J_TORCH_NANGUARD_PATIENCE", "int", 3,
+         "Consecutive dispatches (a step, or a fused group) holding a "
+         "reverted non-finite step that the guard tolerates before it "
+         "writes the model and raises TrainingDivergedError. Counterpart: "
+         "DL4J_TPU_NANGUARD_PATIENCE.")
 _declare("DL4J_TORCH_SERVE_BUCKETS", "str", "8",
          "Batch-size bucket ladder (comma-separated ints) the serving "
          "batcher pads request batches into. Counterpart: "

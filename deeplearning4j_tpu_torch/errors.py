@@ -1,5 +1,5 @@
-"""Typed failures of the port: the serving tier's and the prefetch
-iterator's.
+"""Typed failures of the port: the serving tier's, the prefetch
+iterator's, the guarded train loop's and the checkpoint reader's.
 
 All of them subclass ``RuntimeError``, so ``except RuntimeError`` call
 sites keep working. Each concrete serving class declares its wire semantics as
@@ -10,8 +10,29 @@ request).
 
 from __future__ import annotations
 
-__all__ = ["PrefetchWorkerDiedError", "ServingError", "ServeQueueFullError",
-           "ServeStoppedError", "ServeDeadlineError"]
+__all__ = ["CheckpointCorruptError", "PrefetchWorkerDiedError",
+           "ServingError", "ServeQueueFullError", "ServeStoppedError",
+           "ServeDeadlineError", "TrainingDivergedError"]
+
+
+class TrainingDivergedError(RuntimeError):
+    """Raised by the non-finite guard after ``DL4J_TORCH_NANGUARD_PATIENCE``
+    consecutive dispatches (a step, or a fused group) each held a step
+    whose loss or gradients were not finite and were reverted, so going on
+    cannot make progress. The model (its last good parameters: reverted
+    steps never touched them) is written to ``DL4J_TORCH_NANGUARD_CKPT``
+    before this raises; the message names the path."""
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint failed its integrity check on restore: the archive is
+    truncated, a payload's CRC-32 disagrees with the manifest written
+    beside it, or a required entry is missing. Raised instead of the
+    underlying zip, numpy or json error, so that a caller can tell a torn
+    or bit-rotted file (fall back to an older checkpoint) from a
+    programming error. The atomic write protocol (``utils/atomic_io.py``)
+    leaves this reachable only through storage damage or a writer that
+    did not use it, never through a crash during a save."""
 
 
 class PrefetchWorkerDiedError(RuntimeError):

@@ -13,12 +13,16 @@ train path needs.
   counts skipped steps, and the host reads it one dispatch late (a step,
   or a fused group: one read a group, not one a step) and warns for each
   new one;
+- the guard's divergence policy: after ``DL4J_TORCH_NANGUARD_PATIENCE``
+  consecutive dispatches that each held a reverted step, the model (its
+  last good parameters) is written to ``DL4J_TORCH_NANGUARD_CKPT`` and
+  ``TrainingDivergedError`` raised;
+- ``fit``'s periodic training checkpoints and their resume
+  (``utils/training_checkpoint.py``);
 - the fused loop's gate (:func:`fuse_allowed`);
 - mixed precision: ``_compute_dtype``/``_cast_floats``.
 
-Not ported here: the solver plumbing, checkpointing and the guard's
-divergence policy (patience, auto-checkpoint), which come with the
-checkpoint slice (ROADMAP.md, queue 1).
+Not ported here: the solver plumbing (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -27,10 +31,20 @@ import warnings
 
 import torch
 
-from deeplearning4j_tpu_torch.config import env_flag
+from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.config import env_flag, env_int, env_str
+from deeplearning4j_tpu_torch.errors import TrainingDivergedError
+from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization
 
 __all__ = ["DeviceStateMixin", "fuse_allowed", "nanguard_enabled",
            "step_all_finite", "uses_dropout"]
+
+_OBS_NONFINITE = obs.counter(
+    "train.nonfinite_steps_total",
+    "Training steps reverted by the non-finite guard")
+_OBS_DIVERGED = obs.counter(
+    "train.diverged_total",
+    "Fits ended by the guard's divergence policy (TrainingDivergedError)")
 
 
 def nanguard_enabled():
@@ -57,20 +71,24 @@ def uses_dropout(layers):
 def fuse_allowed(conf, layers):
     """Whether ``fit()`` may train K updates a pass through the fused loop
     for this model: the single-update SGD path only (line-search solvers
-    and multi-iteration configs interleave host logic between updates).
-    tBPTT fuses unless ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch back
-    to the host window loop.
+    and multi-iteration configs interleave host logic between updates),
+    and no layer with batch statistics: BatchNormalization's batch moments
+    would see the rows that bucketing pads a ragged batch with, and
+    normalize the real rows (and move the running moments) otherwise
+    than the per-batch loop. tBPTT fuses unless
+    ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch back to the host window
+    loop.
 
-    Two differences from the reference's gate: a model with dropout is
+    One difference from the reference's gate: a model with dropout is
     declined (a captured step cannot revert a ``torch.Generator`` on the
     device, and the per-batch path computes the same numbers; ROADMAP.md
-    lists dropout inside the captured step), and there is no
-    batch-statistics layer to decline yet (BatchNormalization comes with
-    the LeNet path)."""
+    lists dropout inside the captured step)."""
     if (conf.optimization_algo != "stochastic_gradient_descent"
             or conf.iterations != 1):
         return False
     if conf.backprop_type == "tbptt" and not env_flag("DL4J_TORCH_FUSE_TBPTT"):
+        return False
+    if any(isinstance(l, BatchNormalization) for l in layers):
         return False
     return not uses_dropout(layers)
 
@@ -85,6 +103,7 @@ class DeviceStateMixin:
     _nan_skipped = None     # device int32 count of skipped steps
     _nan_pending = None     # counter awaiting the deferred host read
     _nan_seen = 0           # last host-read value of the counter
+    _nan_bad_consec = 0     # consecutive dispatches with a reverted step
 
     @property
     def score_(self):
@@ -131,15 +150,75 @@ class DeviceStateMixin:
             self._nanguard_eval(pending)
 
     def _nanguard_eval(self, counter):
+        """The policy over one dispatch's counter: warn for new reverted
+        steps, and after ``DL4J_TORCH_NANGUARD_PATIENCE`` consecutive
+        dispatches with one, write the model (whose parameters the
+        reverted steps never touched) to ``DL4J_TORCH_NANGUARD_CKPT`` and
+        raise ``TrainingDivergedError``."""
         cur = int(counter)
         if cur <= self._nan_seen:
+            self._nan_bad_consec = 0
             return
         new_bad = cur - self._nan_seen
         self._nan_seen = cur
+        self._nan_bad_consec += 1
+        _OBS_NONFINITE.inc(new_bad)
         warnings.warn(
             f"non-finite loss/gradients: {new_bad} training step(s) "
             f"reverted ({cur} total this run); params and updater state "
             "are untouched by the bad step(s)", RuntimeWarning)
+        if self._nan_bad_consec >= env_int("DL4J_TORCH_NANGUARD_PATIENCE",
+                                           minimum=1):
+            from deeplearning4j_tpu_torch.utils import model_serializer
+            path = env_str("DL4J_TORCH_NANGUARD_CKPT")
+            try:
+                model_serializer.write_model(self, path)
+                saved = f"last good params written to {path!r}"
+            except Exception as exc:   # the raise below must still happen
+                saved = f"writing the model to {path!r} FAILED: {exc!r}"
+            _OBS_DIVERGED.inc()
+            raise TrainingDivergedError(
+                f"training diverged: {self._nan_bad_consec} consecutive "
+                f"dispatches held non-finite steps ({cur} steps skipped "
+                f"in all); {saved}")
+
+    # ---- periodic training checkpoints of fit() and their resume
+    def _resolve_ckpt_args(self, checkpoint_every, checkpoint_dir,
+                           resume_from):
+        """(every, directory, keep) of a fit call: the argument wins over
+        ``DL4J_TORCH_CKPT_EVERY``; the directory falls back to
+        ``resume_from`` (a crash-restart loop passes only that)."""
+        every = env_int("DL4J_TORCH_CKPT_EVERY", minimum=0) \
+            if checkpoint_every is None else max(0, int(checkpoint_every))
+        directory = checkpoint_dir or resume_from
+        if every and not directory:
+            if checkpoint_every is not None:
+                raise ValueError(
+                    "checkpoint_every requires a checkpoint_dir (or "
+                    "resume_from) to write the checkpoints into")
+            # the knob is only the cadence's default: a fit that names no
+            # directory did not ask for checkpoints
+            every = 0
+        return every, directory, env_int("DL4J_TORCH_CKPT_KEEP", minimum=1)
+
+    def _save_fit_checkpoint(self, directory, epoch, batch, keep):
+        """One periodic checkpoint between dispatches. The guard's pending
+        read is flushed first, so that the saved guard counters agree with
+        the saved parameters (the flush may raise the divergence policy
+        instead)."""
+        from deeplearning4j_tpu_torch.utils import training_checkpoint
+        with obs.span("fit.checkpoint_commit"):
+            self._nanguard_flush()
+            return training_checkpoint.save_training_checkpoint(
+                self, directory, cursor={"epoch": int(epoch),
+                                         "batch": int(batch)}, keep=keep)
+
+    def _resume_fit_checkpoint(self, directory):
+        """Restore the newest loadable TrainingCheckpoint of ``directory``
+        into this net and return its data cursor, or None when the
+        directory holds none yet (a fresh run)."""
+        from deeplearning4j_tpu_torch.utils import training_checkpoint
+        return training_checkpoint.resume_latest(self, directory)
 
     @property
     def nan_skipped_steps(self):

@@ -19,8 +19,11 @@ over static tensors updated in place (:class:`_FusedLoop`): on the card
 it is captured once per window signature in a CUDA graph and replayed;
 on the CPU the same function is called directly. Masked batches, models
 ``fuse_allowed`` declines and ``DL4J_TORCH_FUSE_STEPS=1`` keep the
-per-batch path. Inference: ``output``, ``feed_forward``, ``score``,
-``rnn_time_step``, ``evaluate``.
+per-batch path. ``fit`` also writes periodic training checkpoints and
+resumes from them (``checkpoint_every``, ``checkpoint_dir``,
+``resume_from``). Inference: ``output``, ``feed_forward``, ``score``,
+``rnn_time_step``, ``evaluate``. Features are [B, F], [B, T, F] or NHWC
+[B, H, W, C], as the reference's.
 
 Parameters are per-layer dicts of f32 tensors under the reference's names
 and layouts; :func:`params_from_numpy` and :func:`updater_state_from_numpy`
@@ -29,8 +32,7 @@ carry a JAX net's parameters and updater state across, and ``params()``
 the card unless the caller passes ``device="cpu"``; its randomness (init,
 dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
 
-Not in this slice (ROADMAP.md, queue 1): line-search solvers,
-pretraining, checkpoints (``fit``'s ``checkpoint_every``/``resume_from``)
+Not ported yet (ROADMAP.md, queue 1): line-search solvers, pretraining
 and the fusion autotuner.
 """
 
@@ -85,9 +87,10 @@ def _leaves(params, device):
 def params_from_numpy(layers, params_list, device=None):
     """The port's parameters from a JAX net's ``params_list`` given as
     dicts of numpy arrays (``[{k: np.asarray(v)} for ...]``). The layouts
-    are the same (Dense ``W [n_in, n_out]``, LSTM ``W [n_in, 4H]`` and
-    ``RW [H, 4H]`` with gates ``[i, f, g, o]``, ``P [3, H]``): nothing is
-    transposed. Keys are checked against each layer's ``param_shapes``."""
+    are the same (Dense ``W [n_in, n_out]``, conv ``W`` HWIO, LSTM
+    ``W [n_in, 4H]`` and ``RW [H, 4H]`` with gates ``[i, f, g, o]``,
+    ``P [3, H]``): nothing is transposed. Keys are checked against each
+    layer's ``param_shapes``."""
     dev = resolve_device(device)
     out = []
     for layer, p in zip(layers, params_list):
@@ -286,7 +289,9 @@ class MultiLayerNetwork(DeviceStateMixin):
         self._rng = g
         self.params_list = [_leaves(l.init_params(g), self.device)
                             for l in self.layers]
-        self.states_list = [l.init_state() for l in self.layers]
+        self.states_list = [{k: v.to(self.device)
+                             for k, v in l.init_state().items()}
+                            for l in self.layers]
         self.reset_updater_state()
         self.iteration = 0
         self._iter_dev = None
@@ -748,9 +753,21 @@ class MultiLayerNetwork(DeviceStateMixin):
     # ------------------------------------------------------------------
     # public training API
     # ------------------------------------------------------------------
-    def fit(self, data, labels=None, *, epochs=1):
+    def fit(self, data, labels=None, *, epochs=1, checkpoint_every=None,
+            checkpoint_dir=None, resume_from=None):
         """fit(DataSetIterator) / fit(DataSet) / fit(X, y): ``conf.iterations``
-        updates per minibatch, ``epochs`` passes over an iterator."""
+        updates per minibatch, ``epochs`` passes over an iterator.
+
+        ``checkpoint_every=N`` (default ``DL4J_TORCH_CKPT_EVERY``) commits
+        a TrainingCheckpoint into ``checkpoint_dir`` once at least N
+        updates have passed since the last, between dispatches (a batch,
+        or a fused group); ``resume_from=dir`` restores the newest good
+        checkpoint there (parameters, layer and updater state, generator,
+        counters, guard state) and skips the data stream to its cursor,
+        so that the resumed run is bitwise the uninterrupted one. Passing
+        ``resume_from`` with ``checkpoint_every`` from the first call is
+        the whole crash-restart contract: an empty directory starts from
+        scratch. Iterator fits only."""
         if self.params_list is None:
             self.init()
         if self.conf.pretrain:
@@ -759,22 +776,34 @@ class MultiLayerNetwork(DeviceStateMixin):
                 "package yet (ROADMAP.md, queue 1)")
         if labels is not None:
             data = DataSet(data, labels)
+        every, ck_dir, keep = self._resolve_ckpt_args(
+            checkpoint_every, checkpoint_dir, resume_from)
         if isinstance(data, DataSet):
+            if every or resume_from:
+                raise ValueError(
+                    "checkpoint_every/resume_from need a data iterator (the "
+                    "checkpoint's cursor is a position in a stream); wrap "
+                    "the DataSet in an iterator to use them")
             for _ in range(self.conf.iterations):
                 self.fit_batch(data.features, data.labels,
                                data.features_mask, data.labels_mask)
             self._nanguard_flush()
             return self
         if isinstance(data, DataSetIterator) or hasattr(data, "__iter__"):
-            return self._fit_iterator(data, epochs)
+            return self._fit_iterator(data, epochs, every, ck_dir, keep,
+                                      resume_from)
         raise ValueError(f"Cannot fit on {type(data)}")
 
-    def _fit_iterator(self, data, epochs):
+    def _fit_iterator(self, data, epochs, every=0, ck_dir=None, keep=1,
+                      resume_from=None):
         """The reference's ``fit(DataSetIterator)``: wrap a plain iterator
         in the prefetcher with ``fuse_wrap_config``'s grouping, route each
         ``StackedDataSet`` to ``fit_fused`` and every other batch to
         ``fit_batch`` (with unit example weights where the run is bucketed,
-        so a row-padded ragged batch takes the same path)."""
+        so a row-padded ragged batch takes the same path). A resume skips
+        the cursor's batches in the prefetch worker, before grouping, so
+        the groups form as they did in the uninterrupted run; checkpoints
+        are committed only between dispatches."""
         wrapped = None
         use_ew = False
         self._last_fuse_stats = None
@@ -786,20 +815,50 @@ class MultiLayerNetwork(DeviceStateMixin):
                 data, queue_size=4, stage=default_stage(), fuse=fuse,
                 k_resolver=k_resolver, bucket_pad=bucket_pad,
                 device=self.device)
+        start_epoch = skip = 0
+        if resume_from is not None:
+            cursor = self._resume_fit_checkpoint(resume_from)
+            if cursor:
+                start_epoch = min(int(cursor.get("epoch", 0)), epochs)
+                skip = int(cursor.get("batch", 0))
+        last_ck = self.iteration
         try:
-            for _ in range(epochs):
+            for ep in range(start_epoch, epochs):
+                # the cursor applies to the first resumed epoch only; the
+                # prefetcher skips in its worker, anything else is drained
+                to_skip, skip = (skip, 0) if ep == start_epoch else (0, 0)
+                batches = to_skip
+                if to_skip and wrapped is not None:
+                    wrapped.skip_next(to_skip)
+                    to_skip = 0
                 for ds in data:
+                    if to_skip:
+                        n = getattr(ds, "n_steps", 1)
+                        if n > to_skip:
+                            raise ValueError(
+                                "the resume cursor does not align with this "
+                                "iterator's grouping; resume with the "
+                                "iterator configuration the checkpoint was "
+                                "written under")
+                        to_skip -= n
+                        continue
                     if isinstance(ds, StackedDataSet):
                         self.fit_fused(ds)
-                        continue
-                    ew = getattr(ds, "example_weights", None)
-                    if (ew is None and use_ew and ds.features_mask is None
-                            and ds.labels_mask is None):
-                        ew = np.ones(int(ds.features.shape[0]), np.float32)
-                    for _ in range(self.conf.iterations):
-                        self.fit_batch(ds.features, ds.labels,
-                                       ds.features_mask, ds.labels_mask,
-                                       ew=ew)
+                        batches += ds.n_steps
+                    else:
+                        ew = getattr(ds, "example_weights", None)
+                        if (ew is None and use_ew and ds.features_mask is None
+                                and ds.labels_mask is None):
+                            ew = np.ones(int(ds.features.shape[0]),
+                                         np.float32)
+                        for _ in range(self.conf.iterations):
+                            self.fit_batch(ds.features, ds.labels,
+                                           ds.features_mask, ds.labels_mask,
+                                           ew=ew)
+                        batches += 1
+                    if every and self.iteration - last_ck >= every:
+                        self._save_fit_checkpoint(ck_dir, ep, batches, keep)
+                        last_ck = self.iteration
                 for lst in self.listeners:
                     if hasattr(lst, "on_epoch_end"):
                         lst.on_epoch_end(self)

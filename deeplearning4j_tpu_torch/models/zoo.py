@@ -1,18 +1,47 @@
 """Model zoo configurations: the port of ``deeplearning4j_tpu/models/zoo.py``
-for the builders this package can build (the char-RNN and the MLP). The
-builders are the reference's, call for call, so each gives the same
-``MultiLayerConfiguration`` JSON as its counterpart there. ``lenet_mnist``
-and the CNN zoo wait for the convolution layers (ROADMAP.md, queue 1).
+for the builders this package can build (LeNet, the MLP and the
+char-RNN). The builders are the reference's, call for call, so each gives
+the same ``MultiLayerConfiguration`` JSON as its counterpart there. The
+ComputationGraph zoo (ResNet-50, VGG-16, AlexNet, GoogLeNet) waits for
+ComputationGraph (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import NeuralNetConfiguration
-from deeplearning4j_tpu_torch.nn.layers import (DenseLayer, GravesLSTM,
-                                                OutputLayer, RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                DenseLayer, GravesLSTM,
+                                                OutputLayer, RnnOutputLayer,
+                                                SubsamplingLayer)
 
-__all__ = ["char_rnn", "mlp_mnist"]
+__all__ = ["char_rnn", "lenet_mnist", "mlp_mnist"]
+
+
+def lenet_mnist(seed=12345, learning_rate=0.01, updater="nesterovs"):
+    """LeNet for 28x28x1 MNIST (LenetMnistExample): conv 5x5x20, max-pool
+    2, conv 5x5x50, max-pool 2, dense 500, softmax 10; Nesterov momentum
+    0.9."""
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed)
+            .learning_rate(learning_rate)
+            .updater(updater)
+            .momentum(0.9)
+            .weight_init("xavier")
+            .activation("identity")
+            .list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1))
+            .build())
 
 
 def mlp_mnist(seed=12345, hidden=1000, learning_rate=0.006):

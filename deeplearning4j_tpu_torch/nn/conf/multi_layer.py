@@ -17,9 +17,13 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import (FeedForward,
                                                          InputType,
                                                          Recurrent)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
-    FeedForwardToRnnPreProcessor, InputPreProcessor,
-    RnnToFeedForwardPreProcessor, not_ported, preprocessor_from_dict)
+    CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
+    FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
+    InputPreProcessor, RnnToFeedForwardPreProcessor, not_ported,
+    preprocessor_from_dict)
+from deeplearning4j_tpu_torch.nn.layers import conv as conv_layers
 from deeplearning4j_tpu_torch.nn.layers import core as core_layers
+from deeplearning4j_tpu_torch.nn.layers import norm as norm_layers
 from deeplearning4j_tpu_torch.nn.layers import recurrent as recurrent_layers
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, layer_from_dict
 
@@ -27,7 +31,13 @@ __all__ = ["ListBuilder", "MultiLayerConfiguration", "NeuralNetConfiguration"]
 
 
 def _layer_family(layer) -> str:
-    """Which InputType family a layer consumes: 'ff' | 'rnn' | 'any'."""
+    """Which InputType family a layer consumes: 'ff' | 'rnn' | 'cnn' |
+    'any'."""
+    if isinstance(layer, (conv_layers.ConvolutionLayer,
+                          conv_layers.SubsamplingLayer,
+                          conv_layers.ZeroPaddingLayer,
+                          norm_layers.LocalResponseNormalization)):
+        return "cnn"
     if isinstance(layer, (recurrent_layers.LSTM, core_layers.RnnOutputLayer)):
         return "rnn"
     if isinstance(layer, core_layers.DenseLayer):
@@ -84,6 +94,8 @@ class MultiLayerConfiguration:
         if isinstance(first, (recurrent_layers.LSTM,
                               core_layers.RnnOutputLayer)):
             return Recurrent(n_in)
+        if isinstance(first, conv_layers.ConvolutionLayer):
+            return None   # a conv needs H and W: an explicit input type
         return FeedForward(n_in)
 
     # ---- shape inference + automatic preprocessor insertion -----------
@@ -106,15 +118,21 @@ class MultiLayerConfiguration:
         kind = current.kind
         if fam == "any" or kind == fam:
             return None
+        if kind == "cnnflat" and fam == "cnn":
+            return FeedForwardToCnnPreProcessor(current.height, current.width,
+                                                current.channels)
+        if kind == "cnn" and fam == "ff":
+            return CnnToFeedForwardPreProcessor(current.height, current.width,
+                                                current.channels)
         if kind == "cnnflat" and fam == "ff":
             return None   # already flat
         if kind == "rnn" and fam == "ff":
             return RnnToFeedForwardPreProcessor()
         if kind == "ff" and fam == "rnn":
             return FeedForwardToRnnPreProcessor()
-        if kind in ("cnn", "cnnflat"):
-            raise not_ported(f"the CNN preprocessor from {current} to "
-                             f"{type(layer).__name__}")
+        if kind == "cnn" and fam == "rnn":
+            return CnnToRnnPreProcessor(current.height, current.width,
+                                        current.channels)
         raise ValueError(f"No automatic preprocessor from {current} to "
                          f"{type(layer).__name__}; set one explicitly via "
                          "input_preprocessors")

@@ -2,25 +2,25 @@
 ``deeplearning4j_tpu/nn/conf/preprocessors.py`` (``nn/conf/preprocessor/*``).
 
 Shape adapters between layer families, each a reshape plus its InputType
-propagation; autograd carries the gradient back through the reshape. This
-slice ports the recurrent pair (RnnToFeedForward, FeedForwardToRnn); the
-CNN preprocessors come with the convolution layers and raise until then.
+propagation; autograd carries the gradient back through the reshape.
+Layouts are the reference's: CNN activations NHWC, RNN activations
+[batch, time, size]. So the CNN-to-feed-forward flatten keeps the H, W, C
+order that a dense layer's weight rows were trained against.
 """
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.conf.input_type import (FeedForward,
+from deeplearning4j_tpu_torch.nn.conf.input_type import (Convolutional,
+                                                         FeedForward,
                                                          Recurrent)
 
-__all__ = ["FeedForwardToRnnPreProcessor", "InputPreProcessor",
-           "RnnToFeedForwardPreProcessor", "not_ported",
-           "preprocessor_from_dict"]
+__all__ = ["CnnToFeedForwardPreProcessor", "CnnToRnnPreProcessor",
+           "ComposableInputPreProcessor", "FeedForwardToCnnPreProcessor",
+           "FeedForwardToRnnPreProcessor", "InputPreProcessor",
+           "RnnToCnnPreProcessor", "RnnToFeedForwardPreProcessor",
+           "not_ported", "preprocessor_from_dict"]
 
 _REGISTRY = {}
-# the reference's preprocessors this package does not have yet
-_NOT_PORTED = ("CnnToFeedForwardPreProcessor", "FeedForwardToCnnPreProcessor",
-               "CnnToRnnPreProcessor", "RnnToCnnPreProcessor",
-               "ComposableInputPreProcessor")
 
 
 def not_ported(what):
@@ -37,8 +37,6 @@ def register_preprocessor(cls):
 def preprocessor_from_dict(d):
     d = dict(d)
     name = d.pop("type")
-    if name in _NOT_PORTED:
-        raise not_ported(name)
     return _REGISTRY[name](**d)
 
 
@@ -58,6 +56,45 @@ class InputPreProcessor:
         d = {"type": type(self).__name__}
         d.update(self.__dict__)
         return d
+
+
+@register_preprocessor
+class CnnToFeedForwardPreProcessor(InputPreProcessor):
+    """NHWC [batch, h, w, c] -> [batch, h*w*c], flattened in H, W, C
+    order."""
+
+    def __init__(self, input_height=None, input_width=None,
+                 num_channels=None):
+        self.input_height = input_height
+        self.input_width = input_width
+        self.num_channels = num_channels
+
+    def pre_process(self, x, mask=None):
+        return x.reshape(x.shape[0], -1)
+
+    def output_type(self, input_type):
+        if isinstance(input_type, Convolutional):
+            return FeedForward(input_type.height * input_type.width
+                               * input_type.channels)
+        return input_type
+
+
+@register_preprocessor
+class FeedForwardToCnnPreProcessor(InputPreProcessor):
+    """[batch, h*w*c] -> NHWC [batch, h, w, c]."""
+
+    def __init__(self, input_height, input_width, num_channels):
+        self.input_height = input_height
+        self.input_width = input_width
+        self.num_channels = num_channels
+
+    def pre_process(self, x, mask=None):
+        return x.reshape(x.shape[0], self.input_height, self.input_width,
+                         self.num_channels)
+
+    def output_type(self, input_type):
+        return Convolutional(self.input_height, self.input_width,
+                             self.num_channels)
 
 
 @register_preprocessor
@@ -98,3 +135,68 @@ class FeedForwardToRnnPreProcessor(InputPreProcessor):
         if isinstance(input_type, FeedForward):
             return Recurrent(input_type.size, self.timeseries_length)
         return input_type
+
+
+@register_preprocessor
+class CnnToRnnPreProcessor(InputPreProcessor):
+    """[batch*time, h, w, c] -> [batch, time, h*w*c]."""
+
+    def __init__(self, input_height, input_width, num_channels,
+                 timeseries_length=None):
+        self.input_height = input_height
+        self.input_width = input_width
+        self.num_channels = num_channels
+        self.timeseries_length = timeseries_length
+
+    def pre_process(self, x, mask=None):
+        t = self.timeseries_length
+        if t is None:
+            raise ValueError("CnnToRnnPreProcessor needs timeseries_length")
+        return x.reshape(-1, t, self.input_height * self.input_width
+                         * self.num_channels)
+
+    def output_type(self, input_type):
+        return Recurrent(self.input_height * self.input_width
+                         * self.num_channels, self.timeseries_length)
+
+
+@register_preprocessor
+class RnnToCnnPreProcessor(InputPreProcessor):
+    """[batch, time, h*w*c] -> [batch*time, h, w, c]."""
+
+    def __init__(self, input_height, input_width, num_channels):
+        self.input_height = input_height
+        self.input_width = input_width
+        self.num_channels = num_channels
+
+    def pre_process(self, x, mask=None):
+        return x.reshape(-1, self.input_height, self.input_width,
+                         self.num_channels)
+
+    def output_type(self, input_type):
+        return Convolutional(self.input_height, self.input_width,
+                             self.num_channels)
+
+
+@register_preprocessor
+class ComposableInputPreProcessor(InputPreProcessor):
+    """Its preprocessors applied in order."""
+
+    def __init__(self, preprocessors):
+        self.preprocessors = [
+            p if isinstance(p, InputPreProcessor)
+            else preprocessor_from_dict(p) for p in preprocessors]
+
+    def pre_process(self, x, mask=None):
+        for p in self.preprocessors:
+            x = p.pre_process(x, mask)
+        return x
+
+    def output_type(self, input_type):
+        for p in self.preprocessors:
+            input_type = p.output_type(input_type)
+        return input_type
+
+    def to_dict(self):
+        return {"type": "ComposableInputPreProcessor",
+                "preprocessors": [p.to_dict() for p in self.preprocessors]}

@@ -29,11 +29,9 @@ __all__ = ["BaseLayer", "CASCADE_FIELDS", "FeedForwardLayer",
 
 LAYER_REGISTRY: dict[str, type] = {}
 # the reference's layer types this package does not have yet
-_NOT_PORTED = ("ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer",
-               "GlobalPoolingLayer", "BatchNormalization",
-               "LocalResponseNormalization", "EmbeddingLayer",
-               "CenterLossOutputLayer", "SelfAttentionLayer", "AutoEncoder",
-               "RBM", "VariationalAutoencoder")
+_NOT_PORTED = ("EmbeddingLayer", "CenterLossOutputLayer",
+               "SelfAttentionLayer", "AutoEncoder", "RBM",
+               "VariationalAutoencoder")
 
 
 def register_layer(cls):
@@ -186,7 +184,8 @@ class BaseLayer:
         return {}
 
     def init_state(self) -> dict:
-        """Non-trainable state (none of this slice's layers has any)."""
+        """Non-trainable state (BatchNormalization's running moments), as
+        CPU tensors; the network moves them to its device."""
         return {}
 
     def is_pretrain_layer(self):

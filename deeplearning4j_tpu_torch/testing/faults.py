@@ -16,8 +16,8 @@ Spec grammar (``DL4J_TORCH_FAULT_SPEC`` or :func:`install`/:func:`inject`)::
     N        := 0-based occurrence index at which the fault triggers
     param    := site-specific argument (e.g. a sleep duration)
 
-Wired sites (``serving/``, ``datasets/async_iterator.py`` and
-``models/multi_layer_network.py``):
+Wired sites (``serving/``, ``datasets/async_iterator.py``,
+``models/multi_layer_network.py`` and ``utils/atomic_io.py``):
 
 =====================  =====================================================
 ``queue-overflow``     submit N sees a full request queue and fails fast
@@ -48,6 +48,13 @@ Wired sites (``serving/``, ``datasets/async_iterator.py`` and
 ``kill-worker``        the prefetch worker thread exits WITHOUT its
                        end-of-stream sentinel at batch N (a hard crash);
                        the consumer raises ``PrefetchWorkerDiedError``
+``kill-during-ckpt``   checkpoint commit N raises between its temporary
+                       write and the rename (a process death at the worst
+                       moment): the previous checkpoint stays as it was
+``corrupt-ckpt``       commit N damages the file it has just committed;
+                       qualifier ``truncate`` cuts it in half, ``bitflip``
+                       flips one bit at byte ``param`` (default: the
+                       middle)
 =====================  =====================================================
 
 Tests prefer the :func:`inject` context manager, which arms a plan and

@@ -5,6 +5,9 @@ The flat vector is the reference's: layers in order, each layer's params
 in its declared ``param_order``, each raveled row-major. So
 ``port_net.set_params(jax_net.params())`` carries a JAX net's parameters
 across, and the two ``params()`` vectors compare element for element.
+The updater-state vector is the reference's too: layers in order, each
+layer's state keys sorted, each key's tensors in ``param_order``. A model
+archive stores both vectors, so archives load in either package.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import math
 
 import torch
 
-__all__ = ["n_params", "params_to_vector", "vector_to_params"]
+__all__ = ["n_params", "params_to_vector", "params_to_vector_np",
+           "updater_state_to_vector", "updater_state_to_vector_np",
+           "vector_to_params", "vector_to_updater_state"]
 
 
 def params_to_vector(layer_confs, params_list):
@@ -48,3 +53,50 @@ def vector_to_params(layer_confs, vec):
 
 def n_params(layer_confs):
     return sum(conf.n_params() for conf in layer_confs)
+
+
+def params_to_vector_np(layer_confs, params_list):
+    """:func:`params_to_vector` on the host: a float32 numpy vector (the
+    archive writers' form)."""
+    return params_to_vector(layer_confs, params_list).detach().cpu().numpy()
+
+
+def updater_state_to_vector(layer_confs, updater_states):
+    """Flatten per-layer updater state (e.g. Adam's m and v) into one
+    tensor, in the reference's leaf order."""
+    chunks = [state[key][pname].reshape(-1)
+              for conf, state in zip(layer_confs, updater_states)
+              for key in sorted(state) for pname in conf.param_order]
+    if not chunks:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.cat(chunks)
+
+
+def updater_state_to_vector_np(layer_confs, updater_states):
+    """:func:`updater_state_to_vector` on the host, as float32 numpy."""
+    return updater_state_to_vector(layer_confs,
+                                   updater_states).detach().cpu().numpy()
+
+
+def vector_to_updater_state(layer_confs, updater_states_template, vec):
+    """Inverse of :func:`updater_state_to_vector`; the template gives each
+    layer's state keys. ``vec`` is a tensor; the pieces are fresh
+    contiguous tensors on its device."""
+    out = []
+    offset = 0
+    for conf, state in zip(layer_confs, updater_states_template):
+        shapes = conf.param_shapes()
+        new_state = {}
+        for key in sorted(state):
+            sub = {}
+            for pname in conf.param_order:
+                shape = shapes[pname]
+                n = math.prod(shape) if shape else 1
+                sub[pname] = vec[offset:offset + n].reshape(shape).clone()
+                offset += n
+            new_state[key] = sub
+        out.append({key: new_state[key] for key in state})
+    if offset != vec.shape[0]:
+        raise ValueError(f"Updater state vector length {vec.shape[0]} != "
+                         f"expected {offset}")
+    return out

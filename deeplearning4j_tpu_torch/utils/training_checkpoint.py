@@ -1,0 +1,192 @@
+"""TrainingCheckpoint, the whole state an exact resume needs: the port of
+``deeplearning4j_tpu/utils/training_checkpoint.py``.
+
+A model archive (``model_serializer.write_model``) holds parameters,
+updater and layer state and the iteration and epoch counters: enough to
+deploy a model, not to continue a run, which also needs the generator
+state, the non-finite guard's counters and the position in the data
+stream. A TrainingCheckpoint is the same archive plus one entry,
+``trainingState.json``::
+
+    {"version": 1,
+     "torch_rng": [..],          # the network's torch.Generator state (bytes)
+     "nan": {"skipped": n,       # the device's skipped-step counter
+             "seen": n,          # its last value read on the host
+             "bad_consec": n},   # consecutive dispatches with a bad step
+     "cursor": {"epoch": e,      # epochs completed within this fit
+                "batch": b}}     # real batches consumed in this epoch
+
+The cursor counts real batches, which also fixes the fused-group offset:
+groups form again in the same way from any batch index that starts a
+group (fit checkpoints only between groups), so a resumed run is bitwise
+the uninterrupted one. The reference keeps its PRNG key under ``rng``;
+the port's generator state goes under ``torch_rng``, which the reference
+ignores (their random streams cannot agree anyway).
+
+Checkpoints are ``ckpt_<iteration>.zip`` in a directory with rolling
+retention (``DL4J_TORCH_CKPT_KEEP`` newest kept); each write goes through
+the atomic commit (``utils/atomic_io.py``), and :func:`latest_checkpoint`
+returns the newest archive that passes its check, falling back past torn
+or corrupt ones.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import warnings
+import zipfile
+
+import torch
+
+from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.config import env_int
+from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
+from deeplearning4j_tpu_torch.utils import atomic_io, model_serializer
+
+__all__ = ["TRAIN_STATE_NAME", "apply_training_checkpoint",
+           "checkpoint_files", "latest_checkpoint", "resume_latest",
+           "save_training_checkpoint"]
+
+_OBS_COMMIT_SECONDS = obs.histogram(
+    "checkpoint.commit_seconds",
+    "Wall-clock of one TrainingCheckpoint commit (serialize, atomic write "
+    "and retention sweep)")
+_OBS_COMMITS = obs.counter("checkpoint.commits_total",
+                           "TrainingCheckpoints committed")
+
+TRAIN_STATE_NAME = "trainingState.json"
+_PREFIX = "ckpt_"
+_VERSION = 1
+
+
+def _training_state(net, cursor):
+    state = {"version": _VERSION, "cursor": dict(cursor or {})}
+    if net._rng is not None:
+        state["torch_rng"] = net._rng.get_state().tolist()
+    skipped = net._nan_skipped
+    state["nan"] = {
+        # the caller flushes the guard's pending read first (fit does), so
+        # seen and bad_consec agree with the counter
+        "skipped": 0 if skipped is None else int(skipped),
+        "seen": int(net._nan_seen),
+        "bad_consec": int(net._nan_bad_consec),
+    }
+    return state
+
+
+def save_training_checkpoint(net, directory, *, cursor=None, keep=None):
+    """Commit ``ckpt_<iteration>.zip`` in ``directory`` atomically and keep
+    the newest ``keep`` (default ``DL4J_TORCH_CKPT_KEEP``)."""
+    with _OBS_COMMIT_SECONDS.time():
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"{_PREFIX}{int(net.iteration)}.zip")
+        extra = {TRAIN_STATE_NAME: json.dumps(_training_state(net, cursor))}
+        model_serializer.write_model(net, path, extra_entries=extra)
+        keep = env_int("DL4J_TORCH_CKPT_KEEP", minimum=1) if keep is None \
+            else keep
+        stale = [name for _, name in checkpoint_files(directory)[:-keep]]
+        # leftovers of crashed commits are garbage once this one landed
+        stale += [name for name in os.listdir(directory)
+                  if name.startswith(_PREFIX) and name.endswith(".zip.tmp")]
+        for name in stale:
+            try:
+                os.remove(os.path.join(directory, name))
+            except OSError:
+                pass
+    _OBS_COMMITS.inc()
+    return path
+
+
+def checkpoint_files(directory):
+    """The committed ``(iteration, file name)`` pairs, ascending. Neither
+    ``*.zip.tmp`` leftovers nor names without a number qualify."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        if not (name.startswith(_PREFIX) and name.endswith(".zip")):
+            continue
+        suffix = name[len(_PREFIX):-len(".zip")]
+        if suffix.isdigit():
+            out.append((int(suffix), name))
+    return sorted(out)
+
+
+def latest_checkpoint(directory):
+    """The path of the newest checkpoint in ``directory`` that passes its
+    CRC check, or None. Newer torn or corrupt archives are skipped with a
+    warning."""
+    for _, name in reversed(checkpoint_files(directory)):
+        path = os.path.join(directory, name)
+        try:
+            atomic_io.open_zip_verified(path).close()
+            return path
+        except CheckpointCorruptError as e:
+            warnings.warn(f"training checkpoint {path!r} failed its check "
+                          f"({e}); falling back to the previous one",
+                          RuntimeWarning)
+    return None
+
+
+def resume_latest(net, directory):
+    """Restore the newest loadable TrainingCheckpoint of ``directory`` into
+    ``net`` and return its cursor, falling back past corrupt archives with
+    a warning; None when the directory holds no checkpoint."""
+    for _, name in reversed(checkpoint_files(directory)):
+        path = os.path.join(directory, name)
+        try:
+            return apply_training_checkpoint(net, path)
+        except CheckpointCorruptError as e:
+            warnings.warn(f"training checkpoint {path!r} failed its check "
+                          f"({e}); falling back to the previous one",
+                          RuntimeWarning)
+    return None
+
+
+def _read_training_state(path):
+    # a plain read: the restore just before verified the archive
+    try:
+        with zipfile.ZipFile(path, "r") as z:
+            if TRAIN_STATE_NAME not in z.namelist():
+                return {}
+            return json.loads(z.read(TRAIN_STATE_NAME).decode())
+    except (zipfile.BadZipFile, OSError, ValueError) as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path!r}: unreadable training state: {e!r}") from e
+
+
+def apply_training_checkpoint(net, path):
+    """Load a TrainingCheckpoint into an existing MultiLayerNetwork in
+    place, on its device, and return the data cursor ({} for a plain model
+    archive). Parameters, layer and updater state, counters, generator
+    and guard state are all replaced, so the continuation is bitwise the
+    uninterrupted run. A failure leaves ``net`` as it was."""
+    restored = model_serializer.restore_model(path, device=net.device)
+    if type(restored).__name__ != type(net).__name__:
+        raise ValueError(f"checkpoint {path!r} holds a "
+                         f"{type(restored).__name__}, cannot resume a "
+                         f"{type(net).__name__} from it")
+    state = _read_training_state(path)
+    net.params_list = restored.params_list
+    net.states_list = restored.states_list
+    net.updater_states = restored.updater_states
+    net.iteration = restored.iteration
+    net.epoch_count = restored.epoch_count
+    if "torch_rng" in state:
+        if net._rng is None:
+            net._rng = torch.Generator(device=net.device)
+        net._rng.set_state(torch.tensor(state["torch_rng"],
+                                        dtype=torch.uint8))
+    nan = state.get("nan")
+    if nan is not None:
+        net._nan_skipped = torch.tensor(int(nan.get("skipped", 0)),
+                                        dtype=torch.int32, device=net.device)
+        net._nan_pending = None
+        net._nan_seen = int(nan.get("seen", 0))
+        net._nan_bad_consec = int(nan.get("bad_consec", 0))
+    # the device mirrors refresh from the restored counters
+    net._iter_dev = None
+    net._iter_dev_py = None
+    net._score = None
+    return state.get("cursor", {})

@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, the LSTM cell) against their plain
-twins, on the card.
+twins, on the card; and the LeNet path's layers (convolution, pooling,
+normalization through PyTorch) on the card against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. They import neither
 JAX nor the JAX package, so they run where only PyTorch is installed::
@@ -24,7 +25,13 @@ result. LSTM window (the sequence kernel, T > 1): f32 out/h/c within
 ``ops/lstm_cell.py`` (each step's rounding feeds the next); the window's
 f32 gradients within 1e-5 of each gradient's max abs. The kernels sum in
 a fixed order (no atomics): two calls on the same inputs, and a CUDA
-graph's replay, give bit-identical results.
+graph's replay, give bit-identical results. CNN layers: f32 outputs,
+gradients and BN's running moments within 1e-5 of each result's max abs
+of the CPU's (summation order only); max-pool ties route to the same
+element; a LeNet graph replays to the same bits (the fused loops compared
+under ``cudnn.deterministic``); a restored archive gives the same output
+bits on the card, the reference's archives their recorded outputs within
+1e-5.
 """
 
 import math
@@ -822,3 +829,163 @@ def test_a_failed_capture_raises_and_nothing_runs_eagerly(cuda_device,
         _card_fit(net, _card_batches(2, 30, seed=6), monkeypatch, 4)
     assert net._fused.captures == 0
     np.testing.assert_array_equal(net.params(), p0)
+
+
+# ---------------------------------------------------------------------------
+# the LeNet path on the card: conv, pooling and normalization through
+# PyTorch (cuDNN) in the reference's NHWC/HWIO layouts
+# ---------------------------------------------------------------------------
+def _layer_case(name):
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, LocalResponseNormalization,
+        SubsamplingLayer)
+    cases = {
+        "conv_5x5": (ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                      activation="identity"),
+                     (16, 28, 28, 1)),
+        "conv_same_stride2": (ConvolutionLayer(
+            n_out=12, kernel_size=(4, 4), stride=(2, 2),
+            convolution_mode="same", activation="relu"), (8, 15, 14, 6)),
+        "conv_no_bias_padded": (ConvolutionLayer(
+            n_out=50, kernel_size=(5, 5), padding=(2, 2), has_bias=False,
+            activation="identity"), (8, 12, 12, 20)),
+        "max_pool": (SubsamplingLayer(pooling_type="max"), (16, 24, 24, 20)),
+        "avg_pool_same": (SubsamplingLayer(pooling_type="avg",
+                                           kernel_size=(3, 3),
+                                           convolution_mode="same"),
+                          (8, 9, 9, 4)),
+        "pnorm_pool_pad": (SubsamplingLayer(pooling_type="pnorm",
+                                            kernel_size=(3, 3),
+                                            stride=(1, 1), padding=(2, 2)),
+                           (8, 7, 7, 4)),
+        "batch_norm_train": (BatchNormalization(), (16, 8, 8, 20)),
+        "lrn": (LocalResponseNormalization(), (8, 6, 6, 16)),
+    }
+    layer, shape = cases[name]
+    layer.set_input_type(InputType.convolutional(*shape[1:]))
+    return layer, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv_5x5", "conv_same_stride2",
+                                  "conv_no_bias_padded", "max_pool",
+                                  "avg_pool_same", "pnorm_pool_pad",
+                                  "batch_norm_train", "lrn"])
+def test_cnn_layer_on_card_matches_the_cpu(cuda_device, name):
+    """Forward, input and parameter gradients (and BN's new running
+    moments) of each layer on the card against the same layer on the
+    CPU, f32 within 1e-5 of each result's max abs."""
+    layer, shape = _layer_case(name)
+    r = np.random.RandomState(5)
+    x = (r.randn(*shape) + (0.1 if "pnorm" in name else 0.0)).astype(
+        np.float32)
+    params = {k: (0.5 * r.randn(*s)).astype(np.float32)
+              for k, s in layer.param_shapes().items()}
+    state = {k: v.numpy() for k, v in layer.init_state().items()}
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in params.items()}
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        st = {k: torch.tensor(v, device=dev) for k, v in state.items()}
+        out, new_state = layer.forward(p, xt, st, train=True)
+        g = torch.tensor(np.random.RandomState(6).randn(*out.shape).astype(
+            np.float32), device=dev)
+        grads = torch.autograd.grad((out * g).sum(), [xt] + list(p.values()))
+        results.append([out] + list(grads)
+                       + [new_state[k] for k in sorted(new_state)])
+    for got, want in zip(*results):
+        got, want = got.detach().cpu(), want.detach()
+        scale = want.abs().max().clamp(min=1e-30)
+        assert (got - want).abs().max() <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+def test_channels_last_max_pool_ties_route_like_the_cpu(cuda_device):
+    """A blank image ties in every pooling window; the card's
+    channels_last max-pool must route each window's gradient to the same
+    (first) element as the CPU's, which is the JAX package's choice."""
+    from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
+    layer = SubsamplingLayer(pooling_type="max")
+    x = np.zeros((4, 24, 24, 20), np.float32)
+    x[:, 5, 7, :] = 0.25
+    g = np.random.RandomState(0).rand(4, 12, 12, 20).astype(np.float32) + 1
+    dx = []
+    for dev in (cuda_device, torch.device("cpu")):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        assert xt.permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last)
+        out, _ = layer.forward({}, xt, {})
+        (d,) = torch.autograd.grad((out * torch.tensor(g, device=dev)).sum(),
+                                   xt)
+        dx.append(d.cpu())
+    assert torch.equal(dx[0], dx[1])
+    assert (dx[1][:, 0::2, 0::2][:, :2, :3] != 0).all()
+
+
+def _card_lenet(device, seed=12345):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    return MultiLayerNetwork(zoo.lenet_mnist(seed=seed), device=device).init()
+
+
+def _lenet_batches(n, rows=32, seed=0):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    r = np.random.RandomState(seed)
+    return [DataSet(r.rand(rows, 28, 28, 1).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[r.randint(0, 10, rows)])
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_lenet_window_graph_replays_bit_identically(cuda_device,
+                                                    monkeypatch):
+    """LeNet's whole batch step is one captured graph: two nets from the
+    same parameters through the fused loop capture once each and end
+    bit-identical, and a replay with zero example weight changes
+    nothing."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = _lenet_batches(6)
+        a, b = _card_lenet(cuda_device), _card_lenet(cuda_device)
+        b.set_params(a.params())
+        _card_fit(a, batches, monkeypatch, 4)
+        _card_fit(b, batches, monkeypatch, 4)
+        assert a._fused.captures == b._fused.captures == 1
+        np.testing.assert_array_equal(a.params(), b.params())
+        (win,) = a._fused.graphs.values()
+        before = a.params()
+        win.ew.zero_()
+        win.graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(a.params(), before)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_lenet_archive_restores_on_the_card(cuda_device, tmp_path,
+                                            monkeypatch):
+    """A LeNet trained on the card, written and restored on the card,
+    gives the same outputs to the bit; the committed reference archives
+    reproduce their recorded outputs on the card within 1e-5."""
+    import os
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    net = _card_fit(_card_lenet(cuda_device), _lenet_batches(4),
+                    monkeypatch, 4)
+    path = str(tmp_path / "lenet.zip")
+    model_serializer.write_model(net, path)
+    again = model_serializer.restore_multi_layer_network(path)
+    assert again.device.type == "cuda"
+    x = _lenet_batches(1, rows=16, seed=9)[0].features
+    np.testing.assert_array_equal(again.output(x), net.output(x))
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures", "checkpoints")
+    for name in ("convbn_r3", "lstm_r3"):
+        card = model_serializer.restore_model(
+            os.path.join(fixtures, f"{name}.zip"))
+        with np.load(os.path.join(fixtures, f"{name}_expected.npz")) as z:
+            np.testing.assert_allclose(card.output(z["probe"]), z["out"],
+                                       atol=1e-5)

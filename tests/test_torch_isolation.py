@@ -2,8 +2,8 @@
 
 - no file of ``deeplearning4j_tpu_torch/`` (the prefetcher
   ``datasets/async_iterator.py`` and ``tuning/autotuner.py`` included),
-  nor ``chip_smoke.py`` or the design-variant timers ``flash_variants.py``
-  and ``lstm_variants.py``, imports ``jax``, ``jaxlib`` or
+  nor ``chip_smoke.py`` or the design-variant timers ``flash_variants.py``,
+  ``lstm_variants.py`` and ``conv_variants.py``, imports ``jax``, ``jaxlib`` or
   ``deeplearning4j_tpu`` (AST scan), and
   importing the whole package in a fresh interpreter loads no ``jax``;
 - a CPU tensor never touches a kernel: no launch count moves and no
@@ -12,7 +12,7 @@
   refuse a tensor that is not on the CPU; each kernel's boundary refuses
   what its kernel cannot take before any pointer is passed;
 - with no CUDA present, the entry points without ``device="cpu"`` raise
-  instead of running on the CPU.
+  instead of running on the CPU (the model-archive restores included).
 """
 
 import ast
@@ -49,13 +49,20 @@ SMALL = dict(vocab_size=32, max_len=16, d_model=16, n_heads=2, n_layers=1,
 
 def _port_sources():
     scripts = [REPO / name for name in ("chip_smoke.py", "flash_variants.py",
-                                        "lstm_variants.py")]
+                                        "lstm_variants.py",
+                                        "conv_variants.py")]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert len(files) > 10 and all(p.exists() for p in scripts)
-    # the fused loop's modules, carried over from jax-free reference
-    # modules, are scanned like every other
+    # the fused loop's modules, and the LeNet path's and persistence's,
+    # carried over from the reference's modules (its jax-free ones too),
+    # are scanned like every other
     for mod in ("datasets/async_iterator.py", "tuning/autotuner.py",
-                "models/multi_layer_network.py"):
+                "models/multi_layer_network.py", "datasets/fetchers.py",
+                "nn/layers/conv.py", "nn/layers/pooling.py",
+                "nn/layers/norm.py", "nn/conf/preprocessors.py",
+                "utils/atomic_io.py", "utils/model_serializer.py",
+                "utils/training_checkpoint.py", "utils/flat_params.py",
+                "models/_device_state.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -379,3 +386,42 @@ def test_lstm_boundaries_refuse_what_the_kernels_cannot_take(monkeypatch,
     with pytest.raises(err):
         getattr(port_lc, entry)(*args)
     assert _lstm_launches() == before
+
+
+def test_restore_without_device_refuses_the_cpu(no_cuda, tmp_path):
+    from deeplearning4j_tpu_torch.utils import (model_serializer,
+                                                training_checkpoint)
+    net = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    path = str(tmp_path / "lenet.zip")
+    model_serializer.write_model(net, path)
+    for restore in (model_serializer.restore_multi_layer_network,
+                    model_serializer.restore_model):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            restore(path)
+        assert restore(path, device="cpu").device.type == "cpu"
+    # a resume restores onto the network's own device
+    training_checkpoint.save_training_checkpoint(net, str(tmp_path / "ck"))
+    again = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    assert training_checkpoint.resume_latest(again,
+                                             str(tmp_path / "ck")) == {}
+    assert again.params_list[0]["W"].device.type == "cpu"
+
+
+def test_cpu_lenet_never_loads_a_kernel(monkeypatch):
+    """The LeNet path (conv, pooling, dense; per batch and through the
+    fused loop) runs no kernel of the package on the CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _launches() + _lstm_launches()
+    net = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    r = np.random.RandomState(0)
+    x = r.rand(4, 28, 28, 1).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.randint(0, 10, 4)]
+    net.fit(ListDataSetIterator([DataSet(x, y)] * 2))
+    assert net._last_fuse_stats["fused_groups"] == 1
+    net.output(x)
+    assert _launches() + _lstm_launches() == before

@@ -118,8 +118,14 @@ def test_one_json_builds_both_nets(build):
 
 
 def test_layer_types_not_ported_raise_and_name_the_roadmap():
+    from deeplearning4j_tpu.nn.layers import (EmbeddingLayer as JEmbed,
+                                              OutputLayer as JOut)
+    jconf = (JBuilder.Builder().list()
+             .layer(JEmbed(n_in=10, n_out=4))
+             .layer(JOut(n_out=3, activation="softmax", loss="mcxent"))
+             .build())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerConfiguration.from_json(jzoo.lenet_mnist().to_json())
+        MultiLayerConfiguration.from_json(jconf.to_json())
 
 
 def test_builder_cascade_and_auto_preprocessors_match_jax():
@@ -483,6 +489,10 @@ def test_nan_step_fault_equals_the_stream_without_that_batch(monkeypatch):
     every window of it: parameters, rmsprop state and the device
     iteration equal the same stream with batch 1 left out, bitwise."""
     monkeypatch.setenv("DL4J_TORCH_FUSE_STEPS", "1")
+    # each of the batch's T // SEG windows is a dispatch with a reverted
+    # step; a patience above that keeps the divergence policy (held in
+    # test_torch_serialization.py) from ending the run
+    monkeypatch.setenv("DL4J_TORCH_NANGUARD_PATIENCE", str(T // SEG + 1))
     batches = [DataSet(x, y) for x, y in _char_batches(4, seed=6)]
     _, poisoned = _charrnn_pair()
     _, control = _charrnn_pair()
