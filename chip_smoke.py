@@ -105,7 +105,39 @@ Phases, each fatal on failure:
    the card to their recorded outputs within 1e-5; (5) 2 epochs of 20
    batches with a checkpoint every 8 updates, and a fresh net resumed
    from the first checkpoint, must end with the same parameters, bitwise
-   (under ``cudnn.deterministic`` if the defaults differ).
+   (under ``cudnn.deterministic`` if the defaults differ);
+7. resnet50 — ``zoo.resnet50()`` at full width (224x224x3, 1000 classes,
+   25,557,032 parameters; bf16 compute, f32 masters; nesterovs 0.9, lr
+   0.1) as a ComputationGraph through ``fit(iterator)`` (per batch: the
+   fused loop declines graphs), on seeded normal images and one-hot
+   labels as bench.py's ``_resnet_throughput`` makes them (3 pre-made
+   batches, cycled): at batch 128 and again at 256, 3 warm-up and 15
+   timed batches each (host clock ending in a synchronise), with the
+   package's kernel counts set to 0 just before the timed run and read
+   just after (0: convolution, BatchNormalization, pooling and the dense
+   head are PyTorch's); images/s, ms a batch, MFU on bench.py's basis
+   (4.09 GFLOP an image forward, x3, against the 989 TFLOP/s bf16 peak),
+   peak memory, every step's score (finite) and the guard's reverted
+   steps (0); 4 more batches at 128 under ``torch.profiler`` give the
+   busy share, the top device ops and the pageable host-to-device copies'
+   device time. Then the net of batch 256, written and restored on the
+   card, gives the same output bits; the narrow ResNet (two stages of one
+   block, 32x32) and GoogLeNet (67x67, its head's dropout off) take 3
+   ``fit`` steps on the card and on the CPU from the same f32 parameters,
+   the ResNet in f32 (outputs, parameters and BN moments within
+   CNN_CARD_CPU_RTOL), GoogLeNet, whose f32 gradient is not continuous
+   (a ReLU input that rounds across 0, or a max-pool window's largest
+   entry that changes, sends a gradient elsewhere), in
+   float64 compute (within CNN_F64_STEPS_RTOL; its f32 forward within
+   CNN_CARD_CPU_RTOL, its f32 steps printed beside with the ReLU units
+   and max-pool windows that took another branch before each); the
+   narrow ResNet resumed from a checkpoint equals its uninterrupted run
+   bitwise (under ``cudnn.deterministic`` if the defaults differ, which
+   it then prints); and the char-RNN's chain built with ``GraphBuilder``
+   takes 4 batches by ``fit_batch`` against the MultiLayerNetwork's
+   per-batch path from the same parameters: the same parameter bits and
+   the same LSTM kernel launches (by ``torch.profiler`` and by the
+   wrappers), which the ``kernels`` line carries as ``launches_cg``.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -232,6 +264,45 @@ ARCHIVE_TOL = 1e-5   # the reference archives' recorded outputs
 # one f32 window, card against CPU: loss 1e-5 abs; each updated parameter
 # leaf within 1e-4 of its max abs
 CHARRNN_LOSS_TOL, CHARRNN_PARAM_RTOL = 1e-5, 1e-4
+
+# the ResNet-50 phase: bench.py:_resnet_throughput's configuration
+# (zoo.resnet50() at 224x224x3, 1000 classes, bf16 compute, f32 masters)
+# through fit(iterator) at batches 128 and 256, on seeded normal images
+# and one-hot labels (a few pre-made batches, cycled)
+RESNET_FULL = dict(n_classes=1000, height=224, width=224, channels=3,
+                   stages=(3, 4, 6, 3))        # zoo.resnet50()'s defaults
+RESNET_BATCHES = (128, 256)
+RESNET_WARMUP = 3
+RESNET_TIMED = 15
+RESNET_PREMADE = 3
+RESNET_PROFILED = 4         # batches of a separate profiled turn (128)
+RESNET_PARAMS = 25557032    # tests/test_zoo.py
+RESNET_FWD_FLOPS = 4.09e9   # an image forward (bench.py's MFU basis)
+# card against CPU, f32 with TF32 off, 3 fit steps from the same
+# parameters: cuDNN and the CPU sum each conv's products in another order,
+# and every BatchNormalization divides by its batch's spread, which
+# carries a difference on to the layers above; outputs, parameters and
+# running variances within 1e-4 of each leaf's max abs (the train phase's
+# gradient bar), running means within 1e-4 of the larger of their max abs
+# and the data's spread (the square root of the running variance)
+CNN_CARD_CPU_RTOL = 1e-4
+# GoogLeNet's gradient is not continuous in f32: a ReLU output that is a
+# max-pool window's only positive entry can round to 0 on one device and
+# not on the other, and the window's whole gradient then goes elsewhere;
+# so can any ReLU unit whose input rounds across 0 (the phase counts both
+# before each f32 step: ``f32_decision_flips_by_step``). So its 3 steps compute in float64 on both devices (through
+# compute_dtype; f32 masters), where both take the same ReLU and
+# max-pool decisions: the loss itself stays f32 (the preouts go back to
+# f32, as under bf16), so each gradient is a few f32 steps apart, and so
+# is the f32 nesterovs update (FMA contraction on the card); after 3
+# updates within 1e-6 of each leaf's max abs. Its f32 forward is held to
+# CNN_CARD_CPU_RTOL, and its f32 steps are run and printed beside, not
+# gated.
+CNN_F64_STEPS_RTOL = 1e-6
+RESNET_NARROW = dict(n_classes=5, height=32, width=32, stages=(1, 1))
+GOOGLENET_NARROW = dict(n_classes=4, height=67, width=67)
+RESNET_RESUME = dict(epochs=2, batches=6, batch=16, every=4)
+CG_RNN_BATCHES = 4
 
 
 def emit(obj):
@@ -1338,12 +1409,14 @@ def charrnn_window_breakdown(net, ds):
             "update_ms": ev[2].elapsed_time(ev[3])}
 
 
-def profiled(fn):
+def profiled(fn, aten_rows=None):
     """``fn()`` once under ``torch.profiler``: (its wall seconds, the names
     of the run's device-side events, and ``(name, calls, device µs)`` of
     each device-side op with device time: kernels, copies, memsets). A
     CPU op's entry repeats the time of the kernels it launched, so only
-    the device-side entries count."""
+    the device-side entries count. ``aten_rows``, a list, receives
+    ``(aten op, calls, self device µs)`` of each host op that launched
+    device work: the same time by the op that asked for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1359,8 +1432,13 @@ def profiled(fn):
         wall = time.perf_counter() - t0
     names = [e.name for e in prof.events()
              if str(e.device_type).endswith("CUDA")]
-    ops = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
+    averages = prof.key_averages()
+    ops = [(e.key, e.count, device_us(e)) for e in averages
            if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    if aten_rows is not None:
+        aten_rows.extend((e.key, e.count, device_us(e)) for e in averages
+                         if e.key.startswith("aten::") and device_us(e) > 0
+                         and not str(e.device_type).endswith("CUDA"))
     return wall, names, ops
 
 
@@ -2135,6 +2213,467 @@ def phase_lenet(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase resnet50: zoo.resnet50() at full width through fit() as a
+# ComputationGraph, then card against CPU, archive, resume, and a
+# recurrent graph through the LSTM kernels
+# ---------------------------------------------------------------------------
+def resnet_images(batch, n, seed=0):
+    """``n`` pre-made batches of seeded normal 224x224x3 images and one-hot
+    labels over 1000 classes, as bench.py's ``_resnet_throughput`` makes
+    its batch (``np.random.default_rng(0)``)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    k = RESNET_FULL["n_classes"]
+    shape = (batch, RESNET_FULL["height"], RESNET_FULL["width"],
+             RESNET_FULL["channels"])
+    eye = np.eye(k, dtype=np.float32)
+    return [DataSet(rng.normal(size=shape).astype(np.float32),
+                    eye[rng.integers(0, k, batch)]) for _ in range(n)]
+
+
+def _cycled(batches, n):
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    return ListDataSetIterator([batches[i % len(batches)] for i in range(n)])
+
+
+def resnet_turn(batch):
+    """ResNet-50 at full width in bf16 on the card: RESNET_WARMUP batches,
+    then RESNET_TIMED timed batches through ``fit(iterator)`` (host clock,
+    ending in a synchronise). The package's kernel counts are set to 0
+    just before the timed run and read just after: the path runs none of
+    them (convolution, BatchNormalization, pooling and the dense head
+    are PyTorch's). Every step's score must be finite, and the guard must
+    revert none."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    conf = zoo.resnet50(**RESNET_FULL)
+    conf.compute_dtype = "bfloat16"
+    net = ComputationGraph(conf, device=DEVICE).init()
+    assert net.num_params() == RESNET_PARAMS, net.num_params()
+    batches = resnet_images(batch, RESNET_PREMADE)
+    rec = _ScoreRecorder()
+    net.set_listeners(rec)
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    net.fit(_cycled(batches, RESNET_WARMUP))
+    torch.cuda.synchronize()
+    reset_launches()                          # the main path starts here
+    t0 = time.perf_counter()
+    net.fit(_cycled(batches, RESNET_TIMED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    package_kernels = read_launches() + read_lstm_launches()   # ... ends
+    assert package_kernels == (0,) * 5, package_kernels
+    peak = torch.cuda.max_memory_allocated()
+    net.set_listeners([])
+    scores = [float(s) for s in rec.scores]
+    assert len(scores) == RESNET_WARMUP + RESNET_TIMED
+    assert all(math.isfinite(x) for x in scores), scores
+    assert net.nan_skipped_steps == 0
+    ms = wall / RESNET_TIMED * 1e3
+    ips = batch * RESNET_TIMED / wall
+    from deeplearning4j_tpu_torch.hw import TRAIN_FLOPS_MULTIPLIER
+    return net, batches, {
+        "batch": batch, "warmup_batches": RESNET_WARMUP,
+        "timed_batches": RESNET_TIMED, "wall_s": wall,
+        "images_per_s": ips, "ms_per_batch": ms,
+        "mfu": ips * TRAIN_FLOPS_MULTIPLIER * RESNET_FWD_FLOPS
+        / PEAK_OPS_PER_S["bfloat16"],
+        "peak_memory_bytes": peak,
+        "peak_above_start_bytes": peak - start_bytes,
+        "scores": scores, "reverted_steps": net.nan_skipped_steps,
+        "package_kernel_launches": list(package_kernels),
+        "fuse_stats": net._last_fuse_stats}
+
+
+def resnet_profile(net, batches, ms_per_batch, tries=5):
+    """RESNET_PROFILED more batches of the same net under
+    ``torch.profiler``: the busy share against the unprofiled turn's ms a
+    batch, the top device ops, device events a batch, and the pageable
+    host-to-device copies' device time."""
+    for _ in range(tries):
+        aten = []
+        wall, names, ops = profiled(
+            lambda: net.fit(_cycled(batches, RESNET_PROFILED)),
+            aten_rows=aten)
+        if names:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device event in "
+                             f"{tries} profiles of the ResNet-50 fit")
+    h2d = [(n, c, us) for n, c, us in ops if "HtoD" in n]
+    aten.sort(key=lambda o: o[2], reverse=True)
+    conv_us = sum(us for n, _, us in aten if "convolution" in n)
+    return {"profiled_batches": RESNET_PROFILED,
+            "device_ms_per_batch_by_aten_op": [
+                {"op": n, "calls_per_batch": c / RESNET_PROFILED,
+                 "device_ms": us / 1e3 / RESNET_PROFILED}
+                for n, c, us in aten[:12]],
+            "convolution_device_ms_per_batch": conv_us / 1e3
+            / RESNET_PROFILED,
+            "profiled_wall_ms_per_batch": wall / RESNET_PROFILED * 1e3,
+            "pageable_h2d_copies": [{"name": n, "calls": c,
+                                     "device_ms": us / 1e3}
+                                    for n, c, us in h2d],
+            "h2d_device_ms_per_batch": sum(us for _, _, us in h2d) / 1e3
+            / RESNET_PROFILED,
+            **device_share(names, ops, RESNET_PROFILED, ms_per_batch)}
+
+
+def resnet_archive(net, batches, tmp):
+    """The full-width net written after its timed run and restored on the
+    card: ``output()`` the same bits."""
+    import os
+    import numpy as np
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    path = os.path.join(tmp, "resnet50.zip")
+    t0 = time.perf_counter()
+    model_serializer.write_model(net, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = model_serializer.restore_computation_graph(path)
+    restore_s = time.perf_counter() - t0
+    x = batches[0].features[:16]
+    want, got = net.output(x), card.output(x)
+    assert card.device == net.device and np.array_equal(got, want)
+    assert np.array_equal(card.params(), net.params())
+    return {"archive_bytes": os.path.getsize(path), "write_s": write_s,
+            "restore_s": restore_s, "output_rows": 16,
+            "card_output_bit_identical": True}
+
+
+def _card_cpu_rel(card, cpu):
+    """The largest relative difference, card against CPU, of the two
+    graphs' parameters and BatchNormalization moments (each leaf against
+    its own max abs; a running mean against the larger of its max abs and
+    the square root of the running variance), with the leaf's name."""
+    import numpy as np
+    worst = (0.0, "")
+    for name, g, w in zip(cpu.layer_names, card.params_list,
+                          cpu.params_list):
+        for k in w:
+            want = w[k].detach().numpy()
+            err = np.abs(g[k].detach().cpu().numpy() - want).max()
+            worst = max(worst, (float(err / max(np.abs(want).max(), 1e-30)),
+                                f"{name}.{k}"))
+    for name, g, w in zip(cpu.layer_names, card.states_list,
+                          cpu.states_list):
+        if not w:
+            continue
+        var = w["var"].numpy()
+        scales = {"var": np.abs(var).max(),
+                  "mean": max(np.abs(w["mean"].numpy()).max(),
+                              np.sqrt(var.max()))}
+        for k, scale in scales.items():
+            err = np.abs(g[k].cpu().numpy() - w[k].numpy()).max()
+            worst = max(worst, (float(err / max(scale, 1e-30)),
+                                f"{name}.{k}"))
+    return worst
+
+
+def f32_decision_flips(card, cpu, x):
+    """Where the card's f32 forward takes another branch than the CPU's
+    from the same parameters on ``x`` (each device's activations compared
+    on the CPU): ReLU outputs that are 0 on one device and positive on
+    the other, and max-pool windows whose largest entry is another one.
+    Each sends a gradient elsewhere, so the f32 gradient is not
+    continuous."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+        LayerVertex
+    from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
+    from deeplearning4j_tpu_torch.nn.layers.conv import _pair, _spatial_pads
+    acts = []
+    for net in (card, cpu):
+        with torch.no_grad():
+            a, _, _, _, _ = net._forward_graph(
+                net.params_list, net.states_list, [net._tensor(x)],
+                train=False, rngs=None, fmasks=None)
+        acts.append({k: v.detach().cpu().double() for k, v in a.items()})
+    relu = pool = 0
+    for name in cpu.topological_order:
+        v = cpu.conf.vertices[name]
+        if not isinstance(v, LayerVertex):
+            continue
+        if (v.layer.activation or "").lower() == "relu":
+            relu += int(((acts[0][name] > 0) != (acts[1][name] > 0)).sum())
+        if isinstance(v.layer, SubsamplingLayer) and \
+                v.layer.pooling_type == "max":
+            idx = []
+            for a in acts:
+                xin = a[cpu.conf.vertex_inputs[name][0]]
+                pt, pb, pl, pr = _spatial_pads(v.layer, xin)
+                xc = F.pad(xin.permute(0, 3, 1, 2), (pl, pr, pt, pb),
+                           value=float("-inf"))
+                idx.append(F.max_pool2d(xc, _pair(v.layer.kernel_size),
+                                        _pair(v.layer.stride),
+                                        return_indices=True)[1])
+            pool += int((idx[0] != idx[1]).sum())
+    return {"relu_units": relu, "max_pool_windows": pool}
+
+
+def cnn_graph_card_vs_cpu(build, kw, batch, seed, compute="float32"):
+    """A narrow zoo graph, f32 parameters (TF32 off): the output and the
+    loss on the CPU's parameters first, then 3 ``fit`` steps on the card
+    and on the CPU from the same parameters in ``compute`` (float32, or
+    float64 where the f32 gradient is not continuous), then outputs,
+    parameters and BN moments. Within CNN_CARD_CPU_RTOL, or
+    CNN_F64_STEPS_RTOL for float64 steps. GoogLeNet's head drops out: its
+    masks come from each device's own generator, so it is off here."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    conf = getattr(zoo, build)(**kw)
+    for v in conf.vertices.values():
+        if getattr(v, "layer", None) is not None and v.layer.dropout:
+            v.layer.dropout = 0.0
+    r = np.random.RandomState(seed)
+    size, classes = kw["height"], kw["n_classes"]
+    data = [DataSet(r.randn(batch, size, size, 3).astype(np.float32),
+                    np.eye(classes, dtype=np.float32)[
+                        r.randint(0, classes, batch)]) for _ in range(3)]
+    x = data[0].features
+
+    def out_rel(card, cpu):
+        want = cpu.output(x)
+        return float(np.abs(card.output(x) - want).max()
+                     / np.abs(want).max())
+
+    def run(dtype):
+        conf.compute_dtype = dtype
+        card = ComputationGraph(conf, device=DEVICE).init()
+        cpu = ComputationGraph(conf, device="cpu").init(params=card.params())
+        before = out_rel(card, cpu)
+        losses = [card.score(data[0]), cpu.score(data[0])]
+        flips = []
+        t0 = time.perf_counter()
+        for ds in data:
+            if dtype == "float32" and compute != "float32":
+                flips.append(f32_decision_flips(card, cpu, ds.features))
+            for net in (card, cpu):
+                net.fit(ListDataSetIterator([ds]))
+        rel, leaf = _card_cpu_rel(card, cpu)
+        return {"compute": dtype, "output_max_rel_err_before": before,
+                **({"f32_decision_flips_by_step": flips} if flips else {}),
+                "loss_before_card_cpu": losses,
+                "output_max_rel_err_after": out_rel(card, cpu),
+                "param_and_state_max_rel_err": rel, "worst_leaf": leaf,
+                "seconds": time.perf_counter() - t0}
+    gated = run(compute)
+    bar = CNN_CARD_CPU_RTOL if compute == "float32" else CNN_F64_STEPS_RTOL
+    loss_rel = abs(gated["loss_before_card_cpu"][0]
+                   - gated["loss_before_card_cpu"][1]) \
+        / abs(gated["loss_before_card_cpu"][1])
+    assert gated["output_max_rel_err_before"] <= CNN_CARD_CPU_RTOL and \
+        loss_rel <= CNN_CARD_CPU_RTOL and \
+        gated["output_max_rel_err_after"] <= CNN_CARD_CPU_RTOL and \
+        gated["param_and_state_max_rel_err"] <= bar, (build, gated)
+    out = {"config": f"zoo.{build}({kw})", "batch": batch, "steps": 3,
+           "parameters": "float32", "tolerance": bar,
+           "forward_tolerance": CNN_CARD_CPU_RTOL, **gated}
+    if compute != "float32":
+        out["float32_steps_not_gated"] = run("float32")
+    return out
+
+
+def resnet_resume(tmp):
+    """The narrow ResNet: RESNET_RESUME's epochs with a checkpoint every
+    ``every`` updates, uninterrupted; then a fresh graph resumed from the
+    first checkpoint must end with the same parameters, bitwise (under
+    ``cudnn.deterministic`` if cuDNN's defaults differ: then it says
+    so)."""
+    import os
+    import shutil
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.utils import training_checkpoint
+    cfg = RESNET_RESUME
+    conf = zoo.resnet50(**RESNET_NARROW)
+    r = np.random.RandomState(SEED + 5)
+    data = [DataSet(r.randn(cfg["batch"], 32, 32, 3).astype(np.float32),
+                    np.eye(5, dtype=np.float32)[r.randint(0, 5,
+                                                          cfg["batch"])])
+            for _ in range(cfg["batches"])]
+    seen = {}
+    os.environ["DL4J_TORCH_CKPT_KEEP"] = "100"
+
+    def run():
+        full_dir = os.path.join(tmp, "cg_full")
+        resume_dir = os.path.join(tmp, "cg_resume")
+        for d in (full_dir, resume_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        full = ComputationGraph(conf, device=DEVICE).init()
+        full.fit(ListDataSetIterator(data), epochs=cfg["epochs"],
+                 checkpoint_every=cfg["every"], checkpoint_dir=full_dir)
+        files = training_checkpoint.checkpoint_files(full_dir)
+        assert files[0][0] == cfg["every"], files
+        os.makedirs(resume_dir)
+        shutil.copy(os.path.join(full_dir, files[0][1]), resume_dir)
+        net = ComputationGraph(conf, device=DEVICE).init()
+        net.fit(ListDataSetIterator(data), epochs=cfg["epochs"],
+                checkpoint_every=cfg["every"], resume_from=resume_dir)
+        assert full.iteration == net.iteration == \
+            cfg["epochs"] * cfg["batches"]
+        seen.update(checkpoints=[it for it, _ in files],
+                    resumed_from=files[0][0])
+        return net.params(), full.params()
+    try:
+        out = _bitwise_or_deterministic(run)
+    finally:
+        os.environ.pop("DL4J_TORCH_CKPT_KEEP", None)
+    if out["needed"] != "defaults":
+        print("chip_smoke: resnet50 resume set "
+              "torch.backends.cudnn.deterministic for its check",
+              flush=True)
+    return {**cfg, **seen, **out}
+
+
+def charrnn_graph_conf():
+    """``zoo.char_rnn``'s chain (two peephole GravesLSTMs and a softmax
+    RnnOutputLayer, rmsprop, tBPTT) built with ``GraphBuilder`` at the
+    charrnn phase's width and learning rate."""
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    v, h, seg = (CHARRNN["vocab_size"], CHARRNN["hidden"],
+                 CHARRNN["tbptt_length"])
+    return (NeuralNetConfiguration.Builder()
+            .seed(12345).learning_rate(CHARRNN["learning_rate"])
+            .updater("rmsprop").rms_decay(0.95).weight_init("xavier")
+            .graph_builder().add_inputs("in")
+            .add_layer("lstm1", GravesLSTM(n_in=v, n_out=h,
+                                           activation="tanh"), "in")
+            .add_layer("lstm2", GravesLSTM(n_in=h, n_out=h,
+                                           activation="tanh"), "lstm1")
+            .add_layer("out", RnnOutputLayer(n_in=h, n_out=v,
+                                             activation="softmax",
+                                             loss="mcxent"), "lstm2")
+            .set_outputs("out").backprop_type("tbptt")
+            .tbptt_fwd_length(seg).tbptt_back_length(seg)
+            .set_input_types(InputType.recurrent(v)).build())
+
+
+def recurrent_graph(tries=5):
+    """The char-RNN as a ComputationGraph against the MultiLayerNetwork's
+    per-batch path: CG_RNN_BATCHES batches of 32 x 200 characters by
+    ``fit_batch`` from the same parameters, each run profiled, with the
+    wrappers' counts set to 0 just before it and read just after. Both
+    must launch the LSTM sequence kernel 8 times and the backward kernel
+    400 times a batch, and end with the same parameters."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    data, _ = markov_batches(CG_RNN_BATCHES, np.random.RandomState(SEED + 7))
+    mln_conf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                            hidden=CHARRNN["hidden"],
+                            tbptt_length=CHARRNN["tbptt_length"],
+                            learning_rate=CHARRNN["learning_rate"])
+    start = MultiLayerNetwork(mln_conf, device=DEVICE).init().params()
+    runs = {}
+    for kind in ("graph", "mln"):
+        for _ in range(tries):
+            if kind == "graph":
+                net = ComputationGraph(charrnn_graph_conf(),
+                                       device=DEVICE).init(params=start)
+                step = lambda ds: net.fit_batch(ds)       # noqa: E731
+            else:
+                net = MultiLayerNetwork(mln_conf,
+                                        device=DEVICE).init(params=start)
+                step = lambda ds: net.fit_batch(ds.features,  # noqa: E731
+                                                ds.labels)
+            reset_launches()
+            wall, names, _ = profiled(lambda: [step(ds) for ds in data])
+            wrappers = read_lstm_launches()
+            if names:
+                break
+        else:
+            raise AssertionError("torch.profiler recorded no device event "
+                                 f"in {tries} runs of the {kind} char-RNN")
+        runs[kind] = {"params": net.params(), "profiled": lstm_kernels(names),
+                      "wrappers": wrappers, "wall_s": wall,
+                      "iterations": net.iteration}
+    g, m = runs["graph"], runs["mln"]
+    n_layers = 2
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    want = (n_layers * windows * CG_RNN_BATCHES,
+            n_layers * CHARRNN["seq_len"] * CG_RNN_BATCHES)
+    assert g["profiled"] == m["profiled"] == g["wrappers"] == \
+        m["wrappers"] == want, (g["profiled"], m["profiled"],
+                                g["wrappers"], m["wrappers"], want)
+    diff = float(np.abs(g["params"] - m["params"]).max())
+    assert diff == 0.0, diff
+    assert g["iterations"] == m["iterations"] == windows * CG_RNN_BATCHES
+    return {"config": "zoo.char_rnn's chain through GraphBuilder "
+            f"({CHARRNN})", "batches": CG_RNN_BATCHES,
+            "launches": {"lstm_seq_kernel": g["profiled"][0],
+                         "lstm_bwd_kernel": g["profiled"][1],
+                         "counted_by": "torch.profiler and the wrappers"},
+            "mln_per_batch_launches": {"lstm_seq_kernel": m["profiled"][0],
+                                       "lstm_bwd_kernel": m["profiled"][1]},
+            "param_max_abs_diff_vs_mln": diff,
+            "graph_wall_s": g["wall_s"], "mln_wall_s": m["wall_s"]}
+
+
+def phase_resnet50(card):
+    import gc
+    import tempfile
+    import torch
+
+    result = {"phase": "resnet50", "config": "zoo.resnet50() (224x224x3, "
+              "1000 classes, bottleneck stages 3-4-6-3, BatchNormalization; "
+              "nesterovs 0.9, lr 0.1), compute_dtype bfloat16, f32 masters",
+              "params": RESNET_PARAMS, "path": "fit(iterator), per batch "
+              "(fuse_allowed declines graphs)", "card": card}
+    seconds = {}
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for batch in RESNET_BATCHES:
+            t0 = time.perf_counter()
+            net, batches, turn = resnet_turn(batch)
+            if batch == RESNET_BATCHES[0]:
+                turn["device_share"] = resnet_profile(net, batches,
+                                                      turn["ms_per_batch"])
+            else:
+                result["save_restore"] = resnet_archive(net, batches, tmp)
+            turns.append(turn)
+            del net, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[f"batch_{batch}"] = time.perf_counter() - t0
+        result["turns"] = turns
+        for key, step in (
+                ("f32_card_vs_cpu_resnet", lambda: cnn_graph_card_vs_cpu(
+                    "resnet50", RESNET_NARROW, 8, SEED + 3)),
+                ("card_vs_cpu_googlenet", lambda: cnn_graph_card_vs_cpu(
+                    "googlenet", GOOGLENET_NARROW, 8, SEED + 4,
+                    compute="float64")),
+                ("resume", lambda: resnet_resume(tmp)),
+                ("recurrent_graph", recurrent_graph)):
+            t0 = time.perf_counter()
+            result[key] = step()
+            seconds[key] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -2167,6 +2706,8 @@ def main():
     tr = phase_train(card)
     cr = phase_charrnn(card)
     phase_lenet(card)
+    rn = phase_resnet50(card)
+    cg = rn["recurrent_graph"]["launches"]
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
     # kernels at the char-RNN's
@@ -2209,6 +2750,7 @@ def main():
          "source": src + "lstm_cell_fwd.cu", "replaces": ref + "508",
          "launches": cr["kernel_launches"]["lstm_cell_fwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
+         "launches_cg": cg["lstm_seq_kernel"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -2223,6 +2765,7 @@ def main():
          "source": src + "lstm_cell_bwd.cu", "replaces": ref + "540",
          "launches": cr["kernel_launches"]["lstm_cell_bwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
+         "launches_cg": cg["lstm_bwd_kernel"],
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

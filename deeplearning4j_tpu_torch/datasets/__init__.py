@@ -1,8 +1,11 @@
-"""Data contracts of the port: DataSet and its iterators."""
+"""Data contracts of the port: DataSet, MultiDataSet and their
+iterators."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (
-    ArrayDataSetIterator, DataSet, DataSetIterator, ListDataSetIterator,
+    ArrayDataSetIterator, ArrayMultiDataSetIterator, DataSet,
+    DataSetIterator, ListDataSetIterator, MultiDataSet, MultiDataSetIterator,
     StackedDataSet)
 
-__all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "StackedDataSet"]
+__all__ = ["ArrayDataSetIterator", "ArrayMultiDataSetIterator", "DataSet",
+           "DataSetIterator", "ListDataSetIterator", "MultiDataSet",
+           "MultiDataSetIterator", "StackedDataSet"]

@@ -13,10 +13,14 @@ batches of one shape bucket travel as one :class:`StackedDataSet` [K, B,
 ...] with [K, B] example weights (zero on padded rows and steps), which
 ``MultiLayerNetwork.fit_fused`` trains in one pass.
 
+A ``MultiDataSet`` batch (ComputationGraph's) travels alone: with
+staging on, the consumer copies each of its arrays to the device when it
+dequeues the batch, as for a lone ``DataSet``.
+
 Not ported yet (ROADMAP.md, queue 1): ``sharding``/``fuse_sharding``
 (data parallelism), ``k_resolver`` (the fusion autotuner) and stacking
-``MultiDataSet`` batches (ComputationGraph); each raises
-``NotImplementedError``.
+``MultiDataSet`` batches into groups (``fuse`` > 1, the graph's fused
+loop); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ import torch
 
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.config import env_flag, env_int
-from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
-                                                       DataSetIterator,
-                                                       StackedDataSet)
+from deeplearning4j_tpu_torch.datasets.dataset import (
+    DataSet, DataSetIterator, MultiDataSet, MultiDataSetIterator,
+    StackedDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.errors import PrefetchWorkerDiedError
 from deeplearning4j_tpu_torch.testing import faults
@@ -205,10 +209,12 @@ class AsyncDataSetIterator(DataSetIterator):
     # ---- worker-side helpers (numpy only) -----------------------------
 
     def _stageable(self, ds):
-        if _is_multi(ds) and (self.fuse > 1 or self._device_stage):
-            raise NotImplementedError(
-                "AsyncDataSetIterator over MultiDataSet batches: stacking "
-                "them " + _NOT_PORTED)
+        if _is_multi(ds):
+            if self.fuse > 1:
+                raise NotImplementedError(
+                    "AsyncDataSetIterator(fuse > 1) over MultiDataSet "
+                    "batches: stacking them " + _NOT_PORTED)
+            return False    # staged alone, never concatenated
         # a batch already on a device is staged: concatenating would copy
         # it back to the host
         return (isinstance(ds, DataSet) and ds.features is not None
@@ -220,6 +226,8 @@ class AsyncDataSetIterator(DataSetIterator):
     @staticmethod
     def _nbytes(ds):
         try:
+            if _is_multi(ds):
+                return sum(a.nbytes for a in ds.features + ds.labels)
             return ds.features.nbytes + ds.labels.nbytes
         except AttributeError:
             return 0    # masked / odd batches: exempt from the budget
@@ -336,8 +344,15 @@ class AsyncDataSetIterator(DataSetIterator):
     def _emit_single(self, ds):
         if not self._device_stage:
             return ds
-        out = DataSet(self._put(ds.features), self._put(ds.labels),
-                      ds.features_mask, ds.labels_mask)
+        if _is_multi(ds):
+            def put_all(arrs):
+                return None if arrs is None else [self._put(a) for a in arrs]
+            out = MultiDataSet(put_all(ds.features), put_all(ds.labels),
+                               put_all(ds.features_masks),
+                               put_all(ds.labels_masks))
+        else:
+            out = DataSet(self._put(ds.features), self._put(ds.labels),
+                          ds.features_mask, ds.labels_mask)
         w = getattr(ds, "example_weights", None)
         if w is not None:   # a row-padded ragged batch's weights ride along
             out.example_weights = self._put(w)
@@ -582,6 +597,12 @@ class AsyncDataSetIterator(DataSetIterator):
     def _apply_pp(self, item):
         # the worker already applied the pre-processor
         return item
+
+    @staticmethod
+    def _pp_copy(item):
+        if _is_multi(item):
+            return MultiDataSetIterator._pp_copy(item)
+        return DataSetIterator._pp_copy(item)
 
     def fuse_stats(self):
         """Grouping telemetry of this iterator: mid-stream rebucket

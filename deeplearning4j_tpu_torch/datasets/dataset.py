@@ -1,18 +1,21 @@
 """DataSet + iterator contracts: the port of
-``deeplearning4j_tpu/datasets/dataset.py`` (ND4J ``DataSet`` and
-``DataSetIterator``), numpy only.
+``deeplearning4j_tpu/datasets/dataset.py`` (ND4J ``DataSet``,
+``MultiDataSet`` and their iterators), numpy only.
 
 Layouts: FF [batch, size]; RNN [batch, time, size] with masks
 [batch, time]. A batch already on a device (a ``torch.Tensor``) is kept as
-it is; everything else becomes a numpy array.
+it is; everything else becomes a numpy array. A ``MultiDataSet`` holds
+lists of these, one per network input and output (ComputationGraph's
+data contract).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "StackedDataSet"]
+__all__ = ["ArrayDataSetIterator", "ArrayMultiDataSetIterator", "DataSet",
+           "DataSetIterator", "ListDataSetIterator", "MultiDataSet",
+           "MultiDataSetIterator", "StackedDataSet"]
 
 
 def _as_batch_array(a):
@@ -94,6 +97,22 @@ class StackedDataSet:
     def num_examples(self):
         """Real examples across the whole stack (the weights' sum)."""
         return int(float(self.weights[:self.n_steps].sum()))
+
+
+class MultiDataSet:
+    """Multi-input/multi-output minibatch (ComputationGraph's data
+    contract): lists of features and labels, and optional lists of masks
+    (an entry may be None)."""
+
+    def __init__(self, features, labels, features_masks=None,
+                 labels_masks=None):
+        self.features = [_as_batch_array(f) for f in features]
+        self.labels = [_as_batch_array(l) for l in labels]
+        self.features_masks = features_masks
+        self.labels_masks = labels_masks
+
+    def num_examples(self):
+        return self.features[0].shape[0]
 
 
 class _PreProcessorMixin:
@@ -208,3 +227,54 @@ class ListDataSetIterator(DataSetIterator):
         d = self.datasets[self._pos]
         self._pos += 1
         return d
+
+
+class MultiDataSetIterator(_PreProcessorMixin):
+    """Iterator base for MultiDataSet streams (ND4J MultiDataSetIterator);
+    the same automatic pre-processor wrapping as DataSetIterator
+    (MultiDataSetPreProcessor's role)."""
+
+    def __next__(self) -> MultiDataSet:
+        raise NotImplementedError
+
+    @staticmethod
+    def _pp_copy(item):
+        mds = MultiDataSet.__new__(MultiDataSet)
+        mds.features = list(item.features)
+        mds.labels = list(item.labels)
+        mds.features_masks = item.features_masks
+        mds.labels_masks = item.labels_masks
+        return mds
+
+
+class ArrayMultiDataSetIterator(MultiDataSetIterator):
+    """Minibatches of in-memory multi-input/multi-output arrays."""
+
+    def __init__(self, features, labels, batch_size=32, features_masks=None,
+                 labels_masks=None):
+        self.features = [np.asarray(f) for f in features]
+        self.labels = [np.asarray(l) for l in labels]
+        self.features_masks = features_masks
+        self.labels_masks = labels_masks
+        self._batch = batch_size
+        self._pos = 0
+
+    def reset(self):
+        self._pos = 0
+
+    def batch_size(self):
+        return self._batch
+
+    def __next__(self):
+        if self._pos >= self.features[0].shape[0]:
+            raise StopIteration
+        sl = slice(self._pos, self._pos + self._batch)
+        self._pos += self._batch
+
+        def cut(arrs):
+            if arrs is None:
+                return None
+            return [None if a is None else np.asarray(a)[sl] for a in arrs]
+
+        return MultiDataSet(cut(self.features), cut(self.labels),
+                            cut(self.features_masks), cut(self.labels_masks))

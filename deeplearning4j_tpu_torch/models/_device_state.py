@@ -1,6 +1,6 @@
 """Device-state plumbing of the model classes: the port of the parts of
-``deeplearning4j_tpu/models/_device_state.py`` that MultiLayerNetwork's
-train path needs.
+``deeplearning4j_tpu/models/_device_state.py`` that the train paths of
+MultiLayerNetwork and ComputationGraph need.
 
 - ``score_`` is kept as a device scalar and read lazily, so the host loop
   does not wait for the card after every step;
@@ -19,7 +19,8 @@ train path needs.
   ``TrainingDivergedError`` raised;
 - ``fit``'s periodic training checkpoints and their resume
   (``utils/training_checkpoint.py``);
-- the fused loop's gate (:func:`fuse_allowed`);
+- the fused loop's gate (:func:`fuse_allowed`), which declines every
+  ComputationGraph for now;
 - mixed precision: ``_compute_dtype``/``_cast_floats``.
 
 Not ported here: the solver plumbing (ROADMAP.md, queue 1).
@@ -79,10 +80,18 @@ def fuse_allowed(conf, layers):
     ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch back to the host window
     loop.
 
-    One difference from the reference's gate: a model with dropout is
-    declined (a captured step cannot revert a ``torch.Generator`` on the
-    device, and the per-batch path computes the same numbers; ROADMAP.md
-    lists dropout inside the captured step)."""
+    Two differences from the reference's gate:
+    - a model with dropout is declined (a captured step cannot revert a
+      ``torch.Generator`` on the device, and the per-batch path computes
+      the same numbers; ROADMAP.md lists dropout inside the captured
+      step);
+    - every ComputationGraph is declined: the graph's fused loop (a
+      captured step over a ``StackedMultiDataSet``, and the prefetcher's
+      stacking of MultiDataSet batches) is not ported yet (ROADMAP.md,
+      queue 1). The zoo's graphs would be declined anyway: ResNet-50 for
+      BatchNormalization, GoogLeNet for dropout."""
+    if hasattr(conf, "vertices"):     # a ComputationGraphConfiguration
+        return False
     if (conf.optimization_algo != "stochastic_gradient_descent"
             or conf.iterations != 1):
         return False

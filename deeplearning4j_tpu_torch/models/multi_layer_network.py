@@ -31,6 +31,8 @@ carry a JAX net's parameters and updater state across, and ``params()``
 /``set_params()`` use the reference's flat vector. The network runs on
 the card unless the caller passes ``device="cpu"``; its randomness (init,
 dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
+The per-batch step's body, the flat parameter API and ``fit(iterator)``'s
+loop are ComputationGraph's too (``models/_layered.py``).
 
 Not ported yet (ROADMAP.md, queue 1): line-search solvers, pretraining
 and the fusion autotuner.
@@ -42,25 +44,19 @@ import time
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch import obs
-from deeplearning4j_tpu_torch.datasets.async_iterator import (
-    AsyncDataSetIterator, default_stage)
-from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
-                                                       DataSetIterator,
-                                                       StackedDataSet)
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, StackedDataSet
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models._device_state import (
-    DeviceStateMixin, nanguard_enabled, step_all_finite, uses_dropout)
+from deeplearning4j_tpu_torch.models._device_state import nanguard_enabled
+from deeplearning4j_tpu_torch.models._layered import (LayeredModel, host,
+                                                      is_carry_layer, leaves,
+                                                      tensor_leaves)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer, LossLayer
-from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-    LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 from deeplearning4j_tpu_torch.testing import faults
-from deeplearning4j_tpu_torch.tuning import autotuner
 from deeplearning4j_tpu_torch.utils import flat_params
 
 __all__ = ["MultiLayerNetwork", "params_from_numpy",
@@ -74,14 +70,6 @@ _OBS_STEPS = obs.counter("train.steps_total",
                          "Real (non-padding) parameter updates dispatched")
 _OBS_GROUPS = obs.counter("train.dispatch_groups_total",
                           "Fused dispatch groups (fit_fused calls)")
-
-
-def _leaves(params, device):
-    """Trainable f32 leaves on ``device`` from a dict of arrays/tensors."""
-    return {k: (v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.array(v, np.float32)))
-            .to(device=device, dtype=torch.float32).detach().clone()
-            .requires_grad_(True) for k, v in params.items()}
 
 
 def params_from_numpy(layers, params_list, device=None):
@@ -101,7 +89,7 @@ def params_from_numpy(layers, params_list, device=None):
                 f"{type(layer).__name__}: params "
                 f"{ {k: tuple(np.shape(v)) for k, v in p.items()} } do not "
                 f"match its shapes {shapes}")
-        out.append(_leaves(p, dev))
+        out.append(leaves(p, dev))
     return out
 
 
@@ -115,34 +103,15 @@ def updater_state_from_numpy(updater_states, device=None):
             for s in updater_states]
 
 
-def _host(a):
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
-
-
-def _is_carry_layer(layer):
-    return isinstance(layer, LSTM) and \
-        not isinstance(layer, GravesBidirectionalLSTM)
-
-
-def _tensor_leaves(tree):
-    """The tensors of nested dicts/lists/tuples, in a fixed order."""
+def _rebuild(tree, leaves_iter):
+    """``tree``'s containers around the tensors drawn from
+    ``leaves_iter``, in :func:`tensor_leaves` order."""
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _tensor_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tensor_leaves(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
-
-
-def _rebuild(tree, leaves):
-    """``tree``'s containers around the tensors drawn from ``leaves``, in
-    :func:`_tensor_leaves` order."""
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        out = {k: _rebuild(tree[k], leaves_iter) for k in sorted(tree)}
         return {k: out[k] for k in tree}   # the tree's own key order
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
-    return next(leaves) if isinstance(tree, torch.Tensor) else tree
+        return type(tree)(_rebuild(v, leaves_iter) for v in tree)
+    return next(leaves_iter) if isinstance(tree, torch.Tensor) else tree
 
 
 # warm-up calls of a window step on a side stream before its capture
@@ -211,7 +180,7 @@ class _FusedLoop:
         given since the last group."""
         for attr in ("params_list", "updater_states", "states_list"):
             tree = getattr(net, attr)
-            cur = _tensor_leaves(tree)
+            cur = tensor_leaves(tree)
             bound = self.bound.setdefault(attr, cur)
             if len(cur) != len(bound):
                 raise RuntimeError(f"the model's {attr} changed structure "
@@ -241,7 +210,7 @@ class _FusedLoop:
         batch size, (h, c) views per carry layer, None elsewhere."""
         key = (batch, dtype)
         if key not in self.carries:
-            widths = [l.n_out if _is_carry_layer(l) else 0
+            widths = [l.n_out if is_carry_layer(l) else 0
                       for l in net.layers]
             flat = torch.zeros(2 * batch * sum(widths), dtype=dtype,
                                device=self.device)
@@ -260,7 +229,7 @@ class _FusedLoop:
         return views
 
 
-class MultiLayerNetwork(DeviceStateMixin):
+class MultiLayerNetwork(LayeredModel):
     def __init__(self, conf: MultiLayerConfiguration, *, device=None):
         self.conf = conf
         self.layers = conf.layers
@@ -287,7 +256,7 @@ class MultiLayerNetwork(DeviceStateMixin):
         ``conf.seed`` on the network's device, which then serves dropout."""
         g = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         self._rng = g
-        self.params_list = [_leaves(l.init_params(g), self.device)
+        self.params_list = [leaves(l.init_params(g), self.device)
                             for l in self.layers]
         self.states_list = [{k: v.to(self.device)
                              for k, v in l.init_state().items()}
@@ -299,62 +268,9 @@ class MultiLayerNetwork(DeviceStateMixin):
             self.set_params(params)
         return self
 
-    def reset_updater_state(self):
-        self.updater_states = [
-            updaters_mod.init_state(
-                l.updater_config(self.conf.max_iterations), p)
-            for l, p in zip(self.layers, self.params_list)]
-
-    def num_params(self):
-        return flat_params.n_params(self.layers)
-
-    def params(self):
-        """The flattened parameter vector (reference params()), as numpy."""
-        with torch.no_grad():
-            return _host(flat_params.params_to_vector(self.layers,
-                                                      self.params_list))
-
-    def set_params(self, vec):
-        vec = torch.as_tensor(_host(vec).astype(np.float32)).to(self.device)
-        self.params_list = [
-            {k: v.requires_grad_(True) for k, v in p.items()}
-            for p in flat_params.vector_to_params(self.layers, vec)]
-
     def get_layer_params(self, i):
         """Copies of layer ``i``'s parameters."""
         return {k: v.detach().clone() for k, v in self.params_list[i].items()}
-
-    def set_listeners(self, listeners):
-        self.listeners = list(listeners) \
-            if isinstance(listeners, (list, tuple)) else [listeners]
-
-    # ------------------------------------------------------------------
-    # forward
-    # ------------------------------------------------------------------
-    def _layer_forward(self, layer, train, rng):
-        """The layer's forward, under ``torch.utils.checkpoint`` when the
-        configuration asks for remat. A recomputation draws its dropout
-        masks from the generator state the first run started from."""
-        def fwd(p, x, s, m):
-            return layer.forward(p, x, s, train=train, rng=rng, mask=m)
-        if not (self.conf.remat and train):
-            return fwd
-        start = None if rng is None else rng.get_state()
-
-        def replay(p, x, s, m):
-            if start is None:
-                return fwd(p, x, s, m)
-            after = rng.get_state()
-            rng.set_state(start)
-            try:
-                return fwd(p, x, s, m)
-            finally:
-                if recomputing[0]:
-                    rng.set_state(after)
-                recomputing[0] = True
-        recomputing = [False]
-        return lambda p, x, s, m: checkpoint(replay, p, x, s, m,
-                                             use_reentrant=False)
 
     def _forward_layers(self, params_list, states_list, x, *, train, rngs,
                         fmask, carries=None):
@@ -384,7 +300,7 @@ class MultiLayerNetwork(DeviceStateMixin):
                 x, s = layer.forward(params_list[i], x, states_list[i],
                                      train=train, rng=rng_i, mask=mask)
                 new_states.append(s)
-            elif carries is not None and _is_carry_layer(layer):
+            elif carries is not None and is_carry_layer(layer):
                 x_in = layer.apply_dropout(x, train=train, rng=rng_i)
                 carry = new_carries[i]
                 if carry is None:
@@ -444,126 +360,6 @@ class MultiLayerNetwork(DeviceStateMixin):
                     l2_bias=layer.l2_bias or 0.0) / denom
         return score, (new_states, new_carries)
 
-    # ------------------------------------------------------------------
-    # the train step
-    # ------------------------------------------------------------------
-    def _uses_dropout(self):
-        return uses_dropout(self.layers)
-
-    def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew):
-        """(score, (new_states, new_carries), grads as a list of dicts) at
-        the current parameters."""
-        leaves = [(i, k, v) for i, p in enumerate(self.params_list)
-                  for k, v in p.items()]
-        with torch.enable_grad():
-            score, aux = self._loss_fn(self.params_list, self.states_list, x,
-                                       y, fmask, lmask, rngs, train, carries,
-                                       ew)
-            flat = torch.autograd.grad(score, [v for _, _, v in leaves],
-                                       allow_unused=True)
-        grads = [{} for _ in self.params_list]
-        for (i, k, v), g in zip(leaves, flat):
-            grads[i][k] = torch.zeros_like(v) if g is None else g
-        return score.detach(), aux, grads
-
-    def _train_step(self, x, y, fmask, lmask, ew, carries):
-        """One update, eagerly: the body of the reference's
-        ``_build_train_step``; tBPTT ``carries`` are updated in place to
-        the ones the next window starts from. Returns (score, grads)."""
-        rng = self._rng if self._uses_dropout() else None
-        rng_start = None if rng is None else rng.get_state()
-        rngs = None if rng is None else [rng] * len(self.layers)
-        score, (new_states, new_carries), grads = self._value_and_grad(
-            x, y, fmask, lmask, rngs, True, carries, ew)
-        guard = nanguard_enabled()
-        self._apply_update(score, grads, new_states, new_carries, carries,
-                           guard, rng_start=rng_start)
-        if guard:
-            # the host reads the counter one step late
-            self._nanguard_record()
-        return score, grads
-
-    def _apply_update(self, score, grads, new_states, new_carries, carries,
-                      guard, real=None, rng_start=None):
-        """The update half of the step, written in place into the
-        network's tensors: each layer's updater rule, the tBPTT
-        ``carries`` (None without tBPTT) set to the window's final ones
-        without their graph, and the iteration counter, all of it
-        select-reverted where ``keep`` is false. ``keep`` is ``real`` (the
-        fused loop's device bool: the window weighs anything) and, under
-        the guard, the step's loss and gradients being finite; a real,
-        non-finite step bumps the skipped counter. No host read, but one:
-        when dropout drew from the generator (``rng_start``, its state
-        before the step), the guard decides on the host whether to put it
-        back, since a generator cannot be selected on the device."""
-        it = self._device_iteration()
-        with torch.no_grad():
-            keep = real
-            if guard:
-                ok = step_all_finite(score, grads)
-                keep = ok if real is None else real & ok
-                self._nan_skipped_arg().add_(
-                    (~ok if real is None else real & ~ok).to(torch.int32))
-
-            def put(old, new):
-                old.copy_(new if keep is None
-                          else torch.where(keep, new, old))
-            for layer, p, g, s in zip(self.layers, self.params_list, grads,
-                                      self.updater_states):
-                if not p:
-                    continue
-                upd, s2 = updaters_mod.compute_updates(
-                    layer.updater_config(self.conf.max_iterations), g, s, it,
-                    params=p)
-                for k in p:
-                    put(p[k], p[k] - upd[k])
-                for new, old in zip(_tensor_leaves(s2), _tensor_leaves(s)):
-                    put(old, new)
-            for new, old in zip(_tensor_leaves(new_states),
-                                _tensor_leaves(self.states_list)):
-                put(old, new)
-            if carries is not None:
-                # truncation: the next window starts from these values
-                for new, old in zip(_tensor_leaves(new_carries),
-                                    _tensor_leaves(carries)):
-                    put(old, new.detach())
-            put(it, it + 1)
-            if guard and rng_start is not None and not bool(ok):
-                self._rng.set_state(rng_start)
-
-    def _after_update(self, score, grads, batch):
-        self.score_ = score   # device scalar; read lazily
-        self._last_gradients = grads
-        self._last_batch_size = int(batch)
-        self.iteration += 1
-        self._iter_dev_py = self.iteration
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
-
-    def _tensor(self, a):
-        """``a`` on the network's device (float64 arrays become f32, as
-        the reference's default precision makes them)."""
-        if a is None:
-            return None
-        if isinstance(a, torch.Tensor):
-            t = a
-        else:
-            arr = np.asarray(a)
-            if arr.dtype == np.float64:
-                arr = arr.astype(np.float32)
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        if t.dtype == torch.float64:
-            t = t.to(torch.float32)
-        return t.to(self.device)
-
-    def _check_solver_supported(self):
-        algo = self.conf.optimization_algo
-        if algo != "stochastic_gradient_descent":
-            raise NotImplementedError(
-                f"optimization_algo={algo!r}: the line-search solvers are "
-                "not ported to the PyTorch package yet (ROADMAP.md, "
-                "queue 1)")
-
     def fit_batch(self, x, y, fmask=None, lmask=None, ew=None):
         """One parameter update on one minibatch (tBPTT models: one update
         per window). Returns the score as a device scalar (also kept as
@@ -601,7 +397,7 @@ class MultiLayerNetwork(DeviceStateMixin):
         t = x.shape[1]
         seg = self.conf.tbptt_fwd_length
         carries = [layer.initial_carry(x.shape[0], x.dtype, x.device)
-                   if _is_carry_layer(layer) else None
+                   if is_carry_layer(layer) else None
                    for layer in self.layers]
         last_score = None
         for start in range(0, t, seg):
@@ -789,89 +585,27 @@ class MultiLayerNetwork(DeviceStateMixin):
                                data.features_mask, data.labels_mask)
             self._nanguard_flush()
             return self
-        if isinstance(data, DataSetIterator) or hasattr(data, "__iter__"):
+        if hasattr(data, "__iter__"):
             return self._fit_iterator(data, epochs, every, ck_dir, keep,
                                       resume_from)
         raise ValueError(f"Cannot fit on {type(data)}")
 
-    def _fit_iterator(self, data, epochs, every=0, ck_dir=None, keep=1,
-                      resume_from=None):
-        """The reference's ``fit(DataSetIterator)``: wrap a plain iterator
-        in the prefetcher with ``fuse_wrap_config``'s grouping, route each
-        ``StackedDataSet`` to ``fit_fused`` and every other batch to
-        ``fit_batch`` (with unit example weights where the run is bucketed,
-        so a row-padded ragged batch takes the same path). A resume skips
-        the cursor's batches in the prefetch worker, before grouping, so
-        the groups form as they did in the uninterrupted run; checkpoints
-        are committed only between dispatches."""
-        wrapped = None
-        use_ew = False
-        self._last_fuse_stats = None
-        if isinstance(data, DataSetIterator) and \
-                not isinstance(data, AsyncDataSetIterator):
-            fuse, k_resolver, bucket_pad, _ = autotuner.fuse_wrap_config(self)
-            use_ew = bucket_pad
-            data = wrapped = AsyncDataSetIterator(
-                data, queue_size=4, stage=default_stage(), fuse=fuse,
-                k_resolver=k_resolver, bucket_pad=bucket_pad,
-                device=self.device)
-        start_epoch = skip = 0
-        if resume_from is not None:
-            cursor = self._resume_fit_checkpoint(resume_from)
-            if cursor:
-                start_epoch = min(int(cursor.get("epoch", 0)), epochs)
-                skip = int(cursor.get("batch", 0))
-        last_ck = self.iteration
-        try:
-            for ep in range(start_epoch, epochs):
-                # the cursor applies to the first resumed epoch only; the
-                # prefetcher skips in its worker, anything else is drained
-                to_skip, skip = (skip, 0) if ep == start_epoch else (0, 0)
-                batches = to_skip
-                if to_skip and wrapped is not None:
-                    wrapped.skip_next(to_skip)
-                    to_skip = 0
-                for ds in data:
-                    if to_skip:
-                        n = getattr(ds, "n_steps", 1)
-                        if n > to_skip:
-                            raise ValueError(
-                                "the resume cursor does not align with this "
-                                "iterator's grouping; resume with the "
-                                "iterator configuration the checkpoint was "
-                                "written under")
-                        to_skip -= n
-                        continue
-                    if isinstance(ds, StackedDataSet):
-                        self.fit_fused(ds)
-                        batches += ds.n_steps
-                    else:
-                        ew = getattr(ds, "example_weights", None)
-                        if (ew is None and use_ew and ds.features_mask is None
-                                and ds.labels_mask is None):
-                            ew = np.ones(int(ds.features.shape[0]),
-                                         np.float32)
-                        for _ in range(self.conf.iterations):
-                            self.fit_batch(ds.features, ds.labels,
-                                           ds.features_mask, ds.labels_mask,
-                                           ew=ew)
-                        batches += 1
-                    if every and self.iteration - last_ck >= every:
-                        self._save_fit_checkpoint(ck_dir, ep, batches, keep)
-                        last_ck = self.iteration
-                for lst in self.listeners:
-                    if hasattr(lst, "on_epoch_end"):
-                        lst.on_epoch_end(self)
-                self.epoch_count += 1
-            # the last group's counter must not ride past the fit unread
-            self._nanguard_flush()
-        finally:
-            if wrapped is not None:
-                wrapped.shutdown()
-                self._last_fuse_stats = wrapped.fuse_stats()
-            if obs.tracing.enabled():
-                obs.tracing.flush()
-        return self
+    def _fit_item(self, ds, use_ew):
+        """One item of ``fit(iterator)``'s stream: a ``StackedDataSet``
+        through ``fit_fused``, any other batch through ``fit_batch`` (with
+        unit example weights where the run is bucketed, so a row-padded
+        ragged batch takes the same path). Returns the real batches."""
+        if isinstance(ds, StackedDataSet):
+            self.fit_fused(ds)
+            return ds.n_steps
+        ew = getattr(ds, "example_weights", None)
+        if (ew is None and use_ew and ds.features_mask is None
+                and ds.labels_mask is None):
+            ew = np.ones(int(ds.features.shape[0]), np.float32)
+        for _ in range(self.conf.iterations):
+            self.fit_batch(ds.features, ds.labels, ds.features_mask,
+                           ds.labels_mask, ew=ew)
+        return 1
 
     # ------------------------------------------------------------------
     # inference / scoring
@@ -883,7 +617,7 @@ class MultiLayerNetwork(DeviceStateMixin):
             acts, _, _, _, _ = self._forward_layers(
                 self.params_list, self.states_list, x, train=False,
                 rngs=None, fmask=fmask)
-            return _host(acts[-1])
+            return host(acts[-1])
 
     def feed_forward(self, x, train=False):
         """All layer activations, input first, as host numpy."""
@@ -893,7 +627,7 @@ class MultiLayerNetwork(DeviceStateMixin):
             acts, _, _, _, _ = self._forward_layers(
                 self.params_list, self.states_list, x, train=train,
                 rngs=rngs, fmask=None)
-        return [_host(a) for a in acts]
+        return [host(a) for a in acts]
 
     def score(self, dataset: DataSet, train=False):
         """Loss on a dataset without updating params."""
@@ -922,7 +656,7 @@ class MultiLayerNetwork(DeviceStateMixin):
     def gradient_vector(self):
         if self._last_gradients is None:
             return None
-        return _host(flat_params.params_to_vector(self.layers,
+        return host(flat_params.params_to_vector(self.layers,
                                                   self._last_gradients))
 
     # ------------------------------------------------------------------
@@ -941,12 +675,12 @@ class MultiLayerNetwork(DeviceStateMixin):
         if self._rnn_carries is None:
             self._rnn_carries = [
                 l.initial_carry(x.shape[0], x.dtype, x.device)
-                if _is_carry_layer(l) else None for l in self.layers]
+                if is_carry_layer(l) else None for l in self.layers]
         with torch.no_grad():
             acts, _, _, _, self._rnn_carries = self._forward_layers(
                 self.params_list, self.states_list, x, train=False,
                 rngs=None, fmask=None, carries=self._rnn_carries)
-        out = _host(acts[-1])
+        out = host(acts[-1])
         return out[:, 0] if single and out.ndim == 3 else out
 
     # ------------------------------------------------------------------
@@ -957,16 +691,16 @@ class MultiLayerNetwork(DeviceStateMixin):
         ev = Evaluation()
         for ds in iterator:
             out = self.output(ds.features)
-            ev.eval(_host(ds.labels), out,
+            ev.eval(host(ds.labels), out,
                     mask=None if ds.labels_mask is None
-                    else _host(ds.labels_mask))
+                    else host(ds.labels_mask))
         return ev
 
     def clone(self):
         """An independent copy: parameters, layer and updater state,
         iteration and generator state."""
         net = MultiLayerNetwork(self.conf, device=self.device)
-        net.params_list = [_leaves(p, self.device) for p in self.params_list]
+        net.params_list = [leaves(p, self.device) for p in self.params_list]
         net.states_list = [{k: v.clone() for k, v in s.items()}
                            for s in self.states_list]
         net.updater_states = [

@@ -19,8 +19,7 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import (FeedForward,
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
     FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
-    InputPreProcessor, RnnToFeedForwardPreProcessor, not_ported,
-    preprocessor_from_dict)
+    InputPreProcessor, RnnToFeedForwardPreProcessor, preprocessor_from_dict)
 from deeplearning4j_tpu_torch.nn.layers import conv as conv_layers
 from deeplearning4j_tpu_torch.nn.layers import core as core_layers
 from deeplearning4j_tpu_torch.nn.layers import norm as norm_layers
@@ -413,4 +412,6 @@ class NeuralNetConfiguration:
             return ListBuilder(self)
 
         def graph_builder(self):
-            raise not_ported("ComputationGraph (graph_builder)")
+            from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+                GraphBuilder
+            return GraphBuilder(self)

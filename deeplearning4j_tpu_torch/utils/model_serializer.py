@@ -4,13 +4,15 @@
 An archive is the reference's zip, entry for entry, so a model written by
 either package loads in the other:
 
-- ``configuration.json``: the ``MultiLayerConfiguration`` JSON;
+- ``configuration.json``: the ``MultiLayerConfiguration`` or
+  ``ComputationGraphConfiguration`` JSON;
 - ``coefficients.npy``: the flat float32 parameter vector (layers in
-  order, each layer's ``param_order``; conv weights HWIO, dense ``W``
-  [n_in, n_out], LSTM gates [i, f, g, o]);
+  order, a graph's in topological order; each layer's ``param_order``;
+  conv weights HWIO, dense ``W`` [n_in, n_out], LSTM gates [i, f, g, o]);
 - ``updaterState.npy``: the flat updater-state vector (sorted state keys,
   then ``param_order``);
-- ``state.npz``: non-trainable layer state under ``{layer}.{key}``
+- ``state.npz``: non-trainable layer state under ``{layer}.{key}``, the
+  layer being a MultiLayerNetwork's index or a graph's vertex name
   (BatchNormalization's ``mean`` and ``var``);
 - ``metadata.json``: ``model_type``, ``iteration``, ``epoch`` and
   ``framework`` (this package's name);
@@ -20,9 +22,9 @@ either package loads in the other:
 Every write commits through ``atomic_io`` (temporary file, fsync,
 rename); a restore verifies the manifest and raises
 ``CheckpointCorruptError`` for a torn or bit-rotted archive. The write
-side is numpy on the host. ComputationGraph and TransformerLM archives
-and the normalizer classes are not ported yet: they raise
-``NotImplementedError`` naming ROADMAP.md.
+side is numpy on the host. TransformerLM archives and the normalizer
+classes are not ported yet: they raise ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,17 +38,21 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
+from deeplearning4j_tpu_torch.models.computation_graph import \
+    ComputationGraph
 from deeplearning4j_tpu_torch.models.multi_layer_network import \
     MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+    ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.utils import atomic_io, flat_params
 
 __all__ = ["CONFIG_NAME", "COEFFICIENTS_NAME", "META_NAME", "NORMALIZER_NAME",
            "STATE_NAME", "UPDATER_NAME", "add_normalizer_to_model",
-           "model_entries", "model_type", "restore_model",
-           "restore_multi_layer_network", "restore_normalizer_from_file",
-           "write_model"]
+           "model_entries", "model_type", "restore_computation_graph",
+           "restore_model", "restore_multi_layer_network",
+           "restore_normalizer_from_file", "write_model"]
 
 CONFIG_NAME = "configuration.json"
 COEFFICIENTS_NAME = "coefficients.npy"
@@ -109,11 +115,14 @@ def _verified(path):
 
 def model_entries(net, save_updater=True, normalizer=None):
     """The archive's entries ({name: bytes | str}) for a
-    MultiLayerNetwork: the common part of :func:`write_model` and the
-    training checkpoint (which adds its own entry before the commit).
-    ``normalizer`` is a fitted normalizer's bytes, stored as they are."""
-    if not hasattr(net, "params_list"):
+    MultiLayerNetwork or a ComputationGraph: the common part of
+    :func:`write_model` and the training checkpoint (which adds its own
+    entry before the commit). ``normalizer`` is a fitted normalizer's
+    bytes, stored as they are."""
+    if not isinstance(net, (MultiLayerNetwork, ComputationGraph)):
         raise _not_ported(f"the {type(net).__name__} archive")
+    graph = isinstance(net, ComputationGraph)
+    slots = net.layer_names if graph else range(len(net.layers))
     entries = {
         CONFIG_NAME: net.conf.to_json(),
         COEFFICIENTS_NAME: _np_bytes(
@@ -123,15 +132,15 @@ def model_entries(net, save_updater=True, normalizer=None):
         entries[UPDATER_NAME] = _np_bytes(
             flat_params.updater_state_to_vector_np(net.layers,
                                                    net.updater_states))
-    states = {f"{i}.{k}": _host(v)
-              for i, s in enumerate(net.states_list or [])
+    states = {f"{slot}.{k}": _host(v)
+              for slot, s in zip(slots, net.states_list or [])
               for k, v in s.items()}
     if states:
         buf = io.BytesIO()
         np.savez(buf, **states)
         entries[STATE_NAME] = buf.getvalue()
     entries[META_NAME] = json.dumps({
-        "model_type": "MultiLayerNetwork",
+        "model_type": type(net).__name__,
         "iteration": int(net.iteration),
         "epoch": int(net.epoch_count),
         "framework": FRAMEWORK,
@@ -167,13 +176,14 @@ def restore_normalizer_from_file(path):
     raise _not_ported("restore_normalizer_from_file (the normalizers)")
 
 
-def restore_multi_layer_network(path, load_updater=True, device=None):
-    """Restore a MultiLayerNetwork (ModelSerializer.restoreMultiLayerNetwork)
-    on ``device`` (the card unless the caller asks for the CPU)."""
+def _restore(path, load_updater, make_net, slot_of):
+    """A model from an archive: ``make_net(conf JSON)`` builds and inits
+    it, then the coefficients, the updater state, the layer state (each
+    ``state.npz`` key's layer found by ``slot_of(net, layer part)``) and
+    the counters are loaded."""
     with _verified(path) as z:
         names = set(z.namelist())
-        conf = MultiLayerConfiguration.from_json(z.read(CONFIG_NAME).decode())
-        net = MultiLayerNetwork(conf, device=device).init()
+        net = make_net(z.read(CONFIG_NAME).decode())
         net.set_params(_np_load(z.read(COEFFICIENTS_NAME)))
         if load_updater and UPDATER_NAME in names:
             vec = torch.from_numpy(np.array(_np_load(z.read(UPDATER_NAME)),
@@ -183,9 +193,9 @@ def restore_multi_layer_network(path, load_updater=True, device=None):
         if STATE_NAME in names:
             with np.load(io.BytesIO(z.read(STATE_NAME))) as data:
                 for key in data.files:
-                    idx, name = key.split(".", 1)
-                    net.states_list[int(idx)][name] = torch.from_numpy(
-                        np.array(data[key])).to(net.device)
+                    layer, name = key.rsplit(".", 1)
+                    net.states_list[slot_of(net, layer)][name] = \
+                        torch.from_numpy(np.array(data[key])).to(net.device)
         if META_NAME in names:
             meta = json.loads(z.read(META_NAME).decode())
             net.iteration = meta.get("iteration", 0)
@@ -193,12 +203,36 @@ def restore_multi_layer_network(path, load_updater=True, device=None):
     return net
 
 
+def restore_multi_layer_network(path, load_updater=True, device=None):
+    """Restore a MultiLayerNetwork (ModelSerializer.restoreMultiLayerNetwork)
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    return _restore(
+        path, load_updater,
+        lambda js: MultiLayerNetwork(MultiLayerConfiguration.from_json(js),
+                                     device=device).init(),
+        lambda net, layer: int(layer))
+
+
+def restore_computation_graph(path, load_updater=True, device=None):
+    """Restore a ComputationGraph (ModelSerializer.restoreComputationGraph)
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    return _restore(
+        path, load_updater,
+        lambda js: ComputationGraph(
+            ComputationGraphConfiguration.from_json(js),
+            device=device).init(),
+        lambda net, layer: net.layer_names.index(layer))
+
+
 def restore_model(path, load_updater=True, device=None):
     """Load a model archive of any kind this package has (ModelGuesser's
-    role): a MultiLayerNetwork; the other kinds raise."""
+    role): a MultiLayerNetwork or a ComputationGraph; the other kinds
+    raise."""
     kind = model_type(path)
     if kind in (None, "MultiLayerNetwork"):
         return restore_multi_layer_network(path, load_updater, device=device)
+    if kind == "ComputationGraph":
+        return restore_computation_graph(path, load_updater, device=device)
     raise _not_ported(f"restoring a {kind} archive")
 
 

@@ -157,8 +157,8 @@ def _read_training_state(path):
 
 
 def apply_training_checkpoint(net, path):
-    """Load a TrainingCheckpoint into an existing MultiLayerNetwork in
-    place, on its device, and return the data cursor ({} for a plain model
+    """Load a TrainingCheckpoint into an existing MultiLayerNetwork or
+    ComputationGraph in place, on its device, and return the data cursor ({} for a plain model
     archive). Parameters, layer and updater state, counters, generator
     and guard state are all replaced, so the continuation is bitwise the
     uninterrupted run. A failure leaves ``net`` as it was."""

@@ -31,7 +31,9 @@ of the CPU's (summation order only); max-pool ties route to the same
 element; a LeNet graph replays to the same bits (the fused loops compared
 under ``cudnn.deterministic``); a restored archive gives the same output
 bits on the card, the reference's archives their recorded outputs within
-1e-5.
+1e-5. A narrow ResNet (ComputationGraph) trained 3 steps on the card
+stays within ``CNN_CARD_CPU_RTOL`` (1e-4 of each leaf's max abs) of the
+same steps on the CPU.
 """
 
 import math
@@ -989,3 +991,53 @@ def test_lenet_archive_restores_on_the_card(cuda_device, tmp_path,
         with np.load(os.path.join(fixtures, f"{name}_expected.npz")) as z:
             np.testing.assert_allclose(card.output(z["probe"]), z["out"],
                                        atol=1e-5)
+
+
+# card against CPU for a ResNet: cuDNN and the CPU sum each conv's
+# products in another order (TF32 off), and every BatchNormalization
+# divides by its batch's spread, which carries a difference on to the
+# layers above; the same 1e-4 of each leaf's max abs as the train phase's
+# gradient bar (BN's running mean: of the larger of its max abs and the
+# data's spread, the square root of the running variance)
+CNN_CARD_CPU_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_narrow_resnet_on_card_matches_cpu(cuda_device):
+    """The narrow ResNet (two stages of one block, 32x32, 5 classes)
+    takes 3 f32 ``fit`` steps on the card and on the CPU from the same
+    parameters: outputs, parameters and BatchNormalization's running
+    moments agree within ``CNN_CARD_CPU_RTOL``."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    conf = zoo.resnet50(n_classes=5, height=32, width=32, stages=(1, 1))
+    card = ComputationGraph(conf, device=cuda_device).init()
+    cpu = ComputationGraph(conf, device="cpu").init(params=card.params())
+    r = np.random.RandomState(0)
+    batches = [DataSet(r.randn(8, 32, 32, 3).astype(np.float32),
+                       np.eye(5, dtype=np.float32)[r.randint(0, 5, 8)])
+               for _ in range(3)]
+    for net in (card, cpu):
+        net.fit(ListDataSetIterator(batches))
+    x = batches[0].features
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() /
+                     max(np.abs(want).max(), 1e-30))
+    assert rel(card.output(x), cpu.output(x)) <= CNN_CARD_CPU_RTOL
+    for g, w in zip(card.params_list, cpu.params_list):
+        for k in w:
+            assert rel(g[k].detach().cpu().numpy(),
+                       w[k].detach().numpy()) <= CNN_CARD_CPU_RTOL, k
+    for name, g, w in zip(card.layer_names, card.states_list,
+                          cpu.states_list):
+        if not w:
+            continue
+        gv, wv = g["var"].cpu().numpy(), w["var"].numpy()
+        assert rel(gv, wv) <= CNN_CARD_CPU_RTOL, name
+        spread = max(float(np.sqrt(wv.max())), float(np.abs(w["mean"]).max()))
+        err = float(np.abs(g["mean"].cpu().numpy() - w["mean"].numpy()).max())
+        assert err <= CNN_CARD_CPU_RTOL * spread, name

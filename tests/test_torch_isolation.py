@@ -12,7 +12,8 @@
   refuse a tensor that is not on the CPU; each kernel's boundary refuses
   what its kernel cannot take before any pointer is passed;
 - with no CUDA present, the entry points without ``device="cpu"`` raise
-  instead of running on the CPU (the model-archive restores included).
+  instead of running on the CPU (the model-archive restores, and
+  ComputationGraph and its archive's restores, included).
 """
 
 import ast
@@ -62,7 +63,9 @@ def _port_sources():
                 "nn/layers/norm.py", "nn/conf/preprocessors.py",
                 "utils/atomic_io.py", "utils/model_serializer.py",
                 "utils/training_checkpoint.py", "utils/flat_params.py",
-                "models/_device_state.py"):
+                "models/_device_state.py", "models/_layered.py",
+                "models/computation_graph.py", "nn/conf/graph.py",
+                "nn/conf/computation_graph.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -405,6 +408,70 @@ def test_restore_without_device_refuses_the_cpu(no_cuda, tmp_path):
     assert training_checkpoint.resume_latest(again,
                                              str(tmp_path / "ck")) == {}
     assert again.params_list[0]["W"].device.type == "cpu"
+
+
+def test_graph_without_device_refuses_the_cpu(no_cuda, tmp_path):
+    """ComputationGraph, its parameter carriers, and the graph archive's
+    restores (``restore_computation_graph`` and ``restore_model``) raise
+    without CUDA unless they get ``device="cpu"``."""
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph, params_from_numpy as cg_params_from_numpy,
+        updater_state_from_numpy as cg_updater_state_from_numpy)
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    conf = zoo.resnet50(n_classes=3, height=16, width=16, stages=(1,))
+    for make in (lambda: ComputationGraph(conf),
+                 lambda: ComputationGraph(conf, device="cuda"),
+                 lambda: cg_params_from_numpy(conf, {
+                     n: {} for n in conf.layer_names()}),
+                 lambda: cg_updater_state_from_numpy(conf, {
+                     n: {} for n in conf.layer_names()})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    net = ComputationGraph(conf, device="cpu").init()
+    path = str(tmp_path / "graph.zip")
+    model_serializer.write_model(net, path)
+    for restore in (model_serializer.restore_computation_graph,
+                    model_serializer.restore_model):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            restore(path)
+        again = restore(path, device="cpu")
+        assert isinstance(again, ComputationGraph)
+        assert again.device.type == "cpu"
+
+
+def test_cpu_graphs_never_load_a_kernel(monkeypatch):
+    """A CPU graph (ResNet through fit(), a recurrent graph through tBPTT
+    and rnn_time_step) runs no kernel of the package: its LSTM vertices
+    take the kernels' plain twins."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator, MultiDataSet)
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _launches() + _lstm_launches()
+    r = np.random.RandomState(0)
+    net = ComputationGraph(zoo.resnet50(n_classes=3, height=16, width=16,
+                                        stages=(1,)), device="cpu").init()
+    x = r.rand(4, 16, 16, 3).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[r.randint(0, 3, 4)]
+    net.fit(ListDataSetIterator([DataSet(x, y)] * 2))
+    net.output(x)
+    rnn = ComputationGraph(
+        NeuralNetConfiguration.Builder().graph_builder().add_inputs("in")
+        .add_layer("lstm", GravesLSTM(n_in=5, n_out=6), "in")
+        .add_layer("out", RnnOutputLayer(n_in=6, n_out=5), "lstm")
+        .set_outputs("out").backprop_type("tbptt").tbptt_fwd_length(3)
+        .build(), device="cpu").init()
+    seq = r.rand(2, 7, 5).astype(np.float32)
+    rnn.fit_batch(MultiDataSet([seq], [seq]))
+    rnn.rnn_time_step(seq[:, 0])
+    assert _launches() + _lstm_launches() == before
 
 
 def test_cpu_lenet_never_loads_a_kernel(monkeypatch):
