@@ -137,7 +137,39 @@ Phases, each fatal on failure:
    takes 4 batches by ``fit_batch`` against the MultiLayerNetwork's
    per-batch path from the same parameters: the same parameter bits and
    the same LSTM kernel launches (by ``torch.profiler`` and by the
-   wrappers), which the ``kernels`` line carries as ``launches_cg``.
+   wrappers), which the ``kernels`` line carries as ``launches_cg``;
+8. decode — generation serving, every program a captured CUDA graph:
+   (1) bench.py's ``bench_serve`` uncut (V 2048, max_len 256, d 256, L 4,
+   H 4, ff 1024, f32; 16 slots, chunk 8; 64 requests of 8/16/24/32
+   tokens from ``default_rng(0)``, n_new 32, greedy): serial
+   ``generate()`` after one warm call per prompt length, then
+   ContinuousLM after ``warm_start`` and 2 warm requests; tokens/s of
+   both and their ratio beside bench.py's 1.5 bar, request and TTFT
+   p50/p99, mean occupancy, the graph inventory (it must equal
+   3 x KV rungs + 2 x prefill rungs + 1) and the graphs captured in the
+   timed runs (0), the package's kernel counts (0: decode attention is
+   dense, as in the reference), and token equality between the arms;
+   (2) its long-prompt arm uncut (max_len 512; 8 slots; 16 prompts of
+   400 tokens sharing 256, ``default_rng(1)``; bursts at n_new 1 and
+   32): ladders off without a prefix cache against the prefill ladder
+   (16, 64) with the default cache: TTFT p50/p99, tokens/s, prefix hits
+   and misses, the inventory against its budget; (3) the slice phase's
+   LM at full width (bf16 compute, so a bf16 KV pool; 42,259,456
+   parameters) behind ContinuousLM at 16 slots, chunk 8, 32 requests of
+   64-token prompts, n_new 64: tokens/s, ms a decode dispatch, peak
+   memory, a profile of 5 dispatches (busy share, top device ops), token
+   equality with ``generate(temperature=0)`` on the card, and one
+   ``beam_search(beams=4)`` (its first call captures, the second
+   replays); (4) a narrow f32 model on the card against the same weights
+   on the CPU: greedy tokens, and one decode step's logits from one
+   state within CPU_GPU_TOL; (5) one sampled request (temperature 1,
+   top_k 50, top_p 0.9, seed 7) alone and inside a mixed pool (one KV
+   rung, so both attend over one window shape): the same tokens. Every
+   greedy split between two paths is reported with the top-2 gap of the
+   logits at its first differing position and the paths' logits
+   difference there, and fails unless the gap lies under the bar
+   (CPU_GPU_TOL for f32, BF16_LOGITS_BAR for bf16) and under that
+   difference: a rounding tie.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -303,6 +335,28 @@ RESNET_NARROW = dict(n_classes=5, height=32, width=32, stages=(1, 1))
 GOOGLENET_NARROW = dict(n_classes=4, height=67, width=67)
 RESNET_RESUME = dict(epochs=2, batches=6, batch=16, every=4)
 CG_RNN_BATCHES = 4
+# the decode phase: bench.py's bench_serve (bench.py:865-866) and its
+# long-prompt arm (bench.py:763-764), uncut; the slice phase's LM behind
+# ContinuousLM; a narrow f32 model on the card and the CPU
+SERVE_BENCH = dict(model=dict(vocab_size=2048, max_len=256, d_model=256,
+                              n_layers=4, n_heads=4, d_ff=1024, seed=SEED),
+                   slots=16, chunk=8, requests=64, n_new=32,
+                   prompts=(8, 16, 24, 32))
+SERVE_LONG = dict(model=dict(vocab_size=2048, max_len=512, d_model=256,
+                             n_layers=4, n_heads=4, d_ff=1024, seed=SEED),
+                  slots=8, chunk=8, requests=16, n_new=32, prompt=400,
+                  shared=256, prefill_ladder=(16, 64))
+SERVE_FULL = dict(slots=16, chunk=8, requests=32, prompt=64, n_new=64)
+SERVE_NARROW = dict(model=dict(vocab_size=512, max_len=64, d_model=64,
+                               n_layers=2, n_heads=4, d_ff=256, seed=SEED),
+                    rows=4, prompt=12, n_new=24)
+SERVE_BASE = 1.5          # bench.py's BASES["serve"]
+SLICE_PARAMS = 42259456
+# a greedy split between a one-row and a slot-pool bf16 run counts as a
+# rounding tie when the top-2 gap is under this: bf16 rounds a logit of
+# ~0.3 to ~1e-3, and eight layers of 1-ulp activation differences move
+# the logits by ~1e-2
+BF16_LOGITS_BAR = 0.05
 
 
 def emit(obj):
@@ -2674,6 +2728,506 @@ def phase_resnet50(card):
     return result
 
 
+# ---- phase decode: generation serving -----------------------------------
+
+def _serve_lm(conf_kw, device=None):
+    """A seeded TransformerLM for the decode phase (torch's generator:
+    the same weights for the same seed on every run and card)."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    return TransformerLM(TransformerConfig(**conf_kw),
+                         device=device or DEVICE).init()
+
+
+def _quantiles(xs):
+    import numpy as np
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def step_logits(lm, prefix, rows, total, vector_pos):
+    """The logits after ``prefix`` through the token step, eagerly, with
+    ``rows`` rows (every row the prefix): the shapes ``generate()`` runs
+    (1 row, scalar positions, a cache of ``total``) or a slot pool's
+    (``rows`` rows, per-row positions)."""
+    import torch
+    dev = lm.device
+    sp = lm._step_params(lm.params)
+    step = lm._make_token_step(rows, total, vector_pos=vector_pos)
+    kcs, vcs = lm._new_caches(rows, total)
+    write = torch.ones(rows, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for i, t in enumerate(prefix):
+            tok = torch.full((rows,), int(t), dtype=torch.int64, device=dev)
+            if vector_pos:
+                pos = torch.full((rows,), i, dtype=torch.int64, device=dev)
+                logits = step(sp, tok, pos, kcs, vcs, write=write)
+            else:
+                logits = step(sp, tok, i, kcs, vcs)
+    return logits[0].float().cpu().numpy()
+
+
+def token_splits(lm, prompts, got, want, slots, n_new, bar):
+    """Compare two arms' greedy rows: for every request, whether they are
+    equal and, at the first differing position, the top-2 gap of the
+    logits there (one-row path) and the largest difference between the
+    one-row and the slot-pool path's logits there. A split is a rounding
+    tie when the gap lies under ``bar`` and under the paths' own
+    difference; any other split fails."""
+    import numpy as np
+    splits = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            continue
+        j = int(np.nonzero(a != b)[0][0])
+        prefix = b[:j]
+        one = step_logits(lm, prefix, 1, p.size + n_new, False)
+        pool = step_logits(lm, prefix, slots, lm.conf.max_len, True)
+        top2 = np.sort(one)[-2:]
+        gap = float(top2[1] - top2[0])
+        diff = float(np.abs(one - pool).max())
+        splits.append({"request": i, "position": j, "tokens": [int(a[j]),
+                       int(b[j])], "top2_gap": gap,
+                       "logits_max_abs_diff": diff,
+                       "rounding_tie": gap <= bar and gap <= diff})
+    return {"requests": len(prompts), "equal": len(prompts) - len(splits),
+            "splits": splits, "bar": bar}
+
+
+class GcClock:
+    """Seconds the interpreter's garbage collector ran inside a block
+    (a stall of the scheduler thread that the host clock counts)."""
+
+    def __enter__(self):
+        import gc
+        self.seconds, self._t0 = 0.0, None
+        gc.callbacks.append(self._tick)
+        return self
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._tick)
+
+
+def _hold_splits(check, name):
+    bad = [s for s in check["splits"] if not s["rounding_tie"]]
+    assert not bad, (name, bad)
+
+
+def serve_bench_run(card):
+    """bench.py's bench_serve, uncut: serial ``generate()`` after one warm
+    call per prompt length, then ContinuousLM (warm_start, 2 warm
+    requests) over the same 64-request burst."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+
+    cfg = SERVE_BENCH
+    lm = _serve_lm(cfg["model"])
+    V, n_new = cfg["model"]["vocab_size"], cfg["n_new"]
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, V, (cfg["prompts"][i % len(cfg["prompts"])],))
+            .astype(np.int32) for i in range(cfg["requests"])]
+
+    for plen in sorted({p.size for p in reqs}):   # one graph a signature
+        lm.generate(np.ones((1, plen), np.int32), n_new, temperature=0.0)
+    torch.cuda.synchronize()
+    cap0 = capture_count()
+    reset_launches()
+    naive, lat_naive = [], []
+    t0 = time.perf_counter()
+    for p in reqs:                 # a burst at t0: latency includes the wait
+        naive.append(lm.generate(p[None, :], n_new, temperature=0.0)[0])
+        lat_naive.append(time.perf_counter() - t0)
+    naive_dt = time.perf_counter() - t0
+    naive_captures = capture_count() - cap0
+
+    srv = ContinuousLM(lm, slots=cfg["slots"], chunk=cfg["chunk"],
+                       device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        srv.warm_start()
+        warm_s = time.perf_counter() - t0
+        for p in reqs[:2]:
+            srv.submit(p, n_new).result(300)
+        inventory = srv.graph_inventory()
+        obs.reset_metrics()
+        cap0 = capture_count()
+        t0 = time.perf_counter()
+        futs = [srv.submit(p, n_new) for p in reqs]
+        cont, lat_cont = [], []
+        for f in futs:
+            cont.append(f.result(600))
+            lat_cont.append(time.perf_counter() - t0)
+        cont_dt = time.perf_counter() - t0
+        cont_captures = capture_count() - cap0
+        launches = read_launches() + read_lstm_launches()
+        inventory_after = srv.graph_inventory()
+    finally:
+        srv.stop()
+    assert naive_captures == 0 and cont_captures == 0, \
+        (naive_captures, cont_captures)
+    assert inventory_after == inventory, (inventory, inventory_after)
+    assert launches == (0, 0, 0, 0, 0), launches   # no package kernel
+    for row, p in zip(cont, reqs):
+        assert row.shape == (p.size + n_new,) and (row >= 0).all() \
+            and (row < V).all()
+    budget = 3 * len(srv._kv_ladder) + 2 * len(srv._prefill_ladder) + 1
+    assert len(inventory) == budget, (len(inventory), budget)
+    check = token_splits(lm, reqs, cont, naive, cfg["slots"], n_new,
+                         CPU_GPU_TOL)
+    _hold_splits(check, "bench_serve")
+    naive_tps = len(reqs) * n_new / naive_dt
+    cont_tps = len(reqs) * n_new / cont_dt
+    req_h = obs.metrics.histogram("serve.request_seconds")
+    ttft_h = obs.metrics.histogram("serve.ttft_seconds")
+    occ = obs.metrics.histogram("serve.batch_occupancy").summary()
+    return {"config": cfg, "naive_tokens_per_s": naive_tps,
+            "continuous_tokens_per_s": cont_tps,
+            "speedup": cont_tps / naive_tps, "bench_bar": SERVE_BASE,
+            "speedup_over_bar": cont_tps / naive_tps / SERVE_BASE,
+            "naive_request_s": _quantiles(lat_naive),
+            "continuous_request_s": _quantiles(lat_cont),
+            "request_seconds_hist": {"p50": req_h.quantile(0.5),
+                                     "p99": req_h.quantile(0.99)},
+            "ttft_seconds_hist": {"p50": ttft_h.quantile(0.5),
+                                  "p99": ttft_h.quantile(0.99)},
+            "occupancy_mean": occ.get("mean"),
+            "graphs_captured_timed": {"naive": naive_captures,
+                                      "continuous": cont_captures},
+            "inventory": [list(s) for s in inventory],
+            "inventory_size": len(inventory), "inventory_budget": budget,
+            "reference_budget": len(srv._kv_ladder)
+            + len(srv._prefill_ladder) + 1,
+            "warm_start_s": warm_s, "package_kernel_launches": 0,
+            "tokens_vs_naive": check, "card": card}
+
+
+def serve_long_prompt_run(card):
+    """bench.py's long-prompt arm, uncut: 16 prompts of 400 tokens sharing
+    a 256-token prefix, a burst at n_new 1 (time to first token) then at
+    n_new 32 (tokens/s), ladders off and no prefix cache against the
+    prefill ladder (16, 64) with the default cache."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+
+    cfg = SERVE_LONG
+    V = cfg["model"]["vocab_size"]
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, V, (cfg["shared"],)).astype(np.int32)
+    reqs = [np.concatenate([prefix, rng.integers(
+        1, V, (cfg["prompt"] - cfg["shared"],)).astype(np.int32)])
+        for _ in range(cfg["requests"])]
+
+    def arm(**kwargs):
+        lm = _serve_lm(cfg["model"])   # same seed, same weights
+        obs.reset_metrics()
+        srv = ContinuousLM(lm, slots=cfg["slots"], chunk=cfg["chunk"],
+                           device=DEVICE, **kwargs)
+        try:
+            srv.warm_start()
+            inventory = srv.graph_inventory()
+            cap0 = capture_count()
+            lat = []
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, 1) for p in reqs]
+            for f in futs:
+                f.result(600)
+                lat.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, cfg["n_new"]) for p in reqs]
+            rows = [f.result(900) for f in futs]
+            dt = time.perf_counter() - t0
+            captured = capture_count() - cap0
+            assert srv.graph_inventory() == inventory
+        finally:
+            srv.stop()
+        budget = 3 * len(srv._kv_ladder) + 2 * len(srv._prefill_ladder) + 1
+        assert captured == 0 and len(inventory) == budget, \
+            (captured, len(inventory), budget)
+        return rows, {
+            "ttft_s": _quantiles(lat),
+            "tokens_per_s": cfg["requests"] * cfg["n_new"] / dt,
+            "graphs_captured_timed": captured,
+            "inventory_size": len(inventory), "inventory_budget": budget,
+            "kv_ladder": list(srv._kv_ladder),
+            "prefill_ladder": list(srv._prefill_ladder),
+            "prefix_hits": obs.metrics.value("serve.prefix_hits_total"),
+            "prefix_misses": obs.metrics.value("serve.prefix_misses_total")}
+
+    base_rows, base = arm(kv_ladder="off", prefill_ladder="off",
+                          prefix_cache_mb=0)
+    paged_rows, paged = arm(prefill_ladder=cfg["prefill_ladder"])
+    assert paged["prefix_hits"] > 0, paged
+    lm = _serve_lm(cfg["model"])
+    check = token_splits(lm, reqs, paged_rows, base_rows, cfg["slots"],
+                         cfg["n_new"], CPU_GPU_TOL)
+    _hold_splits(check, "long_prompt")
+    return {"config": cfg, "baseline": base, "paged": paged,
+            "ttft_p50_speedup": base["ttft_s"]["p50"]
+            / paged["ttft_s"]["p50"],
+            "tokens_per_s_speedup": paged["tokens_per_s"]
+            / base["tokens_per_s"],
+            "tokens_paged_vs_baseline": check, "card": card}
+
+
+def serve_full_width_run(card):
+    """The slice phase's LM (bf16 compute, so a bf16 cache) behind
+    ContinuousLM: 32 requests of 64-token prompts, n_new 64; tokens/s, ms
+    a decode dispatch, peak memory, a profile of decode dispatches, token
+    equality with ``generate(temperature=0)`` on the card, and one
+    ``beam_search(beams=4)``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ContinuousLM, decode
+
+    cfg = SERVE_FULL
+    lm = _serve_lm(SLICE)
+    assert lm.num_params() == SLICE_PARAMS, lm.num_params()
+    assert lm._cache_dtype() == torch.bfloat16
+    V = SLICE["vocab_size"]
+    rng = np.random.default_rng(2)
+    reqs = [rng.integers(1, V, (cfg["prompt"],)).astype(np.int32)
+            for _ in range(cfg["requests"])]
+    dispatches = [0]
+    pool_decode = decode._SlotPool.decode
+
+    def counted(self, *a):
+        dispatches[0] += 1
+        return pool_decode(self, *a)
+    srv = ContinuousLM(lm, slots=cfg["slots"], chunk=cfg["chunk"],
+                       device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        srv.warm_start()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        srv.submit(reqs[0], cfg["n_new"]).result(300)
+        torch.cuda.reset_peak_memory_stats()
+        cap0 = capture_count()
+        decode._SlotPool.decode = counted
+        reset_launches()
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, cfg["n_new"]) for p in reqs]
+            rows = [f.result(900) for f in futs]
+            dt = time.perf_counter() - t0
+        n_dispatch = dispatches[0]
+        # a second burst of other prompts: the first pays any first-use
+        # cost the warm request did not
+        more = [rng.integers(1, V, (cfg["prompt"],)).astype(np.int32)
+                for _ in range(cfg["requests"])]
+        t0 = time.perf_counter()
+        for f in [srv.submit(p, cfg["n_new"]) for p in more]:
+            f.result(900)
+        dt2 = time.perf_counter() - t0
+        decode._SlotPool.decode = pool_decode
+        launches = read_launches() + read_lstm_launches()
+        captured = capture_count() - cap0
+        peak = torch.cuda.max_memory_allocated()
+        # a profile of decode dispatches over a full pool: every slot
+        # active at the max_len rung, greedy
+        pool = srv._pool
+        pool.state["active"].fill_(True)
+        pool.state["nnew"].fill_(0)
+        pool.state["pos"].fill_(cfg["prompt"])
+        n_prof = 5
+        inventory = srv.graph_inventory()
+        variants = {}
+        with torch.no_grad():
+            for mode in ("greedy", "sample", "filter"):
+                pool.decode(cfg["chunk"], SLICE["max_len"], mode)
+                variants[mode] = profiled(lambda: [
+                    pool.decode(cfg["chunk"], SLICE["max_len"], mode)
+                    for _ in range(n_prof)])
+    finally:
+        decode._SlotPool.decode = pool_decode
+        srv.stop()
+    assert captured == 0 and launches == (0, 0, 0, 0, 0), \
+        (captured, launches)
+    wall, names, ops = variants["greedy"]
+    busy_ms = sum(us for _, _, us in ops) / 1e3 / n_prof
+    top = sorted(ops, key=lambda o: o[2], reverse=True)[:8]
+    # what each sampler variant costs a dispatch (the host picks greedy
+    # when no active row samples)
+    variant_ms = {mode: {"wall_ms": w * 1e3 / n_prof,
+                         "device_ms": sum(us for _, _, us in o) / 1e3
+                         / n_prof,
+                         "device_events": len(n) / n_prof}
+                  for mode, (w, n, o) in variants.items()}
+    cap0 = capture_count()
+    t0 = time.perf_counter()
+    want = [lm.generate(p[None, :], cfg["n_new"], temperature=0.0)[0]
+            for p in reqs]
+    gen_s = time.perf_counter() - t0
+    gen_captures = capture_count() - cap0
+    check = token_splits(lm, reqs, rows, want, cfg["slots"], cfg["n_new"],
+                         BF16_LOGITS_BAR)
+    _hold_splits(check, "full_width")
+    beam = []
+    for _ in range(2):   # the first call captures, the second replays
+        t0 = time.perf_counter()
+        out = lm.beam_search(reqs[0][None, :], cfg["n_new"], beams=4)
+        beam.append(time.perf_counter() - t0)
+    assert out.shape == (1, cfg["prompt"] + cfg["n_new"])
+    assert (out >= 0).all() and (out < V).all()
+    return {"config": cfg, "model": SLICE, "num_params": lm.num_params(),
+            "tokens_per_s": cfg["requests"] * cfg["n_new"] / dt,
+            "wall_s": dt, "gc_s_in_timed_run": gc_clock.seconds,
+            "second_burst_tokens_per_s": cfg["requests"] * cfg["n_new"]
+            / dt2,
+            "decode_dispatches": n_dispatch,
+            "ms_per_dispatch": dt * 1e3 / n_dispatch,
+            "peak_memory_bytes": peak, "warm_start_s": warm_s,
+            "graphs_captured_timed": captured,
+            "inventory_size": len(inventory),
+            "profile": {"dispatches": n_prof, "rung": SLICE["max_len"],
+                        "wall_ms_per_dispatch": wall * 1e3 / n_prof,
+                        "device_busy_ms_per_dispatch": busy_ms,
+                        "busy_share": busy_ms / (wall * 1e3 / n_prof),
+                        "device_events_per_dispatch": len(names) / n_prof,
+                        "top_device_ops": [
+                            {"name": n[:80], "calls": c, "device_ms": us / 1e3}
+                            for n, c, us in top],
+                        "sampler_variants": variant_ms},
+            "generate_s": gen_s, "generate_graphs_captured": gen_captures,
+            "tokens_vs_generate": check,
+            "beam_search_4_s": {"first_call": beam[0], "replay": beam[1]},
+            "card": card}
+
+
+def serve_card_vs_cpu(card):
+    """A narrow f32 model (TF32 off) on the card and the same weights on
+    the CPU: greedy ``generate()`` tokens, and one decode step's logits
+    from the same slot-pool state."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import params_from_numpy
+
+    cfg = SERVE_NARROW
+    lm = _serve_lm(cfg["model"])
+    cpu = _serve_lm(cfg["model"], device="cpu")
+    cpu.params = params_from_numpy(_numpy_tree(lm.params), "cpu")
+    rng = np.random.default_rng(3)
+    V = cfg["model"]["vocab_size"]
+    prompts = rng.integers(0, V, (cfg["rows"], cfg["prompt"]))
+    got = lm.generate(prompts, cfg["n_new"], temperature=0.0)
+    want = cpu.generate(prompts, cfg["n_new"], temperature=0.0)
+    splits = []
+    for i in range(cfg["rows"]):
+        if not np.array_equal(got[i], want[i]):
+            j = int(np.nonzero(got[i] != want[i])[0][0])
+            one = step_logits(cpu, want[i][:j], 1, j + 1, False)
+            card_l = step_logits(lm, want[i][:j], 1, j + 1, False)
+            top2 = np.sort(one)[-2:]
+            gap = float(top2[1] - top2[0])
+            diff = float(np.abs(one - card_l).max())
+            splits.append({"row": i, "position": j, "top2_gap": gap,
+                           "logits_max_abs_diff": diff,
+                           "rounding_tie": gap <= CPU_GPU_TOL
+                           and gap <= diff})
+    assert all(s["rounding_tie"] for s in splits), splits
+    # one decode step from one state: random caches and positions
+    S, c = cfg["rows"], lm.conf
+    g = torch.Generator().manual_seed(SEED)
+    state = cpu._init_decode_state(S)
+    for buf in state["k"] + state["v"]:
+        buf.copy_(torch.randn(buf.shape, generator=g))
+    pos = torch.tensor(rng.integers(1, c.max_len - 1, S))
+    tok = torch.tensor(rng.integers(0, V, S))
+    write = torch.ones(S, dtype=torch.bool)
+    logits = []
+    for model, dev in ((cpu, "cpu"), (lm, DEVICE)):
+        step = model._make_token_step(S, c.max_len, vector_pos=True)
+        ks = [b.to(dev) for b in state["k"]]
+        vs = [b.to(dev) for b in state["v"]]
+        with torch.no_grad():
+            logits.append(step(model._step_params(model.params),
+                               tok.to(dev), pos.to(dev), ks, vs,
+                               write=write.to(dev)).cpu().numpy())
+    step_err = float(np.abs(logits[0] - logits[1]).max())
+    assert np.isfinite(logits[1]).all() and step_err <= CPU_GPU_TOL, step_err
+    return {"config": cfg, "greedy_rows_equal": cfg["rows"] - len(splits),
+            "rows": cfg["rows"], "splits": splits,
+            "decode_step_logits_max_abs_err": step_err, "tol": CPU_GPU_TOL,
+            "card": card}
+
+
+def serve_sampled_determinism(card):
+    """One sampled request (temperature 1, top_k 50, top_p 0.9, seed 7)
+    alone, then inside a mixed pool of greedy and sampled requests: the
+    same tokens (the noise is a pure function of the pool's base seed,
+    the request's seed and its position). One KV rung, so the two runs
+    attend over the same window shape."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+
+    cfg = SERVE_BENCH
+    lm = _serve_lm(cfg["model"])
+    V = cfg["model"]["vocab_size"]
+    rng = np.random.default_rng(4)
+    p = rng.integers(1, V, (16,)).astype(np.int32)
+    others = [rng.integers(1, V, (n,)).astype(np.int32)
+              for n in (8, 24, 12, 30, 5, 17)]
+    kw = dict(temperature=1.0, top_k=50, top_p=0.9, seed=7)
+    srv = ContinuousLM(lm, slots=cfg["slots"], chunk=cfg["chunk"],
+                       device=DEVICE, kv_ladder="off")
+    try:
+        srv.warm_start()
+        alone = srv.generate(p, cfg["n_new"], timeout=300, **kw)
+        futs = [srv.submit(o, cfg["n_new"], temperature=0.7 * (i % 2),
+                           seed=100 + i) for i, o in enumerate(others[:3])]
+        mixed_f = srv.submit(p, cfg["n_new"], **kw)
+        futs += [srv.submit(o, cfg["n_new"], temperature=1.0, top_k=5,
+                            seed=200 + i) for i, o in enumerate(others[3:])]
+        mixed = mixed_f.result(300)
+        for f in futs:
+            f.result(300)
+        again = srv.generate(p, cfg["n_new"], timeout=300,
+                             **dict(kw, seed=8))
+    finally:
+        srv.stop()
+    assert np.array_equal(alone, mixed), (alone, mixed)
+    return {"tokens_equal": True, "n_new": cfg["n_new"], "sampler": kw,
+            "other_seed_differs": not np.array_equal(alone, again),
+            "card": card}
+
+
+def phase_decode(card):
+    import threading
+    t_phase = time.perf_counter()
+    seconds = {}
+    # threads left by earlier phases share the interpreter lock with the
+    # scheduler thread, whose host work paces each dispatch
+    result = {"phase": "decode", "card": card,
+              "threads_at_start": sorted(t.name for t in
+                                         threading.enumerate())}
+    for key, run in (("bench_serve", serve_bench_run),
+                     ("long_prompt", serve_long_prompt_run),
+                     ("full_width", serve_full_width_run),
+                     ("card_vs_cpu", serve_card_vs_cpu),
+                     ("sampled_determinism", serve_sampled_determinism)):
+        t0 = time.perf_counter()
+        result[key] = run(card)
+        seconds[key] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    emit(result)
+    return result
+
 def main():
     try:
         import torch
@@ -2708,6 +3262,7 @@ def main():
     phase_lenet(card)
     rn = phase_resnet50(card)
     cg = rn["recurrent_graph"]["launches"]
+    phase_decode(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
     # kernels at the char-RNN's

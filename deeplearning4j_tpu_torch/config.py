@@ -97,6 +97,12 @@ _declare("DL4J_TORCH_LM_ATTN", "str", "auto",
          "('auto') goes through ops.flash_attention (the CUDA kernel for "
          "a CUDA tensor, its plain twin for a CPU tensor). Counterpart: "
          "DL4J_TPU_LM_ATTN.")
+_declare("DL4J_TORCH_MEM_BUDGET", "int", 17179869184,
+         "Per-device memory budget in bytes (default 16 GiB, the "
+         "reference's default, not the card's 80 GB) that ContinuousLM "
+         "derives its default slot width from: half of it, less the "
+         "parameters, over one slot's KV bytes. Counterpart: "
+         "DL4J_TPU_MEM_BUDGET.")
 _declare("DL4J_TORCH_LSTM_KERNEL", "str", "auto",
          "LSTM time-step route: 'builtin' differentiates the plain "
          "recurrence (LSTM._scan_builtin) by autograd, on CPU tensors only "
@@ -121,23 +127,66 @@ _declare("DL4J_TORCH_NANGUARD_PATIENCE", "int", 3,
          "reverted non-finite step that the guard tolerates before it "
          "writes the model and raises TrainingDivergedError. Counterpart: "
          "DL4J_TPU_NANGUARD_PATIENCE.")
+_declare("DL4J_TORCH_SERVE_AUTOTUNE", "flag", False,
+         "Decode-width autotuner of ContinuousLM: with "
+         "DL4J_TORCH_SERVE_SLOTS unset and no persisted decision, probe "
+         "DL4J_TORCH_SERVE_SLOTS_LADDER on the first full queue and "
+         "persist the winner (and the rung ladders) under "
+         "DL4J_TORCH_TUNE_CACHE_DIR. Counterpart: DL4J_TPU_SERVE_AUTOTUNE.")
 _declare("DL4J_TORCH_SERVE_BUCKETS", "str", "8",
          "Batch-size bucket ladder (comma-separated ints) the serving "
          "batcher pads request batches into. Counterpart: "
          "DL4J_TPU_SERVE_BUCKETS.")
+_declare("DL4J_TORCH_SERVE_CHUNK", "int", 8,
+         "Decode steps per ContinuousLM dispatch: each dispatch (one "
+         "replayed CUDA graph on the card) advances every active KV slot "
+         "by this many tokens; requests are admitted at chunk boundaries. "
+         "Counterpart: DL4J_TPU_SERVE_CHUNK.")
 _declare("DL4J_TORCH_SERVE_DEADLINE_S", "float", 0.0,
          "Default per-request deadline budget (seconds) for submits that "
          "carry none; a request still queued past it is swept with "
          "ServeDeadlineError before dispatch. 0 disables. Counterpart: "
          "DL4J_TPU_SERVE_DEADLINE_S.")
+_declare("DL4J_TORCH_SERVE_GEN_CACHE", "int", 8,
+         "Bound on TransformerLM's cache of generate()/beam_search() "
+         "programs (one captured CUDA graph each on the card, keyed by "
+         "_gen_signature): the oldest is evicted first once it holds "
+         "this many. Counterpart: DL4J_TPU_SERVE_GEN_CACHE.")
+_declare("DL4J_TORCH_SERVE_KV_LADDER", "str", "",
+         "KV attention-window rungs of ContinuousLM's paged decode: each "
+         "chunk attends over the first W positions of the slot pool, W "
+         "the smallest rung covering the pool's largest active position. "
+         "Empty derives 32, 64, ... up to max_len; 'off' keeps the one "
+         "max_len rung; comma-separated ints are clamped to [chunk, "
+         "max_len]. Counterpart: DL4J_TPU_SERVE_KV_LADDER.")
+_declare("DL4J_TORCH_SERVE_PREFILL_LADDER", "str", "",
+         "Prompt-window rungs of ContinuousLM's chunked prefill: a "
+         "prompt is ingested a whole window per dispatch. Empty derives "
+         "16, 64, 256, ... up to max_len; 'off' disables chunked prefill "
+         "(prompts teacher-force through the decode chunk). Counterpart: "
+         "DL4J_TPU_SERVE_PREFILL_LADDER.")
+_declare("DL4J_TORCH_SERVE_PREFIX_CACHE_MB", "int", 64,
+         "Byte budget (MiB) of ContinuousLM's prompt-prefix KV page cache "
+         "(least recently used pages evicted past it); 0 disables prefix "
+         "sharing. Counterpart: DL4J_TPU_SERVE_PREFIX_CACHE_MB.")
 _declare("DL4J_TORCH_SERVE_QUEUE", "int", 256,
          "Serving request-queue capacity: a submit past this depth fails "
          "fast with ServeQueueFullError. Counterpart: "
          "DL4J_TPU_SERVE_QUEUE.")
+_declare("DL4J_TORCH_SERVE_SLOTS", "int", None,
+         "Slot count of ContinuousLM's persistent KV pool [slots, "
+         "kv_heads, max_len, head_dim]; unset takes the persisted or "
+         "probed decision, else the width derived from "
+         "DL4J_TORCH_MEM_BUDGET. Counterpart: DL4J_TPU_SERVE_SLOTS.")
+_declare("DL4J_TORCH_SERVE_SLOTS_LADDER", "str", "2,4,8",
+         "Slot widths the decode-width autotuner probes "
+         "(comma-separated ints). Counterpart: "
+         "DL4J_TPU_SERVE_SLOTS_LADDER.")
 _declare("DL4J_TORCH_SERVE_WAIT", "float", 0.002,
          "Batcher linger (seconds): how long the batch loop waits for "
          "more same-shape requests before dispatching a partial (padded) "
-         "batch. Counterpart: DL4J_TPU_SERVE_WAIT.")
+         "batch; ContinuousLM's idle poll interval. Counterpart: "
+         "DL4J_TPU_SERVE_WAIT.")
 _declare("DL4J_TORCH_TRANSFER_STAGE", "int", 8,
          "Super-batch staging factor of fit(iterator)'s prefetch: up to "
          "this many equal-shape maskless batches travel to the device in "
@@ -149,6 +198,11 @@ _declare("DL4J_TORCH_TRACE_DIR", "str", "",
          "Directory for Chrome trace-event span files (obs/tracing.py, "
          "one trace_<pid>.json per process); empty disables span "
          "recording. Counterpart: DL4J_TPU_TRACE_DIR.")
+_declare("DL4J_TORCH_TUNE_CACHE_DIR", "str", "~/.dl4j_torch/tune",
+         "Directory the autotuner's decisions persist in (one JSON file a "
+         "model and backend, committed by atomic_io's tmp+fsync+rename); "
+         "empty keeps decisions in memory only. Counterpart: "
+         "DL4J_TPU_TUNE_CACHE_DIR.")
 
 
 def _warn(name, raw, kind, default):

@@ -7,8 +7,14 @@ cast and tied f32 head, ``TransformerLM.init``/``output``, and the train
 path: ``_loss`` (mask, label smoothing, z-loss), ``_lr_at``,
 ``_decay_mask``, ``_adamw_apply``, global-norm clipping, EMA, remat,
 ``fit_batch``/``fit``, ``eval_loss``/``perplexity``, ``clone`` and
-``ema_model``. Generation, the decode and prefill programs and sharding
-come with later slices.
+``ema_model``; and generation: the one-token decode step
+(``_make_token_step``, scalar or per-row positions), the top-k/nucleus
+filters, ``generate()`` and ``beam_search()`` (one captured CUDA graph
+per signature on the card, in a cache bounded by
+``DL4J_TORCH_SERVE_GEN_CACHE``), and the programs the continuous-
+batching server (``serving/decode.py``) drives: the decode chunk over a
+paged window of the slot pool, the slot admit, and chunked prefill.
+Sharding comes with a later slice.
 
 Layouts are the reference's: dense weights are ``[in, out]`` applied as
 ``x @ W``; q/k/v are ``[B, H, T, hd]``; parameters form the same tree of
@@ -19,8 +25,17 @@ parameter tree over, :func:`opt_state_from_numpy` its optimizer state.
 Attention with ``block_size`` set goes through
 ``ops.flash_attention`` — the hand-written CUDA kernels on the card,
 forward and backward — and without it through the dense oracle, as in
-the reference. The step runs eagerly: where the reference jits one
-program, the port launches the same math op by op.
+the reference. The train step runs eagerly: where the reference jits
+one program, the port launches the same math op by op.
+
+Decode programs mutate static tensors in place (the reference returns
+a new state dict), so that on the card each one is captured once as a
+CUDA graph and replayed (``models/_cuda_graph.py``). On the CPU their
+matmuls and softmax run in a fixed summation order (``_mm``,
+``_attend``): a row then decodes to the same bits alone, in a slot pool
+of any width, over any KV window, or in a prefill window, which is
+what the serving contracts hold exactly on the CPU. On the card they
+are cuBLAS GEMMs, whose rounding may depend on the batch.
 """
 
 from __future__ import annotations
@@ -36,13 +51,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch import obs
-from deeplearning4j_tpu_torch.config import env_str
+from deeplearning4j_tpu_torch.config import env_int, env_str
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     blockwise_attention, dense_attention)
 
-__all__ = ["TransformerConfig", "TransformerLM", "opt_state_from_numpy",
+__all__ = ["DECODE_MODES", "TransformerConfig", "TransformerLM",
+           "decode_state_from_numpy", "gumbel_noise", "opt_state_from_numpy",
            "params_from_numpy"]
 
 _OBS_OUTPUT_SECONDS = obs.histogram(
@@ -354,6 +371,37 @@ def opt_state_from_numpy(tree, device=None):
     return state, int(tree.get("iteration", 0))
 
 
+def decode_state_from_numpy(tree, device=None):
+    """The port's continuous-batching decode state (the layout of
+    ``TransformerLM._init_decode_state``) from a JAX decode state given
+    as numpy (``jax.tree.map(np.asarray, state)``), on ``device`` (None
+    means cuda): the K/V pools keep their dtype (a bf16 pool stays bf16),
+    the integer fields become int64, ``temp``/``topp`` f32, ``active``
+    bool, and ``rng`` (a ``PRNGKey(seed)``, whose second word is the
+    seed) becomes the pool's base seed."""
+    dev = resolve_device(device)
+
+    def pool(a):
+        dt = torch.bfloat16 if str(a.dtype) == "bfloat16" else torch.float32
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+
+    def ints(a):
+        return torch.tensor(np.asarray(a, np.int64), device=dev)
+    state = {"k": [pool(a) for a in tree["k"]],
+             "v": [pool(a) for a in tree["v"]],
+             "temp": torch.tensor(np.asarray(tree["temp"], np.float32),
+                                  device=dev),
+             "topp": torch.tensor(np.asarray(tree["topp"], np.float32),
+                                  device=dev),
+             "active": torch.tensor(np.asarray(tree["active"], bool),
+                                    device=dev),
+             "rng": torch.tensor(int(np.asarray(tree["rng"]).reshape(-1)[-1]),
+                                 dtype=torch.int64, device=dev)}
+    for k in ("pos", "last", "out", "prompts", "plen", "nnew", "topk",
+              "seed"):
+        state[k] = ints(tree[k])
+    return state
+
 def _token_array(tokens, vocab_size):
     """Validate a host [B, T] integer token array."""
     toks = np.asarray(tokens)
@@ -364,6 +412,176 @@ def _token_array(tokens, vocab_size):
         raise ValueError(f"token ids must lie in [0, {vocab_size})")
     return toks
 
+
+# ---- generation: the decode math and its helpers ----------------------
+
+# the decode chunk's sampler variants, one program (graph) each: the host
+# knows every admitted request's sampler, so it picks the variant where
+# the reference branches on the device (``lax.cond`` over the filter)
+DECODE_MODES = ("greedy", "sample", "filter")
+
+# int64 fields of the admit staging record before the prompt row
+_ADMIT_FIELDS = 8
+# int64 fields of the prefill staging record before the window's tokens
+_PREFILL_FIELDS = 4
+
+_M32 = 0xFFFFFFFF
+
+
+def _mm(x, w):
+    """``x @ w``. On the card one GEMM. On the CPU every output element
+    is summed over the inner dim in one fixed order, in f32, whatever the
+    number of rows (MKL's gemv and gemm round differently, so ``x @ w``
+    would give a row other bits alone than in a batch)."""
+    if x.is_cuda:
+        return x @ w
+    dt = torch.result_type(x, w)
+    return (x.to(torch.float32)[..., :, None]
+            * w.to(torch.float32)).sum(-2).to(dt)
+
+
+def _linear(x, w, b):
+    """``x @ w + b`` (``w`` [in, out]): on the card one cuBLASLt GEMM with
+    the bias in its epilogue, on the CPU the fixed-order :func:`_mm`."""
+    if x.is_cuda:
+        return F.linear(x, w.t(), b)
+    return _mm(x, w) + b
+
+
+def _norm(x, g, b):
+    """LayerNorm of the last dim (biased variance, eps 1e-5): on the card
+    one fused kernel, on the CPU the reference's formula written out
+    (:func:`_layer_norm`, whose reductions are row-invariant)."""
+    if x.is_cuda:
+        return F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
+    return _layer_norm(x, g, b)
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s tanh form. On the CPU written out: torch's fused
+    kernel rounds its vectorised body and its scalar tail differently,
+    which would tie a row's bits to its place in the batch."""
+    if x.is_cuda:
+        return F.gelu(x, approximate="tanh")
+    return x * (0.5 * (1.0 + torch.tanh(
+        math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3))))
+
+
+def _attend(q, kc, vc, keep, hd):
+    """Softmax attention of ``q`` [..., Q, hd] over ``kc``/``vc``
+    [..., T, hd] where ``keep`` (broadcast to [..., Q, T]) holds; other
+    scores are -1e30, as in the reference. In q's dtype. On the card two
+    batched GEMMs around ``torch.softmax``; on the CPU a fixed-order form
+    whose bits depend neither on the batch nor on masked keys past the
+    last kept one (the denominator by ``cumsum``, the values by a
+    reduction over T), so every KV window rung gives a row the same
+    bits."""
+    scale = math.sqrt(hd)
+    if q.is_cuda:
+        s = torch.matmul(q, kc.transpose(-1, -2)) / scale
+        s = torch.where(keep, s, -1e30)
+        return torch.matmul(torch.softmax(s, dim=-1), vc)
+    f32 = torch.float32
+    s = (q.to(f32)[..., :, None, :]
+         * kc.to(f32)[..., None, :, :]).sum(-1).to(q.dtype) / scale
+    s = torch.where(keep, s, -1e30)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.cumsum(-1)[..., -1:]
+    return (p.to(f32)[..., :, :, None]
+            * vc.to(f32)[..., None, :, :]).sum(-2).to(q.dtype)
+
+
+def _write_index(pos, write, T):
+    """Where each row writes its token's K/V into a cache of T positions:
+    ``(rows, idx, ok)``, ``ok`` false for a row that must not write (not
+    active, or past the cache's end). Shared by every layer's K and V."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    ok = (write & (pos >= 0) & (pos < T))[:, None, None]
+    return rows, pos.clamp(0, T - 1), ok
+
+
+def _write_at(cache, val, where):
+    """``cache[b, :, pos[b]] = val[b]`` where row b may write (an indexed
+    scatter, one position a row; the others keep their entries). cache:
+    [B, kv_heads, T, hd], possibly a window view of a longer pool; val:
+    [B, kv_heads, hd]; ``where`` from :func:`_write_index`."""
+    rows, idx, ok = where
+    cache[rows, :, idx] = torch.where(ok, val.to(cache.dtype),
+                                      cache[rows, :, idx])
+
+
+def _scatter_window(row, pages, idx, valid):
+    """Write window ``pages`` [kv_heads, W, hd] into the cache ``row``
+    [kv_heads, T, hd] at positions ``idx`` [W] where ``valid`` holds.
+    ``idx`` must be distinct (the prefill wraps positions past the end,
+    which are never valid, onto the row's start)."""
+    row[:, idx] = torch.where(valid[None, :, None], pages.to(row.dtype),
+                              row[:, idx])
+
+
+def _mul32(x, c):
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, in two 16-bit halves so that no product overflows int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finaliser: xorshift-multiply rounds."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(base, seeds, pos, vocab):
+    """Gumbel(0, 1) noise [B, vocab] in f32 for the sampler
+    ``argmax(logits / temperature + noise)`` (what
+    ``jax.random.categorical`` does with its own noise). Counter-based:
+    entry (b, v) is a pure function of (``base``, ``seeds[b]``,
+    ``pos[b]``, v), integer hash rounds over int64 tensors, so a sampled
+    row does not depend on how admits interleave and the whole source
+    runs inside a captured graph. ``base``: 0-d int64; ``seeds``, ``pos``:
+    [B] int64. JAX's threefry draws cannot be reproduced in torch: the
+    values differ from the reference's, the property is the same."""
+    h = _mix32((base & _M32) ^ 0x3C6EF372)
+    h = _mix32(h ^ (seeds & _M32))
+    h = _mix32(h ^ (pos & _M32))
+    v = torch.arange(vocab, device=h.device, dtype=torch.int64)
+    x = _mix32(h[:, None] ^ _mul32(v, 0x9E3779B9))
+    x = _mix32(x ^ 0x85EBCA6B)
+    # 23 bits: (k + 0.5) / 2**23 is exact in f32 and lies in (0, 1)
+    u = ((x >> 9).to(torch.float32) + 0.5) * (1.0 / 8388608.0)
+    return -torch.log(-torch.log(u))
+
+
+def _f32_bits(x):
+    """An int64 tensor holding f32 bit patterns (as signed int32 values)
+    viewed as float32."""
+    return x.to(torch.int32).view(torch.float32)
+
+
+def admit_record(c, slot, prompt, plen, nnew, temp, topk, topp, active,
+                 seed):
+    """The host int64 staging record the admit program reads: eight
+    scalar fields (the two float ones as their f32 bits), then the
+    ``max_len`` prompt row."""
+    rec = np.zeros(_ADMIT_FIELDS + c.max_len, np.int64)
+    rec[:_ADMIT_FIELDS] = (
+        slot, plen, nnew, np.float32(temp).view(np.int32), topk,
+        np.float32(topp).view(np.int32), int(bool(active)), seed)
+    rec[_ADMIT_FIELDS:_ADMIT_FIELDS + len(prompt)] = prompt
+    return rec
+
+
+def prefill_record(slot, toks, start, nvalid, final, W):
+    """The host int64 staging record a prefill program reads: slot,
+    window start, valid tokens, final flag, then the W window tokens
+    (zero past ``nvalid``)."""
+    rec = np.zeros(_PREFILL_FIELDS + W, np.int64)
+    rec[:_PREFILL_FIELDS] = (slot, start, nvalid, int(bool(final)))
+    rec[_PREFILL_FIELDS:_PREFILL_FIELDS + len(toks)] = toks
+    return rec
 
 class TransformerLM(nn.Module):
     """Pre-LN decoder-only LM with tied input/output embeddings.
@@ -386,6 +604,8 @@ class TransformerLM(nn.Module):
         self.score_ = float("nan")
         self.listeners = []
         self._rng = None   # dropout generator, seeded conf.seed + 1
+        self._jit_gen = {}      # _gen_signature -> generate/beam program
+        self._jit_decode = {}   # decode/admit/prefill signature -> body
 
     def set_listeners(self, *listeners):
         """Iteration listeners (``optimize/listeners.py``): each gets
@@ -635,3 +855,626 @@ class TransformerLM(nn.Module):
             with torch.inference_mode():
                 logits = self._logits(self.params, t)
             return logits.cpu().numpy()
+
+    # ---- generation ----------------------------------------------------
+    def generate(self, prompt, n_new, *, temperature=1.0, seed=0,
+                 top_k=None, top_p=None, repetition_penalty=None):
+        """Autoregressive sampling over a preallocated KV cache, greedy at
+        ``temperature=0``. ``top_k`` keeps the k most likely tokens,
+        ``top_p`` the smallest nucleus whose mass reaches p (top_k prunes
+        first); ``repetition_penalty`` > 1 divides the positive logits
+        (and multiplies the negative ones) of every token already in the
+        row, before the filters. The prompt is prefilled one token at a
+        time through the same step. On the card the whole run is one
+        captured CUDA graph per signature (batch, prompt length, n_new,
+        sampler), replayed for every later call with that signature.
+
+        prompt: [B, P] int tokens; returns [B, P + n_new] int32. Sampled
+        tokens draw the counter-based ``gumbel_noise`` keyed by (seed,
+        row, position): the same distribution as the reference's split
+        stream, not its values."""
+        c = self.conf
+        if self.params is None:
+            raise ValueError("TransformerLM has no parameters: call init() "
+                             "or assign params_from_numpy(...)")
+        prompt = _token_array(prompt, c.vocab_size)
+        B, P = prompt.shape
+        total = P + n_new
+        if total > c.max_len:
+            raise ValueError(f"P+n_new={total} exceeds max_len={c.max_len}")
+        if top_k is not None and not 1 <= int(top_k) <= c.vocab_size:
+            raise ValueError(f"top_k must be in [1, {c.vocab_size}]")
+        if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if repetition_penalty is not None and float(repetition_penalty) <= 0:
+            raise ValueError("repetition_penalty must be > 0")
+        extra = (float(temperature), top_k and int(top_k),
+                 top_p and float(top_p),
+                 repetition_penalty and float(repetition_penalty))
+        sig = self._gen_signature("sample", B, P, n_new, *extra)
+        prog = self._jit_gen.get(sig)
+        if prog is None or prog.params is not self.params:
+            self._jit_gen.pop(sig, None)   # parameters assigned anew
+            self._evict_gen()
+            prog = self._jit_gen[sig] = self._build_generate(B, P, n_new,
+                                                             *extra)
+        prog.prompt.copy_(torch.from_numpy(prompt.astype(np.int64)))
+        prog.seed.fill_(int(seed))
+        prog.graph()
+        return prog.out.cpu().numpy().astype(np.int32)
+
+    @staticmethod
+    def _filter_logits_rows(logits, k, p):
+        """Per-row top-k/nucleus filtering for the continuous-batching
+        decode step: ``k``/``p`` are [B] tensors riding the slot state
+        (``k = vocab_size`` and ``p = 1.0`` leave a row whole). The
+        semantics of :meth:`_filter_logits`, rank-based so k can vary per
+        row: a stable sort of ``-logits`` (``jnp.argsort`` is stable), the
+        nucleus rule ``(cum - probs) < p``."""
+        B, V = logits.shape
+        idx = torch.argsort(-logits, dim=-1, stable=True)
+        srt = torch.gather(logits, -1, idx)
+        rank_keep = torch.arange(V, device=logits.device)[None, :] \
+            < k[:, None]
+        probs = torch.softmax(torch.where(rank_keep, srt, -math.inf), -1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep the tokens BEFORE the mass crosses p (always >= 1 token)
+        keep_sorted = rank_keep & ((cum - probs) < p[:, None])
+        keep = torch.zeros_like(keep_sorted).scatter(-1, idx, keep_sorted)
+        return torch.where(keep, logits, -math.inf)
+
+    @staticmethod
+    def _filter_logits(logits, top_k, top_p):
+        """Top-k / nucleus filtering: logits outside the set go to -inf.
+        The top-k threshold keeps every tie of the k-th value
+        (``lax.top_k``'s rule)."""
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+            logits = torch.where(logits < kth, -math.inf, logits)
+        if top_p is not None and top_p < 1.0:
+            idx = torch.argsort(-logits, dim=-1, stable=True)
+            srt = torch.gather(logits, -1, idx)
+            probs = torch.softmax(srt, dim=-1)
+            # keep the tokens BEFORE the mass crosses p (always >= 1 token)
+            cum = torch.cumsum(probs, dim=-1)
+            keep_sorted = (cum - probs) < top_p
+            keep = torch.zeros_like(keep_sorted).scatter(-1, idx,
+                                                         keep_sorted)
+            logits = torch.where(keep, logits, -math.inf)
+        return logits
+
+    def _cache_dtype(self):
+        """KV caches follow the compute dtype: a bf16 model decodes with a
+        bf16 cache; logits still come back f32."""
+        return getattr(torch, self.conf.compute_dtype or "float32")
+
+    def _gumbel(self, base, seeds, pos, vocab):
+        """The sampler's noise source (:func:`gumbel_noise`); tests
+        replace it on an instance to inject the reference's draws."""
+        return gumbel_noise(base, seeds, pos, vocab)
+
+    def _step_params(self, params):
+        """``(params, cast)``: the f32 masters the embeddings are gathered
+        from, and the tree in the compute dtype the blocks and the tied
+        head use (the same tree when there is no compute dtype). Decode
+        programs cast once a dispatch, inside their graph, so a trained
+        parameter is never read stale."""
+        cd = self.conf.compute_dtype
+        if not cd:
+            return params, params
+        dt = getattr(torch, cd)
+        return params, _tree_map(
+            lambda a: a.to(dt) if a.is_floating_point() else a, params)
+
+    # ---- inference-program signatures ------------------------------------
+    def _gen_signature(self, kind, B, P, n_new, *extra):
+        """The ``generate``/``beam_search`` program cache key
+        (``_jit_gen``): everything the program's shape and control flow
+        depend on."""
+        return (kind, B, P, n_new) + tuple(extra)
+
+    def _evict_gen(self):
+        """Bound ``_jit_gen`` to ``DL4J_TORCH_SERVE_GEN_CACHE`` programs,
+        oldest first, before a new one is built: a server answering many
+        shapes must not pin an unbounded set of graphs."""
+        bound = env_int("DL4J_TORCH_SERVE_GEN_CACHE", minimum=1)
+        while len(self._jit_gen) >= bound:
+            self._jit_gen.pop(next(iter(self._jit_gen)))
+
+    def _decode_signature(self, slots, chunk, window, mode):
+        """Decode-chunk program key: slot width, tokens a dispatch, the KV
+        window rung, and the sampler variant (``DECODE_MODES``)."""
+        return ("decode", slots, chunk, window, mode)
+
+    def _admit_signature(self, slots):
+        """Slot-admission program key."""
+        return ("admit", slots)
+
+    def _prefill_signature(self, slots, window, inject):
+        """Chunked-prefill program key: one per prompt-window rung and
+        variant (computing the window, or injecting prefix-cache
+        pages)."""
+        return ("prefill", slots, window, "inject" if inject else "compute")
+
+    # ---- continuous-batching decode (serving/decode.py drives this) ----
+    def _init_decode_state(self, slots, seed=0):
+        """Fresh continuous-batching decode state: the persistent
+        [slots, kv_heads, max_len, hd] KV slot pool (allocated once and
+        updated in place by every program) and per-row counters; the
+        scheduler keeps host mirrors of pos/plen/nnew/active. ``rng`` is
+        the pool's constant base seed: sampling noise is derived from
+        (base, request seed, position), never from a carried stream."""
+        c = self.conf
+        hd = c.d_model // c.n_heads
+        S, total, dev = slots, c.max_len, self.device
+        cdt = self._cache_dtype()
+        i64 = dict(dtype=torch.int64, device=dev)
+        return {
+            "k": [torch.zeros((S, c.kv_heads, total, hd), dtype=cdt,
+                              device=dev) for _ in range(c.n_layers)],
+            "v": [torch.zeros((S, c.kv_heads, total, hd), dtype=cdt,
+                              device=dev) for _ in range(c.n_layers)],
+            "pos": torch.zeros(S, **i64),
+            "last": torch.zeros(S, **i64),
+            "out": torch.zeros((S, total), **i64),
+            "prompts": torch.zeros((S, total), **i64),
+            "plen": torch.ones(S, **i64),
+            "nnew": torch.zeros(S, **i64),
+            "temp": torch.zeros(S, dtype=torch.float32, device=dev),
+            # k = vocab_size and p = 1.0 leave a row unfiltered
+            "topk": torch.full((S,), c.vocab_size, **i64),
+            "topp": torch.ones(S, dtype=torch.float32, device=dev),
+            "active": torch.zeros(S, dtype=torch.bool, device=dev),
+            "seed": torch.zeros(S, **i64),
+            "rng": torch.tensor(int(seed), **i64),
+        }
+
+    def _reset_decode_state(self, state, seed=0):
+        """Bring ``state`` back to ``_init_decode_state``'s values in
+        place, so graphs bound to its storage stay valid."""
+        with torch.no_grad():
+            for buf in state["k"] + state["v"]:
+                buf.zero_()
+            for k in ("pos", "last", "out", "prompts", "nnew", "temp",
+                      "active", "seed"):
+                state[k].zero_()
+            state["plen"].fill_(1)
+            state["topk"].fill_(self.conf.vocab_size)
+            state["topp"].fill_(1.0)
+            state["rng"].fill_(int(seed))
+
+    def _decode_fns(self, slots, chunk, window, mode):
+        """The (admit, decode chunk) program bodies for a slot width, KV
+        window rung and sampler variant, cached under
+        ``_admit_signature``/``_decode_signature`` in ``_jit_decode``. A
+        body mutates the state it is given; the server captures each one
+        as a graph bound to its slot pool."""
+        ks = self._decode_signature(slots, chunk, window, mode)
+        if ks not in self._jit_decode:
+            self._jit_decode[ks] = self._build_decode_step(slots, chunk,
+                                                           window, mode)
+        return self._admit_fn(slots), self._jit_decode[ks]
+
+    def _admit_fn(self, slots):
+        """The admit program body of a slot width (window-independent: it
+        writes whole ``max_len`` rows)."""
+        ka = self._admit_signature(slots)
+        if ka not in self._jit_decode:
+            self._jit_decode[ka] = self._build_admit(slots)
+        return self._jit_decode[ka]
+
+    def _prefill_fn(self, slots, window, inject):
+        """The chunked-prefill program body for a prompt-window rung and
+        variant, cached under ``_prefill_signature``."""
+        kp = self._prefill_signature(slots, window, inject)
+        if kp not in self._jit_decode:
+            self._jit_decode[kp] = self._build_prefill(slots, window, inject)
+        return self._jit_decode[kp]
+
+    def _build_decode_step(self, S, chunk, W, mode):
+        """The program advancing every active slot by ``chunk`` tokens, in
+        place on the state: a row whose position is still inside its
+        prompt is teacher-forced from the slot's prompt buffer, past it
+        the sampled token feeds back; generated tokens land in the slot's
+        ``out`` row, fetched once when the request completes.
+
+        ``W`` is the KV window rung: the step reads and writes the first
+        ``W`` positions of the ``max_len`` pool through a strided view (no
+        copy in or out); the scheduler keeps every active row's position
+        below ``W`` for the whole chunk, and a ``max_len`` rung is the
+        un-paged program. ``mode`` is the sampler variant: ``greedy``
+        (argmax only; the host picks it when no active row samples),
+        ``sample`` (Gumbel noise), ``filter`` (the per-row top-k/nucleus
+        filter first; picked when an admitted request filters, the
+        reference's ``need``)."""
+        if mode not in DECODE_MODES:
+            raise ValueError(f"mode must be one of {DECODE_MODES}")
+        c = self.conf
+        total, V = c.max_len, c.vocab_size
+        W = min(W, total)
+        row_step = self._make_token_step(S, W, vector_pos=True)
+
+        def chunk_run(params, state):
+            sp = self._step_params(params)
+            plen, nnew = state["plen"], state["nnew"]
+            prompts, temp = state["prompts"], state["temp"]
+            topk, topp = state["topk"], state["topp"]
+            active, pos = state["active"], state["pos"]
+            last, out = state["last"], state["out"]
+            kws = [b[:, :, :W] for b in state["k"]]
+            vws = [b[:, :, :W] for b in state["v"]]
+            for _ in range(chunk):
+                ptok = torch.gather(prompts, 1,
+                                    pos.clamp(0, total - 1)[:, None])[:, 0]
+                cur = torch.where(pos < plen, ptok, last)
+                logits = row_step(sp, cur, pos, kws, vws, write=active)
+                samp = logits.argmax(-1)
+                if mode != "greedy":
+                    flt = (self._filter_logits_rows(logits, topk, topp)
+                           if mode == "filter" else logits)
+                    scaled = flt / temp.clamp(min=1e-6)[:, None]
+                    noise = self._gumbel(state["rng"], state["seed"], pos, V)
+                    samp = torch.where(temp > 0.0,
+                                       (scaled + noise).argmax(-1), samp)
+                # the token sampled after position pos is generation index
+                # pos + 1 - plen; rows still prefilling (< 0) and rows past
+                # their request (>= nnew) write nothing
+                gi = pos + 1 - plen
+                ok = active & (gi >= 0) & (gi < nnew)
+                gi_c = gi.clamp(0, total - 1)[:, None]
+                out.scatter_(1, gi_c, torch.where(
+                    ok, samp, torch.gather(out, 1, gi_c)[:, 0])[:, None])
+                last.copy_(torch.where(active, samp, last))
+                pos.add_(active.to(pos.dtype))
+
+        return chunk_run
+
+    def _build_admit(self, S):
+        """Slot (re)assignment as one program for every slot: it reads one
+        int64 staging record (:func:`admit_record`: slot, plen, nnew,
+        temperature bits, top_k, top_p bits, active, seed, prompt row) and
+        writes the slot's fields by index. Freeing a slot is an admit
+        with ``active`` 0. A freed row's KV cache is not cleared: its
+        position restarts at 0 and the causal mask hides every stale
+        entry past it."""
+        total = self.conf.max_len
+        n = _ADMIT_FIELDS
+
+        def admit(state, stage):
+            slot = stage[0:1]
+            state["prompts"].index_copy_(0, slot, stage[n:n + total][None])
+            for k in ("out", "pos", "last"):
+                state[k].index_fill_(0, slot, 0)
+            state["plen"].index_copy_(0, slot, stage[1:2].clamp(min=1))
+            state["nnew"].index_copy_(0, slot, stage[2:3])
+            state["temp"].index_copy_(0, slot, _f32_bits(stage[3:4]))
+            state["topk"].index_copy_(0, slot, stage[4:5])
+            state["topp"].index_copy_(0, slot, _f32_bits(stage[5:6]))
+            state["active"].index_copy_(0, slot, stage[6:7] != 0)
+            state["seed"].index_copy_(0, slot, stage[7:8])
+
+        return admit
+
+    def _build_prefill(self, S, W, inject):
+        """Chunked prompt prefill for one slot as one program per window
+        rung: ``W`` prompt tokens in one parallel forward, their K/V
+        written into the slot's cache row (before attention, so causality
+        inside the window reads them back at cache dtype, as the decode
+        step's own writes would be read). Slot, window start, valid count
+        and the final flag come from an int64 staging record
+        (:func:`prefill_record`), so every window of every prompt shares
+        the rung's program. The final window leaves ``pos`` at
+        ``start + nvalid`` (= plen - 1: the decode chunk re-processes the
+        last prompt token and samples from it) and sets ``active``.
+
+        ``inject=True`` is the prefix-cache hit variant: the pages in
+        ``ik``/``iv`` [L, kv_heads, W, hd] are written instead of computed
+        (the reference's ``lax.cond``; here the host, which knows whether
+        the cache hit, picks the program). The compute variant writes the
+        window's pages into ``pk``/``pv`` for the cache."""
+        c = self.conf
+        d, L, total = c.d_model, c.n_layers, c.max_len
+        hd = d // c.n_heads
+        kvh, kvd = c.kv_heads, c.kv_heads * hd
+        dev = self.device
+        win = torch.arange(W, device=dev)
+        tpos = torch.arange(total, device=dev)
+        n = _PREFILL_FIELDS
+
+        def prefill(params, state, stage, ik, iv, pk, pv):
+            slot, start, nvalid, final = (stage[0:1], stage[1], stage[2],
+                                          stage[3])
+            pos_w = start + win
+            valid = win < nvalid
+            # positions past the pool's end are never valid; wrapping
+            # them onto its start keeps the scatter's indices distinct
+            idx = pos_w % total
+            krows = [b.index_select(0, slot)[0] for b in state["k"]]
+            vrows = [b.index_select(0, slot)[0] for b in state["v"]]
+            if inject:
+                for i in range(L):
+                    _scatter_window(krows[i], ik[i], idx, valid)
+                    _scatter_window(vrows[i], iv[i], idx, valid)
+            else:
+                raw, cp = self._step_params(params)
+                toks = stage[n:n + W]
+                x = raw["wte"][toks]                               # [W, d]
+                if c.pos_embed == "learned":
+                    x = x + raw["wpe"][pos_w.clamp(0, total - 1)]
+                x = x.to(self._cache_dtype())
+                keep = tpos[None, :] <= pos_w[:, None]
+                if c.window is not None:
+                    keep &= tpos[None, :] > (pos_w[:, None] - c.window)
+                if c.pos_embed == "rope":
+                    cos, sin = _rope_cos_sin(c, hd, pos_w)         # [W, hd/2]
+                for i in range(L):
+                    bp = cp[f"b{i}"]
+                    hloc = _norm(x, bp["ln1_g"], bp["ln1_b"])
+                    qkv = _linear(hloc, bp["qkv"], bp["qkv_b"])
+                    q, k, v = torch.split(qkv, [d, kvd, kvd], dim=-1)
+                    q = q.reshape(W, c.n_heads, hd).transpose(0, 1)
+                    k = k.reshape(W, kvh, hd).transpose(0, 1)
+                    v = v.reshape(W, kvh, hd).transpose(0, 1)
+                    if c.pos_embed == "rope":   # the cache holds rotated keys
+                        q = _apply_rope(q, cos, sin)
+                        k = _apply_rope(k, cos, sin)
+                    _scatter_window(krows[i], k, idx, valid)
+                    _scatter_window(vrows[i], v, idx, valid)
+                    qh = q.reshape(kvh, c.kv_group, W, hd)
+                    o = _attend(qh, krows[i][:, None], vrows[i][:, None],
+                                keep, hd)
+                    o = o.permute(2, 0, 1, 3).reshape(W, d)
+                    x = x + _linear(o, bp["proj"], bp["proj_b"])
+                    hloc = _norm(x, bp["ln2_g"], bp["ln2_b"])
+                    x = x + _linear(_gelu(_linear(hloc, bp["fc"],
+                                                  bp["fc_b"])),
+                                    bp["out"], bp["out_b"])
+                    pk[i].copy_(k)
+                    pv[i].copy_(v)
+            for i in range(L):
+                state["k"][i].index_copy_(0, slot, krows[i][None])
+                state["v"][i].index_copy_(0, slot, vrows[i][None])
+            state["pos"].index_copy_(0, slot, (start + nvalid)[None])
+            state["active"].index_copy_(0, slot, (final != 0)[None])
+
+        return prefill
+
+    def _make_token_step(self, B, total, *, vector_pos=False):
+        """One-token decode step over (rows B, cache length total): THE
+        decode attention/FFN math, shared by the sampler and beam search
+        (scalar ``pos``, a Python int: the batch decodes in lock-step) and,
+        with ``vector_pos=True``, the continuous-batching chunk (per-row
+        ``pos`` [B] int64 and the active-row ``write`` mask; a row past
+        the cache end matches nothing). Caches [B, kv_heads, total, hd]
+        are written in place at ``pos`` (GQA regroups q onto its kv head:
+        no cache repeat). The compute-dtype body, f32 logits from the
+        tied head; rope rotates q and the cached k.
+
+        Returns ``token_step(sp, tok, pos, kcs, vcs, write=None)`` ->
+        logits [B, V] f32, where ``sp`` is ``_step_params(params)``."""
+        c = self.conf
+        d, L = c.d_model, c.n_layers
+        hd = d // c.n_heads
+        kvh, kvd, g = c.kv_heads, c.kv_heads * hd, c.kv_group
+        cdt = self._cache_dtype()
+        ar = torch.arange(total, device=self.device)
+
+        def block_step(bp, x, kc, vc, pos, where, keep, rope):
+            hloc = _norm(x, bp["ln1_g"], bp["ln1_b"])
+            qkv = _linear(hloc, bp["qkv"], bp["qkv_b"])
+            q, k, v = torch.split(qkv, [d, kvd, kvd], dim=-1)
+            q = q.reshape(B, 1, c.n_heads, hd).transpose(1, 2)
+            k = k.reshape(B, 1, kvh, hd).transpose(1, 2)
+            v = v.reshape(B, 1, kvh, hd).transpose(1, 2)
+            if rope is not None:         # the cache holds rotated keys
+                q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
+            if vector_pos:
+                _write_at(kc, k[:, :, 0], where)
+                _write_at(vc, v[:, :, 0], where)
+            else:
+                kc[:, :, pos] = k[:, :, 0]
+                vc[:, :, pos] = v[:, :, 0]
+            qh = q[:, :, 0].reshape(B, kvh, g, hd)
+            o = _attend(qh, kc, vc, keep, hd).reshape(B, 1, d)
+            x = x + _linear(o, bp["proj"], bp["proj_b"])
+            hloc = _norm(x, bp["ln2_g"], bp["ln2_b"])
+            return x + _linear(_gelu(_linear(hloc, bp["fc"], bp["fc_b"])),
+                               bp["out"], bp["out_b"])
+
+        def token_step(sp, tok, pos, kcs, vcs, write=None):
+            raw, cp = sp
+            x = raw["wte"][tok][:, None, :]
+            if c.pos_embed == "learned":
+                if vector_pos:
+                    x = x + raw["wpe"][pos.clamp(0, c.max_len - 1)][:, None]
+                else:
+                    x = x + raw["wpe"][pos][None, None]
+            x = x.to(cdt)   # the compute dtype (f32 without one)
+            # what every layer shares: the write positions, the causal
+            # (and sliding-window) keep mask, the rotation angles
+            T = kcs[0].shape[2]
+            if vector_pos:
+                where = _write_index(pos, write, T)
+                keep = ar[None, :T] <= pos[:, None]
+                if c.window is not None:
+                    keep &= ar[None, :T] > (pos[:, None] - c.window)
+                keep = keep[:, None, None, :]
+            else:
+                where = None
+                keep = ar[:T] <= pos
+                if c.window is not None:
+                    keep &= ar[:T] > pos - c.window
+                keep = keep[None, None, None, :]
+            rope = None
+            if c.pos_embed == "rope":
+                if vector_pos:           # per-row rotation angle
+                    cos, sin = _rope_cos_sin(c, hd, pos)
+                    rope = cos[:, None, None, :], sin[:, None, None, :]
+                else:
+                    rope = _rope_cos_sin(c, hd, ar[pos:pos + 1])
+            for i in range(L):
+                x = block_step(cp[f"b{i}"], x, kcs[i], vcs[i], pos, where,
+                               keep, rope)
+            x = _norm(x, cp["lnf_g"], cp["lnf_b"])
+            if x.is_cuda:
+                return F.linear(x, cp["wte"]).to(torch.float32)[:, 0]
+            return _mm(x, cp["wte"].T).to(torch.float32)[:, 0]
+
+        return token_step
+
+    def _new_caches(self, B, total):
+        c = self.conf
+        shape = (B, c.kv_heads, total, c.d_model // c.n_heads)
+        return ([torch.zeros(shape, dtype=self._cache_dtype(),
+                             device=self.device) for _ in range(c.n_layers)],
+                [torch.zeros(shape, dtype=self._cache_dtype(),
+                             device=self.device) for _ in range(c.n_layers)])
+
+    def _build_generate(self, B, P, n_new, temperature, top_k=None,
+                        top_p=None, rep_penalty=None):
+        """The whole sampler run as one program over static tensors
+        (``prompt`` [B, P], ``seed`` 0-d, ``out`` [B, P + n_new]): P
+        prefill steps and n_new sampling steps through one token step,
+        the KV caches and the repetition counts allocated inside it (in
+        the graph's own memory on the card). Returns the program: its
+        static tensors and ``graph``, a :class:`StaticGraph`."""
+        c = self.conf
+        V, total, dev = c.vocab_size, P + n_new, self.device
+        step = self._make_token_step(B, total)
+        prog = _Program(self.params,
+                        prompt=torch.zeros((B, P), dtype=torch.int64,
+                                           device=dev),
+                        seed=torch.zeros((), dtype=torch.int64, device=dev),
+                        out=torch.zeros((B, total), dtype=torch.int64,
+                                        device=dev))
+        pos_t = torch.arange(total, dtype=torch.int64, device=dev)
+        rows = torch.arange(B, dtype=torch.int64, device=dev)
+
+        def run():
+            sp = self._step_params(prog.params)
+            kcs, vcs = self._new_caches(B, total)
+            prompt = prog.prompt
+            prog.out[:, :P] = prompt
+            for i in range(P):   # prefill through the same step
+                logits = step(sp, prompt[:, i], i, kcs, vcs)
+            if rep_penalty is not None:   # per-row counts of seen tokens
+                seen = torch.zeros((B, V), dtype=torch.float32, device=dev)
+                seen.scatter_add_(1, prompt, torch.ones_like(
+                    prompt, dtype=torch.float32))
+            for i in range(n_new):
+                if rep_penalty is not None:
+                    logits = torch.where(
+                        seen > 0, torch.where(logits > 0,
+                                              logits / rep_penalty,
+                                              logits * rep_penalty), logits)
+                if temperature == 0.0:
+                    tok = logits.argmax(-1)
+                else:
+                    lg = self._filter_logits(logits, top_k, top_p)
+                    noise = self._gumbel(prog.seed, rows,
+                                         pos_t[P + i].expand(B), V)
+                    tok = (lg / temperature + noise).argmax(-1)
+                prog.out[:, P + i] = tok
+                if rep_penalty is not None:
+                    seen.scatter_add_(1, tok[:, None],
+                                      torch.ones((B, 1), device=dev))
+                if i + 1 < n_new:   # the last token needs no logits
+                    logits = step(sp, tok, P + i, kcs, vcs)
+
+        prog.graph = StaticGraph(run, dev)
+        return prog
+
+    # ---- beam search ---------------------------------------------------
+    def beam_search(self, prompt, n_new, *, beams=4):
+        """Fixed-horizon beam decoding: the ``beams`` highest joint
+        log-probability continuations of length ``n_new``, returning the
+        best one per batch row. One program (one captured graph on the
+        card) over tiled KV caches; the parents are followed back on the
+        host once, after the run.
+
+        prompt: [B, P] int tokens; returns [B, P + n_new] int32."""
+        c = self.conf
+        if self.params is None:
+            raise ValueError("TransformerLM has no parameters: call init() "
+                             "or assign params_from_numpy(...)")
+        prompt = _token_array(prompt, c.vocab_size)
+        B, P = prompt.shape
+        if P + n_new > c.max_len:
+            raise ValueError(f"P+n_new={P + n_new} exceeds "
+                             f"max_len={c.max_len}")
+        if not 1 <= beams <= c.vocab_size:
+            raise ValueError(f"beams must be in [1, {c.vocab_size}]")
+        sig = self._gen_signature("beam", B, P, n_new, beams)
+        prog = self._jit_gen.get(sig)
+        if prog is None or prog.params is not self.params:
+            self._jit_gen.pop(sig, None)   # parameters assigned anew
+            self._evict_gen()
+            prog = self._jit_gen[sig] = self._build_beam(B, P, n_new, beams)
+        prog.prompt.copy_(torch.from_numpy(prompt.astype(np.int64)))
+        prog.graph()
+        toks_t, parents_t, scores = (prog.toks.cpu().numpy(),
+                                     prog.parents.cpu().numpy(),
+                                     prog.scores.cpu().numpy())
+        out = np.zeros((B, n_new), np.int32)
+        for b in range(B):
+            w = int(scores[b].argmax())
+            for t in range(n_new - 1, -1, -1):
+                out[b, t] = toks_t[t, b, w]
+                w = int(parents_t[t, b, w])
+        return np.concatenate([prompt.astype(np.int32), out], axis=1)
+
+    def _build_beam(self, B, P, n_new, W):
+        c = self.conf
+        V, total, dev = c.vocab_size, P + n_new, self.device
+        prefill_step = self._make_token_step(B, total)
+        beam_step = self._make_token_step(B * W, total)
+        i64 = dict(dtype=torch.int64, device=dev)
+        prog = _Program(self.params, prompt=torch.zeros((B, P), **i64),
+                        toks=torch.zeros((n_new, B, W), **i64),
+                        parents=torch.zeros((n_new, B, W), **i64),
+                        scores=torch.zeros((B, W), dtype=torch.float32,
+                                           device=dev))
+        base_rows = torch.arange(B, **i64)[:, None] * W
+
+        def run():
+            sp = self._step_params(prog.params)
+            kcs, vcs = self._new_caches(B, total)
+            for i in range(P):
+                logits = prefill_step(sp, prog.prompt[:, i], i, kcs, vcs)
+            # tile rows B -> B*W (beam-major within each batch row)
+            kcs = [k.repeat_interleave(W, 0) for k in kcs]
+            vcs = [v.repeat_interleave(W, 0) for v in vcs]
+            logits = logits.repeat_interleave(W, 0)               # (BW, V)
+            # beam 0 live, the rest -inf, so that identical first beams
+            # do not fill the whole frontier with one token
+            scores = torch.full((B, W), -math.inf, device=dev)
+            scores[:, 0] = 0.0
+            for i in range(n_new):
+                logp = torch.log_softmax(logits.to(torch.float32), -1)
+                cand = scores[..., None] + logp.reshape(B, W, V)
+                scores, flat = torch.topk(cand.reshape(B, W * V), W)
+                parent = flat // V
+                tok = flat % V
+                prog.toks[i] = tok
+                prog.parents[i] = parent
+                if i + 1 < n_new:   # the last frontier needs no logits
+                    # reorder the caches onto the surviving beams
+                    rows = (base_rows + parent).reshape(-1)
+                    kcs = [k[rows] for k in kcs]
+                    vcs = [v[rows] for v in vcs]
+                    logits = beam_step(sp, tok.reshape(-1), P + i, kcs, vcs)
+            prog.scores.copy_(scores)
+
+        prog.graph = StaticGraph(run, dev)
+        return prog
+
+
+class _Program:
+    """A generate/beam program: its static tensors by name, ``graph``,
+    the :class:`StaticGraph` of its run, and ``params``, the parameter
+    tree it was built over (a graph binds that tree's storage)."""
+
+    def __init__(self, params, **tensors):
+        self.__dict__.update(tensors)
+        self.params = params
+        self.graph = None

@@ -1,14 +1,16 @@
-"""Queue and lifecycle core of the serving front end.
+"""Queue and lifecycle core of the two serving front ends.
 
 One bounded request deque, one lock, one owner-thread contract; the
-subclass loop decides what to do with popped requests, while capacity,
+subclass loop (the batcher's ``batcher.py``, the continuous decoder's
+``decode.py``) decides what to do with popped requests, while capacity,
 backpressure, the deadline sweep and the typed drain live here.
 
 Thread contract: ``_enqueue`` is called from any client thread; the
 subclass ``_loop`` body runs on ONE daemon thread spawned under the lock
 by the same critical section that checked ``_stopping``, so a concurrent
 ``stop()`` can never be undone by a racing submit. ``stop()`` fails the
-queue typed, then joins.
+queue typed, then joins; loop-owned subclass state is touched only
+through ``_after_stop(joined)``, which says whether the join landed.
 """
 
 from __future__ import annotations
@@ -109,6 +111,11 @@ class ServingFrontEnd:
         """The owner-thread body (dispatch loop)."""
         raise NotImplementedError
 
+    def _after_stop(self, joined):
+        """Called by ``stop()`` after the join attempt; ``joined`` is
+        False when the loop thread outlived the timeout, and loop-owned
+        state must then be left alone."""
+
     # ---- queue ---------------------------------------------------------
     def _enqueue(self, r):
         """Admit request ``r`` (an object with ``future`` and
@@ -137,6 +144,15 @@ class ServingFrontEnd:
         # its callback synchronously, and _dec_open takes the same lock
         r.future.add_done_callback(self._dec_open)
         return r.future
+
+    def _pop_pending(self):
+        """The oldest queued request, or None."""
+        with self._lock:
+            if not self._pending:
+                return None
+            r = self._pending.popleft()
+            _QUEUE_DEPTH.set(len(self._pending))
+            return r
 
     def _dec_open(self, _future):
         with self._lock:
@@ -251,10 +267,13 @@ class ServingFrontEnd:
                 r.future.set_exception(
                     ServeStoppedError("serving stopped before this "
                                       "request was dispatched"))
+        joined = True
         if t is not None:
             t.join(timeout)
-            if t.is_alive():
-                warnings.warn(
-                    f"{self._thread_name}: loop thread still running "
-                    f"{timeout}s after stop(); in-flight state left to it")
+            joined = not t.is_alive()
+        if not joined:
+            warnings.warn(
+                f"{self._thread_name}: loop thread still running "
+                f"{timeout}s after stop(); in-flight state left to it")
+        self._after_stop(joined)
         return self

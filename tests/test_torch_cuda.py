@@ -1041,3 +1041,180 @@ def test_narrow_resnet_on_card_matches_cpu(cuda_device):
         spread = max(float(np.sqrt(wv.max())), float(np.abs(w["mean"]).max()))
         err = float(np.abs(g["mean"].cpu().numpy() - w["mean"].numpy()).max())
         assert err <= CNN_CARD_CPU_RTOL * spread, name
+
+
+# ---------------------------------------------------------------------------
+# generation serving on the card: decode, admit and prefill programs
+# captured as CUDA graphs over a slot pool
+# ---------------------------------------------------------------------------
+def _card_lm(cuda_device, compute_dtype=None, **kw):
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    conf = dict(vocab_size=96, max_len=64, d_model=32, n_heads=4,
+                n_layers=2, d_ff=64, seed=1, compute_dtype=compute_dtype)
+    conf.update(kw)
+    lm = TransformerLM(TransformerConfig(**conf), device=cuda_device).init()
+    with torch.no_grad():
+        for p in lm.parameters():
+            if p.ndim > 1:
+                p.mul_(10.0)
+    return lm
+
+
+def _admitted_state(lm, S, rows):
+    """A decode state with ``rows`` (slot, prompt, n_new, temperature,
+    top_k, top_p, seed) admitted through the admit program, eagerly."""
+    from deeplearning4j_tpu_torch.models.transformer import admit_record
+    state = lm._init_decode_state(S, seed=3)
+    admit = lm._admit_fn(S)
+    for slot, prompt, n_new, temp, k, p, seed in rows:
+        rec = admit_record(lm.conf, slot, prompt, len(prompt), n_new, temp,
+                           k, p, True, seed)
+        with torch.no_grad():
+            admit(state, torch.tensor(rec, device=lm.device))
+    return state
+
+
+def _clone_state(state):
+    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+            for k, v in state.items()}
+
+
+def _load_state(dst, src):
+    for k, v in src.items():
+        for a, b in zip(dst[k] if isinstance(v, list) else [dst[k]],
+                        v if isinstance(v, list) else [v]):
+            a.copy_(b)
+
+
+def _states_equal(a, b):
+    for k, v in a.items():
+        for x, y in zip(v if isinstance(v, list) else [v],
+                        b[k] if isinstance(v, list) else [b[k]]):
+            assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("mode", ["greedy", "sample", "filter"])
+@pytest.mark.parametrize("window", [32, 64])
+def test_decode_graph_replay_equals_the_eager_step(cuda_device, window,
+                                                   mode, compute_dtype):
+    """Each decode rung and sampler variant, replayed from its captured
+    graph over a slot pool, leaves the pool bit-equal to the eager chunk
+    on a copy of the same state."""
+    from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
+    lm = _card_lm(cuda_device, compute_dtype)
+    S = 4
+    base = _admitted_state(lm, S, [
+        (0, [5, 9, 2], 20, 0.0, 96, 1.0, 0),
+        (1, [7, 1, 4, 4, 8, 3], 20, 0.9, 96 if mode != "filter" else 7,
+         0.8 if mode == "filter" else 1.0, 11),
+        (3, [3], 20, 1.2, 96, 1.0, 12)])
+    step = lm._build_decode_step(S, 4, window, mode)
+    pool = _clone_state(base)
+    graph = StaticGraph(lambda: step(lm.params, pool), cuda_device,
+                        torch.cuda.graph_pool_handle())
+    assert graph() is True            # the first call runs and captures
+    eager = _clone_state(base)
+    _load_state(pool, base)
+    for _ in range(3):
+        graph()
+        with torch.no_grad():
+            step(lm.params, eager)
+    torch.cuda.synchronize()
+    _states_equal(pool, eager)
+    assert int(pool["pos"][1]) == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inject", [False, True])
+@pytest.mark.parametrize("window", [16, 64])
+def test_prefill_graph_replay_equals_the_eager_program(cuda_device, window,
+                                                       inject):
+    from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
+    from deeplearning4j_tpu_torch.models.transformer import prefill_record
+    lm = _card_lm(cuda_device, "bfloat16", pos_embed="rope")
+    c, S = lm.conf, 2
+    prompt = np.arange(1, 41) % 95
+    base = _admitted_state(lm, S, [(1, prompt, 4, 0.0, 96, 1.0, 0)])
+    shape = (c.n_layers, c.kv_heads, window, c.d_model // c.n_heads)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    pages = [torch.randn(shape, generator=g, device=cuda_device).to(
+        torch.bfloat16) for _ in range(2)] + [
+        torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+        for _ in range(2)]
+    eager_pages = [p.clone() for p in pages]
+    n = min(window, 39)
+    stage = torch.tensor(prefill_record(1, prompt[:n], 0, n, n == 39,
+                                        window), device=cuda_device)
+    fn = lm._build_prefill(S, window, inject)
+    pool = _clone_state(base)
+    graph = StaticGraph(lambda: fn(lm.params, pool, stage, *pages),
+                        cuda_device)
+    graph()
+    _load_state(pool, base)
+    for p in pages[2:]:
+        p.zero_()
+    graph()
+    eager = _clone_state(base)
+    with torch.no_grad():
+        fn(lm.params, eager, stage, *eager_pages)
+    torch.cuda.synchronize()
+    _states_equal(pool, eager)
+    for a, b in zip(pages, eager_pages):
+        assert torch.equal(a, b)
+    assert int(pool["pos"][1]) == n
+
+
+@pytest.mark.cuda
+def test_generate_and_beam_replays_equal_their_first_call(cuda_device):
+    lm = _card_lm(cuda_device, "bfloat16")
+    prompt = np.random.RandomState(0).randint(0, 96, (2, 9))
+    first = lm.generate(prompt, 12, temperature=0.0)
+    again = lm.generate(prompt, 12, temperature=0.0)
+    np.testing.assert_array_equal(first, again)
+    sampled = [lm.generate(prompt, 12, temperature=1.0, top_k=20, seed=s)
+               for s in (4, 4, 5)]
+    np.testing.assert_array_equal(sampled[0], sampled[1])
+    assert not np.array_equal(sampled[0], sampled[2])
+    beams = [lm.beam_search(prompt, 8, beams=3) for _ in range(2)]
+    np.testing.assert_array_equal(beams[0], beams[1])
+    assert len(lm._jit_gen) == 3
+    assert all(p.graph.graph is not None for p in lm._jit_gen.values())
+
+
+@pytest.mark.cuda
+def test_restarted_server_replays_graphs_bound_to_its_new_pool(cuda_device):
+    """stop() drops the pool and its graphs; after start() the server
+    captures new graphs over a new pool, and serves the same tokens as
+    before (a graph left bound to the dropped pool would write into
+    storage no one reads)."""
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+    lm = _card_lm(cuda_device)
+    srv = ContinuousLM(lm, slots=4, chunk=4, device=cuda_device,
+                       kv_ladder=(32, 64), prefill_ladder=(16,))
+    ps = [np.arange(1, 1 + n) % 95 for n in (5, 30, 3, 17, 9)]
+    try:
+        srv.warm_start()
+        old_pool = srv._pool
+        old_ptr = old_pool.state["out"].data_ptr()
+        first = [f.result(120) for f in [srv.submit(p, 10) for p in ps]]
+        srv.stop()
+        assert srv._pool is None
+        del old_pool
+        # reuse the dropped pool's memory for something else
+        filler = [torch.full((1 << 20,), 7, device=cuda_device)
+                  for _ in range(8)]
+        srv.start()
+        before = capture_count()
+        again = [f.result(120) for f in [srv.submit(p, 10) for p in ps]]
+        assert capture_count() > before
+        assert filler[0].data_ptr() != old_ptr
+    finally:
+        srv.stop()
+    for a, b, p in zip(first, again, ps):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(
+            a, lm.generate(p[None, :], 10, temperature=0.0)[0])

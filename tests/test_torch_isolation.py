@@ -13,7 +13,9 @@
   what its kernel cannot take before any pointer is passed;
 - with no CUDA present, the entry points without ``device="cpu"`` raise
   instead of running on the CPU (the model-archive restores, and
-  ComputationGraph and its archive's restores, included).
+  ComputationGraph and its archive's restores, ContinuousLM and the
+  decode-state carrier included); generation on the CPU captures no CUDA
+  graph.
 """
 
 import ast
@@ -30,16 +32,16 @@ from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     MultiLayerNetwork, params_from_numpy as mln_params_from_numpy,
     updater_state_from_numpy)
-from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
-                                                         TransformerLM,
-                                                         params_from_numpy)
+from deeplearning4j_tpu_torch.models.transformer import (
+    TransformerConfig, TransformerLM, decode_state_from_numpy,
+    params_from_numpy)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as port_fa
 from deeplearning4j_tpu_torch.ops import lstm_cell as port_lc
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell, lstm_sequence
-from deeplearning4j_tpu_torch.serving import InferenceServer
+from deeplearning4j_tpu_torch.serving import ContinuousLM, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deeplearning4j_tpu_torch"
@@ -65,7 +67,8 @@ def _port_sources():
                 "utils/training_checkpoint.py", "utils/flat_params.py",
                 "models/_device_state.py", "models/_layered.py",
                 "models/computation_graph.py", "nn/conf/graph.py",
-                "nn/conf/computation_graph.py"):
+                "nn/conf/computation_graph.py", "serving/decode.py",
+                "models/_cuda_graph.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -229,6 +232,50 @@ def test_server_refuses_a_model_on_another_device():
     lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
     with pytest.raises(ValueError, match="lives on"):
         InferenceServer(lm, device="meta")
+    with pytest.raises(ValueError, match="lives on"):
+        ContinuousLM(lm, device="meta")
+
+
+def test_continuous_lm_without_device_refuses_the_cpu(no_cuda):
+    lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousLM(lm, slots=2)
+    srv = ContinuousLM(lm, slots=2, device="cpu")
+    srv.stop()
+    tree = {k: np.zeros(2, np.int64) for k in (
+        "pos", "last", "plen", "nnew", "topk", "seed")}
+    tree.update(k=[], v=[], out=np.zeros((2, 4), np.int64),
+                prompts=np.zeros((2, 4), np.int64),
+                temp=np.zeros(2, np.float32), topp=np.ones(2, np.float32),
+                active=np.zeros(2, bool), rng=np.array([0, 5], np.uint32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decode_state_from_numpy(tree)
+    assert int(decode_state_from_numpy(tree, "cpu")["rng"]) == 5
+
+
+def test_cpu_generation_never_loads_a_kernel_or_captures(monkeypatch):
+    """generate(), beam_search() and ContinuousLM on the CPU: no kernel
+    library loaded, no launch counted, no CUDA graph captured (their
+    programs run as direct calls)."""
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    lm = TransformerLM(TransformerConfig(**dict(SMALL, block_size=None)),
+                       device="cpu").init()
+    before, captures = _launches(), capture_count()
+    prompt = np.array([[1, 2, 3]])
+    lm.generate(prompt, 4, temperature=0.0)
+    lm.generate(prompt, 4, temperature=1.0, top_k=3)
+    lm.beam_search(prompt, 3, beams=2)
+    srv = ContinuousLM(lm, slots=2, chunk=2, device="cpu")
+    try:
+        srv.warm_start()
+        srv.generate(np.arange(1, 13), 3, timeout=60)
+    finally:
+        srv.stop()
+    assert _launches() == before and capture_count() == captures
 
 
 BWD_CASES = ["dtype", "mixed", "strided_do", "head_dim", "kv_heads",
