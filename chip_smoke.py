@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    nvcc (one process per source, started together) and report the time;
 2. kernels — each kernel on the card against its plain PyTorch twin on
    the same inputs, at the serving and training paths' shapes and a few
-   edge shapes (T 1, T 65, d 36, a q view with a storage offset): the
+   edge shapes (T 1, T 65, d 36, a q view with a storage offset, and d
+   256, the widest the kernels take, with GQA 2): the
    forward, and the two backward kernels (dQ, dK/dV) against the plain
    backward, each with its time, the twin's, one PyTorch library call's
    (a yardstick the port never calls) and the least time the card could
@@ -169,7 +170,35 @@ Phases, each fatal on failure:
    logits at its first differing position and the paths' logits
    difference there, and fails unless the gap lies under the bar
    (CPU_GPU_TOL for f32, BF16_LOGITS_BAR for bf16) and under that
-   difference: a rounding tie.
+   difference: a rounding tie;
+9. serve_scale — bench.py's ``_bench_serve_scale_pinned`` uncut: two
+   ContinuousLM replicas of the bench_serve model (8 slots, chunk 8)
+   behind ``ReplicaRouter``, both warm-started (each captures its own
+   inventory; the weights are shared, never copied): a steady 4-client
+   open loop of 32 requests (n_new 16; tokens/s, p50/p99, graphs
+   captured 0) and a profiled burst (kernel overlap between the
+   replicas); three ``/v1/generate`` requests through ``ServingIngress``
+   on 127.0.0.1, plain and streamed, equal to a direct submit; replica 0
+   killed (``kill-replica[0]@0``) under a burst of 24: done and dead
+   (``ServeReplicaDeadError``) counts, the resolved fraction against
+   bench.py's bar 1.0, failover seconds, graphs captured in recovery 0,
+   and no dead request submitted again; an overload past a 10 ms SLO
+   through a second router with its heartbeat parked (429 count, the
+   admitted p99); then the slice's LM in bf16 behind two replicas of 16
+   slots, 32 requests and a burst of 32 with replica 0 killed. Every
+   completed greedy row is held to ``generate()`` of its prompt on the
+   card (rounding ties only), and no serving thread may be left;
+10. word2vec — bench.py's ``bench_word2vec`` uncut (a 2M-word Zipf
+   corpus over 30k words, d 100, window 5, negative 5, sampling 1e-3,
+   min count 5, batch 32,768, seed 42) for each scatter route
+   (``sorted``, ``fused``, ``two``): warm-up fits capture every chunk
+   bucket, then two timed fits from the same seed: words/s against
+   bench.py's bar (500,000), graphs captured 0, peak memory, syn0
+   finite, the ``sorted`` route's tables the same bits; a profile of one
+   ``sorted`` fit; and a small hierarchical-softmax fit on the card
+   against the CPU (W2V_CARD_CPU_RTOL);
+11. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+   again, after phases ``decode``, ``serve_scale`` and ``word2vec``.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -241,6 +270,8 @@ KERNEL_CASES = [
     ("q_offset", 16, 16, 512, 64, True, None, True),
     # the train phase's attention: 32 rows x 8 heads, T = 512 - 1
     ("train", 256, 256, 511, 64, True, None, False),
+    # the widest head dim the kernels take (their DP 256 instances), GQA 2
+    ("d256", 16, 8, 512, 256, True, None, False),
 ]
 # what the kernels line says of the bf16 flash kernels and the LSTM
 # kernels
@@ -357,6 +388,34 @@ SLICE_PARAMS = 42259456
 # ~0.3 to ~1e-3, and eight layers of 1-ulp activation differences move
 # the logits by ~1e-2
 BF16_LOGITS_BAR = 0.05
+# the serve_scale phase: bench.py:_bench_serve_scale_pinned uncut
+# (bench.py:1000-1002): two ContinuousLM replicas of the bench_serve model
+# behind ReplicaRouter, a 4-client open loop, a kill under a burst of 24,
+# an overload past a 10 ms SLO; then the slice's LM at full width behind
+# two replicas of 16 slots
+SERVE_SCALE = dict(model=dict(vocab_size=2048, max_len=256, d_model=256,
+                              n_layers=4, n_heads=4, d_ff=1024, seed=SEED),
+                   slots=8, chunk=8, replicas=2, clients=4, per_client=8,
+                   n_new=16, prompts=(8, 16), heartbeat_s=0.1, slo_ms=10.0)
+SERVE_SCALE_BASE = 1.0     # bench.py's BASES["serve_scale"]
+SERVE_SCALE_FULL = dict(slots=16, chunk=8, requests=32, prompt=64, n_new=32,
+                        heartbeat_s=0.1)
+# the word2vec phase: bench.py:bench_word2vec uncut (bench.py:623-690): a
+# 2M-word Zipf corpus over a 30k vocabulary, skip-gram with negative
+# sampling; every scatter route
+W2V = dict(vocab=30_000, total=2_000_000, sent_len=1000, corpus_seed=0,
+           layer_size=100, window=5, negative=5, sampling=1e-3,
+           min_word_frequency=5, batch_size=32_768, seed=42,
+           warm_sentences=(300, 10, 1))
+W2V_BASE = 500_000.0       # bench.py's BASES["word2vec"], words/s
+W2V_ROUTES = ("sorted", "fused", "two")
+# card against CPU: a small hierarchical-softmax skip-gram fit (no device
+# randomness) in f32, within the CPU test's bar against the reference
+# (tests/test_torch_word2vec.py FIT_RTOL): 1e-5 of each table's max abs
+W2V_SMALL = dict(vocab=500, total=40_000, sent_len=100, layer_size=32,
+                 window=5, batch_size=1024, seed=7, min_word_frequency=2,
+                 sampling=1e-3)
+W2V_CARD_CPU_RTOL = 1e-5
 
 
 def emit(obj):
@@ -515,7 +574,7 @@ def kernel_routes(name, log):
     entries = re.findall(r"entry function '([^']+)'", log)
     routes = {"bfloat16": [e for e in entries if tc in e],
               "float32": [e for e in entries if cc + "I" in e]}
-    assert len(routes["bfloat16"]) == 4, (name, entries)
+    assert len(routes["bfloat16"]) == 5, (name, entries)   # DP 16 .. 256
     assert routes["float32"] and all(cc + "If" in e
                                      for e in routes["float32"]), \
         (name, entries)
@@ -554,6 +613,47 @@ def sass_hmma_counts(name):
     return counts
 
 
+def ptxas_usage(log):
+    """{entry function: {"registers": n, "spill_store_bytes": n,
+    "spill_load_bytes": n}} from ptxas's ``-v`` report of one source."""
+    import re
+    usage, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            usage[entry]["spill_store_bytes"] = int(m.group(1))
+            usage[entry]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage
+
+
+def d256_usage(logs):
+    """{flash kernel: {"bfloat16": usage, "float32": usage}} of the DP 256
+    instances (the tensor-core kernel and the CUDA-core float one), from
+    the build's ptxas report; None where the library was already built."""
+    out = {}
+    for name, (tc, cc) in TC_KERNELS.items():
+        usage = ptxas_usage(logs.get(name, ""))
+        if not usage:
+            out[name] = None
+            continue
+        out[name] = {dt: next(u for e, u in usage.items()
+                              if kern + "I" in e and tag in e)
+                     for dt, kern, tag in (("bfloat16", tc, "ILi256E"),
+                                           ("float32", cc, "IfLi256E"))}
+    return out
+
+
 def phase_build(card):
     from deeplearning4j_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -565,7 +665,10 @@ def phase_build(card):
                  or "spill" in ln]
         emit({"phase": "build", "kernel": name, "ptxas": usage,
               "routes": kernel_routes(name, log)})
-    emit({"phase": "build", "seconds": seconds, "card": card})
+    d256 = d256_usage(logs)
+    emit({"phase": "build", "seconds": seconds, "d256_instances": d256,
+          "card": card})
+    return d256
 
 
 def check_o(got, want, want_f32, v, kv_group):
@@ -3228,6 +3331,533 @@ def phase_decode(card):
     emit(result)
     return result
 
+# ---- phase serve_scale: ReplicaRouter and ServingIngress ------------------
+
+_SERVE_THREADS = ("dl4j-torch-serve", "dl4j-torch-router")
+
+
+def _serve_threads():
+    """Names of the serving tier's threads still alive (schedulers,
+    heartbeats, router drains, the ingress listener)."""
+    import threading
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(_SERVE_THREADS))
+
+
+def _recorded(rep, seen):
+    """Wrap ``rep.submit`` to note each prompt it is asked to serve."""
+    submit = rep.submit
+
+    def wrapper(prompt, *a, **k):
+        seen.add(bytes(memoryview(prompt)))
+        return submit(prompt, *a, **k)
+    rep.submit = wrapper
+
+
+def kernel_overlap(spans):
+    """(sum of the kernels' device time, the time at least one ran) in
+    µs, from ``(start, end)`` spans: their ratio above 1 is the overlap
+    of kernels on the card's streams."""
+    spans = sorted(spans)
+    total = sum(e - s for s, e in spans)
+    union, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                union += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        union += cur_e - cur_s
+    return total, union
+
+
+def profiled_streams(fn):
+    """``fn()`` under ``torch.profiler``: wall ms, the kernels' device
+    time and the time any kernel ran (ms), their overlap ratio, and the
+    streams the kernels ran on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, streams = [], set()
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA") or "emcpy" in e.name \
+                or "emset" in e.name:
+            continue
+        kr = getattr(e, "time_range", None)
+        if kr is None:
+            continue
+        spans.append((kr.start, kr.end))
+        streams.add(getattr(e, "device_resource_id", None))
+    total, union = kernel_overlap(spans)
+    return {"wall_ms": wall * 1e3, "kernels": len(spans),
+            "kernel_ms": total / 1e3, "any_kernel_running_ms": union / 1e3,
+            "busy_share": union / 1e3 / (wall * 1e3),
+            "overlap": total / union if union else None,
+            "streams": len(streams)}
+
+
+def serve_scale_bench(card):
+    """bench.py:_bench_serve_scale_pinned on the card: a steady 4-client
+    open loop (tokens/s, p50/p99, graphs captured 0), ``/v1/generate``
+    plain and streamed through ServingIngress equal to a direct submit,
+    a kill of replica 0 under a burst of 24 (done and dead, the resolved
+    fraction against bench.py's bar, failover seconds, graphs captured in
+    recovery 0, no admitted request run again, every completed row equal
+    to ``generate()`` of its prompt), and an overload past the SLO (429s
+    at the door, the admitted p99)."""
+    import json as _json
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.errors import (ServeQueueFullError,
+                                                 ServeReplicaDeadError)
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import (ContinuousLM,
+                                                  ReplicaRouter,
+                                                  ServingIngress)
+    from deeplearning4j_tpu_torch.testing import faults
+
+    cfg = SERVE_SCALE
+    lm = _serve_lm(cfg["model"])
+    V, n_new, slots = cfg["model"]["vocab_size"], cfg["n_new"], cfg["slots"]
+    rng = np.random.default_rng(0)
+
+    def burst(n):
+        return [rng.integers(1, V, (cfg["prompts"][i % 2],))
+                .astype(np.int32) for i in range(n)]
+
+    reps = [ContinuousLM(lm, slots=slots, chunk=cfg["chunk"],
+                         device=DEVICE) for _ in range(cfg["replicas"])]
+    router = ReplicaRouter(reps, heartbeat_s=cfg["heartbeat_s"], slo_ms=0.0)
+    router2 = ing = None
+    out = {"config": cfg, "card": card}
+    completed = []     # (prompt, row) of every completed request
+    try:
+        t0 = time.perf_counter()
+        router.warm_start()        # each replica captures over its pool
+        torch.cuda.synchronize()
+        out["warm_start_s"] = time.perf_counter() - t0
+        inventory = [len(r.graph_inventory()) for r in reps]
+        for p in burst(2 * cfg["replicas"]):
+            completed.append((p, router.submit(p, n_new).result(600)))
+        assert lm.params is reps[0].lm.params is reps[1].lm.params
+        obs.reset_metrics()
+        reset_launches()
+
+        # ---- steady open loop: 0 graphs captured ----------------------
+        work = [burst(cfg["per_client"]) for _ in range(cfg["clients"])]
+        lat, lock = [], threading.Lock()
+
+        def client(k):
+            for p in work[k]:
+                t1 = time.perf_counter()
+                row = router.submit(p, n_new).result(600)
+                with lock:
+                    lat.append(time.perf_counter() - t1)
+                    completed.append((p, row))
+        cap0 = capture_count()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=client, args=(k,), daemon=True)
+              for k in range(cfg["clients"])]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        steady_dt = time.perf_counter() - t0
+        steady_caps = capture_count() - cap0
+        n_req = cfg["clients"] * cfg["per_client"]
+        req_h = obs.metrics.histogram("serve.request_seconds")
+        out["steady"] = {
+            "tokens_per_s": n_req * n_new / steady_dt, "requests": n_req,
+            "request_s": _quantiles(lat),
+            "request_seconds_hist": {"p50": req_h.quantile(0.5),
+                                     "p99": req_h.quantile(0.99)},
+            "graphs_captured": steady_caps,
+            "inventory_per_replica": inventory}
+        # the two replicas' streams under one more burst, profiled
+        more = burst(2 * slots)
+        prof = profiled_streams(lambda: [
+            f.result(600) for f in [router.submit(p, n_new) for p in more]])
+        out["steady"]["profile_burst_of_16"] = prof
+
+        # ---- /v1/generate through the ingress, plain and streamed -----
+        ing = ServingIngress(router).start()
+        url = f"http://127.0.0.1:{ing.port}/v1/generate"
+        wire = []
+        for p in burst(3):
+            direct = router.submit(p, n_new).result(600).tolist()
+            body = _json.dumps({"prompt": p.tolist(), "n_new": n_new})
+            plain = _json.loads(urllib.request.urlopen(urllib.request.Request(
+                url, data=body.encode()), timeout=120).read())["tokens"]
+            lines = [_json.loads(ln) for ln in urllib.request.urlopen(
+                urllib.request.Request(url, data=_json.dumps(
+                    {"prompt": p.tolist(), "n_new": n_new,
+                     "stream": True}).encode()), timeout=120)
+                .read().splitlines()]
+            streamed = [t for ln in lines[:-1] for t in ln["tokens"]]
+            wire.append(plain == direct and lines[-1]["tokens"] == direct
+                        and streamed == direct[p.size:])
+        out["ingress"] = {"requests": len(wire), "equal_to_submit": wire,
+                          "readyz": urllib.request.urlopen(
+                              url.replace("/v1/generate", "/readyz"),
+                              timeout=30).status}
+        assert all(wire), wire
+        ing.stop()
+        ing = None
+
+        # ---- kill replica 0 under a burst: nothing lost ---------------
+        survivor_seen = set()
+        _recorded(reps[1], survivor_seen)
+        cap0 = capture_count()
+        faults.install("kill-replica[0]@0")
+        t_kill = time.perf_counter()
+        kill_burst = burst(3 * slots)
+        futs = [router.submit(p, n_new) for p in kill_burst]
+        done = dead = 0
+        dead_prompts = []
+        for p, f in zip(kill_burst, futs):
+            try:
+                completed.append((p, f.result(600)))
+                done += 1
+            except ServeReplicaDeadError as e:
+                assert e.retryable and e.http_status == 502
+                dead += 1
+                dead_prompts.append(p)
+        faults.clear()
+        failover_dt = time.perf_counter() - t_kill
+        resolved = (done + dead) / len(futs)
+        for p in burst(slots):    # the survivor serves on
+            completed.append((p, router.submit(p, n_new).result(600)))
+        recovery_caps = capture_count() - cap0
+        replayed = sum(bytes(memoryview(p)) in survivor_seen
+                       for p in dead_prompts)
+        out["kill"] = {
+            "burst": len(futs), "done": done, "dead": dead,
+            "resolved_fraction": resolved, "bench_bar": SERVE_SCALE_BASE,
+            "resolved_over_bar": resolved / SERVE_SCALE_BASE,
+            "failover_s": failover_dt,
+            "graphs_captured_in_recovery": recovery_caps,
+            "dead_requests_run_again": replayed,
+            "failovers": obs.metrics.value("serve.replica_failovers_total"),
+            "replicas_healthy": obs.metrics.value("router.replicas_healthy")}
+        assert resolved == 1.0 and dead >= 1 and replayed == 0, out["kill"]
+        assert steady_caps == 0 and recovery_caps == 0, \
+            (steady_caps, recovery_caps)
+
+        # ---- overload past the SLO: shed at the door -------------------
+        # bench.py sends its storm one request at a time; on the card one
+        # request alone takes about the SLO, so the storm here is one
+        # burst of twice the slots, whose second wave waits for the first
+        obs.reset_metrics()
+        router2 = ReplicaRouter([reps[1]], heartbeat_s=3600.0,
+                                slo_ms=cfg["slo_ms"])
+        router2.check()
+        storm = burst(2 * slots)
+        for p, f in [(p, router2.submit(p, n_new)) for p in storm]:
+            completed.append((p, f.result(600)))
+        router2.check()
+        sheds, admitted = 0, []
+        for p in burst(2 * slots):
+            try:
+                admitted.append((p, router2.submit(p, n_new)))
+            except ServeQueueFullError as e:
+                assert e.http_status == 429
+                sheds += 1
+        for p, f in admitted:
+            completed.append((p, f.result(600)))
+        out["overload"] = {
+            "slo_ms": cfg["slo_ms"], "storm_burst": len(storm),
+            "rolling_p99_s": router2.rolling_p99(),
+            "shed_429": sheds, "offered": 2 * slots,
+            "shed_total": obs.metrics.value("serve.shed_total"),
+            "admitted_p99_s": obs.metrics.histogram(
+                "serve.request_seconds").quantile(0.99)}
+        assert sheds > 0, out["overload"]
+        out["package_kernel_launches"] = list(read_launches()
+                                              + read_lstm_launches())
+        assert out["package_kernel_launches"] == [0] * 5
+    finally:
+        faults.clear()
+        if ing is not None:
+            ing.stop()
+        if router2 is not None:
+            router2.stop()
+        router.stop()
+    # every completed greedy row against generate() of its prompt
+    prompts = [p for p, _ in completed]
+    rows = [r for _, r in completed]
+    want = [lm.generate(p[None, :], n_new, temperature=0.0)[0]
+            for p in prompts]
+    check = token_splits(lm, prompts, rows, want, slots, n_new, CPU_GPU_TOL)
+    _hold_splits(check, "serve_scale")
+    out["tokens_vs_generate"] = {k: check[k] for k in ("requests", "equal")}
+    out["tokens_vs_generate"]["splits"] = check["splits"]
+    return out
+
+
+def serve_scale_full_width(card):
+    """The slice's LM (bf16 compute) behind two ContinuousLM replicas of
+    16 slots: a burst of 32 requests with replica 0 killed at its first
+    dispatch, and a second burst on the survivor; resolved fraction,
+    tokens/s, graphs captured, and every completed greedy row against
+    ``generate()`` on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.errors import ServeReplicaDeadError
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ContinuousLM, ReplicaRouter
+    from deeplearning4j_tpu_torch.testing import faults
+
+    cfg = SERVE_SCALE_FULL
+    lm = _serve_lm(SLICE)
+    V, n_new = SLICE["vocab_size"], cfg["n_new"]
+    rng = np.random.default_rng(3)
+    reps = [ContinuousLM(lm, slots=cfg["slots"], chunk=cfg["chunk"],
+                         device=DEVICE) for _ in range(2)]
+    router = ReplicaRouter(reps, heartbeat_s=cfg["heartbeat_s"], slo_ms=0.0)
+    completed = []
+    try:
+        t0 = time.perf_counter()
+        router.warm_start()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for _ in range(2):
+            p = rng.integers(1, V, (cfg["prompt"],)).astype(np.int32)
+            completed.append((p, router.submit(p, n_new).result(600)))
+        torch.cuda.reset_peak_memory_stats()
+        cap0 = capture_count()
+        reqs = [rng.integers(1, V, (cfg["prompt"],)).astype(np.int32)
+                for _ in range(cfg["requests"])]
+        t0 = time.perf_counter()
+        steady = [router.submit(p, n_new) for p in reqs]
+        for p, f in zip(reqs, steady):
+            completed.append((p, f.result(900)))
+        steady_dt = time.perf_counter() - t0
+        faults.install("kill-replica[0]@0")
+        t0 = time.perf_counter()
+        kill = [rng.integers(1, V, (cfg["prompt"],)).astype(np.int32)
+                for _ in range(cfg["requests"])]
+        futs = [router.submit(p, n_new) for p in kill]
+        done = dead = 0
+        for p, f in zip(kill, futs):
+            try:
+                completed.append((p, f.result(900)))
+                done += 1
+            except ServeReplicaDeadError:
+                dead += 1
+        faults.clear()
+        kill_dt = time.perf_counter() - t0
+        captured = capture_count() - cap0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        faults.clear()
+        router.stop()
+    assert (done + dead) == len(kill) and dead >= 1 and captured == 0, \
+        (done, dead, captured)
+    prompts = [p for p, _ in completed]
+    rows = [r for _, r in completed]
+    want = [lm.generate(p[None, :], n_new, temperature=0.0)[0]
+            for p in prompts]
+    check = token_splits(lm, prompts, rows, want, cfg["slots"], n_new,
+                         BF16_LOGITS_BAR)
+    _hold_splits(check, "serve_scale_full_width")
+    return {"config": cfg, "model": SLICE, "replicas": 2,
+            "warm_start_s": warm_s,
+            "steady_tokens_per_s": len(reqs) * n_new / steady_dt,
+            "kill": {"burst": len(kill), "done": done, "dead": dead,
+                     "resolved_fraction": (done + dead) / len(kill),
+                     "seconds": kill_dt},
+            "graphs_captured": captured, "peak_memory_bytes": peak,
+            "tokens_vs_generate": {"requests": check["requests"],
+                                   "equal": check["equal"],
+                                   "splits": check["splits"]},
+            "card": card}
+
+
+def phase_serve_scale(card):
+    t_phase = time.perf_counter()
+    result = {"phase": "serve_scale", "card": card,
+              "threads_at_start": _serve_threads()}
+    seconds = {}
+    for key, run in (("bench", serve_scale_bench),
+                     ("full_width", serve_scale_full_width)):
+        t0 = time.perf_counter()
+        result[key] = run(card)
+        seconds[key] = time.perf_counter() - t0
+    # every heartbeat, scheduler and listener has stopped
+    result["threads_at_end"] = _serve_threads()
+    assert not result["threads_at_end"], result["threads_at_end"]
+    seconds["phase"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    emit(result)
+    return result
+
+
+# ---- phase word2vec ---------------------------------------------------------
+
+def w2v_corpus(vocab, total, sent_len, seed):
+    """bench.py:bench_word2vec's corpus: ``total`` Zipf-drawn words over
+    ``vocab`` words, in sentences of ``sent_len``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(vocab)])
+    probs = 1.0 / np.arange(1, vocab + 1)
+    probs /= probs.sum()
+    ids = rng.choice(vocab, total, p=probs)
+    return [" ".join(words[ids[i:i + sent_len]])
+            for i in range(0, total, sent_len)]
+
+
+def w2v_route(route, sents, profile=False):
+    """One scatter route at bench.py's configuration: warm-up fits (every
+    chunk bucket captured), fresh tables in place, then the timed fit (and
+    a second from the same seed): words/s, graphs captured while timed,
+    peak memory, whether the two fits' tables are the same bits."""
+    import torch
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.nlp import lookup
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.config import env_int
+    lookup.set_scatter_impl(route)
+    try:
+        c = W2V
+        # bench.py's batch, unless DL4J_TORCH_W2V_BATCH sets another
+        batch = env_int("DL4J_TORCH_W2V_BATCH") or c["batch_size"]
+        w2v = Word2Vec(layer_size=c["layer_size"], window=c["window"],
+                       negative=c["negative"], use_hierarchic_softmax=False,
+                       min_word_frequency=c["min_word_frequency"],
+                       sampling=c["sampling"], epochs=1, seed=c["seed"],
+                       batch_size=batch, device=DEVICE)
+
+        def provider():
+            return (s.split() for s in sents)
+        w2v.build_vocab(provider())
+        t0 = time.perf_counter()
+        for n_warm in c["warm_sentences"]:
+            w2v.fit(lambda: (s.split() for s in sents[:n_warm]))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        fits = []
+        for _ in range(2):
+            w2v.build_vocab(provider())      # fresh tables, in place
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cap0 = capture_count()
+            reset_launches()
+            t0 = time.perf_counter()
+            w2v.fit(provider)
+            float(w2v.lookup_table.syn0[0, 0])   # a hard sync
+            dt = time.perf_counter() - t0
+            fits.append({"seconds": dt, "words_per_s": c["total"] / dt,
+                         "graphs_captured": capture_count() - cap0,
+                         "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated(),
+                         "package_kernel_launches":
+                             list(read_launches() + read_lstm_launches()),
+                         "syn0": w2v.lookup_table.syn0.clone()})
+        a, b = fits[0].pop("syn0"), fits[1].pop("syn0")
+        out = {"route": route, "batch_size": batch, "warm_up_s": warm_s,
+               "fits": fits,
+               "words_per_s": fits[0]["words_per_s"],
+               "bench_bar": W2V_BASE,
+               "words_per_s_over_bar": fits[0]["words_per_s"] / W2V_BASE,
+               "syn0_finite": bool(torch.isfinite(a).all()),
+               "syn0_std": float(a.float().std()),
+               "bitwise_across_two_fits": bool(torch.equal(a, b)),
+               "max_abs_diff_across_two_fits":
+                   float((a.float() - b.float()).abs().max()),
+               "graphs": len(w2v._programs),
+               "vocab": w2v.vocab.num_words()}
+        if profile:
+            w2v.build_vocab(provider())
+            wall, names, ops = profiled(lambda: (
+                w2v.fit(provider), float(w2v.lookup_table.syn0[0, 0])))
+            busy = sum(us for _, _, us in ops) / 1e3
+            top = sorted(ops, key=lambda o: o[2], reverse=True)[:8]
+            out["profile"] = {
+                "wall_ms": wall * 1e3, "device_busy_ms": busy,
+                "busy_share": busy / (wall * 1e3),
+                "device_events": len(names),
+                "top_device_ops": [{"name": n[:80], "calls": k,
+                                    "device_ms": us / 1e3}
+                                   for n, k, us in top]}
+        assert all(f["graphs_captured"] == 0 for f in fits), fits
+        assert all(f["package_kernel_launches"] == [0] * 5 for f in fits)
+        assert out["syn0_finite"] and out["syn0_std"] > 1e-4, out
+        if route == "sorted":
+            assert out["bitwise_across_two_fits"], out
+        return out
+    finally:
+        lookup.set_scatter_impl(None)
+
+
+def w2v_card_vs_cpu():
+    """A small hierarchical-softmax skip-gram fit (no device randomness)
+    on the card and on the CPU: syn0 and syn1 within W2V_CARD_CPU_RTOL of
+    each table's max abs."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    c = W2V_SMALL
+    sents = w2v_corpus(c["vocab"], c["total"], c["sent_len"], 1)
+    tables = []
+    for dev in (DEVICE, "cpu"):
+        w = Word2Vec(layer_size=c["layer_size"], window=c["window"],
+                     negative=0, use_hierarchic_softmax=True,
+                     min_word_frequency=c["min_word_frequency"],
+                     sampling=c["sampling"], epochs=1, seed=c["seed"],
+                     batch_size=c["batch_size"], device=dev)
+        w.fit_corpus(sents)
+        tables.append((w.lookup_table.syn0.float().cpu().numpy(),
+                       w.lookup_table.syn1.float().cpu().numpy()))
+    rel = {name: float(np.abs(a - b).max() / np.abs(b).max())
+           for name, a, b in zip(("syn0", "syn1"), tables[0], tables[1])}
+    out = {"config": c, "max_rel_err": rel, "tolerance": W2V_CARD_CPU_RTOL}
+    assert max(rel.values()) <= W2V_CARD_CPU_RTOL, out
+    return out
+
+
+def phase_word2vec(card):
+    t_phase = time.perf_counter()
+    c = W2V
+    t0 = time.perf_counter()
+    sents = w2v_corpus(c["vocab"], c["total"], c["sent_len"],
+                       c["corpus_seed"])
+    result = {"phase": "word2vec", "config": c,
+              "corpus_s": time.perf_counter() - t0, "card": card}
+    result["routes"] = {route: w2v_route(route, sents,
+                                         profile=route == "sorted")
+                        for route in W2V_ROUTES}
+    result["card_vs_cpu_hs"] = w2v_card_vs_cpu()
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
+def phase_order_check(card):
+    """The narrow ResNet's f32 card-against-CPU check again, after the
+    serving and Word2Vec phases in this process: it must not depend on
+    what ran before it."""
+    t0 = time.perf_counter()
+    result = {"phase": "order_check", "after": ["decode", "serve_scale",
+                                                "word2vec"],
+              "resnet_narrow_f32": cnn_graph_card_vs_cpu(
+                  "resnet50", RESNET_NARROW, 8, SEED + 3),
+              "card": card}
+    result["seconds"] = time.perf_counter() - t0
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -3253,7 +3883,7 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
 
-    phase_build(card)
+    d256 = phase_build(card)
     kernels = phase_kernels(card)
     lstm = phase_lstm_kernels(card)
     sl = phase_slice(card)
@@ -3263,11 +3893,37 @@ def main():
     rn = phase_resnet50(card)
     cg = rn["recurrent_graph"]["launches"]
     phase_decode(card)
+    phase_serve_scale(card)
+    phase_word2vec(card)
+    phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
     # kernels at the char-RNN's
     fwd = kernels[("train", "bfloat16")]
     bwd = kernels[("train", "bfloat16", "bwd")]
+
+    def wide(name):
+        """The kernel's DP 256 instances at the d256 case: error, ms,
+        registers and spill, bf16 (tensor cores) and f32 (CUDA cores)."""
+        out = {}
+        for dt in ("bfloat16", "float32"):
+            f, b = kernels[("d256", dt)], kernels[("d256", dt, "bwd")]
+            if name == "flash_attn_fwd":
+                rec = {"max_abs_err": f["max_abs_err"], "ms": f["kernel_ms"],
+                       "bound_ms": f["bound_ms"], "plain_ms": f["plain_ms"],
+                       "library_ms": f["library_ms"]}
+            else:
+                which = "dq" if name == "flash_attn_dq" else "dkv"
+                grads = ("dq",) if which == "dq" else ("dk", "dv")
+                rec = {"max_abs_err": max(b["errors"][g]["max_abs_err"]
+                                          for g in grads),
+                       "ms": b[f"{which}_ms"],
+                       "bound_ms": b[f"{which}_bound_ms"],
+                       "plain_ms": b["plain_bwd_ms"],
+                       "library_ms": b["library_bwd_ms"]}
+            rec.update((d256.get(name) or {}).get(dt) or {})
+            out[dt] = rec
+        return {"shape": kernels[("d256", "float32")]["shape"], **out}
     src = "deeplearning4j_tpu_torch/csrc/"
     ref = "deeplearning4j_tpu/ops/pallas_kernels.py:"
     launches = tr["kernel_launches"]
@@ -3279,7 +3935,8 @@ def main():
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-         "design": fwd["design"], "f32_route": "cuda cores"},
+         "design": fwd["design"], "f32_route": "cuda cores",
+         "d256": wide("flash_attn_fwd")},
         {"name": "flash_attn_dq", "route": "cuda",
          "source": src + "flash_attn_dq.cu", "replaces": ref + "185",
          "launches": launches["flash_attn_dq"],
@@ -3287,7 +3944,8 @@ def main():
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
-         "design": bwd["design"], "f32_route": "cuda cores"},
+         "design": bwd["design"], "f32_route": "cuda cores",
+         "d256": wide("flash_attn_dq")},
         {"name": "flash_attn_dkv", "route": "cuda",
          "source": src + "flash_attn_dkv.cu", "replaces": ref + "235",
          "launches": launches["flash_attn_dkv"],
@@ -3296,7 +3954,8 @@ def main():
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
-         "design": bwd["design"], "f32_route": "cuda cores"},
+         "design": bwd["design"], "f32_route": "cuda cores",
+         "d256": wide("flash_attn_dkv")},
         # the char-RNN's layer window (the sequence kernel) and cell step
         # (the backward); no PyTorch call computes the peephole cell, so
         # library_ms is null and cuDNN's LSTM (another function) is

@@ -127,6 +127,11 @@ _declare("DL4J_TORCH_NANGUARD_PATIENCE", "int", 3,
          "reverted non-finite step that the guard tolerates before it "
          "writes the model and raises TrainingDivergedError. Counterpart: "
          "DL4J_TPU_NANGUARD_PATIENCE.")
+_declare("DL4J_TORCH_ROUTER_HEARTBEAT_S", "float", 0.25,
+         "Heartbeat interval (seconds) of ReplicaRouter: each beat checks "
+         "every replica's health, sets router.replicas_healthy and the "
+         "rolling p99 of the SLO gate, and fails a dead replica over. "
+         "Counterpart: DL4J_TPU_ROUTER_HEARTBEAT_S.")
 _declare("DL4J_TORCH_SERVE_AUTOTUNE", "flag", False,
          "Decode-width autotuner of ContinuousLM: with "
          "DL4J_TORCH_SERVE_SLOTS unset and no persisted decision, probe "
@@ -182,6 +187,12 @@ _declare("DL4J_TORCH_SERVE_SLOTS_LADDER", "str", "2,4,8",
          "Slot widths the decode-width autotuner probes "
          "(comma-separated ints). Counterpart: "
          "DL4J_TPU_SERVE_SLOTS_LADDER.")
+_declare("DL4J_TORCH_SERVE_SLO_MS", "float", 0.0,
+         "Latency SLO (milliseconds) of ReplicaRouter's shed gate: while "
+         "the rolling p99 of serve.request_seconds over a heartbeat "
+         "window exceeds it, new submits fail at once with "
+         "ServeQueueFullError (429 at the ingress); 0 disables shedding. "
+         "Counterpart: DL4J_TPU_SERVE_SLO_MS.")
 _declare("DL4J_TORCH_SERVE_WAIT", "float", 0.002,
          "Batcher linger (seconds): how long the batch loop waits for "
          "more same-shape requests before dispatching a partial (padded) "
@@ -203,6 +214,20 @@ _declare("DL4J_TORCH_TUNE_CACHE_DIR", "str", "~/.dl4j_torch/tune",
          "model and backend, committed by atomic_io's tmp+fsync+rename); "
          "empty keeps decisions in memory only. Counterpart: "
          "DL4J_TPU_TUNE_CACHE_DIR.")
+_declare("DL4J_TORCH_W2V_BATCH", "int", None,
+         "Word2Vec pair-batch size of the benchmark harnesses; unset "
+         "takes each harness's default. Counterpart: DL4J_TPU_W2V_BATCH.")
+_declare("DL4J_TORCH_W2V_DTYPE", "str", "float32",
+         "Word2Vec lookup-table storage dtype, float32 or bfloat16; the "
+         "update's arithmetic stays f32. Counterpart: DL4J_TPU_W2V_DTYPE.")
+_declare("DL4J_TORCH_W2V_SCATTER", "str", "sorted",
+         "Word2Vec scatter strategy: 'sorted' (a sort and a segment sum, "
+         "then one write a unique row: the same bits on every run), "
+         "'fused' (one index_add_ of all rows) or 'two' (one index_add_ "
+         "a table); on the card the last two add with atomics, so their "
+         "f32 sums are not reproducible. Read when a step is built; "
+         "nlp.lookup.set_scatter_impl switches it. Counterpart: "
+         "DL4J_TPU_W2V_SCATTER.")
 
 
 def _warn(name, raw, kind, default):

@@ -68,10 +68,17 @@
 // gradient's scale: the bar is max|g - g_f32| <= 2^-7 max|g_f32|
 // (ops/flash_attention.py: BF16_DKV_BAR).
 //
-// The f32 design (unchanged since it was first written): K, V, Q, dO, P^T
-// and dS^T staged as f32 in shared memory, scalar fmaf products on 4 x 8
-// micro-tiles per thread, dK and dV in registers (4 key rows x d/8 columns
-// a thread each).
+// The f32 design: K, V, Q, dO, P^T and dS^T staged as f32 in shared memory,
+// scalar fmaf products on (KB / 16) x 8 micro-tiles per thread, dK and dV in
+// registers (KB / 16 key rows x d/8 columns a thread each). A block takes
+// KB = 64 keys up to DP 128 and 32 at DP 256, where 64 would need 297 KB of
+// shared memory against the card's 227 KB and 256 accumulator registers a
+// thread.
+//
+// At DP 256 the bf16 kernel splits the head dim's columns across two warps
+// per 16 key rows (8 warps a block): each computes its rows' S^T and dP^T
+// in full and accumulates its half of dK and dV, so the two f32
+// accumulators take 64 registers a lane each instead of 128.
 // wgmma, TMA and warp specialisation are left for later work.
 //
 // Interface: a plain C function, bound from Python with ctypes. It launches
@@ -91,17 +98,21 @@ constexpr int BM = 64;     // queries per Q/dO tile
 constexpr int BN = 64;     // keys per block
 constexpr int NT = 128;    // threads per block: 16 key-row groups x 8 column groups
 
+// keys per block of the f32 kernel
 template <int DP>
+constexpr int f32_keys() { return DP > 128 ? 32 : 64; }
+
+template <int DP, int KB>
 constexpr size_t smem_bytes() {
-  // K, V [BN][DP+1]; Q, dO [BM][DP+1]; P^T, dS^T [BN][BM+1]; lse, delta [BM]
+  // K, V [KB][DP+1]; Q, dO [BM][DP+1]; P^T, dS^T [KB][BM+1]; lse, delta [BM]
   return sizeof(float) *
-         (size_t)(2 * BN * (DP + 1) + 2 * BM * (DP + 1) + 2 * BN * (BM + 1) + 2 * BM);
+         (size_t)(2 * KB * (DP + 1) + 2 * BM * (DP + 1) + 2 * KB * (BM + 1) + 2 * BM);
 }
 
 // T: element type of q/k/v/dO/dK/dV. DP: head dim rounded up to
-// 16/32/64/128; columns d..DP-1 are zero in shared memory so they add
-// nothing.
-template <typename T, int DP>
+// 16/32/64/128/256; columns d..DP-1 are zero in shared memory so they add
+// nothing. KB: keys per block, KB / 16 key rows a thread.
+template <typename T, int DP, int KB>
 __global__ void __launch_bounds__(NT)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -112,25 +123,26 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int QS = DP + 1;   // odd row strides: column walks hit distinct banks
   constexpr int PS = BM + 1;
   constexpr int CPT = DP / 8;  // dK/dV columns per thread
+  constexpr int RPT = KB / 16; // key rows per thread
   float* ks = smem;
-  float* vs = ks + BN * QS;
-  float* qs = vs + BN * QS;
+  float* vs = ks + KB * QS;
+  float* qs = vs + KB * QS;
   float* dos = qs + BM * QS;
   float* pt = dos + BM * QS;
-  float* dst = pt + BN * PS;
-  float* lses = dst + BN * PS;
+  float* dst = pt + KB * PS;
+  float* lses = dst + KB * PS;
   float* dels = lses + BM;
 
   const int h = blockIdx.x;            // kv head
-  const int k0 = blockIdx.y * BN;      // heaviest (earliest) key tiles first
+  const int k0 = blockIdx.y * KB;      // heaviest (earliest) key tiles first
   const int tid = threadIdx.x;
-  const int rg = tid >> 3;     // key rows rg*4 .. rg*4+3 of the tile
+  const int rg = tid >> 3;     // key rows rg*RPT .. rg*RPT+RPT-1 of the tile
   const int cg = tid & 7;      // queries cg + 8*jj, columns cg + 8*cc
 
   const size_t td = (size_t)t * d;
   const T* kb = k + (size_t)h * td;
   const T* vb = v + (size_t)h * td;
-  for (int i = tid; i < BN * DP; i += NT) {
+  for (int i = tid; i < KB * DP; i += NT) {
     const int r = i / DP, c = i % DP;
     float kx = 0.f, vx = 0.f;
     if (k0 + r < t && c < d) {
@@ -142,9 +154,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     vs[r * QS + c] = vx;
   }
 
-  float acc_k[4][CPT], acc_v[4][CPT];
+  float acc_k[RPT][CPT], acc_v[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) acc_k[i][cc] = acc_v[i][cc] = 0.f;
 
@@ -155,9 +167,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) {
     qt_begin = k0 / BM;
     if (window > 0) {
-      // a tile at q0 sees a key of this tile iff q0 < k0 + BN - 1 + window
+      // a tile at q0 sees a key of this tile iff q0 < k0 + KB - 1 + window
       // (the entry point clamps window to t, so this cannot overflow)
-      qt_end = min(n_tiles, (k0 + BN - 1 + window + BM - 1) / BM);
+      qt_end = min(n_tiles, (k0 + KB - 1 + window + BM - 1) / BM);
     }
   }
 
@@ -187,26 +199,26 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // S^T = K Q^T on a 4 x 8 micro-tile per thread, then P^T
-      float acc_s[4][8];
+      float acc_s[RPT][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) acc_s[i][jj] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < DP; ++c) {
-        float kv[4];
+        float kv[RPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) kv[i] = ks[(rg * 4 + i) * QS + c];
+        for (int i = 0; i < RPT; ++i) kv[i] = ks[(rg * RPT + i) * QS + c];
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const float qv = qs[(cg + 8 * jj) * QS + c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc_s[i][jj] = fmaf(kv[i], qv, acc_s[i][jj]);
+          for (int i = 0; i < RPT; ++i) acc_s[i][jj] = fmaf(kv[i], qv, acc_s[i][jj]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
+      for (int i = 0; i < RPT; ++i) {
+        const int r = rg * RPT + i;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int qc = cg + 8 * jj;
@@ -218,24 +230,24 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // dP^T = V dO^T in the same registers; dS^T from this thread's own P^T
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) acc_s[i][jj] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < DP; ++c) {
-        float vv[4];
+        float vv[RPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) vv[i] = vs[(rg * 4 + i) * QS + c];
+        for (int i = 0; i < RPT; ++i) vv[i] = vs[(rg * RPT + i) * QS + c];
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const float gv = dos[(cg + 8 * jj) * QS + c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc_s[i][jj] = fmaf(vv[i], gv, acc_s[i][jj]);
+          for (int i = 0; i < RPT; ++i) acc_s[i][jj] = fmaf(vv[i], gv, acc_s[i][jj]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
+      for (int i = 0; i < RPT; ++i) {
+        const int r = rg * RPT + i;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int qc = cg + 8 * jj;
@@ -247,18 +259,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dV += P^T dO and dK += dS^T Q on 4 x CPT micro-tiles per thread
 #pragma unroll 4
       for (int qq = 0; qq < BM; ++qq) {
-        float pv[4], sv[4];
+        float pv[RPT], sv[RPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = pt[(rg * 4 + i) * PS + qq];
-          sv[i] = dst[(rg * 4 + i) * PS + qq];
+        for (int i = 0; i < RPT; ++i) {
+          pv[i] = pt[(rg * RPT + i) * PS + qq];
+          sv[i] = dst[(rg * RPT + i) * PS + qq];
         }
 #pragma unroll
         for (int cc = 0; cc < CPT; ++cc) {
           const float gv = dos[qq * QS + cg + 8 * cc];
           const float qv = qs[qq * QS + cg + 8 * cc];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RPT; ++i) {
             acc_v[i][cc] = fmaf(pv[i], gv, acc_v[i][cc]);
             acc_k[i][cc] = fmaf(sv[i], qv, acc_k[i][cc]);
           }
@@ -268,8 +280,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + rg * 4 + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int kpos = k0 + rg * RPT + i;
     if (kpos >= t) continue;
     const size_t row = (size_t)h * td + (size_t)kpos * d;
 #pragma unroll
@@ -288,12 +300,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dk, void* dv, int n,
                    int t, int d, int group, int causal, int window, float scale,
                    cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DP>();
-  auto kernel = flash_dkv_kernel<T, DP>;
+  constexpr int KB = f32_keys<DP>();
+  constexpr size_t bytes = smem_bytes<DP, KB>();
+  auto kernel = flash_dkv_kernel<T, DP, KB>;
+  if ((t + KB - 1) / KB > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n / group, (t + BN - 1) / BN);
+  const dim3 grid(n / group, (t + KB - 1) / KB);
   kernel<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -310,7 +324,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* do
   if (d <= 16) return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
   if (d <= 32) return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
   if (d <= 64) return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
-  return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
+  return launch<T, 256>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
 }
 
 // ---- bf16 on the tensor cores ----
@@ -323,10 +338,17 @@ constexpr size_t mma_smem_bytes() {
          sizeof(float) * 4 * BM;
 }
 
-// DP: head dim rounded up to 16/32/64/128. Each of the 4 warps owns 16 key
-// rows; lane (g, tq) holds key rows g and g + 8 of them (see flash_mma.cuh).
+// column halves of the bf16 kernel: warps that share 16 key rows, each
+// accumulating DP / CS columns of dK and dV
 template <int DP>
-__global__ void __launch_bounds__(NT)
+__host__ __device__ constexpr int col_split() { return DP > 128 ? 2 : 1; }
+
+// DP: head dim rounded up to 16/32/64/128/256. Each of the 4 row groups of
+// warps owns 16 key rows; lane (g, tq) holds key rows g and g + 8 of them
+// (see flash_mma.cuh). At DP 256 two warps share a row group, one for each
+// half of dK's and dV's columns.
+template <int DP>
+__global__ void __launch_bounds__(NT * col_split<DP>())
 flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -339,7 +361,10 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   using namespace flash::tc;
   constexpr int LD = DP + 8;
   constexpr int KC = DP / 16;                  // 16-wide chunks of the head dim
-  constexpr int ON = DP / 8;                   // 8-wide tiles of dK / dV
+  constexpr int CS = col_split<DP>();
+  constexpr int NTB = NT * CS;                 // threads a block
+  constexpr int DH = DP / CS;                  // columns a warp accumulates
+  constexpr int ON = DH / 8;                   // its 8-wide tiles of dK / dV
   // queries a pass of the inner products takes: two passes of 32 a tile
   // keep S^T and dP^T (16 registers each) small beside the two f32
   // accumulators (DP registers a lane); flash_variants.py measured it
@@ -356,12 +381,16 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int h = blockIdx.x;            // kv head
   const int k0 = blockIdx.y * BN;      // heaviest (earliest) key tiles first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // row group, and the first column this warp accumulates (constant
+  // without a split)
+  const int warp = CS > 1 ? (tid >> 5) & 3 : tid >> 5;
+  const int c_lo = CS > 1 ? (tid >> 7) * DH : 0;
   const int g = lane >> 2, tq = lane & 3;
   const size_t td = (size_t)t * d;
 
-  load_tile<BN, DP, NT>(ks, k + (size_t)h * td, k0, t, d, vec, tid);
-  load_tile<BN, DP, NT>(vs, v + (size_t)h * td, k0, t, d, vec, tid);
+  load_tile<BN, DP, NTB>(ks, k + (size_t)h * td, k0, t, d, vec, tid);
+  load_tile<BN, DP, NTB>(vs, v + (size_t)h * td, k0, t, d, vec, tid);
 
   // live query tiles of this key tile: some query at or after a key of the
   // tile (causal), and within the window of one
@@ -383,9 +412,9 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int i, int stage) {
     const int b = h * group + i / n_live;
     const int q0 = (qt_begin + i % n_live) * BM;
-    load_tile<BM, DP, NT>(qs + stage * BM * LD, q + (size_t)b * td, q0, t, d, vec, tid);
-    load_tile<BM, DP, NT>(gs + stage * BM * LD, dout + (size_t)b * td, q0, t, d, vec, tid);
-    for (int r = tid; r < BM; r += NT) {
+    load_tile<BM, DP, NTB>(qs + stage * BM * LD, q + (size_t)b * td, q0, t, d, vec, tid);
+    load_tile<BM, DP, NTB>(gs + stage * BM * LD, dout + (size_t)b * td, q0, t, d, vec, tid);
+    for (int r = tid; r < BM; r += NTB) {
       const bool in = q0 + r < t;
       const size_t off = in ? (size_t)b * t + q0 + r : 0;
       cp_async4(lses + stage * BM + r, lse + off, in ? 4 : 0);
@@ -472,9 +501,9 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         c_to_a(pa, s, kk);
         c_to_a(sa, dp, kk);
 #pragma unroll
-        for (int j = 0; j < DP / 16; ++j) {
+        for (int j = 0; j < DH / 16; ++j) {
           uint32_t bg[4], bq[4];
-          const int off = (c0 + kk * 16) * LD + j * 16 + bt_off;
+          const int off = (c0 + kk * 16) * LD + c_lo + j * 16 + bt_off;
           ldsm_x4_t(bg, gst + off);
           ldsm_x4_t(bq, qst + off);
           mma(acc_v[2 * j], pa, bg[0], bg[1]);
@@ -489,10 +518,10 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();
 
-  // dK and dV rounded once, through this warp's own K and V rows
+  // dK and dV rounded once, through this row group's own K and V rows
 #pragma unroll
   for (int j = 0; j < ON; ++j) {
-    const int c = j * 8 + 2 * tq;
+    const int c = c_lo + j * 8 + 2 * tq;
     *reinterpret_cast<__nv_bfloat162*>(kw + g * LD + c) =
         __floats2bfloat162_rn(acc_k[j][0], acc_k[j][1]);
     *reinterpret_cast<__nv_bfloat162*>(kw + (g + 8) * LD + c) =
@@ -502,7 +531,12 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<__nv_bfloat162*>(vw + (g + 8) * LD + c) =
         __floats2bfloat162_rn(acc_v[j][2], acc_v[j][3]);
   }
-  __syncwarp();
+  if constexpr (CS > 1) {
+    __syncthreads();   // both column halves of the rows are staged
+    if (c_lo != 0) return;
+  } else {
+    __syncwarp();
+  }
   store_rows<16, DP>(dk + (size_t)h * td, kw, k0 + warp * 16, t, d, vec, lane);
   store_rows<16, DP>(dv + (size_t)h * td, vw, k0 + warp * 16, t, d, vec, lane);
 }
@@ -523,7 +557,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                   aligned16(v) && aligned16(dout) && aligned16(dk) &&
                   aligned16(dv);
   const dim3 grid(n / group, (t + BN - 1) / BN);
-  kernel<<<grid, NT, bytes, stream>>>(
+  kernel<<<grid, NT * col_split<DP>(), bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -539,7 +573,8 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
   if (d <= 16) return launch_mma<16>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
   if (d <= 32) return launch_mma<32>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
   if (d <= 64) return launch_mma<64>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
-  return launch_mma<128>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
+  return launch_mma<256>(q, k, v, dout, lse, delta, dk, dv, n, t, d, group, causal, window, scale, s);
 }
 
 }  // namespace
@@ -548,14 +583,14 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // type; lse, delta: [n, t] f32. All contiguous. dtype: 0 = float32 (the
 // CUDA-core kernel), 1 = bfloat16 (the tensor-core kernel); nothing falls
 // back from one to the other. window <= 0 means no window; scale is
-// 1/sqrt(d) unrounded.
+// 1/sqrt(d) unrounded. Head dims up to 256 (MAX_HEAD_DIM).
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attn_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv, int n,
                               int t, int d, int group, int causal, int window,
                               float scale, int dtype, void* stream) {
-  if (n < 1 || t < 1 || d < 1 || d > 128 || group < 1 || n % group ||
+  if (n < 1 || t < 1 || d < 1 || d > flash::MAX_HEAD_DIM || group < 1 || n % group ||
       (t + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   if (window > t) window = t;   // the same mask: no query is t keys back

@@ -67,11 +67,12 @@
 // bar is max|dq - dq_f32| <= 2^-7 max|dq_f32| (ops/flash_attention.py:
 // BF16_DQ_BAR).
 //
-// The f32 design (unchanged since it was first written): Q, dO, K and V
-// staged as f32 in shared memory, scalar fmaf products on 4 x 8
-// micro-tiles per thread, S and dP built one after the other in the same
-// registers with P parked in shared memory between them, dQ in registers
-// (4 rows x d/8 columns a thread).
+// The f32 design: Q, dO, K and V staged as f32 in shared memory, scalar
+// fmaf products on 4 x (KB / 8) micro-tiles per thread, S and dP built one
+// after the other in the same registers with P parked in shared memory
+// between them, dQ in registers (4 rows x d/8 columns a thread). K/V tiles
+// are KB = 64 keys up to DP 128 and 32 keys at DP 256, where 64 would need
+// 280 KB of shared memory against the card's 227 KB.
 // wgmma, TMA and warp specialisation are left for later work.
 //
 // Interface: a plain C function, bound from Python with ctypes. It launches
@@ -91,16 +92,21 @@ constexpr int BM = 64;     // query rows per block
 constexpr int BN = 64;     // keys per K/V tile
 constexpr int NT = 128;    // threads per block: 16 row groups x 8 column groups
 
+// keys per K/V tile of the f32 kernel
 template <int DP>
+constexpr int f32_keys() { return DP > 128 ? 32 : 64; }
+
+template <int DP, int KB>
 constexpr size_t smem_bytes() {
-  // Q, dO [BM][DP+1]; K, V [BN][DP+1]; P then dS [BM][BN+1]; lse, delta [BM]
+  // Q, dO [BM][DP+1]; K, V [KB][DP+1]; P then dS [BM][KB+1]; lse, delta [BM]
   return sizeof(float) *
-         (size_t)(2 * BM * (DP + 1) + 2 * BN * (DP + 1) + BM * (BN + 1) + 2 * BM);
+         (size_t)(2 * BM * (DP + 1) + 2 * KB * (DP + 1) + BM * (KB + 1) + 2 * BM);
 }
 
-// T: element type of q/k/v/dO/dQ. DP: head dim rounded up to 16/32/64/128;
-// columns d..DP-1 are zero in shared memory so they add nothing.
-template <typename T, int DP>
+// T: element type of q/k/v/dO/dQ. DP: head dim rounded up to
+// 16/32/64/128/256; columns d..DP-1 are zero in shared memory so they add
+// nothing. KB: keys per K/V tile.
+template <typename T, int DP, int KB>
 __global__ void __launch_bounds__(NT)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -109,13 +115,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int window, float scale) {
   extern __shared__ float smem[];
   constexpr int QS = DP + 1;   // odd row strides: column walks hit distinct banks
-  constexpr int PS = BN + 1;
+  constexpr int PS = KB + 1;
+  constexpr int JJ = KB / 8;   // keys per thread of a tile
   constexpr int CPT = DP / 8;  // dQ columns per thread
   float* qs = smem;
   float* dos = qs + BM * QS;
   float* ks = dos + BM * QS;
-  float* vs = ks + BN * QS;
-  float* ds = vs + BN * QS;
+  float* vs = ks + KB * QS;
+  float* ds = vs + KB * QS;
   float* lses = ds + BM * PS;
   float* dels = lses + BM;
 
@@ -155,21 +162,21 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
 
   // live K/V tiles of this query tile (the forward's rule)
-  const int n_tiles = (t + BN - 1) / BN;
+  const int n_tiles = (t + KB - 1) / KB;
   int kt_begin = 0, kt_end = n_tiles;
   if (causal) {
     const int q_last = min(q0 + BM, t) - 1;
-    kt_end = min(n_tiles, q_last / BN + 1);
+    kt_end = min(n_tiles, q_last / KB + 1);
     if (window > 0) {
       const int first_key = q0 - window + 1;   // earliest key any row sees
-      if (first_key > 0) kt_begin = first_key / BN;
+      if (first_key > 0) kt_begin = first_key / KB;
     }
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BN;
+    const int k0 = kt * KB;
     __syncthreads();   // the previous tile's K, V and dS are no longer read
-    for (int i = tid; i < BN * DP; i += NT) {
+    for (int i = tid; i < KB * DP; i += NT) {
       const int r = i / DP, c = i % DP;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < t && c < d) {
@@ -183,18 +190,18 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // S = Q K^T on a 4 x 8 micro-tile per thread, then P into shared memory
-    float acc_s[4][8];
+    float acc_s[4][JJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc_s[i][jj] = 0.f;
+      for (int jj = 0; jj < JJ; ++jj) acc_s[i][jj] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < DP; ++c) {
       float qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = qs[(rg * 4 + i) * QS + c];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
         const float kv = ks[(cg + 8 * jj) * QS + c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc_s[i][jj] = fmaf(qv[i], kv, acc_s[i][jj]);
@@ -205,7 +212,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = rg * 4 + i;
       const float l = lses[r];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
         const bool keep = visible(q0 + r, k0 + cg + 8 * jj, t, causal, window);
         // the reference's order: the f32 product, times the unrounded scale
         ds[r * PS + cg + 8 * jj] = keep ? expf(acc_s[i][jj] * scale - l) : 0.f;
@@ -216,14 +223,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc_s[i][jj] = 0.f;
+      for (int jj = 0; jj < JJ; ++jj) acc_s[i][jj] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < DP; ++c) {
       float gv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) gv[i] = dos[(rg * 4 + i) * QS + c];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
         const float vv = vs[(cg + 8 * jj) * QS + c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc_s[i][jj] = fmaf(gv[i], vv, acc_s[i][jj]);
@@ -234,7 +241,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = rg * 4 + i;
       const float dl = dels[r];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
         float* e = &ds[r * PS + cg + 8 * jj];
         *e = (*e * (acc_s[i][jj] - dl)) * scale;
       }
@@ -243,7 +250,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dQ += dS K on a 4 x CPT micro-tile per thread
 #pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
+    for (int j = 0; j < KB; ++j) {
       float sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = ds[(rg * 4 + i) * PS + j];
@@ -274,8 +281,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int n, int t,
                    int d, int group, int causal, int window, float scale,
                    cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DP>();
-  auto kernel = flash_dq_kernel<T, DP>;
+  constexpr int KB = f32_keys<DP>();
+  constexpr size_t bytes = smem_bytes<DP, KB>();
+  auto kernel = flash_dq_kernel<T, DP, KB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -296,7 +304,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* do
   if (d <= 16) return launch<T, 16>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
   if (d <= 32) return launch<T, 32>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
   if (d <= 64) return launch<T, 64>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
-  return launch<T, 128>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
+  return launch<T, 256>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
 }
 
 // ---- bf16 on the tensor cores ----
@@ -309,11 +318,13 @@ constexpr size_t mma_smem_bytes() {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: head dim rounded up to 16/32/64/128. Each of the 4 warps owns 16 query
-// rows; lane (g, tq) holds rows g and g + 8 of them (see flash_mma.cuh).
-// Up to d 64 the registers are capped so that 4 blocks fit an SM (128
-// registers, no spill), which flash_variants.py measured faster at the LM
-// train shape than 3 or 2.
+// DP: head dim rounded up to 16/32/64/128/256. Each of the 4 warps owns 16
+// query rows; lane (g, tq) holds rows g and g + 8 of them (see
+// flash_mma.cuh). Up to d 64 the registers are capped so that 4 blocks fit
+// an SM (128 registers, no spill), which flash_variants.py measured faster
+// at the LM train shape than 3 or 2. At DP 256 the f32 dQ alone takes 128
+// registers a lane, so the fragments of Q and dO are read from shared
+// memory at each product instead of being held in registers.
 template <int DP>
 __global__ void __launch_bounds__(NT, DP <= 64 ? 4 : 2)
 flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -328,6 +339,7 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = DP + 8;
   constexpr int KC = DP / 16;   // 16-wide chunks of the head dim
   constexpr int ON = DP / 8;    // 8-wide tiles of dQ
+  constexpr bool QREG = DP <= 128;   // Q's and dO's A fragments in registers
   // keys a pass of the inner products takes: two passes of 32 a tile keep
   // S and dP small beside Q, dO and dQ in registers
   constexpr int KW = 32;
@@ -385,12 +397,14 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // this warp reads those rows, and later stages dQ through its Q rows
   bf16* qw = qs + warp * 16 * LD;
   const bf16* gw = gs + warp * 16 * LD;
-  uint32_t qf[KC][4], gf[KC][4];
+  uint32_t qf[QREG ? KC : 1][4], gf[QREG ? KC : 1][4];
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int off = (lane & 15) * LD + kc * 16 + (lane >> 4) * 8;
-    ldsm_x4(qf[kc], qw + off);
-    ldsm_x4(gf[kc], gw + off);
+    for (int kc = 0; kc < KC; ++kc) {
+      ldsm_x4(qf[kc], qw + a_off + kc * 16);
+      ldsm_x4(gf[kc], gw + a_off + kc * 16);
+    }
   }
 
   float acc[ON][4];
@@ -433,16 +447,27 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qa[4], ga[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[kc][e];
+            ga[e] = gf[kc][e];
+          }
+        } else {
+          ldsm_x4(qa, qw + a_off + kc * 16);
+          ldsm_x4(ga, gw + a_off + kc * 16);
+        }
 #pragma unroll
         for (int j = 0; j < KN / 2; ++j) {
           uint32_t bk[4], bv[4];
           const int off = (c0 + j * 16) * LD + kc * 16 + b_off;
           ldsm_x4(bk, kst + off);
           ldsm_x4(bv, vst + off);
-          mma(s[2 * j], qf[kc], bk[0], bk[1]);
-          mma(s[2 * j + 1], qf[kc], bk[2], bk[3]);
-          mma(dp[2 * j], gf[kc], bv[0], bv[1]);
-          mma(dp[2 * j + 1], gf[kc], bv[2], bv[3]);
+          mma(s[2 * j], qa, bk[0], bk[1]);
+          mma(s[2 * j + 1], qa, bk[2], bk[3]);
+          mma(dp[2 * j], ga, bv[0], bv[1]);
+          mma(dp[2 * j + 1], ga, bv[2], bv[3]);
         }
       }
       // P and dS in registers; the reference's order: the f32 product
@@ -520,7 +545,8 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
   if (d <= 16) return launch_mma<16>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
   if (d <= 32) return launch_mma<32>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
   if (d <= 64) return launch_mma<64>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
-  return launch_mma<128>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
+  return launch_mma<256>(q, k, v, dout, lse, delta, dq, n, t, d, group, causal, window, scale, s);
 }
 
 }  // namespace
@@ -529,13 +555,14 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // lse, delta: [n, t] f32. All contiguous. dtype: 0 = float32 (the CUDA-core
 // kernel), 1 = bfloat16 (the tensor-core kernel); nothing falls back from
 // one to the other. window <= 0 means no window; scale is 1/sqrt(d)
-// unrounded. Returns a cudaError_t (0 on success).
+// unrounded. Head dims up to 256 (MAX_HEAD_DIM). Returns a cudaError_t
+// (0 on success).
 extern "C" int flash_attn_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int n, int t, int d,
                              int group, int causal, int window, float scale,
                              int dtype, void* stream) {
-  if (n < 1 || t < 1 || d < 1 || d > 128 || group < 1 || n % group ||
+  if (n < 1 || t < 1 || d < 1 || d > flash::MAX_HEAD_DIM || group < 1 || n % group ||
       (t + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

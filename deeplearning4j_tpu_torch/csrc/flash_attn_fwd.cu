@@ -76,7 +76,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BM * (DP + 1) + BN * (DP + 1) + BN * DP + BM * (BN + 1));
 }
 
-// T: element type of q/k/v/o. DP: head dim rounded up to 16/32/64/128; the
+// T: element type of q/k/v/o. DP: head dim rounded up to 16/32/64/128/256; the
 // columns d..DP-1 are held at zero in shared memory so they add nothing.
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT)
@@ -270,7 +270,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
   if (d <= 16) return launch<T, 16>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
   if (d <= 32) return launch<T, 32>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
   if (d <= 64) return launch<T, 64>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
-  return launch<T, 128>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
+  return launch<T, 256>(q, k, v, o, lse, n, t, d, group, causal, window, scale, stream);
 }
 
 // ---- bf16 on the tensor cores ----
@@ -283,11 +284,13 @@ constexpr size_t mma_smem_bytes() {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: head dim rounded up to 16/32/64/128. Each of the 4 warps owns 16 query
-// rows; lane (g, tq) holds rows g and g + 8 of them (see flash_mma.cuh).
-// Up to d 64 the registers are capped so that 4 blocks fit an SM, which
-// flash_variants.py measured faster at the LM train shape than 3 or 2,
-// despite a few bytes of spill at d 64.
+// DP: head dim rounded up to 16/32/64/128/256. Each of the 4 warps owns 16
+// query rows; lane (g, tq) holds rows g and g + 8 of them (see
+// flash_mma.cuh). Up to d 64 the registers are capped so that 4 blocks fit
+// an SM, which flash_variants.py measured faster at the LM train shape than
+// 3 or 2, despite a few bytes of spill at d 64. At DP 256 the f32 O alone
+// takes 128 registers a lane, so Q's fragments are read from shared memory
+// at each product instead of being held in registers.
 template <int DP>
 __global__ void __launch_bounds__(NT, DP <= 64 ? 4 : 2)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -300,6 +303,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = DP + 8;
   constexpr int KC = DP / 16;   // 16-wide chunks of the head dim
   constexpr int ON = DP / 8;    // 8-wide output tiles of the head dim
+  constexpr bool QREG = DP <= 128;   // Q's A fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + BM * LD;          // [2][BN][LD]
@@ -360,11 +364,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  uint32_t qf[KC][4];
+  uint32_t qf[QREG ? KC : 1][4];
   bf16* qw = qs + warp * 16 * LD;   // this warp's 16 rows; only it reads them
+  const int qa_off = (lane & 15) * LD + (lane >> 4) * 8;
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    ldsm_x4(qf[kc], qw + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+    for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], qw + qa_off + kc * 16);
+  }
 
   float acc[ON][4];
 #pragma unroll
@@ -400,12 +406,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kc][e];
+      } else {
+        ldsm_x4(qa, qw + qa_off + kc * 16);
+      }
 #pragma unroll
       for (int j = 0; j < BN / 16; ++j) {
         uint32_t bk[4];
         ldsm_x4(bk, kst + j * 16 * LD + kc * 16 + k_off);
-        mma(s[2 * j], qf[kc], bk[0], bk[1]);
-        mma(s[2 * j + 1], qf[kc], bk[2], bk[3]);
+        mma(s[2 * j], qa, bk[0], bk[1]);
+        mma(s[2 * j + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -536,7 +549,8 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
   if (d <= 16) return launch_mma<16>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
   if (d <= 32) return launch_mma<32>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
   if (d <= 64) return launch_mma<64>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
-  return launch_mma<128>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
+  return launch_mma<256>(q, k, v, o, lse, n, t, d, group, causal, window, scale, s);
 }
 
 }  // namespace
@@ -545,12 +559,13 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
 // lse: [n, t] f32, or null to skip writing it. All contiguous.
 // dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
 // kernel); nothing falls back from one to the other.
-// window <= 0 means no window. Returns a cudaError_t (0 on success).
+// window <= 0 means no window. Head dims up to 256 (MAX_HEAD_DIM).
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int n, int t, int d,
                               int group, int causal, int window, float scale,
                               int dtype, void* stream) {
-  if (n < 1 || t < 1 || d < 1 || d > 128 || group < 1 || n % group ||
+  if (n < 1 || t < 1 || d < 1 || d > flash::MAX_HEAD_DIM || group < 1 || n % group ||
       (t + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

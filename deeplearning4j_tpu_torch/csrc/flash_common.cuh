@@ -10,6 +10,9 @@
 namespace flash {
 
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
+// the largest head dim the kernels are instantiated for
+// (ops/flash_attention.py: MAX_HEAD_DIM)
+constexpr int MAX_HEAD_DIM = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -19,7 +19,7 @@
 //
 // Shared tiles keep rows of DP bf16 with a stride of DP + 8 elements: the 8
 // rows an ldmatrix reads then start 16 bytes apart modulo 128, in distinct
-// banks, for every DP in {16, 32, 64, 128}.
+// banks, for every DP in {16, 32, 64, 128, 256}.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 __all__ = ["CheckpointCorruptError", "PrefetchWorkerDiedError",
            "ServingError", "ServeQueueFullError", "ServeStoppedError",
-           "ServeDeadlineError", "TrainingDivergedError"]
+           "ServeDeadlineError", "ServeReplicaDeadError",
+           "TrainingDivergedError"]
 
 
 class TrainingDivergedError(RuntimeError):
@@ -74,3 +75,14 @@ class ServeDeadlineError(ServingError):
 
     http_status = 504
     retryable = False
+
+
+class ServeReplicaDeadError(ServingError):
+    """The replica serving this admitted request died before completing
+    it. A router moves a dead replica's not-yet-admitted requests to the
+    survivors; an admitted one may already have produced tokens, so under
+    at-most-once delivery it fails with this error instead of being run
+    again. A fresh submit (a new request) is safe, so it is retryable."""
+
+    http_status = 502
+    retryable = True

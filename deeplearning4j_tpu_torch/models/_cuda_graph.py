@@ -11,6 +11,14 @@ and workspaces, allocator growth), then captures it; every later call
 replays the graph. On the CPU every call runs the function. A failed
 capture or replay raises: there is no eager fallback on the card, and
 the device, never an error, chooses the eager route.
+
+Graphs captured from one model bind the cuBLAS workspaces that were
+current at capture, shared by every graph captured on the same stream;
+two such graphs running at once on two streams write the same workspace.
+So every program on a card is launched on the caller's current stream
+(the device's default stream in the serving threads) and, on the card,
+under one lock a device: a replay is only enqueued, in order, and a
+first call's eager run and capture see no other graph start meanwhile.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ __all__ = ["StaticGraph", "capture_count", "captures_graphs"]
 
 _LOCK = threading.Lock()
 _CAPTURES = 0
+_DEVICE_LOCKS = {}      # device -> the lock its launches and captures take
+
+
+def _device_lock(device):
+    with _LOCK:
+        return _DEVICE_LOCKS.setdefault(device, threading.RLock())
 
 
 def captures_graphs(device):
@@ -41,12 +55,15 @@ class StaticGraph:
     card and replayed after. ``pool`` is a graph memory pool handle that
     graphs replayed one after another on one stream may share
     (``torch.cuda.graph_pool_handle()``); ``None`` gives the graph its
-    own."""
+    own. ``generators`` are CUDA generators, besides the default one,
+    that ``fn`` draws from: each is registered with the capture, so every
+    replay draws anew and advances it."""
 
-    def __init__(self, fn, device, pool=None):
+    def __init__(self, fn, device, pool=None, generators=()):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
+        self.generators = tuple(generators)
         self.graph = None
 
     def __call__(self):
@@ -56,9 +73,14 @@ class StaticGraph:
             with torch.no_grad():
                 self.fn()
             return False
-        if self.graph is not None:
-            self.graph.replay()
-            return False
+        with _device_lock(self.device):
+            if self.graph is not None:
+                self.graph.replay()
+                return False
+            self._capture()
+        return True
+
+    def _capture(self):
         global _CAPTURES
         dev = self.device
         main = torch.cuda.current_stream(dev)
@@ -68,10 +90,11 @@ class StaticGraph:
             self.fn()
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         with torch.no_grad(), torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             self.fn()
         self.graph = graph
         with _LOCK:
             _CAPTURES += 1
-        return True

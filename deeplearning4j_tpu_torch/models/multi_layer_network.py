@@ -484,8 +484,10 @@ class MultiLayerNetwork(LayeredModel):
         if self._uses_dropout():
             raise NotImplementedError(
                 "fit_fused with dropout: the captured step cannot revert "
-                "the generator on the device yet (ROADMAP.md, queue 1 "
-                "item 1); fit() keeps such models on the per-batch path")
+                "the generator on the device yet (ROADMAP.md, queue 1, "
+                "\"The fused loop's remaining pieces\": dropout inside the "
+                "captured step); fit() keeps such models on the per-batch "
+                "path")
         xs, ys = self._tensor(stacked.features), self._tensor(stacked.labels)
         ews = self._tensor(stacked.weights)
         spec = faults.fire("nan-step")

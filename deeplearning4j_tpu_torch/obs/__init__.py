@@ -18,8 +18,11 @@ Neither imports torch, and both record host scalars only.
 from deeplearning4j_tpu_torch.obs import metrics, tracing
 from deeplearning4j_tpu_torch.obs.metrics import (counter, gauge, histogram,
                                                   metrics_snapshot,
-                                                  reset_metrics)
+                                                  metrics_summary,
+                                                  prometheus_text,
+                                                  reset_metrics, timer)
 from deeplearning4j_tpu_torch.obs.tracing import add_span, span
 
 __all__ = ["metrics", "tracing", "add_span", "counter", "gauge", "histogram",
-           "metrics_snapshot", "reset_metrics", "span"]
+           "metrics_snapshot", "metrics_summary", "prometheus_text",
+           "reset_metrics", "span", "timer"]

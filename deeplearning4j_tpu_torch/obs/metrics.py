@@ -1,10 +1,12 @@
 """Typed, thread-safe metric registry: the one place request latencies,
 queue depths and dispatch times live.
 
-Every subsystem records into named metrics here; :func:`metrics_snapshot`
-reads the full registry back as a JSON-able dict, :func:`value` one
-metric, and ``Histogram.summary`` the compact count/mean/p50/p99/max
-digest a benchmark line can embed.
+Every subsystem records into named metrics here, and these read them
+back out: :func:`metrics_snapshot` (the full registry as a JSON-able
+dict), :func:`value` (one metric), :func:`prometheus_text` (Prometheus
+text exposition, the serving ingress's ``/metrics``) and
+:func:`metrics_summary` (the compact count/mean/p50/p99/max digest of
+each histogram that a benchmark line can embed).
 
 Metric kinds: :class:`Counter` (monotonic), :class:`Gauge` (last value),
 :class:`Histogram` (fixed bucket bounds, cumulative at export, with a
@@ -28,8 +30,8 @@ import time
 from deeplearning4j_tpu_torch.config import env_flag
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
-           "enabled", "value", "metrics_snapshot", "reset_metrics",
-           "TIME_BUCKETS"]
+           "timer", "enabled", "value", "metrics_snapshot", "metrics_summary",
+           "prometheus_text", "reset_metrics", "TIME_BUCKETS"]
 
 # default bucket bounds (seconds) for duration histograms
 TIME_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
@@ -256,6 +258,11 @@ def histogram(name, doc="", buckets=TIME_BUCKETS):
     return _get_or_create(Histogram, name, doc, buckets=buckets)
 
 
+def timer(name, doc=""):
+    """Context manager timing its body into histogram ``name``."""
+    return histogram(name, doc).time()
+
+
 def value(name):
     """Current value of a registered metric: number for counter/gauge,
     observation count for a histogram; KeyError for an unknown name."""
@@ -280,3 +287,49 @@ def metrics_snapshot():
     for m in metrics:
         out[m.kind + "s"][m.name] = m.snapshot()
     return out
+
+
+def metrics_summary():
+    """Counter and gauge values plus each histogram's digest
+    (count/mean/p50/p99/max); metrics still at zero are left out."""
+    with _REGISTRY_LOCK:
+        metrics = list(_REGISTRY.values())
+    out = {}
+    for m in metrics:
+        if isinstance(m, Histogram):
+            s = m.summary()
+            if s["count"]:
+                out[m.name] = {k: (round(v, 6) if isinstance(v, float) else v)
+                               for k, v in s.items()}
+        elif m.value:
+            out[m.name] = m.value
+    return out
+
+
+def _prom_name(name):
+    return "dl4j_torch_" + name.replace(".", "_").replace("-", "_")
+
+
+def prometheus_text():
+    """Prometheus text exposition (version 0.0.4) of the registry: the
+    body of the serving ingress's ``/metrics``."""
+    with _REGISTRY_LOCK:
+        metrics = list(_REGISTRY.values())
+    lines = []
+    for m in metrics:
+        pname = _prom_name(m.name)
+        if m.doc:
+            lines.append(f"# HELP {pname} {m.doc}")
+        lines.append(f"# TYPE {pname} {m.kind}")
+        if isinstance(m, Histogram):
+            snap = m.snapshot()
+            cum = 0
+            for b, c in snap["buckets"]:
+                cum += c
+                le = "+Inf" if b == "+Inf" else repr(float(b))
+                lines.append(f'{pname}_bucket{{le="{le}"}} {cum}')
+            lines.append(f"{pname}_sum {snap['sum']}")
+            lines.append(f"{pname}_count {snap['count']}")
+        else:
+            lines.append(f"{pname} {m.snapshot()}")
+    return "\n".join(lines) + "\n"

@@ -62,7 +62,10 @@ __all__ = ["flash_attention", "flash_attention_bwd_plain",
            "flash_attention_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+# The largest head dim the kernels are built for (csrc/flash_common.cuh:
+# MAX_HEAD_DIM). The reference takes any; the twins do too, but a CUDA
+# tensor with a larger head dim is refused, never sent to a twin.
+MAX_HEAD_DIM = 256
 
 # Bars of the bf16 tensor-core kernels against the plain twin's unrounded
 # f32 result on the same bf16 inputs.
@@ -225,8 +228,9 @@ def _check_kernel_inputs(what, q, k, v, kv_group, *same_as_q):
     if not all(x.is_contiguous() for x in (q, k, v, *same_as_q)):
         raise ValueError(f"{what} needs contiguous inputs")
     n, t, d = q.shape
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"{what} takes head dims up to {_MAX_HEAD_DIM}, "
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes head dims up to MAX_HEAD_DIM = "
+                         f"{MAX_HEAD_DIM}, "
                          f"got {d}")
     if n % kv_group or k.shape != (n // kv_group, t, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be [{n} // kv_group={kv_group}, {t}, "

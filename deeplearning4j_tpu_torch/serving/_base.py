@@ -197,6 +197,17 @@ class ServingFrontEnd:
                 return False
             return self._thread is None or self._thread.is_alive()
 
+    def evict_pending(self):
+        """Remove and return, in one critical section, every request still
+        queued (not yet popped by the loop). A router moves a dead
+        replica's pending work to the survivors with it: the dead loop can
+        no longer pop them."""
+        with self._lock:
+            out = list(self._pending)
+            self._pending.clear()
+            _QUEUE_DEPTH.set(0)
+            return out
+
     def _replica_fault(self):
         """The ``kill-replica`` / ``slow-replica`` fault sites, fired once
         per dispatch with this replica's id as qualifier. Returns True

@@ -45,6 +45,13 @@ derived from ``DL4J_TORCH_MEM_BUDGET``. Sampling: temperature 0 is greedy
 is a pure function of (pool base seed, request seed, position), so its
 tokens do not depend on how admits interleave with decode chunks.
 
+On the card every scheduler thread, like the caller's, launches on the
+device's default stream, so several servers over one model (the replicas
+behind a ``ReplicaRouter``) run their programs one after another on the
+card and overlap on the host only: graphs captured from one model share
+the cuBLAS workspaces bound at capture, and two of them replayed at once
+on two streams compute wrong rows (``models/_cuda_graph.py``).
+
 Fault sites (``DL4J_TORCH_FAULT_SPEC``): ``slow-request`` sleeps the loop
 before decode dispatch N, ``client-disconnect`` cancels a request's
 future right before its result lands, ``kill-replica`` ends the loop

@@ -33,7 +33,12 @@ under ``cudnn.deterministic``); a restored archive gives the same output
 bits on the card, the reference's archives their recorded outputs within
 1e-5. A narrow ResNet (ComputationGraph) trained 3 steps on the card
 stays within ``CNN_CARD_CPU_RTOL`` (1e-4 of each leaf's max abs) of the
-same steps on the CPU.
+same steps on the CPU, also after a decode burst in the same process.
+The flash kernels are held at head dims 160, 192 and 256 too (their DP
+256 instances), and a head dim of 257 is refused. Two ContinuousLM
+replicas on the card: one captures while the other replays, and one is
+killed behind the router; their rows equal ``generate()``'s. Word2Vec's
+``sorted`` scatter gives the same table bits on two fits from one seed.
 """
 
 import math
@@ -77,6 +82,15 @@ KERNEL_CASES = [
     (16, 4, 200, 32, True, 1, torch.bfloat16),
     (8, 2, 333, 16, False, None, torch.bfloat16),
     (8, 4, 500, 64, True, 24, torch.bfloat16),
+] + [
+    # head dims above 128: the DP 256 instances (d 160 and 192 with their
+    # columns up to 256 held at zero), f32 and bf16, causal and not, GQA
+    (n, kv_n, t, d, causal, None, dtype)
+    for n, kv_n, t, d, causal in ((8, 4, 300, 160, True),
+                                  (8, 2, 257, 192, False),
+                                  (8, 4, 200, 256, True),
+                                  (8, 8, 130, 256, False))
+    for dtype in (torch.float32, torch.bfloat16)
 ]
 
 
@@ -204,6 +218,14 @@ BWD_CASES = [
     (8, 8, 300, 36, True, None, torch.bfloat16),
     (16, 4, 200, 32, True, 1, torch.bfloat16),
     (8, 2, 333, 16, False, None, torch.bfloat16),
+] + [
+    (n, kv_n, t, d, causal, window, dtype)
+    for n, kv_n, t, d, causal, window in ((8, 4, 300, 160, True, None),
+                                          (8, 2, 257, 192, False, None),
+                                          (8, 4, 200, 256, True, None),
+                                          (8, 4, 333, 256, True, 40),
+                                          (8, 8, 130, 256, False, None))
+    for dtype in (torch.float32, torch.bfloat16)
 ]
 
 
@@ -1218,3 +1240,181 @@ def test_restarted_server_replays_graphs_bound_to_its_new_pool(cuda_device):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(
             a, lm.generate(p[None, :], 10, temperature=0.0)[0])
+
+
+# ---------------------------------------------------------------------------
+# head dims above the kernels' limit, the router's replicas on one card,
+# Word2Vec's device route, and the narrow ResNet after serving
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_head_dim_above_256_is_refused_on_card(cuda_device):
+    """d 257 raises at the kernels' boundary, naming the limit, for the
+    forward and the backward; nothing falls back to a twin."""
+    q = torch.zeros((4, 16, 257), device=cuda_device)
+    k = torch.zeros((2, 16, 257), device=cuda_device)
+    before = (flash_attention.launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches)
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM = 256"):
+        _flash_forward(q, k, k, causal=True, window=None, kv_group=2)
+    lse = torch.zeros((4, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM = 256"):
+        _kernel_backward(q, k, k, q, lse, q, causal=True, window=None,
+                         kv_group=2)
+    assert (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches) == before
+
+
+def _serve_replicas(cuda_device, n=2, **kw):
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+    lm = _card_lm(cuda_device)
+    return lm, [ContinuousLM(lm, slots=4, chunk=4, device=cuda_device,
+                             kv_ladder=(32, 64), prefill_ladder=(16,), **kw)
+                for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_a_capture_on_one_replica_while_the_other_replays(cuda_device):
+    """Replica A replays its graphs on its own stream while replica B,
+    never warm-started, captures its whole inventory on its first
+    requests (thread-local capture mode): both give generate()'s rows."""
+    import threading
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    lm, (a, b) = _serve_replicas(cuda_device)
+    ps = [np.arange(1, 1 + n) % 95 for n in (5, 30, 3, 17, 9, 12, 2, 21)]
+    stop, rows_a, errors = threading.Event(), [], []
+    try:
+        a.warm_start()
+        a.submit(ps[0], 10).result(120)
+
+        def replay():
+            try:
+                while not stop.is_set():
+                    rows_a.extend((p, f.result(120)) for p, f in
+                                  [(p, a.submit(p, 10)) for p in ps[:4]])
+            except Exception as e:      # surfaced by the assert below
+                errors.append(e)
+        t = threading.Thread(target=replay, daemon=True)
+        t.start()
+        before = capture_count()
+        rows_b = [(p, f.result(120)) for p, f in
+                  [(p, b.submit(p, 10)) for p in ps]]
+        assert capture_count() > before      # B captured while A served
+        stop.set()
+        t.join(120)
+        assert not errors, errors
+    finally:
+        stop.set()
+        a.stop()
+        b.stop()
+    assert rows_a
+    for p, row in rows_a + rows_b:
+        np.testing.assert_array_equal(
+            row, lm.generate(p[None, :], 10, temperature=0.0)[0])
+
+
+@pytest.mark.cuda
+def test_two_replicas_with_one_killed_lose_nothing(cuda_device):
+    """Two warm replicas behind the router, replica 0 killed at its first
+    dispatch of a burst: the admitted ones fail typed, the rest complete
+    on the survivor with generate()'s rows, and nothing is captured."""
+    from deeplearning4j_tpu_torch.errors import ServeReplicaDeadError
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.serving import ReplicaRouter
+    from deeplearning4j_tpu_torch.testing import faults
+    lm, reps = _serve_replicas(cuda_device)
+    router = ReplicaRouter(reps, heartbeat_s=0.05, slo_ms=0.0)
+    ps = [np.arange(1, 1 + n) % 95 for n in (5, 30, 3, 17, 9, 12, 2, 21) * 2]
+    try:
+        router.warm_start()
+        router.submit(ps[0], 10).result(120)
+        before = capture_count()
+        with faults.inject("kill-replica[0]@0"):
+            futs = [(p, router.submit(p, 10)) for p in ps]
+            done, dead = [], 0
+            for p, f in futs:
+                try:
+                    done.append((p, f.result(120)))
+                except ServeReplicaDeadError:
+                    dead += 1
+        assert dead >= 1 and len(done) + dead == len(ps)
+        assert capture_count() == before
+        assert router.healthy_count() == 1
+    finally:
+        router.stop()
+    for p, row in done:
+        np.testing.assert_array_equal(
+            row, lm.generate(p[None, :], 10, temperature=0.0)[0])
+
+
+@pytest.mark.cuda
+def test_word2vec_sorted_route_repeats_bitwise_on_card(cuda_device):
+    """Two negative-sampling fits from one seed on the card, sorted
+    scatter: the same table bits; the second fit replays every graph."""
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.nlp import lookup
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    rng = np.random.RandomState(0)
+    p = 1.0 / np.arange(1, 201)
+    ids = rng.choice(200, 30_000, p=p / p.sum())
+    sents = [" ".join(f"w{i}" for i in ids[j:j + 100])
+             for j in range(0, len(ids), 100)]
+    lookup.set_scatter_impl("sorted")
+    try:
+        w = Word2Vec(layer_size=32, window=5, negative=5,
+                     use_hierarchic_softmax=False, min_word_frequency=1,
+                     sampling=1e-3, batch_size=2048, seed=42,
+                     device=cuda_device)
+        w.fit_corpus(sents)
+        first = w.lookup_table.syn0.clone()
+        w.build_vocab(s.split() for s in sents)
+        before = capture_count()
+        w.fit_corpus(sents)
+        assert capture_count() == before
+        assert torch.equal(w.lookup_table.syn0, first)
+        assert bool(torch.isfinite(first).all()) and float(first.std()) > 1e-3
+        draws = [w._draw_negatives(0, 0, 1, 64) for _ in range(2)]
+        assert not torch.equal(draws[0], draws[1])
+    finally:
+        lookup.set_scatter_impl(None)
+
+
+@pytest.mark.cuda
+def test_a_registered_generator_draws_anew_on_every_replay(cuda_device):
+    """A graph that draws from a generator of its own (registered with
+    the capture, as Word2Vec's negatives): each replay draws anew, and a
+    reseed makes the replays repeat."""
+    from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
+    gen = torch.Generator(device=cuda_device)
+    out = torch.zeros(4096, dtype=torch.int64, device=cuda_device)
+
+    def draw():
+        out.copy_(torch.randint(0, 1 << 30, (4096,), generator=gen,
+                                device=cuda_device))
+    graph = StaticGraph(draw, cuda_device, generators=(gen,))
+    assert graph()                    # the first call captures
+    runs = []
+    for seed in (5, 5):
+        gen.manual_seed(seed)
+        for _ in range(3):
+            assert not graph()        # a replay
+            runs.append(out.clone())
+    assert not torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[1], runs[2])
+    for a, b in zip(runs[:3], runs[3:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_narrow_resnet_after_a_decode_burst_matches_cpu(cuda_device):
+    """A decode burst through ContinuousLM (captured graphs, their memory
+    pool, a stream of its own) and then the narrow ResNet's 3 f32 steps,
+    in one process: within CNN_CARD_CPU_RTOL of the CPU, as alone."""
+    lm, (srv,) = _serve_replicas(cuda_device, n=1)
+    try:
+        srv.warm_start()
+        for f in [srv.submit(np.arange(1, 1 + n) % 95, 10)
+                  for n in (5, 30, 3, 17)]:
+            f.result(120)
+    finally:
+        srv.stop()
+    test_narrow_resnet_on_card_matches_cpu(cuda_device)

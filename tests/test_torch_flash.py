@@ -159,6 +159,41 @@ def test_invalid_calls_raise_like_jax(interpret_pallas, qs, ks, kw):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_wide_head_dims_match_jax_kernel(interpret_pallas, d, causal):
+    """Head dims above 128 (the card's DP 256 instances): the twin against
+    the reference, GQA, f32."""
+    q, k, v = _inputs((1, 4, 32, d), (1, 2, 32, d), seed=d)
+    want = jax_pk.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal, block_q=16,
+                                  block_k=16)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, block_q=16,
+                          block_k=16)
+    _close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("d,ok", [(255, True), (256, True), (257, False),
+                                  (512, False)])
+def test_kernel_boundary_takes_head_dims_up_to_256(d, ok):
+    """The kernels' boundary (forward and backward) takes d up to
+    MAX_HEAD_DIM = 256 and refuses a larger one with a message naming the
+    limit, before any pointer is passed."""
+    assert port_fa.MAX_HEAD_DIM == 256
+    q = torch.empty((4, 8, d), device="meta")
+    k = torch.empty((2, 8, d), device="meta")
+    for same_as_q in ((), (q, q)):
+        if ok:
+            port_fa._check_kernel_inputs("flash_attention kernel", q, k, k,
+                                         2, *same_as_q)
+        else:
+            with pytest.raises(ValueError,
+                               match="head dims up to MAX_HEAD_DIM = 256"):
+                port_fa._check_kernel_inputs("flash_attention kernel", q, k,
+                                             k, 2, *same_as_q)
+
+
 def test_meta_tensor_never_reaches_the_twin():
     """A tensor that is not on the CPU never takes the plain twin: it
     goes to the kernel (cuda) or raises."""

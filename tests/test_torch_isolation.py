@@ -3,7 +3,8 @@
 - no file of ``deeplearning4j_tpu_torch/`` (the prefetcher
   ``datasets/async_iterator.py`` and ``tuning/autotuner.py`` included),
   nor ``chip_smoke.py`` or the design-variant timers ``flash_variants.py``,
-  ``lstm_variants.py`` and ``conv_variants.py``, imports ``jax``, ``jaxlib`` or
+  ``lstm_variants.py``, ``conv_variants.py`` and ``serve_variants.py``,
+  imports ``jax``, ``jaxlib`` or
   ``deeplearning4j_tpu`` (AST scan), and
   importing the whole package in a fresh interpreter loads no ``jax``;
 - a CPU tensor never touches a kernel: no launch count moves and no
@@ -14,8 +15,10 @@
 - with no CUDA present, the entry points without ``device="cpu"`` raise
   instead of running on the CPU (the model-archive restores, and
   ComputationGraph and its archive's restores, ContinuousLM and the
-  decode-state carrier included); generation on the CPU captures no CUDA
-  graph.
+  decode-state carrier, the router over such replicas, Word2Vec and its
+  lookup table included); generation, serving through the router and the
+  ingress, and a Word2Vec fit on the CPU capture no CUDA graph and load
+  no kernel.
 """
 
 import ast
@@ -53,7 +56,8 @@ SMALL = dict(vocab_size=32, max_len=16, d_model=16, n_heads=2, n_layers=1,
 def _port_sources():
     scripts = [REPO / name for name in ("chip_smoke.py", "flash_variants.py",
                                         "lstm_variants.py",
-                                        "conv_variants.py")]
+                                        "conv_variants.py",
+                                        "serve_variants.py")]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert len(files) > 10 and all(p.exists() for p in scripts)
     # the fused loop's modules, and the LeNet path's and persistence's,
@@ -68,7 +72,10 @@ def _port_sources():
                 "models/_device_state.py", "models/_layered.py",
                 "models/computation_graph.py", "nn/conf/graph.py",
                 "nn/conf/computation_graph.py", "serving/decode.py",
-                "models/_cuda_graph.py"):
+                "models/_cuda_graph.py", "serving/router.py",
+                "serving/ingress.py", "utils/http_base.py", "nlp/__init__.py",
+                "nlp/vocab.py", "nlp/text.py", "nlp/lookup.py",
+                "nlp/sequence_vectors.py", "nlp/word2vec.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -190,8 +197,9 @@ def test_kernel_boundary_refuses_what_the_kernel_cannot_take(monkeypatch,
     elif case == "strided":
         q = torch.zeros(4, 8, 16).transpose(1, 2)
     elif case == "head_dim":
-        q, k, v = torch.zeros(4, 16, 129), torch.zeros(2, 16, 129), \
-            torch.zeros(2, 16, 129)
+        # one past the kernels' largest head dim (MAX_HEAD_DIM, 256)
+        q, k, v = torch.zeros(4, 16, 257), torch.zeros(2, 16, 257), \
+            torch.zeros(2, 16, 257)
     elif case == "kv_heads":
         k = v = torch.zeros(1, 16, 8)
     else:
@@ -302,8 +310,8 @@ def test_backward_boundaries_refuse_what_the_kernels_cannot_take(
     elif case == "strided_do":
         do = torch.zeros(4, 8, 16).transpose(1, 2)
     elif case == "head_dim":
-        q, do = torch.zeros(4, 16, 129), torch.zeros(4, 16, 129)
-        k = v = torch.zeros(2, 16, 129)
+        q, do = torch.zeros(4, 16, 257), torch.zeros(4, 16, 257)
+        k = v = torch.zeros(2, 16, 257)
     elif case == "kv_heads":
         k = v = torch.zeros(1, 16, 8)
     elif case == "do_shape":
@@ -539,3 +547,52 @@ def test_cpu_lenet_never_loads_a_kernel(monkeypatch):
     assert net._last_fuse_stats["fused_groups"] == 1
     net.output(x)
     assert _launches() + _lstm_launches() == before
+
+
+def test_router_word2vec_and_tables_without_device_refuse_the_cpu(no_cuda):
+    from deeplearning4j_tpu_torch.nlp import InMemoryLookupTable, Word2Vec
+    from deeplearning4j_tpu_torch.serving import ReplicaRouter
+    lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReplicaRouter([ContinuousLM(lm, slots=2) for _ in range(2)])
+    router = ReplicaRouter([ContinuousLM(lm, slots=2, device="cpu")
+                            for _ in range(2)])
+    router.stop()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Word2Vec(layer_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InMemoryLookupTable(8, 4)
+    Word2Vec(layer_size=4, device="cpu")
+    assert InMemoryLookupTable(8, 4, device="cpu").syn0.device.type == "cpu"
+
+
+def test_cpu_router_ingress_and_word2vec_never_load_a_kernel_or_capture(
+        monkeypatch):
+    import json
+    import urllib.request
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.serving import ReplicaRouter, ServingIngress
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before, captures = _launches(), capture_count()
+    lm = TransformerLM(TransformerConfig(**dict(SMALL, block_size=None)),
+                       device="cpu").init()
+    router = ReplicaRouter([ContinuousLM(lm, slots=2, chunk=2, device="cpu")
+                            for _ in range(2)], heartbeat_s=3600.0)
+    ing = ServingIngress(router).start()
+    try:
+        body = json.dumps({"prompt": [1, 2, 3], "n_new": 3}).encode()
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{ing.port}/v1/generate", data=body),
+            timeout=60)
+        assert len(json.loads(r.read())["tokens"]) == 6
+    finally:
+        ing.stop()
+        router.stop()
+    w2v = Word2Vec(layer_size=8, window=2, negative=2, min_word_frequency=1,
+                   batch_size=64, device="cpu")
+    w2v.fit_corpus(["a b c d e f", "b c d a e", "f e d c b a"] * 20)
+    assert _launches() == before and capture_count() == captures
