@@ -197,8 +197,41 @@ Phases, each fatal on failure:
    finite, the ``sorted`` route's tables the same bits; a profile of one
    ``sorted`` fit; and a small hierarchical-softmax fit on the card
    against the CPU (W2V_CARD_CPU_RTOL);
-11. order_check — the narrow ResNet's f32 check of phase ``resnet50``
-   again, after phases ``decode``, ``serve_scale`` and ``word2vec``.
+11. attention — an MLN of two SelfAttentionLayers (causal; the second
+   residual) and an RnnOutputLayer of 32 classes at the attention shape
+   of bench.py's ``bench_transformer_lm`` (d 512, 8 heads of 64, T 512,
+   batch 32; bf16 compute, adam): the layers reach the three flash
+   kernels through the helper seam (``FlashAttentionHelper``). 2 warm-up
+   and 10 timed ``fit_batch`` steps (ms a step, tokens/s, peak memory),
+   with the launch counts set to 0 just before and read just after: 2
+   forward, 2 dQ and 2 dK/dV launches a step, by the wrappers and by
+   ``torch.profiler`` over one more step; ``output()`` (f32, 2 forward
+   launches); the bf16 kernels at the first layer's own q/k/v against the
+   built-in dense path in f32 from the same inputs (``BF16_O_BAR``,
+   ``BF16_DQ_BAR``, ``BF16_DKV_BAR``); an f32 copy of the net, output and
+   one step's gradients, against the same net under
+   ``DL4J_TPU_DISABLE_HELPERS=1`` (1e-5 of each tensor's max abs); a
+   batch with a key mask, which the helper declines (0 launches, 2
+   declines counted, the built-in route's bits); and ``fit(iterator)``
+   through the fused loop (the flash kernels inside its window graph,
+   counted by the profiler in the replays) against the per-batch loop
+   from the same parameters, bitwise;
+12. keras — the committed Keras files (``tests/fixtures/keras``)
+   imported on the card with the package's HDF5 reader: the Keras 1
+   LeNet at the zoo's full width (431,080 parameters, trained on the
+   fixture's digits) must reach the held-out bar (0.90) with no
+   training, equal the CPU import within 1e-5 of its scale and a zoo
+   ``lenet_mnist`` net given the same parameters, then train 2 epochs
+   through ``KerasRPCServer``'s POST ``/fit`` on ``.npz`` minibatches of
+   the fixture on 127.0.0.1 (first and last score, seconds) and still
+   reach the bar; a 'th' functional residual block (Conv2D, BN, a sum
+   Merge, Flatten, Dense) and a Keras 2 LSTM at the char-RNN's width (H
+   200, 65 inputs, T 50) equal their CPU imports, the LSTM's output
+   through one sequence-kernel launch and one fine-tune step through 50
+   backward launches (the ``kernels`` line's ``launches_keras``);
+13. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+   again, after phases ``decode``, ``serve_scale``, ``word2vec``,
+   ``attention`` and ``keras``.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -416,6 +449,18 @@ W2V_SMALL = dict(vocab=500, total=40_000, sent_len=100, layer_size=32,
                  window=5, batch_size=1024, seed=7, min_word_frequency=2,
                  sampling=1e-3)
 W2V_CARD_CPU_RTOL = 1e-5
+# the attention phase: an MLN of two SelfAttentionLayers and an
+# RnnOutputLayer at the attention shape of bench.py's bench_transformer_lm
+# (bench.py:708): d 512, 8 heads of 64, T 512, batch 32, causal
+ATTN = dict(d_model=512, n_heads=8, seq_len=512, batch=32, n_classes=32)
+ATTN_WARMUP = 2
+ATTN_STEPS = 10
+ATTN_FUSED_BATCHES = 4     # fit(iterator): fused against per batch
+ATTN_F32_RTOL = 1e-5       # kernel against the built-in path, f32
+# the keras phase: the committed files of tests/fixtures/keras
+KERAS_FIXTURES = ("tests", "fixtures", "keras")
+KERAS_FIT = dict(epochs=2, batch=64)
+KERAS_CARD_CPU_RTOL = 1e-5
 
 
 def emit(obj):
@@ -2545,7 +2590,7 @@ def f32_decision_flips(card, cpu, x):
     from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
         LayerVertex
     from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
-    from deeplearning4j_tpu_torch.nn.layers.conv import _pair, _spatial_pads
+    from deeplearning4j_tpu_torch.nn.layers.conv import _pair, spatial_pads
     acts = []
     for net in (card, cpu):
         with torch.no_grad():
@@ -2565,7 +2610,7 @@ def f32_decision_flips(card, cpu, x):
             idx = []
             for a in acts:
                 xin = a[cpu.conf.vertex_inputs[name][0]]
-                pt, pb, pl, pr = _spatial_pads(v.layer, xin)
+                pt, pb, pl, pr = spatial_pads(v.layer, xin)
                 xc = F.pad(xin.permute(0, 3, 1, 2), (pl, pr, pt, pb),
                            value=float("-inf"))
                 idx.append(F.max_pool2d(xc, _pair(v.layer.kernel_size),
@@ -3849,13 +3894,467 @@ def phase_order_check(card):
     what ran before it."""
     t0 = time.perf_counter()
     result = {"phase": "order_check", "after": ["decode", "serve_scale",
-                                                "word2vec"],
+                                                "word2vec", "attention",
+                                                "keras"],
               "resnet_narrow_f32": cnn_graph_card_vs_cpu(
                   "resnet50", RESNET_NARROW, 8, SEED + 3),
               "card": card}
     result["seconds"] = time.perf_counter() - t0
     emit(result)
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase attention: SelfAttentionLayer on the flash kernels through the
+# helper seam
+# ---------------------------------------------------------------------------
+def attention_conf(compute):
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (RnnOutputLayer,
+                                                    SelfAttentionLayer)
+    d, h = ATTN["d_model"], ATTN["n_heads"]
+    return (NeuralNetConfiguration.Builder().seed(SEED + 11)
+            .learning_rate(1e-3).updater("adam").compute_dtype(compute)
+            .list()
+            .layer(SelfAttentionLayer(n_in=d, n_out=d, n_heads=h,
+                                      causal=True))
+            .layer(SelfAttentionLayer(n_in=d, n_out=d, n_heads=h,
+                                      causal=True, residual=True))
+            .layer(RnnOutputLayer(n_in=d, n_out=ATTN["n_classes"],
+                                  activation="softmax", loss="mcxent"))
+            .build())
+
+
+def attention_batches(n, seed):
+    """Seeded [B, T, d] features and one-hot [B, T, classes] labels whose
+    class is the argmax of a fixed projection of the features (a task the
+    net can learn), on the host."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    proj = r.randn(ATTN["d_model"], ATTN["n_classes"]).astype(np.float32)
+    out = []
+    for _ in range(n):
+        x = r.randn(ATTN["batch"], ATTN["seq_len"],
+                    ATTN["d_model"]).astype(np.float32)
+        y = np.eye(ATTN["n_classes"], dtype=np.float32)[(x @ proj).argmax(-1)]
+        out.append((x, y))
+    return out
+
+
+class _helpers_off:
+    """``DL4J_TPU_DISABLE_HELPERS=1`` for the block: the layers take
+    their built-in route (dense attention, on the card)."""
+
+    def __enter__(self):
+        import os
+        os.environ["DL4J_TPU_DISABLE_HELPERS"] = "1"
+
+    def __exit__(self, *exc):
+        import os
+        os.environ.pop("DL4J_TPU_DISABLE_HELPERS", None)
+
+
+def _flash_names(names):
+    """Launches of each flash kernel (either route) among a profile's
+    device events."""
+    return {k: sum(any(v in n for v in TC_KERNELS[k]) for n in names)
+            for k in TC_KERNELS}
+
+
+def _rel_err(got, want):
+    import torch
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def attention_f32_parity(x, y):
+    """An f32 copy of the net: output and one step's gradients through the
+    kernels (the helper) against the built-in dense path on the card
+    (helpers off), each tensor within ATTN_F32_RTOL of its max abs."""
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    net = MultiLayerNetwork(attention_conf("float32"), device=DEVICE).init()
+    out = torch.from_numpy(net.output(x))
+    g, s = net.compute_gradient_and_score(x, y)
+    with _helpers_off():
+        out_b = torch.from_numpy(net.output(x))
+        g_b, s_b = net.compute_gradient_and_score(x, y)
+    errs = {"output": _rel_err(out, out_b), "score": abs(s - s_b) / abs(s_b)}
+    for i, (a, b) in enumerate(zip(g, g_b)):
+        for k in b:
+            errs[f"{i}.{k}"] = _rel_err(a[k], b[k])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    assert worst[1] <= ATTN_F32_RTOL, worst
+    return {"max_rel_err": worst[1], "worst": worst[0],
+            "tol": ATTN_F32_RTOL, "leaves": len(errs) - 2}
+
+
+def attention_bf16_op_parity(net, x):
+    """The bf16 kernels at the first layer's own q/k/v (the bf16 net's
+    projections of the batch): O, dQ, dK and dV against the built-in
+    dense path on the card in f32 from the same bf16 inputs (the
+    unrounded result the bars are stated against), within
+    ``BF16_O_BAR``, ``BF16_DQ_BAR`` and ``BF16_DKV_BAR``."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import \
+        dense_attention
+    layer = net.layers[0]
+    p = {k: v.detach().to(torch.bfloat16)
+         for k, v in net.params_list[0].items()}
+    xb = torch.from_numpy(x).to(DEVICE, torch.bfloat16)
+    q, k, v = (layer._split_heads(xb @ p[w]).contiguous()
+               for w in ("Wq", "Wk", "Wv"))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    do = torch.randn(q.shape, generator=gen, device=DEVICE) \
+        .to(torch.bfloat16)
+    helper = helpers.get_helper(layer)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    o = helper.attention(qa, ka, va, causal=True)
+    dq, dk, dv = torch.autograd.grad(o, (qa, ka, va), do)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    with _helpers_off():
+        o32 = dense_attention(qf, kf, vf, causal=True)
+    g32 = torch.autograd.grad(o32, (qf, kf, vf), do.float())
+    n, t, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    o, o32 = o.detach(), o32.detach()
+    o_limit = fa.bf16_o_limit(v.reshape(n, t, d), o32.reshape(n, t, d), 1)
+    o_ratio = float(((o.float() - o32).abs().reshape(n, t, d)
+                     / o_limit).max())
+    ratios = {"o": o_ratio,
+              "dq": _rel_err(dq, g32[0]) / fa.BF16_DQ_BAR,
+              "dk": _rel_err(dk, g32[1]) / fa.BF16_DKV_BAR,
+              "dv": _rel_err(dv, g32[2]) / fa.BF16_DKV_BAR}
+    assert max(ratios.values()) <= 1.0, ratios
+    return {"shape": list(q.shape), "err_over_bar": ratios,
+            "bars": {"o": fa.BF16_O_BAR, "dq": fa.BF16_DQ_BAR,
+                     "dkv": fa.BF16_DKV_BAR}}
+
+
+def attention_mask_decline(x):
+    """A batch with a key mask: the helper declines (no launch, one more
+    decline a layer), and the output equals the built-in route's."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn import helpers
+    net = MultiLayerNetwork(attention_conf("bfloat16"), device=DEVICE).init()
+    mask = np.ones(x.shape[:2], np.float32)
+    mask[::2, ATTN["seq_len"] * 3 // 4:] = 0.0
+    reset_launches()
+    before = helpers.declines("SelfAttentionLayer")
+    got = net.output(x, fmask=mask)
+    launches = read_launches()
+    declines = helpers.declines("SelfAttentionLayer") - before
+    with _helpers_off():
+        want = net.output(x, fmask=mask)
+    assert launches == (0, 0, 0), launches
+    assert declines == 2, declines
+    assert np.array_equal(got, want)
+    return {"launches": list(launches), "declines": declines,
+            "equals_builtin_route": True,
+            "masked_rows": int((mask == 0).any(1).sum())}
+
+
+def attention_fit_iterator(batches):
+    """fit(iterator) on the fused loop (K = the group) against the
+    per-batch loop from the same parameters: the fused window graph holds
+    the flash kernels (counted by the profiler in its timed replay) and
+    its parameters must equal the per-batch run's, bit for bit."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models._device_state import fuse_allowed
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    conf = attention_conf("bfloat16")
+    allowed = fuse_allowed(conf, conf.layers)
+    data = [DataSet(x, y) for x, y in batches]
+    out = {"fuse_allowed": allowed}
+    params = {}
+    for fused in (True, False):
+        _fit_path(fused)
+        try:
+            net = MultiLayerNetwork(conf, device=DEVICE).init()
+            net.fit(ListDataSetIterator(data[:1]))     # warm-up (capture)
+            reset_launches()
+            wall, names, _ = profiled(
+                lambda: net.fit(ListDataSetIterator(data[1:])))
+            calls = read_launches()
+        finally:
+            _fit_path(True)
+        params[fused] = net.params()
+        key = "fused" if fused else "per_batch"
+        out[key] = {"wall_s": wall, "wrapper_launches": list(calls),
+                    "profiled_kernels": _flash_names(names),
+                    "graphs_captured": net._fused.captures
+                    if net._fused else 0,
+                    "fuse_stats": net._last_fuse_stats}
+    steps = len(data) - 1
+    per = ATTN_FUSED_BATCHES - 1
+    assert steps == per
+    if allowed:
+        assert out["fused"]["wrapper_launches"] == [0, 0, 0], out
+        assert out["fused"]["graphs_captured"] == 1, out
+        assert all(v == 2 * steps for v in
+                   out["fused"]["profiled_kernels"].values()), out
+    assert out["per_batch"]["wrapper_launches"] == [2 * steps] * 3, out
+    out["fused_equals_per_batch_bitwise"] = bool(
+        np.array_equal(params[True], params[False]))
+    out["param_max_abs_diff"] = float(np.abs(params[True]
+                                             - params[False]).max())
+    assert out["fused_equals_per_batch_bitwise"], out
+    out["route"] = "fused loop captures the flash kernels" if allowed \
+        else "declined by fuse_allowed"
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_attention(card):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn import helpers
+    t_phase = time.perf_counter()
+    batches = attention_batches(ATTN_FUSED_BATCHES, SEED + 10)
+    x, y = batches[0]
+    xd, yd = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    net = MultiLayerNetwork(attention_conf("bfloat16"), device=DEVICE).init()
+    warm = [float(net.fit_batch(xd, yd)) for _ in range(ATTN_WARMUP)]
+    net.output(xd)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = net.output(xd)
+    out_ms = (time.perf_counter() - t0) * 1e3
+    out_launches = read_launches()
+    assert out_launches == (2, 0, 0), out_launches
+    assert out.shape == (ATTN["batch"], ATTN["seq_len"], ATTN["n_classes"])
+    assert np.isfinite(out).all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    declines = helpers.declines("SelfAttentionLayer")
+    reset_launches()                           # the main path starts here
+    t0 = time.perf_counter()
+    scores = [net.fit_batch(xd, yd) for _ in range(ATTN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == (2 * ATTN_STEPS,) * 3, launches
+    assert helpers.declines("SelfAttentionLayer") == declines
+    losses = warm + [float(s) for s in scores]
+    assert all(math.isfinite(v) for v in losses), losses
+    for _ in range(5):
+        _, names, ops = profiled(lambda: net.fit_batch(xd, yd))
+        if names:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device event")
+    by_name = _flash_names(names)
+    assert all(v == 2 for v in by_name.values()), by_name
+    tokens = ATTN["batch"] * ATTN["seq_len"]
+    rec = {"phase": "attention", "config": ATTN, "compute": "bfloat16",
+           "layers": "SelfAttentionLayer x2 (causal; the second residual) "
+                     "+ RnnOutputLayer", "num_params": net.num_params(),
+           "output_ms": out_ms, "output_launches": list(out_launches),
+           "warmup_steps": ATTN_WARMUP, "timed_steps": ATTN_STEPS,
+           "step_ms": wall / ATTN_STEPS * 1e3,
+           "tokens_per_s": tokens * ATTN_STEPS / wall,
+           "losses": losses, "peak_memory_bytes": peak,
+           "kernel_launches": {"flash_attn_fwd": launches[0],
+                               "flash_attn_dq": launches[1],
+                               "flash_attn_dkv": launches[2],
+                               "counted_by": "the wrappers, timed steps"},
+           "profiled_step_kernels": by_name,
+           "profiled_step_top_ops": [
+               {"name": n[:80], "calls": c, "device_ms": us / 1e3}
+               for n, c, us in sorted(ops, key=lambda o: -o[2])[:6]],
+           "card": card}
+    seconds = {"main": time.perf_counter() - t_phase}
+    for key, step in (
+            ("bf16_op_vs_builtin", lambda: attention_bf16_op_parity(net, x)),
+            ("f32_vs_builtin", lambda: attention_f32_parity(x, y)),
+            ("mask_decline", lambda: attention_mask_decline(x)),
+            ("fit_iterator", lambda: attention_fit_iterator(batches))):
+        t0 = time.perf_counter()
+        if key == "f32_vs_builtin":
+            del net
+            torch.cuda.empty_cache()
+        rec[key] = step()
+        seconds[key] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase keras: the committed Keras files imported on the card
+# ---------------------------------------------------------------------------
+def _keras_file(name):
+    return str(_repo_path(*KERAS_FIXTURES, name))
+
+
+def _accuracy(net, it):
+    import numpy as np
+    return float((np.argmax(net.output(it.features), 1)
+                  == it.label_ids).mean())
+
+
+def _card_cpu(imp, path, x):
+    """The file imported on the card and on the CPU: outputs within
+    KERAS_CARD_CPU_RTOL of their scale, parameters the same bits."""
+    import numpy as np
+    import torch
+    card, cpu = imp(path), imp(path, device="cpu")
+    assert card.device.type == torch.device(DEVICE).type
+    assert np.array_equal(card.params(), cpu.params())
+    got, want = card.output(x), cpu.output(x)
+    rel = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    assert np.isfinite(got).all() and rel <= KERAS_CARD_CPU_RTOL, rel
+    return card, {"card_vs_cpu_rel": rel, "tol": KERAS_CARD_CPU_RTOL,
+                  "num_params": card.num_params(),
+                  "output_shape": list(got.shape)}
+
+
+def keras_lenet(tmp):
+    """The Keras 1 LeNet: held-out accuracy with no training, card against
+    CPU and against a zoo-built lenet_mnist given the same parameters,
+    then 2 epochs through KerasRPCServer's POST /fit on .npz minibatches
+    (training on the card) and the held-out accuracy again."""
+    import json
+    import os
+    import urllib.request
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        MnistDataSetIterator
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_sequential_model_and_weights as imp
+    from deeplearning4j_tpu_torch.modelimport.keras_server import \
+        KerasRPCServer
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.utils.model_serializer import restore_model
+    fixture = _repo_path(*MNIST_FIXTURE)
+    train = MnistDataSetIterator(KERAS_FIT["batch"], data_dir=fixture)
+    test = MnistDataSetIterator(KERAS_FIT["batch"], train=False,
+                                data_dir=fixture)
+    path = _keras_file("lenet_k1_tf.h5")
+    t0 = time.perf_counter()
+    net, rec = _card_cpu(imp, path, test.features)
+    rec["import_s"] = time.perf_counter() - t0
+    assert rec["num_params"] == 431080
+    rec["held_out_accuracy"] = _accuracy(net, test)
+    assert rec["held_out_accuracy"] >= LENET_HELD_OUT_BAR, rec
+    z = MultiLayerNetwork(zoo.lenet_mnist(), device=DEVICE).init()
+    z.set_params(net.params())
+    got, want = net.output(test.features), z.output(test.features)
+    rec["zoo_lenet_bit_identical"] = bool(np.array_equal(got, want))
+    rec["zoo_lenet_rel"] = float(np.abs(got - want).max()
+                                 / np.abs(want).max())
+    assert rec["zoo_lenet_rel"] <= KERAS_CARD_CPU_RTOL, rec
+    data = os.path.join(tmp, "minibatches")
+    os.makedirs(data)
+    b = KERAS_FIT["batch"]
+    for i in range(0, len(train.features), b):
+        np.savez(os.path.join(data, f"b{i // b:03d}.npz"),
+                 features=train.features[i:i + b],
+                 labels=train.labels[i:i + b])
+    srv = KerasRPCServer(device=DEVICE).start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/fit", data=json.dumps({
+                "model_path": path, "data_dir": data,
+                "epochs": KERAS_FIT["epochs"],
+                "save_path": os.path.join(tmp, "tuned.zip")}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            reply = json.loads(r.read())
+        fit_wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    assert reply["status"] == "ok", reply
+    tuned = restore_model(os.path.join(tmp, "tuned.zip"), device=DEVICE)
+    rec["fit"] = {"epochs": reply["epochs"], "batches": reply["batches"],
+                  "first_score": reply["first_score"],
+                  "final_score": reply["final_score"],
+                  "seconds": reply["seconds"], "request_s": fit_wall,
+                  "held_out_accuracy": _accuracy(tuned, test)}
+    assert math.isfinite(reply["final_score"])
+    assert rec["fit"]["held_out_accuracy"] >= LENET_HELD_OUT_BAR, rec
+    return rec
+
+
+def keras_residual():
+    import numpy as np
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_model_and_weights as imp
+    x = np.random.RandomState(SEED + 13).randn(16, 8, 8, 4) \
+        .astype(np.float32)
+    _, rec = _card_cpu(imp, _keras_file("residual_k1_th.h5"), x)
+    return rec
+
+
+def keras_lstm():
+    """The Keras 2 LSTM: its output on the card through the sequence
+    kernel (launches counted), then one fine-tune step through the
+    backward kernel (a launch a step)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_sequential_model_and_weights as imp
+    r = np.random.RandomState(SEED + 14)
+    eye = np.eye(65, dtype=np.float32)
+    x = eye[r.randint(0, 65, (32, 50))]
+    y = eye[r.randint(0, 65, 32)]
+    reset_launches()
+    net, rec = _card_cpu(imp, _keras_file("lstm_k2_charrnn.h5"), x)
+    fwd_output = read_lstm_launches()
+    score = float(net.fit_batch(x, y))
+    after = read_lstm_launches()
+    assert fwd_output[0] >= 1 and fwd_output[1] == 0, fwd_output
+    assert after[0] == fwd_output[0] + 1 and after[1] == 50, after
+    assert math.isfinite(score)
+    rec.update({"launches_output": {"lstm_cell_fwd": fwd_output[0]},
+                "launches_fit_step": {"lstm_cell_fwd": after[0]
+                                      - fwd_output[0],
+                                      "lstm_cell_bwd": after[1]},
+                "fit_step_score": score})
+    return rec
+
+
+def phase_keras(card):
+    import tempfile
+    t_phase = time.perf_counter()
+    rec = {"phase": "keras", "card": card}
+    seconds = {}
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, step in (("lenet_k1_tf", lambda: keras_lenet(tmp)),
+                          ("residual_k1_th", keras_residual),
+                          ("lstm_k2_charrnn", keras_lstm)):
+            t0 = time.perf_counter()
+            if key == "lstm_k2_charrnn":
+                lstm_before = read_lstm_launches()
+            rec[key] = step()
+            seconds[key] = time.perf_counter() - t0
+    # the LSTM counts of this phase (the LeNet and the residual block run
+    # no kernel of the package)
+    rec["kernel_launches"] = {"lstm_cell_fwd": read_lstm_launches()[0],
+                              "lstm_cell_bwd": read_lstm_launches()[1],
+                              "flash": list(read_launches())}
+    assert lstm_before == (0, 0), lstm_before
+    seconds["phase"] = time.perf_counter() - t_phase
+    rec["seconds"] = seconds
+    emit(rec)
+    return rec
 
 
 def main():
@@ -3895,6 +4394,8 @@ def main():
     phase_decode(card)
     phase_serve_scale(card)
     phase_word2vec(card)
+    at = phase_attention(card)
+    ke = phase_keras(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -3932,6 +4433,7 @@ def main():
          "source": src + "flash_attn_fwd.cu", "replaces": ref + "73",
          "launches": launches["flash_attn_fwd"],
          "launches_serve": sl["kernel_launches"],
+         "launches_attention": at["kernel_launches"]["flash_attn_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -3940,6 +4442,7 @@ def main():
         {"name": "flash_attn_dq", "route": "cuda",
          "source": src + "flash_attn_dq.cu", "replaces": ref + "185",
          "launches": launches["flash_attn_dq"],
+         "launches_attention": at["kernel_launches"]["flash_attn_dq"],
          "max_abs_err": bwd["errors"]["dq"]["max_abs_err"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
@@ -3949,6 +4452,7 @@ def main():
         {"name": "flash_attn_dkv", "route": "cuda",
          "source": src + "flash_attn_dkv.cu", "replaces": ref + "235",
          "launches": launches["flash_attn_dkv"],
+         "launches_attention": at["kernel_launches"]["flash_attn_dkv"],
          "max_abs_err": max(bwd["errors"][g]["max_abs_err"]
                             for g in ("dk", "dv")),
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
@@ -3965,6 +4469,7 @@ def main():
          "launches": cr["kernel_launches"]["lstm_cell_fwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_seq_kernel"],
+         "launches_keras": ke["kernel_launches"]["lstm_cell_fwd"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -3980,6 +4485,7 @@ def main():
          "launches": cr["kernel_launches"]["lstm_cell_bwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_bwd_kernel"],
+         "launches_keras": ke["kernel_launches"]["lstm_cell_bwd"],
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

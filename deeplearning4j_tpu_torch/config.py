@@ -26,7 +26,7 @@ __all__ = ["Knob", "KNOBS", "env_flag", "env_int", "env_float", "env_is_set",
 
 @dataclass(frozen=True)
 class Knob:
-    name: str       # full env var name, DL4J_TORCH_*
+    name: str       # full env var name, DL4J_TORCH_* (one DL4J_TPU_*)
     kind: str       # "flag" | "int" | "float" | "str"
     default: object
     doc: str        # one line
@@ -78,7 +78,8 @@ _declare("DL4J_TORCH_FUSE_ADAPT", "flag", True,
          "every short group to K. Counterpart: DL4J_TPU_FUSE_ADAPT.")
 _declare("DL4J_TORCH_FUSE_AUTOTUNE", "flag", False,
          "First-compile fusion autotuner: not ported yet (ROADMAP.md, queue "
-         "1); when set, fit() of an iterator raises NotImplementedError. "
+         "1, \"The fused loop's remaining pieces\"); when set, fit() of an "
+         "iterator raises NotImplementedError. "
          "Counterpart: DL4J_TPU_FUSE_AUTOTUNE.")
 _declare("DL4J_TORCH_FUSE_STEPS", "int", 8,
          "Fused-loop group size K for MultiLayerNetwork.fit(iterator): the "
@@ -228,6 +229,12 @@ _declare("DL4J_TORCH_W2V_SCATTER", "str", "sorted",
          "f32 sums are not reproducible. Read when a step is built; "
          "nlp.lookup.set_scatter_impl switches it. Counterpart: "
          "DL4J_TPU_W2V_SCATTER.")
+_declare("DL4J_TPU_DISABLE_HELPERS", "flag", False,
+         "Disable every accelerated layer helper (nn/helpers.py: the flash "
+         "route of SelfAttentionLayer, the im2col route of small convs, "
+         "the LSTM helper); the layers take their built-in paths. The one "
+         "knob that keeps the reference's name, so a script that sets it "
+         "for the JAX package sets it here too.")
 
 
 def _warn(name, raw, kind, default):

@@ -78,8 +78,10 @@ _OBS_CONSUMER_WAIT = obs.histogram(
 # live worker's batch is returned the moment it is enqueued
 _LIVENESS_POLL_S = 0.2
 
-_NOT_PORTED = ("is not ported to the PyTorch package yet (ROADMAP.md, "
-               "queue 1)")
+def _not_ported(item):
+    """The tail of a not-ported error, naming ROADMAP.md's queue 1 item."""
+    return (f"is not ported to the PyTorch package yet (ROADMAP.md, queue "
+            f"1, \"{item}\")")
 
 
 class _WorkerKilled(Exception):
@@ -148,11 +150,12 @@ class AsyncDataSetIterator(DataSetIterator):
         if sharding is not None or fuse_sharding is not None:
             raise NotImplementedError(
                 "AsyncDataSetIterator(sharding=...): data parallelism "
-                + _NOT_PORTED)
+                + _not_ported("Data parallelism"))
         if k_resolver is not None:
             raise NotImplementedError(
                 "AsyncDataSetIterator(k_resolver=...): the fusion "
-                "autotuner " + _NOT_PORTED)
+                "autotuner " + _not_ported("The fused loop's remaining "
+                                           "pieces"))
         self.base = base
         self.device = resolve_device(device)
         self.fuse = max(1, int(fuse))
@@ -213,7 +216,8 @@ class AsyncDataSetIterator(DataSetIterator):
             if self.fuse > 1:
                 raise NotImplementedError(
                     "AsyncDataSetIterator(fuse > 1) over MultiDataSet "
-                    "batches: stacking them " + _NOT_PORTED)
+                    "batches: stacking them "
+                    + _not_ported("The fused loop's remaining pieces"))
             return False    # staged alone, never concatenated
         # a batch already on a device is staged: concatenating would copy
         # it back to the host

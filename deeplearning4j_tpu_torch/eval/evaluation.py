@@ -1,15 +1,17 @@
 """Classification evaluation: the port of
 ``deeplearning4j_tpu/eval/evaluation.py`` (``eval/Evaluation.java``),
 numpy only: accuracy, precision, recall, F1, top-N and the confusion
-matrix, accumulated across ``eval()`` calls so it streams over an
-iterator.
+matrix (``Evaluation``), and per-column regression metrics
+(``RegressionEvaluation``: MSE, MAE, RMSE, R², Pearson correlation),
+accumulated across ``eval()`` calls so they stream over an iterator.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ConfusionMatrix", "Evaluation", "Prediction"]
+__all__ = ["ConfusionMatrix", "Evaluation", "Prediction",
+           "RegressionEvaluation"]
 
 
 class ConfusionMatrix:
@@ -217,3 +219,87 @@ class Evaluation:
         lines.append("Confusion matrix (rows=actual, cols=predicted):")
         lines.append(str(self.confusion))
         return "\n".join(lines)
+
+
+class RegressionEvaluation:
+    """Streaming regression metrics: MSE/MAE/RMSE/RSE/R2/correlation per column
+    (eval/RegressionEvaluation.java)."""
+
+    def __init__(self, n_columns=None, column_names=None):
+        self.n_columns = n_columns
+        self.column_names = column_names
+        self._sum_sq_err = None
+        self._sum_abs_err = None
+        self._sum_label = None
+        self._sum_label_sq = None
+        self._sum_pred = None
+        self._sum_pred_sq = None
+        self._sum_label_pred = None
+        self._count = 0
+
+    def _ensure(self, n):
+        if self._sum_sq_err is None:
+            self.n_columns = n
+            z = np.zeros(n, dtype=np.float64)
+            self._sum_sq_err = z.copy()
+            self._sum_abs_err = z.copy()
+            self._sum_label = z.copy()
+            self._sum_label_sq = z.copy()
+            self._sum_pred = z.copy()
+            self._sum_pred_sq = z.copy()
+            self._sum_label_pred = z.copy()
+
+    def eval(self, labels, predictions, mask=None):
+        labels = np.asarray(labels, dtype=np.float64)
+        predictions = np.asarray(predictions, dtype=np.float64)
+        if labels.ndim == 3:
+            b, t, c = labels.shape
+            labels = labels.reshape(b * t, c)
+            predictions = predictions.reshape(b * t, c)
+            if mask is not None:
+                m = np.asarray(mask).reshape(b * t).astype(bool)
+                labels = labels[m]
+                predictions = predictions[m]
+        self._ensure(labels.shape[1])
+        err = predictions - labels
+        self._sum_sq_err += np.sum(err ** 2, axis=0)
+        self._sum_abs_err += np.sum(np.abs(err), axis=0)
+        self._sum_label += labels.sum(axis=0)
+        self._sum_label_sq += (labels ** 2).sum(axis=0)
+        self._sum_pred += predictions.sum(axis=0)
+        self._sum_pred_sq += (predictions ** 2).sum(axis=0)
+        self._sum_label_pred += (labels * predictions).sum(axis=0)
+        self._count += labels.shape[0]
+
+    def mean_squared_error(self, col=None):
+        mse = self._sum_sq_err / self._count
+        return float(mse[col]) if col is not None else mse
+
+    def mean_absolute_error(self, col=None):
+        mae = self._sum_abs_err / self._count
+        return float(mae[col]) if col is not None else mae
+
+    def root_mean_squared_error(self, col=None):
+        r = np.sqrt(self._sum_sq_err / self._count)
+        return float(r[col]) if col is not None else r
+
+    def r_squared(self, col=None):
+        mean_label = self._sum_label / self._count
+        ss_tot = self._sum_label_sq - self._count * mean_label ** 2
+        r2 = 1.0 - self._sum_sq_err / np.maximum(ss_tot, 1e-12)
+        return float(r2[col]) if col is not None else r2
+
+    def pearson_correlation(self, col=None):
+        n = self._count
+        cov = self._sum_label_pred - self._sum_label * self._sum_pred / n
+        var_l = self._sum_label_sq - self._sum_label ** 2 / n
+        var_p = self._sum_pred_sq - self._sum_pred ** 2 / n
+        corr = cov / np.maximum(np.sqrt(var_l * var_p), 1e-12)
+        return float(corr[col]) if col is not None else corr
+
+    def stats(self):
+        return (f"columns: {self.n_columns}\n"
+                f"MSE:  {self.mean_squared_error()}\n"
+                f"MAE:  {self.mean_absolute_error()}\n"
+                f"RMSE: {self.root_mean_squared_error()}\n"
+                f"R^2:  {self.r_squared()}")

@@ -130,7 +130,7 @@ class LayeredModel(DeviceStateMixin):
             raise NotImplementedError(
                 f"optimization_algo={algo!r}: the line-search solvers are "
                 "not ported to the PyTorch package yet (ROADMAP.md, "
-                "queue 1)")
+                "queue 1, \"Line-search solvers and the optax rules\")")
 
     # ---- forward ------------------------------------------------------
     def _layer_forward(self, layer, train, rng):

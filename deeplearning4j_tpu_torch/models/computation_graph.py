@@ -43,24 +43,30 @@ from deeplearning4j_tpu_torch.models._layered import (LayeredModel, host,
                                                       is_carry_layer, leaves)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     params_from_numpy as _mln_params_from_numpy,
+    states_from_numpy as _mln_states_from_numpy,
     updater_state_from_numpy as _mln_updater_state_from_numpy)
 from deeplearning4j_tpu_torch.nn.conf.computation_graph import (
     ComputationGraphConfiguration, LayerVertex)
 from deeplearning4j_tpu_torch.nn.conf.graph import (
     DuplicateToTimeSeriesVertex, LastTimeStepVertex)
-from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer, LossLayer
+from deeplearning4j_tpu_torch.nn.layers.core import (BaseOutputLayer,
+                                                     EmbeddingLayer,
+                                                     LossLayer)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 from deeplearning4j_tpu_torch.testing import faults
 from deeplearning4j_tpu_torch.utils import flat_params
 
-__all__ = ["ComputationGraph", "params_from_numpy",
+__all__ = ["ComputationGraph", "params_from_numpy", "states_from_numpy",
            "updater_state_from_numpy"]
 
 
-def _not_ported(what):
+def _not_ported(what, item):
     return NotImplementedError(
         f"ComputationGraph {what} is not ported to the PyTorch package yet "
-        "(ROADMAP.md, queue 1)")
+        f"(ROADMAP.md, queue 1, \"{item}\")")
+
+
+_FUSED = "The fused loop's remaining pieces"
 
 
 def _as_multi(data) -> MultiDataSet:
@@ -81,6 +87,14 @@ def params_from_numpy(conf, params_map, device=None):
     names = conf.layer_names()
     return dict(zip(names, _mln_params_from_numpy(
         conf.layer_confs(), [params_map[n] for n in names], device)))
+
+
+def states_from_numpy(conf, states_map, device=None):
+    """The port's layer state ({vertex name: {key: tensor}}) from a JAX
+    graph's ``states_map`` given as dicts of numpy arrays."""
+    names = conf.layer_names()
+    return dict(zip(names, _mln_states_from_numpy(
+        conf.layer_confs(), [states_map[n] for n in names], device)))
 
 
 def updater_state_from_numpy(conf, updater_states, device=None):
@@ -242,6 +256,18 @@ class ComputationGraph(LayeredModel):
             masks[name] = layer.feed_forward_mask(m)
         return acts, preouts, new_states, masks, new_carries
 
+    def _embedding_fed_inputs(self):
+        """Network inputs that an EmbeddingLayer vertex reads (ids, not
+        values: no compute-dtype cast)."""
+        if getattr(self, "_emb_inputs", None) is None:
+            conf = self.conf
+            self._emb_inputs = {
+                i for name, ins in conf.vertex_inputs.items()
+                if isinstance(getattr(conf.vertices.get(name), "layer",
+                                      None), EmbeddingLayer)
+                for i in ins if i in conf.network_inputs}
+        return self._emb_inputs
+
     def _output_layer(self, name):
         layer = self.conf.vertices[name].layer
         if not isinstance(layer, (BaseOutputLayer, LossLayer)):
@@ -258,8 +284,11 @@ class ComputationGraph(LayeredModel):
         cd = self._compute_dtype()
         if cd is not None:
             params_list = self._cast_floats(params_list, cd)
-            inputs = [x.to(cd) if x.is_floating_point() else x
-                      for x in inputs]
+            # inputs an EmbeddingLayer reads are ids: they stay exact
+            skip = self._embedding_fed_inputs()
+            inputs = [x.to(cd) if x.is_floating_point() and n not in skip
+                      else x for n, x in zip(self.conf.network_inputs,
+                                             inputs)]
             if carries is not None:
                 carries = self._cast_floats(carries, cd)
         _, preouts, new_states, _, new_carries = self._forward_graph(
@@ -373,7 +402,7 @@ class ComputationGraph(LayeredModel):
         return last_score
 
     def fit_fused(self, stacked):
-        raise _not_ported("fit_fused (the fused loop for graphs)")
+        raise _not_ported("fit_fused (the fused loop for graphs)", _FUSED)
 
     def fit(self, data, labels=None, *, epochs=1, checkpoint_every=None,
             checkpoint_dir=None, resume_from=None):
@@ -387,7 +416,8 @@ class ComputationGraph(LayeredModel):
         if self.params_list is None:
             self.init()
         if self.conf.pretrain:
-            raise _not_ported("pretrain (layer-wise pretraining)")
+            raise _not_ported("pretrain (layer-wise pretraining)",
+                              "Pretraining")
         if labels is not None:
             data = DataSet(data, labels)
         every, ck_dir, keep = self._resolve_ckpt_args(
@@ -412,20 +442,21 @@ class ComputationGraph(LayeredModel):
         stacked group: ``fuse_allowed`` declines graphs."""
         if not isinstance(ds, (DataSet, MultiDataSet)):
             raise _not_ported(f"fit on a {type(ds).__name__} (the fused "
-                              "loop for graphs)")
+                              "loop for graphs)", _FUSED)
         ew = getattr(ds, "example_weights", None)
         for _ in range(self.conf.iterations):
             self.fit_batch(_as_multi(ds), ew=ew)
         return 1
 
     def pretrain(self, iterator, epochs=1):
-        raise _not_ported("pretrain (layer-wise pretraining)")
+        raise _not_ported("pretrain (layer-wise pretraining)", "Pretraining")
 
     def pretrain_vertex(self, name, iterator, epochs=1):
-        raise _not_ported("pretrain_vertex (layer-wise pretraining)")
+        raise _not_ported("pretrain_vertex (layer-wise pretraining)",
+                          "Pretraining")
 
     def shard(self, *args, **kwargs):
-        raise _not_ported("shard (sharding plans)")
+        raise _not_ported("shard (sharding plans)", "Data parallelism")
 
     # ------------------------------------------------------------------
     # stateful RNN inference (ComputationGraph.rnnTimeStep:770)

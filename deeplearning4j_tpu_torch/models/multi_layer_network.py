@@ -26,8 +26,9 @@ resumes from them (``checkpoint_every``, ``checkpoint_dir``,
 [B, H, W, C], as the reference's.
 
 Parameters are per-layer dicts of f32 tensors under the reference's names
-and layouts; :func:`params_from_numpy` and :func:`updater_state_from_numpy`
-carry a JAX net's parameters and updater state across, and ``params()``
+and layouts; :func:`params_from_numpy`, :func:`states_from_numpy` and
+:func:`updater_state_from_numpy` carry a JAX net's parameters, layer state
+and updater state across, and ``params()``
 /``set_params()`` use the reference's flat vector. The network runs on
 the card unless the caller passes ``device="cpu"``; its randomness (init,
 dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
@@ -54,12 +55,14 @@ from deeplearning4j_tpu_torch.models._layered import (LayeredModel, host,
                                                       tensor_leaves)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers.core import BaseOutputLayer, LossLayer
+from deeplearning4j_tpu_torch.nn.layers.core import (BaseOutputLayer,
+                                                     EmbeddingLayer,
+                                                     LossLayer)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 from deeplearning4j_tpu_torch.testing import faults
 from deeplearning4j_tpu_torch.utils import flat_params
 
-__all__ = ["MultiLayerNetwork", "params_from_numpy",
+__all__ = ["MultiLayerNetwork", "params_from_numpy", "states_from_numpy",
            "updater_state_from_numpy"]
 
 _OBS_GROUP_SECONDS = obs.histogram(
@@ -90,6 +93,24 @@ def params_from_numpy(layers, params_list, device=None):
                 f"{ {k: tuple(np.shape(v)) for k, v in p.items()} } do not "
                 f"match its shapes {shapes}")
         out.append(leaves(p, dev))
+    return out
+
+
+def states_from_numpy(layers, states_list, device=None):
+    """The port's layer state from a JAX net's ``states_list`` given as
+    dicts of numpy arrays (BatchNormalization's running ``mean``/``var``,
+    CenterLossOutputLayer's ``centers``). Keys and shapes are checked
+    against each layer's ``init_state``."""
+    dev = resolve_device(device)
+    out = []
+    for layer, s in zip(layers, states_list):
+        want = {k: tuple(v.shape) for k, v in layer.init_state().items()}
+        got = {k: tuple(np.shape(v)) for k, v in s.items()}
+        if got != want:
+            raise ValueError(f"{type(layer).__name__}: state {got} does "
+                             f"not match its shapes {want}")
+        out.append({k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                    for k, v in s.items()})
     return out
 
 
@@ -332,7 +353,9 @@ class MultiLayerNetwork(LayeredModel):
         cd = self._compute_dtype()
         if cd is not None:   # mixed precision: forward in cd, f32 loss
             params_list = self._cast_floats(params_list, cd)
-            if x.is_floating_point():
+            # embedding ids stay exact (bf16 would round ids above 256)
+            if x.is_floating_point() and \
+                    not isinstance(self.layers[0], EmbeddingLayer):
                 x = x.to(cd)
             if carries is not None:
                 carries = self._cast_floats(carries, cd)
@@ -571,7 +594,7 @@ class MultiLayerNetwork(LayeredModel):
         if self.conf.pretrain:
             raise NotImplementedError(
                 "layer-wise pretraining is not ported to the PyTorch "
-                "package yet (ROADMAP.md, queue 1)")
+                "package yet (ROADMAP.md, queue 1, \"Pretraining\")")
         if labels is not None:
             data = DataSet(data, labels)
         every, ck_dir, keep = self._resolve_ckpt_args(

@@ -11,7 +11,8 @@ package. The topological order is the reference's Kahn order with its
 sorted ready list; it fixes ``layer_confs()``, and so the flat parameter
 vector, ``params()``/``set_params()`` and an archive's coefficients.
 
-``to_yaml``/``from_yaml`` are not ported yet (ROADMAP.md, queue 1).
+``to_yaml``/``from_yaml`` write and read the same dict through PyYAML,
+imported when they are called.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (GraphVertex,
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
-    not_ported, preprocessor_from_dict)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import \
+    preprocessor_from_dict
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, layer_from_dict
 
 __all__ = ["ComputationGraphConfiguration", "GraphBuilder", "LayerVertex"]
@@ -199,7 +200,8 @@ class ComputationGraphConfiguration:
         return json.dumps(self.to_dict(), indent=2)
 
     def to_yaml(self):
-        raise not_ported("ComputationGraphConfiguration.to_yaml")
+        import yaml
+        return yaml.safe_dump(self.to_dict())
 
     @staticmethod
     def from_dict(d):
@@ -224,7 +226,8 @@ class ComputationGraphConfiguration:
 
     @staticmethod
     def from_yaml(s):
-        raise not_ported("ComputationGraphConfiguration.from_yaml")
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
 
 
 class GraphBuilder:

@@ -4,8 +4,9 @@
 The same builder (global hyperparameters cascaded into every layer), the
 same shape inference with automatic preprocessor insertion, and the same
 JSON: ``to_json`` writes what the reference writes and ``from_json`` reads
-the reference's JSON, so one string builds a net in either package. A
-layer or preprocessor type this package does not have yet raises
+the reference's JSON, so one string builds a net in either package
+(``to_yaml``/``from_yaml`` likewise, through PyYAML, imported when they
+are called). A layer or preprocessor type this package does not have yet raises
 ``NotImplementedError`` naming ROADMAP.md.
 """
 
@@ -162,6 +163,10 @@ class MultiLayerConfiguration:
     def to_json(self):
         return json.dumps(self.to_dict(), indent=2)
 
+    def to_yaml(self):
+        import yaml
+        return yaml.safe_dump(self.to_dict())
+
     @staticmethod
     def from_dict(d):
         d = dict(d)
@@ -180,6 +185,11 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s):
         return MultiLayerConfiguration.from_dict(json.loads(s))
+
+    @staticmethod
+    def from_yaml(s):
+        import yaml
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
 
 
 class ListBuilder:

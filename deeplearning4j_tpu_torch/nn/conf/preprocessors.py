@@ -18,15 +18,9 @@ __all__ = ["CnnToFeedForwardPreProcessor", "CnnToRnnPreProcessor",
            "ComposableInputPreProcessor", "FeedForwardToCnnPreProcessor",
            "FeedForwardToRnnPreProcessor", "InputPreProcessor",
            "RnnToCnnPreProcessor", "RnnToFeedForwardPreProcessor",
-           "not_ported", "preprocessor_from_dict"]
+           "preprocessor_from_dict"]
 
 _REGISTRY = {}
-
-
-def not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        "(ROADMAP.md, queue 1)")
 
 
 def register_preprocessor(cls):

@@ -1,6 +1,7 @@
 """Layers of the port: core feed-forward layers, the recurrent family,
-convolution, pooling and normalization."""
+self-attention, convolution, pooling and normalization."""
 
+from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.nn.layers.base import (BaseLayer,
                                                      FeedForwardLayer,
                                                      layer_from_dict,
@@ -8,11 +9,9 @@ from deeplearning4j_tpu_torch.nn.layers.base import (BaseLayer,
 from deeplearning4j_tpu_torch.nn.layers.conv import (ConvolutionLayer,
                                                      SubsamplingLayer,
                                                      ZeroPaddingLayer)
-from deeplearning4j_tpu_torch.nn.layers.core import (ActivationLayer,
-                                                     BaseOutputLayer,
-                                                     DenseLayer, DropoutLayer,
-                                                     LossLayer, OutputLayer,
-                                                     RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.layers.core import (
+    ActivationLayer, BaseOutputLayer, CenterLossOutputLayer, DenseLayer,
+    DropoutLayer, EmbeddingLayer, LossLayer, OutputLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.norm import (
     BatchNormalization, LocalResponseNormalization)
 from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
@@ -20,9 +19,11 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer)
 
 __all__ = ["ActivationLayer", "BaseLayer", "BaseOutputLayer",
-           "BatchNormalization", "ConvolutionLayer", "DenseLayer",
-           "DropoutLayer", "FeedForwardLayer", "GlobalPoolingLayer",
+           "BatchNormalization", "CenterLossOutputLayer", "ConvolutionLayer",
+           "DenseLayer", "DropoutLayer", "EmbeddingLayer",
+           "FeedForwardLayer", "GlobalPoolingLayer",
            "GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
            "LastTimeStepLayer", "LocalResponseNormalization", "LossLayer",
-           "OutputLayer", "RnnOutputLayer", "SubsamplingLayer",
+           "OutputLayer", "RnnOutputLayer", "SelfAttentionLayer",
+           "SubsamplingLayer",
            "ZeroPaddingLayer", "layer_from_dict", "register_layer"]

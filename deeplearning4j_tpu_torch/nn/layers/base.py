@@ -29,9 +29,7 @@ __all__ = ["BaseLayer", "CASCADE_FIELDS", "FeedForwardLayer",
 
 LAYER_REGISTRY: dict[str, type] = {}
 # the reference's layer types this package does not have yet
-_NOT_PORTED = ("EmbeddingLayer", "CenterLossOutputLayer",
-               "SelfAttentionLayer", "AutoEncoder", "RBM",
-               "VariationalAutoencoder")
+_NOT_PORTED = ("AutoEncoder", "RBM", "VariationalAutoencoder")
 
 
 def register_layer(cls):
@@ -45,7 +43,7 @@ def layer_from_dict(d):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"layer type {name} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1)")
+            "(ROADMAP.md, queue 1, \"Pretraining\")")
     if name not in LAYER_REGISTRY:
         raise ValueError(f"Unknown layer type {name!r}. Known: "
                          f"{sorted(LAYER_REGISTRY)}")

@@ -10,16 +10,12 @@ is a channels_last NCHW tensor, which ``F.conv2d`` (cuDNN on the card)
 takes as it is, and the HWIO weight viewed as [O, I, H, W] is its OIHW
 form.
 
-A conv with few input channels and a small kernel (the gate of the
-reference's ``Im2ColConvolutionHelper``, ``nn/helpers.py:122-164``: at
-most 25 kernel elements and at most 4 input channels, LeNet's first conv)
-takes the reference's route for it: a patch gather (strided window views,
-copied once) and one GEMM, whose weight gradient is one GEMM too. At
-LeNet's first conv cuDNN's own choice is worse on the card: at batch 128
-a weight gradient whose bits change from call to call, at batch 16 a
-Winograd one 6.1e-4 off in f32 against float64, where this route is
-bit-stable, within 5.7e-7, and as fast (``conv_variants.py``, H100 80GB
-HBM3). The other convs call ``F.conv2d``.
+A conv asks the helper seam (``nn/helpers.py``) first, as the
+reference's does: the registered ``Im2ColConvolutionHelper`` takes a conv
+with at most 25 kernel elements and at most 4 input channels (LeNet's
+first) as a patch gather and one GEMM; it declines the others, and
+``DL4J_TPU_DISABLE_HELPERS=1`` turns it off. The other convs call
+``F.conv2d``.
 
 Padding follows ``lax``: ``same`` pads ``(out - 1) * stride + kernel -
 size`` in all, the smaller half before. Pooling pads explicitly (-inf for
@@ -37,15 +33,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nn import helpers
 from deeplearning4j_tpu_torch.nn.conf.input_type import Convolutional
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, register_layer
 
 __all__ = ["ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer",
-           "conv_out_size", "same_pads"]
-
-# the reference's Im2ColConvolutionHelper gate (nn/helpers.py:130-137)
-IM2COL_MAX_KERNEL_ELEMS = 25
-IM2COL_MAX_IN_CHANNELS = 4
+           "conv_out_size", "same_pads", "spatial_pads"]
 
 
 def _pair(v):
@@ -68,7 +61,7 @@ def same_pads(size, kernel, stride):
     return total // 2, total - total // 2
 
 
-def _spatial_pads(layer, x):
+def spatial_pads(layer, x):
     """(top, bottom, left, right) padding of an NHWC input."""
     kh, kw = _pair(layer.kernel_size)
     sh, sw = _pair(layer.stride)
@@ -141,16 +134,17 @@ class ConvolutionLayer(BaseLayer):
         return params
 
     def uses_im2col(self):
-        """Whether this conv takes the patch-gather-and-GEMM route (the
-        reference's im2col helper gate)."""
-        kh, kw = _pair(self.kernel_size)
-        return kh * kw <= IM2COL_MAX_KERNEL_ELEMS and \
-            0 < (self.n_in or 0) <= IM2COL_MAX_IN_CHANNELS
+        """Whether the im2col helper's gate admits this conv (the route
+        it takes unless ``DL4J_TPU_DISABLE_HELPERS`` is set)."""
+        return helpers.Im2ColConvolutionHelper().supports(self)
 
     def pre_output(self, params, x):
-        pt, pb, pl, pr = _spatial_pads(self, x)
-        if self.uses_im2col():
-            return self._im2col_pre_output(params, x, (pt, pb, pl, pr))
+        helper = helpers.get_helper(self)
+        if helper is not None:
+            if helper.supports(self):
+                return helper.pre_output(self, params, x)
+            helpers.count_decline(self)
+        pt, pb, pl, pr = spatial_pads(self, x)
         xc = x.permute(0, 3, 1, 2)                  # NHWC as channels_last
         if pt == pb and pl == pr:
             padding = (pt, pl)
@@ -161,24 +155,6 @@ class ConvolutionLayer(BaseLayer):
                      params.get("b"), stride=_pair(self.stride),
                      padding=padding)
         return z.permute(0, 2, 3, 1)                # back to NHWC
-
-    def _im2col_pre_output(self, params, x, pads):
-        """NHWC -> NHWC: the patches as rows of (C, KH, KW) (two strided
-        window views of the input, copied once by the reshape), times the
-        HWIO weight laid out the same way."""
-        kh, kw = _pair(self.kernel_size)
-        sh, sw = _pair(self.stride)
-        pt, pb, pl, pr = pads
-        if pt or pb or pl or pr:
-            x = F.pad(x, (0, 0, pl, pr, pt, pb))
-        # [B, OH, OW, C, KH, KW]
-        patches = x.unfold(1, kh, sh).unfold(2, kw, sw)
-        b, oh, ow, c = patches.shape[:4]
-        cols = patches.reshape(b * oh * ow, c * kh * kw)
-        wmat = params["W"].permute(2, 0, 1, 3).reshape(c * kh * kw,
-                                                       self.n_out)
-        z = (cols @ wmat).reshape(b, oh, ow, self.n_out)
-        return z + params["b"] if self.has_bias else z
 
     def forward(self, params, x, state, *, train=False, rng=None, mask=None):
         x = self.apply_dropout(x, train=train, rng=rng)
@@ -210,7 +186,7 @@ class SubsamplingLayer(BaseLayer):
 
     def forward(self, params, x, state, *, train=False, rng=None, mask=None):
         kernel, stride = _pair(self.kernel_size), _pair(self.stride)
-        pt, pb, pl, pr = _spatial_pads(self, x)
+        pt, pb, pl, pr = spatial_pads(self, x)
         kind = self.pooling_type.lower()
         if kind not in ("max", "avg", "average", "sum", "pnorm"):
             raise ValueError(f"Unknown pooling type {self.pooling_type!r}")

@@ -1,8 +1,8 @@
 """Core feed-forward layers: the port of
-``deeplearning4j_tpu/nn/layers/core.py`` (Dense, the output family,
-Activation, Dropout). Forward math is ``z = x @ W + b`` with ``W``
-``[n_in, n_out]``, the reference's layout; autograd supplies the backward.
-EmbeddingLayer and CenterLossOutputLayer come with a later slice.
+``deeplearning4j_tpu/nn/layers/core.py`` (Dense, the output family with
+CenterLossOutputLayer, Activation, Dropout, Embedding). Forward math is
+``z = x @ W + b`` with ``W`` ``[n_in, n_out]``, the reference's layout;
+autograd supplies the backward.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ from deeplearning4j_tpu_torch.nn.layers.base import (BaseLayer,
                                                      register_layer)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 
-__all__ = ["ActivationLayer", "BaseOutputLayer", "DenseLayer", "DropoutLayer",
-           "LossLayer", "OutputLayer", "RnnOutputLayer"]
+__all__ = ["ActivationLayer", "BaseOutputLayer", "CenterLossOutputLayer",
+           "DenseLayer", "DropoutLayer", "EmbeddingLayer", "LossLayer",
+           "OutputLayer", "RnnOutputLayer"]
 
 
 @register_layer
@@ -132,6 +133,38 @@ class LossLayer(BaseLayer):
 
 @register_layer
 @dataclass
+class CenterLossOutputLayer(BaseOutputLayer):
+    """Output layer with a center loss (CenterLossOutputLayer.java): one
+    center per class in layer state, ``center_loss`` = alpha/2 times the
+    mean squared distance of each example's features to its class
+    center, and ``update_centers`` moving each present class's center
+    toward its batch mean at rate ``lambda_``. As in the reference, the
+    networks call neither: the layer trains and scores as an
+    OutputLayer."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init_state(self):
+        return {"centers": torch.zeros((self.n_out, self.n_in),
+                                       dtype=torch.float32)}
+
+    def center_loss(self, state, features, labels):
+        assigned = labels @ state["centers"]   # one-hot rows pick a center
+        return 0.5 * self.alpha * ((features - assigned) ** 2).sum(-1).mean()
+
+    def update_centers(self, state, features, labels):
+        centers = state["centers"]
+        present = labels.sum(0)
+        batch_means = (labels.T @ features) / \
+            torch.clamp(present, min=1.0)[:, None]
+        moved = (1 - self.lambda_) * centers + self.lambda_ * batch_means
+        return {**state, "centers": torch.where((present > 0)[:, None],
+                                                moved, centers)}
+
+
+@register_layer
+@dataclass
 class ActivationLayer(BaseLayer):
     """Applies an activation only."""
 
@@ -146,3 +179,41 @@ class DropoutLayer(BaseLayer):
 
     def forward(self, params, x, state, *, train=False, rng=None, mask=None):
         return self.apply_dropout(x, train=train, rng=rng), state
+
+
+@register_layer
+@dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Index -> row lookup (EmbeddingLayer.java): integer ids shaped
+    [batch] or [batch, 1], given as integers or as floats holding them
+    (the networks keep them out of the compute-dtype cast)."""
+
+    n_in: Optional[int] = None   # vocabulary size
+    n_out: Optional[int] = None
+
+    def set_input_type(self, input_type):
+        if self.n_in is None and isinstance(input_type, FeedForward):
+            self.n_in = input_type.size
+        return FeedForward(self.n_out)
+
+    def output_type(self, input_type):
+        return FeedForward(self.n_out)
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
+
+    @property
+    def param_order(self):
+        return ["W", "b"]
+
+    def init_params(self, generator, dtype=torch.float32):
+        return {"W": self._init_weight(generator, (self.n_in, self.n_out),
+                                       dtype=dtype),
+                "b": self._init_bias(generator, (self.n_out,), dtype=dtype)}
+
+    def forward(self, params, x, state, *, train=False, rng=None, mask=None):
+        idx = x.to(torch.int64)
+        if idx.ndim == 2 and idx.shape[-1] == 1:
+            idx = idx[:, 0]
+        emb = params["W"][idx]
+        return self.activation_fn()(emb + params["b"]), state

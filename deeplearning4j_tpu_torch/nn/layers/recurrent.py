@@ -14,14 +14,19 @@ contiguous ``[T, B, 4H]``. Routing (``LSTM._scan``):
   Function: on a CUDA tensor it launches the hand-written sequence kernel
   (every step of the window in one launch) and, in the backward, the cell
   backward kernel once a step; on a CPU tensor it runs their plain twins;
-- any other activations take ``_scan_builtin``, a Python loop over the
-  steps of the plain recurrence under autograd, on either device (routing
-  by configuration, as the reference's ``lstm_cell_supported`` routes);
+- any other activations ask the helper seam (``nn/helpers.py``): the
+  registered ``AcceleratedLSTMHelper`` runs ``_scan_builtin``, a Python
+  loop over the steps of the plain recurrence under autograd, on either
+  device, when it supports the call, and a decline (counted) takes
+  ``_scan_builtin`` directly (routing by configuration, as the
+  reference's ``lstm_cell_supported`` routes; the kernel route keeps its
+  priority over the helper, as the reference's ``DL4J_TPU_LSTM_KERNEL``
+  branch does);
 - ``DL4J_TORCH_LSTM_KERNEL=builtin`` takes ``_scan_builtin`` for CPU
   tensors and raises for any other device.
 
-There is no helper seam and nothing falls back: a CUDA call launches the
-kernel or raises.
+Nothing falls back: a CUDA call launches the kernel or raises, and a
+helper that raises propagates its error.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.config import env_str
+from deeplearning4j_tpu_torch.nn import helpers
 from deeplearning4j_tpu_torch.nn.conf.input_type import (FeedForward,
                                                          Recurrent)
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, register_layer
@@ -148,6 +154,11 @@ class LSTM(BaseLayer):
             return self._scan_builtin(params, x, h0, c0, mask, reverse)
         if lstm_cell_supported(self.gate_activation, self.activation):
             return self._scan_kernel(params, x, h0, c0, mask, reverse)
+        helper = helpers.get_helper(self)
+        if helper is not None:
+            if helper.supports(self, mask=mask, seq_len=x.shape[1]):
+                return helper.scan(self, params, x, h0, c0, mask, reverse)
+            helpers.count_decline(self)
         return self._scan_builtin(params, x, h0, c0, mask, reverse)
 
     def _walk(self, zx_t, h0, c0, mask, reverse, cell):

@@ -49,7 +49,8 @@ class UpdaterConfig:
 def _optax_refused(conf):
     return NotImplementedError(
         f"updater {conf.rule!r}: the optax rules are not ported to the "
-        "PyTorch package yet (ROADMAP.md, queue 1)")
+        "PyTorch package yet (ROADMAP.md, queue 1, \"Line-search "
+        "solvers and the optax rules\")")
 
 
 def init_state(conf: UpdaterConfig, params):

@@ -2,7 +2,9 @@
 
 The JAX module of the same name also carries ring and Ulysses sequence
 parallelism; this port carries only the two single-device functions the
-TransformerLM serving path reaches. Masked scores are set to
+TransformerLM serving path and SelfAttentionLayer's built-in route
+reach. Both take the reference's ``mask``, a [batch, Tk] key-validity
+mask (a key whose entry is 0 gets no weight). Masked scores are set to
 ``NEG_INF = -1e30``, never ``-inf``, as in the reference: a fully masked
 row then stays finite.
 """
@@ -43,16 +45,33 @@ def _attend_block(q, k, v, bias, m_prev, l_prev, o_prev):
     return m_new, l_new, o_new
 
 
-def blockwise_attention(q, k, v, *, causal=False, block_size=128):
+def _key_bias(mask, q):
+    """[batch, Tk] key mask -> additive bias broadcastable to q's scores
+    (0 where the key counts, NEG_INF where it does not)."""
+    mask = torch.as_tensor(mask, device=q.device)
+    bias = torch.where(mask > 0, torch.zeros((), dtype=q.dtype,
+                                             device=q.device),
+                       torch.full((), NEG_INF, dtype=q.dtype,
+                                  device=q.device))
+    return bias[:, None, :] if q.ndim == 3 else bias[:, None, None, :]
+
+
+def blockwise_attention(q, k, v, *, causal=False, block_size=128,
+                        mask=None):
     """Exact attention by the flash recurrence over K/V blocks of
     ``block_size`` (a Python loop where the reference scans).
 
-    q/k/v: [batch, T, d] or [batch, heads, T, d]. Returns
-    softmax(QKᵀ/√d)V with O(T·block) score memory."""
+    q/k/v: [batch, T, d] or [batch, heads, T, d]; ``mask``: [batch, Tk]
+    key-validity mask. Returns softmax(QKᵀ/√d)V with O(T·block) score
+    memory."""
     tq = q.shape[-2]
     tk = k.shape[-2]
     pad = (-tk) % block_size
     n_blocks = (tk + pad) // block_size
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=q.device)
+        if pad:   # padded keys are masked, as the reference pads its mask
+            mask = torch.nn.functional.pad(mask, (0, pad))
     q_pos = torch.arange(tq, device=q.device)
     batch_shape = q.shape[:-2]
     m = torch.full(batch_shape + (tq,), NEG_INF, dtype=q.dtype,
@@ -75,13 +94,16 @@ def blockwise_attention(q, k, v, *, causal=False, block_size=128):
                                              device=q.device),
                            torch.full((), NEG_INF, dtype=q.dtype,
                                       device=q.device))
+        if mask is not None:
+            bias = bias + _key_bias(mask[:, lo:lo + block_size], q)
         m, l, o = _attend_block(q, kblk, vblk, bias, m, l, o)
     return o / torch.clamp(l, min=1e-30)[..., None]
 
 
-def dense_attention(q, k, v, *, causal=False, window=None):
-    """Reference O(T²) attention (test oracle). ``window`` (requires
-    causal): each query sees only the last ``window`` positions."""
+def dense_attention(q, k, v, *, causal=False, mask=None, window=None):
+    """Reference O(T²) attention (test oracle). ``mask``: [batch, Tk]
+    key-validity mask. ``window`` (requires causal): each query sees only
+    the last ``window`` positions."""
     s = torch.einsum("...qd,...kd->...qk", q, k) / _sqrt_d(q)
     tq, tk = s.shape[-2], s.shape[-1]
     if causal:
@@ -93,5 +115,10 @@ def dense_attention(q, k, v, *, causal=False, window=None):
                                           device=s.device))
     elif window is not None:
         raise ValueError("window requires causal=True")
+    if mask is not None:
+        mm = torch.as_tensor(mask, device=q.device)
+        mm = mm[:, None, :] if q.ndim == 3 else mm[:, None, None, :]
+        s = torch.where(mm > 0, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                              device=s.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("...qk,...kd->...qd", p, v)

@@ -196,5 +196,6 @@ def fuse_wrap_config(model):
         raise NotImplementedError(
             "DL4J_TORCH_FUSE_AUTOTUNE: the fusion autotuner (probe and "
             "chunk planner) is not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1); set DL4J_TORCH_FUSE_STEPS instead")
+            "(ROADMAP.md, queue 1, \"The fused loop's remaining "
+            "pieces\"); set DL4J_TORCH_FUSE_STEPS instead")
     return default_fuse(), None, True, False

@@ -66,7 +66,7 @@ FRAMEWORK = "deeplearning4j_tpu_torch"
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
-        "queue 1)")
+        "queue 1, \"Persistence gaps\")")
 
 
 def _np_bytes(arr):

@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Write the committed Keras fixtures of this directory (needs h5py, and
+the PyTorch package on the CPU for the LeNet's training).
+
+    python3 tests/fixtures/keras/make_keras_fixtures.py
+
+Each file is a Keras ``model.save()`` HDF5 file in the layout Keras
+writes (root attrs ``model_config`` and ``training_config``, group
+``model_weights`` with ``layer_names``, per-layer groups with
+``weight_names``). Initial weights are drawn as Keras draws them, from
+``numpy.random.RandomState(SEED)``: kernels Glorot-uniform (limit
+sqrt(6 / (fan_in + fan_out)), a conv's fans times its kernel area),
+recurrent kernels orthogonal, biases 0 (an LSTM's forget-gate bias 1,
+Keras 2's ``unit_forget_bias``), BatchNormalization's gamma 1, beta 0,
+moving mean 0 and moving variance 1 (here the moments are drawn, so the
+import's state copy shows).
+
+- ``lenet_k1_tf.h5``: Keras 1 Sequential, 'tf' ordering, at the zoo's
+  ``lenet_mnist`` widths (Convolution2D 20 and 50 filters of 5x5, linear;
+  MaxPooling2D 2x2; Flatten; Dense 500 relu; Dense 10 softmax; 431,080
+  parameters). Its Glorot draws are trained on ``tests/fixtures/
+  real_mnist`` through the port's ``lenet_mnist`` configuration on the
+  CPU (Nesterov momentum 0.9, lr 0.01; 40 epochs at batch 64, shuffle
+  seed 5, the reference's real-MNIST recipe) until the held-out accuracy
+  on the fixture's 64 test digits is at least 0.90, and the trained
+  weights are written.
+- ``residual_k1_th.h5``: a Keras 1 functional model in 'th' ordering:
+  Input (4, 8, 8), Convolution2D 4 filters 3x3 'same' relu,
+  BatchNormalization (mode 0, axis 1), Merge(sum) with the input,
+  Flatten, Dense 5 softmax (the Dense rows in the 'th' (c, h, w) flatten
+  order).
+- ``lstm_k2_charrnn.h5``: a Keras 2 Sequential at the char-RNN's width:
+  LSTM 200 units over 65 inputs, T 50, ``recurrent_activation`` sigmoid,
+  ``return_sequences`` False, then Dense 65 softmax.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parents[2]
+SEED = 2024
+LENET_FILE = "lenet_k1_tf.h5"
+RESIDUAL_FILE = "residual_k1_th.h5"
+LSTM_FILE = "lstm_k2_charrnn.h5"
+HELD_OUT_BAR = 0.90
+LEARN = dict(epochs=40, batch=64, shuffle_seed=5)
+
+
+def glorot(r, shape):
+    """Keras's glorot_uniform for a (fan_in, fan_out) kernel."""
+    limit = np.sqrt(6.0 / (shape[0] + shape[1]))
+    return r.uniform(-limit, limit, shape).astype(np.float32)
+
+
+def glorot_conv(r, kh, kw, c_in, c_out, ordering):
+    """glorot_uniform for a conv kernel: each fan times the kernel area;
+    'tf' (kh, kw, in, out), 'th' (out, in, kh, kw)."""
+    limit = np.sqrt(6.0 / (kh * kw * c_in + kh * kw * c_out))
+    shape = (kh, kw, c_in, c_out) if ordering == "tf" else \
+        (c_out, c_in, kh, kw)
+    return r.uniform(-limit, limit, shape).astype(np.float32)
+
+
+def orthogonal(r, rows, cols):
+    """Keras's orthogonal initializer for a (rows, cols) kernel."""
+    a = r.normal(0.0, 1.0, (rows, cols))
+    u, _, v = np.linalg.svd(a, full_matrices=False)
+    return (u if u.shape == (rows, cols) else v).astype(np.float32)
+
+
+def write_keras(path, model_config, layer_weights, training_config,
+                keras_version):
+    """``layer_weights``: {layer: [(weight name, array)]}; Keras 2 nests
+    each layer's arrays one group down as ``<layer>/<name>:0``."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        f.attrs["keras_version"] = keras_version.encode()
+        f.attrs["backend"] = b"tensorflow"
+        f.attrs["model_config"] = json.dumps(model_config).encode()
+        f.attrs["training_config"] = json.dumps(training_config).encode()
+        wg = f.create_group("model_weights")
+        wg.attrs["layer_names"] = np.array(
+            [n.encode() for n in layer_weights], dtype="S64")
+        for lname, weights in layer_weights.items():
+            g = wg.create_group(lname)
+            k2 = keras_version.startswith("2")
+            names = [f"{lname}/{wn}:0" if k2 else wn for wn, _ in weights]
+            g.attrs["weight_names"] = np.array([n.encode() for n in names],
+                                               dtype="S96")
+            for name, (_, arr) in zip(names, weights):
+                g.create_dataset(name, data=np.asarray(arr, np.float32))
+
+
+def _sgd(loss):
+    return {"loss": loss, "metrics": ["accuracy"],
+            "optimizer_config": {"class_name": "SGD", "config": {
+                "lr": 0.01, "momentum": 0.9, "nesterov": True}}}
+
+
+def lenet_config():
+    return {"class_name": "Sequential", "config": [
+        {"class_name": "Convolution2D", "config": {
+            "name": "convolution2d_1", "nb_filter": 20, "nb_row": 5,
+            "nb_col": 5, "subsample": [1, 1], "border_mode": "valid",
+            "dim_ordering": "tf", "activation": "linear",
+            "batch_input_shape": [None, 28, 28, 1]}},
+        {"class_name": "MaxPooling2D", "config": {
+            "name": "maxpooling2d_1", "pool_size": [2, 2],
+            "strides": [2, 2], "border_mode": "valid",
+            "dim_ordering": "tf"}},
+        {"class_name": "Convolution2D", "config": {
+            "name": "convolution2d_2", "nb_filter": 50, "nb_row": 5,
+            "nb_col": 5, "subsample": [1, 1], "border_mode": "valid",
+            "dim_ordering": "tf", "activation": "linear"}},
+        {"class_name": "MaxPooling2D", "config": {
+            "name": "maxpooling2d_2", "pool_size": [2, 2],
+            "strides": [2, 2], "border_mode": "valid",
+            "dim_ordering": "tf"}},
+        {"class_name": "Flatten", "config": {"name": "flatten_1"}},
+        {"class_name": "Dense", "config": {
+            "name": "dense_1", "output_dim": 500, "activation": "relu"}},
+        {"class_name": "Dense", "config": {
+            "name": "dense_2", "output_dim": 10, "activation": "softmax"}},
+    ]}
+
+
+LENET_LAYERS = ("convolution2d_1", "maxpooling2d_1", "convolution2d_2",
+                "maxpooling2d_2", "flatten_1", "dense_1", "dense_2")
+
+
+def lenet_weights(params_list):
+    """The net's per-layer params (HWIO convs, (in, out) denses: Keras 1
+    'tf' layouts) as Keras 1 layer weights."""
+    with_params = iter([p for p in params_list if p])
+    out = {}
+    for name in LENET_LAYERS:
+        if name.startswith(("convolution", "dense")):
+            p = next(with_params)
+            out[name] = [(f"{name}_W", p["W"]), (f"{name}_b", p["b"])]
+        else:
+            out[name] = []
+    return out
+
+
+def initial_lenet_params(r):
+    return [{"W": glorot_conv(r, 5, 5, 1, 20, "tf"),
+             "b": np.zeros(20, np.float32)}, {},
+            {"W": glorot_conv(r, 5, 5, 20, 50, "tf"),
+             "b": np.zeros(50, np.float32)}, {},
+            {"W": glorot(r, (800, 500)), "b": np.zeros(500, np.float32)},
+            {"W": glorot(r, (500, 10)), "b": np.zeros(10, np.float32)}]
+
+
+def held_out_accuracy(net, test):
+    return float((np.argmax(net.output(test.features), 1)
+                  == test.label_ids).mean())
+
+
+def make_lenet(path):
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork, params_from_numpy)
+    torch.manual_seed(SEED)
+    data = str(REPO / "tests" / "fixtures" / "real_mnist")
+    train = MnistDataSetIterator(LEARN["batch"], shuffle=True,
+                                 seed=LEARN["shuffle_seed"], data_dir=data)
+    test = MnistDataSetIterator(LEARN["batch"], train=False, data_dir=data)
+    net = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    net.params_list = params_from_numpy(
+        net.layers, initial_lenet_params(np.random.RandomState(SEED)), "cpu")
+    net.fit(train, epochs=LEARN["epochs"])
+    acc = held_out_accuracy(net, test)
+    if acc < HELD_OUT_BAR:
+        raise SystemExit(f"LeNet reached held-out accuracy {acc} < "
+                         f"{HELD_OUT_BAR}")
+    params = [{k: v.detach().numpy() for k, v in p.items()}
+              for p in net.params_list]
+    write_keras(path, lenet_config(), lenet_weights(params),
+                _sgd("categorical_crossentropy"), "1.2.2")
+    return acc
+
+
+def residual_config():
+    def node(*names):
+        return [[[n, 0, 0] for n in names]]
+    return {"class_name": "Model", "config": {
+        "name": "residual_th",
+        "layers": [
+            {"class_name": "InputLayer", "name": "input_1",
+             "config": {"name": "input_1",
+                        "batch_input_shape": [None, 4, 8, 8]},
+             "inbound_nodes": []},
+            {"class_name": "Convolution2D", "name": "conv",
+             "config": {"name": "conv", "nb_filter": 4, "nb_row": 3,
+                        "nb_col": 3, "subsample": [1, 1],
+                        "border_mode": "same", "dim_ordering": "th",
+                        "activation": "relu"},
+             "inbound_nodes": node("input_1")},
+            {"class_name": "BatchNormalization", "name": "bn",
+             "config": {"name": "bn", "epsilon": 1e-3, "mode": 0,
+                        "axis": 1, "momentum": 0.99},
+             "inbound_nodes": node("conv")},
+            {"class_name": "Merge", "name": "add",
+             "config": {"name": "add", "mode": "sum"},
+             "inbound_nodes": node("bn", "input_1")},
+            {"class_name": "Flatten", "name": "flat",
+             "config": {"name": "flat"},
+             "inbound_nodes": node("add")},
+            {"class_name": "Dense", "name": "out",
+             "config": {"name": "out", "output_dim": 5,
+                        "activation": "softmax"},
+             "inbound_nodes": node("flat")}],
+        "input_layers": [["input_1", 0, 0]],
+        "output_layers": [["out", 0, 0]]}}
+
+
+def make_residual(path, r):
+    weights = {
+        "conv": [("conv_W", glorot_conv(r, 3, 3, 4, 4, "th")),
+                 ("conv_b", np.zeros(4, np.float32))],
+        "bn": [("bn_gamma", (1.0 + 0.1 * r.randn(4)).astype(np.float32)),
+               ("bn_beta", (0.1 * r.randn(4)).astype(np.float32)),
+               ("bn_running_mean", (0.2 * r.randn(4)).astype(np.float32)),
+               ("bn_running_std",
+                (1.0 + 0.5 * r.rand(4)).astype(np.float32))],
+        "add": [], "flat": [],
+        "out": [("out_W", glorot(r, (256, 5))),
+                ("out_b", np.zeros(5, np.float32))]}
+    write_keras(path, residual_config(), weights,
+                _sgd("categorical_crossentropy"), "1.2.2")
+
+
+def lstm_config(vocab=65, units=200, t=50):
+    return {"class_name": "Sequential", "config": {"name": "charrnn",
+                                                   "layers": [
+        {"class_name": "LSTM", "config": {
+            "name": "lstm_1", "units": units, "activation": "tanh",
+            "recurrent_activation": "sigmoid", "use_bias": True,
+            "unit_forget_bias": True, "return_sequences": False,
+            "batch_input_shape": [None, t, vocab]}},
+        {"class_name": "Dense", "config": {
+            "name": "dense_1", "units": vocab, "activation": "softmax"}}]}}
+
+
+def make_lstm(path, r, vocab=65, units=200):
+    bias = np.zeros(4 * units, np.float32)
+    bias[units:2 * units] = 1.0
+    recurrent = np.concatenate([orthogonal(r, units, units)
+                                for _ in range(4)], axis=1)
+    weights = {
+        "lstm_1": [("kernel", glorot(r, (vocab, 4 * units))),
+                   ("recurrent_kernel", recurrent), ("bias", bias)],
+        "dense_1": [("kernel", glorot(r, (units, vocab))),
+                    ("bias", np.zeros(vocab, np.float32))]}
+    write_keras(path, lstm_config(vocab, units), weights,
+                _sgd("categorical_crossentropy"), "2.1.6")
+
+
+def main():
+    sys.path.insert(0, str(REPO))
+    r = np.random.RandomState(SEED)
+    make_residual(HERE / RESIDUAL_FILE, r)
+    make_lstm(HERE / LSTM_FILE, r)
+    acc = make_lenet(HERE / LENET_FILE)
+    sizes = {p.name: p.stat().st_size for p in sorted(HERE.glob("*.h5"))}
+    print(json.dumps({"lenet_held_out_accuracy": acc, "bytes": sizes,
+                      "total_bytes": sum(sizes.values())}))
+
+
+if __name__ == "__main__":
+    main()

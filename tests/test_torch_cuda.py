@@ -39,6 +39,15 @@ The flash kernels are held at head dims 160, 192 and 256 too (their DP
 replicas on the card: one captures while the other replays, and one is
 killed behind the router; their rows equal ``generate()``'s. Word2Vec's
 ``sorted`` scatter gives the same table bits on two fits from one seed.
+SelfAttentionLayer through its flash helper (the kernels) against the
+built-in dense path (``DL4J_TPU_DISABLE_HELPERS=1``) on the card: f32
+output and one step's gradients within 1e-5 of each tensor's max abs,
+with the forward and both backward kernels launched once a layer; under
+a key mask the helper declines (no launch, counted) and the result is
+the built-in route's, bit for bit. The committed Keras files
+(``tests/fixtures/keras``) imported on the card give the CPU import's
+outputs within 1e-5 of their scale, the LSTM's through the sequence
+kernel.
 """
 
 import math
@@ -1418,3 +1427,96 @@ def test_narrow_resnet_after_a_decode_burst_matches_cpu(cuda_device):
     finally:
         srv.stop()
     test_narrow_resnet_on_card_matches_cpu(cuda_device)
+
+
+def _attention_net(compute, device, t=64):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (RnnOutputLayer,
+                                                    SelfAttentionLayer)
+    conf = (NeuralNetConfiguration.Builder().seed(5).compute_dtype(compute)
+            .list()
+            .layer(SelfAttentionLayer(n_in=64, n_out=64, n_heads=2,
+                                      causal=True))
+            .layer(SelfAttentionLayer(n_in=64, n_out=64, n_heads=4,
+                                      residual=True))
+            .layer(RnnOutputLayer(n_in=64, n_out=6, activation="softmax",
+                                  loss="mcxent"))
+            .build())
+    r = np.random.RandomState(1)
+    x = r.randn(4, t, 64).astype(np.float32)
+    y = np.eye(6, dtype=np.float32)[r.randint(0, 6, (4, t))]
+    return MultiLayerNetwork(conf, device=device).init(), x, y
+
+
+def _rel(got, want):
+    got, want = (torch.as_tensor(a).float().cpu() for a in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+def test_attention_layer_kernels_match_builtin_path(cuda_device,
+                                                    monkeypatch):
+    from deeplearning4j_tpu_torch.nn import helpers
+    net, x, y = _attention_net("float32", cuda_device)
+    launches = (flash_attention.launches, flash_attention.dq_launches,
+                flash_attention.dkv_launches)
+    declined = helpers.declines("SelfAttentionLayer")
+    out = net.output(x)
+    grads, score = net.compute_gradient_and_score(x, y)
+    assert (flash_attention.launches - launches[0],
+            flash_attention.dq_launches - launches[1],
+            flash_attention.dkv_launches - launches[2]) == (4, 2, 2)
+    assert helpers.declines("SelfAttentionLayer") == declined
+    monkeypatch.setenv("DL4J_TPU_DISABLE_HELPERS", "1")
+    want = net.output(x)
+    want_g, want_s = net.compute_gradient_and_score(x, y)
+    assert _rel(out, want) <= 1e-5
+    assert abs(score - want_s) <= 1e-5 * abs(want_s)
+    for g, w in zip(grads, want_g):
+        for k in w:
+            assert _rel(g[k], w[k]) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_attention_helper_declines_a_mask_on_card(cuda_device, monkeypatch):
+    from deeplearning4j_tpu_torch.nn import helpers
+    net, x, _ = _attention_net("bfloat16", cuda_device)
+    mask = np.ones(x.shape[:2], np.float32)
+    mask[1, 40:] = 0.0
+    launches = flash_attention.launches
+    declined = helpers.declines("SelfAttentionLayer")
+    got = net.output(x, fmask=mask)
+    assert flash_attention.launches == launches
+    assert helpers.declines("SelfAttentionLayer") == declined + 2
+    monkeypatch.setenv("DL4J_TPU_DISABLE_HELPERS", "1")
+    assert np.array_equal(got, net.output(x, fmask=mask))
+
+
+KERAS_DIR = __import__("pathlib").Path(__file__).resolve().parent / \
+    "fixtures" / "keras"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lenet_k1_tf.h5", "residual_k1_th.h5",
+                                  "lstm_k2_charrnn.h5"])
+def test_keras_fixture_on_card_matches_cpu(cuda_device, name):
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_model_and_weights
+    r = np.random.RandomState(2)
+    x = {"lenet_k1_tf.h5": lambda: r.rand(16, 28, 28, 1),
+         "residual_k1_th.h5": lambda: r.randn(8, 8, 8, 4),
+         "lstm_k2_charrnn.h5": lambda: np.eye(65)[r.randint(0, 65,
+                                                            (8, 50))]}[
+        name]().astype(np.float32)
+    path = str(KERAS_DIR / name)
+    card = import_keras_model_and_weights(path, device=cuda_device)
+    cpu = import_keras_model_and_weights(path, device="cpu")
+    np.testing.assert_array_equal(card.params(), cpu.params())
+    seq = port_lc.lstm_sequence.launches
+    got = card.output(x)
+    if name.startswith("lstm"):
+        assert port_lc.lstm_sequence.launches == seq + 1
+    assert _rel(got, cpu.output(x)) <= 1e-5

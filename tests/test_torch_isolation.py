@@ -16,9 +16,12 @@
   instead of running on the CPU (the model-archive restores, and
   ComputationGraph and its archive's restores, ContinuousLM and the
   decode-state carrier, the router over such replicas, Word2Vec and its
-  lookup table included); generation, serving through the router and the
+  lookup table included, and the Keras importers and the Keras RPC
+  server's fit); generation, serving through the router and the
   ingress, and a Word2Vec fit on the CPU capture no CUDA graph and load
-  no kernel.
+  no kernel; SelfAttentionLayer on the CPU declines its flash helper
+  (counted) and a Keras-imported LSTM runs the LSTM kernels' plain twins,
+  with no kernel loaded.
 """
 
 import ast
@@ -75,7 +78,10 @@ def _port_sources():
                 "models/_cuda_graph.py", "serving/router.py",
                 "serving/ingress.py", "utils/http_base.py", "nlp/__init__.py",
                 "nlp/vocab.py", "nlp/text.py", "nlp/lookup.py",
-                "nlp/sequence_vectors.py", "nlp/word2vec.py"):
+                "nlp/sequence_vectors.py", "nlp/word2vec.py",
+                "nn/helpers.py", "nn/layers/attention.py", "eval/roc.py",
+                "utils/h5.py", "modelimport/__init__.py",
+                "modelimport/keras.py", "modelimport/keras_server.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -596,3 +602,76 @@ def test_cpu_router_ingress_and_word2vec_never_load_a_kernel_or_capture(
                    batch_size=64, device="cpu")
     w2v.fit_corpus(["a b c d e f", "b c d a e", "f e d c b a"] * 20)
     assert _launches() == before and capture_count() == captures
+
+
+KERAS = REPO / "tests" / "fixtures" / "keras"
+
+
+def test_keras_import_without_device_refuses_the_cpu(no_cuda, tmp_path):
+    import json
+    import urllib.error
+    import urllib.request
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights,
+        import_keras_sequential_model_and_weights)
+    from deeplearning4j_tpu_torch.modelimport.keras_server import \
+        KerasRPCServer
+    path = str(KERAS / "lstm_k2_charrnn.h5")
+    for imp in (import_keras_sequential_model_and_weights,
+                import_keras_model_and_weights):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            imp(path)
+        assert imp(path, device="cpu").device.type == "cpu"
+    data = tmp_path / "mb"
+    data.mkdir()
+    np.savez(data / "b0.npz", features=np.zeros((2, 50, 65), np.float32),
+             labels=np.eye(65, dtype=np.float32)[[0, 1]])
+    srv = KerasRPCServer().start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/fit", data=json.dumps(
+                {"model_path": path, "data_dir": str(data)}).encode())
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=60)
+        assert "CUDA is not available" in json.loads(e.value.read())["error"]
+    finally:
+        srv.stop()
+
+
+def test_cpu_attention_and_keras_nets_never_load_a_kernel(monkeypatch):
+    """An attention net trains and infers on the CPU through its built-in
+    route (the flash helper declines, once a layer call) and the imported
+    Keras LSTM runs and fine-tunes on the kernels' plain twins: no kernel
+    library loaded, no launch counted."""
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_sequential_model_and_weights
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (RnnOutputLayer,
+                                                    SelfAttentionLayer)
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _launches() + _lstm_launches()
+    conf = (NeuralNetConfiguration.Builder().seed(1).list()
+            .layer(SelfAttentionLayer(n_in=8, n_out=8, n_heads=2,
+                                      causal=True))
+            .layer(RnnOutputLayer(n_in=8, n_out=3, activation="softmax",
+                                  loss="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    r = np.random.RandomState(0)
+    x = r.randn(2, 6, 8).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[r.randint(0, 3, (2, 6))]
+    declined = helpers.declines("SelfAttentionLayer")
+    net.fit_batch(x, y)
+    net.output(x)
+    assert helpers.declines("SelfAttentionLayer") == declined + 2
+    lstm = import_keras_sequential_model_and_weights(
+        str(KERAS / "lstm_k2_charrnn.h5"), device="cpu")
+    seq = np.eye(65, dtype=np.float32)[r.randint(0, 65, (2, 50))]
+    lstm.output(seq)
+    lstm.fit_batch(seq, np.eye(65, dtype=np.float32)[[3, 4]])
+    assert _launches() + _lstm_launches() == before

@@ -118,10 +118,10 @@ def test_one_json_builds_both_nets(build):
 
 
 def test_layer_types_not_ported_raise_and_name_the_roadmap():
-    from deeplearning4j_tpu.nn.layers import (EmbeddingLayer as JEmbed,
-                                              OutputLayer as JOut)
+    from deeplearning4j_tpu.nn.layers import OutputLayer as JOut
+    from deeplearning4j_tpu.nn.layers.pretrain import AutoEncoder as JAE
     jconf = (JBuilder.Builder().list()
-             .layer(JEmbed(n_in=10, n_out=4))
+             .layer(JAE(n_in=10, n_out=4))
              .layer(JOut(n_out=3, activation="softmax", loss="mcxent"))
              .build())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
