@@ -228,10 +228,63 @@ Phases, each fatal on failure:
    Merge, Flatten, Dense) and a Keras 2 LSTM at the char-RNN's width (H
    200, 65 inputs, T 50) equal their CPU imports, the LSTM's output
    through one sequence-kernel launch and one fine-tune step through 50
-   backward launches (the ``kernels`` line's ``launches_keras``);
-13. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+   backward launches (the ``kernels`` line's ``launches_keras``); and
+   ``TrainedModelHelper(VGG16).set_path_to_h5`` on the committed tiny
+   VGG-shaped file (8x8x3 to 1000), ``VGG16ImagePreProcessor``,
+   ``output()`` on the card and ``decode_predictions``: the CPU's top-5;
+13. lm_persist — the slice phase's LM at full width (bf16 compute): 6
+   ``fit_batch`` steps uninterrupted, twice (the card's own spread), and
+   a run that commits ``save_training_checkpoint`` after step 3, applied
+   to a fresh LM of other weights (in place), which takes 3 more steps:
+   its parameters and ``m``/``v`` must equal the uninterrupted run's bits
+   (or lie within the two uninterrupted runs' spread); each resumed step
+   launches each flash kernel once a layer (the main path: counts set to
+   0 just before the resumed steps); ``write_model`` then
+   ``restore_model`` on the card: the same parameters, moments and
+   ``output()`` bits, the archive's bytes and its write and restore
+   seconds; ContinuousLM (16 slots, 8 requests of 64-token prompts, n_new
+   32) over the saved LM against a ContinuousLM whose LM captured its
+   programs with other weights and then took the archive in place: the
+   same greedy tokens and no graph captured after the load; and a 2-layer
+   copy with dropout 0.1 resumed the same way (the generator's state);
+14. records — ``tests/fixtures/real_digits`` (1,500 training and 297
+   held-out 8x8 digits): (1) written as CSV, through ``CSVRecordReader``,
+   ``RecordReaderDataSetIterator`` (label column 64, 10 classes) and a
+   ``NormalizerStandardize`` fitted over the iterator and set as its
+   pre-processor into an MLN of two dense layers of 256 by
+   ``fit(iterator)`` (30 epochs): held-out accuracy (bar 0.88) and
+   images/s; 3 f32 steps on the card and on the CPU from the same
+   weights (CPU_GPU_TOL); ``write_model(net, normalizer=...)``, then
+   ``restore_model`` and ``restore_normalizer_from_file`` on the card,
+   the held-out digits normalised on the card: the same bits as the host
+   path and the same output bits; (2) one CSV file a digit (its rows, 8
+   pixels and the label, cut to a seeded 4-8 rows) through
+   ``CSVSequenceRecordReader`` and ``SequenceRecordReaderDataSetIterator``
+   (ALIGN_END, masks), standardised over the real steps, into a
+   GravesLSTM of 200 and an RnnOutputLayer per batch (10 epochs): the
+   sequence and backward kernels' launches by the wrappers (the main
+   path) and by ``torch.profiler`` over an epoch, the held-out accuracy
+   at each digit's last row (bar 0.70), and one masked f32 batch on the
+   card against the CPU (the charrnn phase's bars);
+15. glove — bench.py's ``bench_word2vec`` corpus (30k words,
+   ``default_rng(0)``) cut to its first 500,000 words, ``Glove`` at the
+   reference's defaults (d 100, window 5, x_max 100, alpha 0.75, lr 0.05,
+   batch 512; seed 42), 2 epochs, fitted twice: the co-occurrence build's
+   seconds, the distinct pairs, pairs/s, the loss of each epoch (it must
+   fall), peak memory, the two fits' embeddings the same bits (the
+   sorted scatter), no package kernel; and a small corpus on the card
+   against the CPU (GLOVE_CARD_CPU_RTOL);
+16. deepwalk — a seeded undirected graph of 10,000 vertices (a ring and
+   40,000 random edge lines) through ``GraphLoader`` from the edge-list
+   file the phase writes, ``DeepWalk`` (vector 100, window 5, walk length
+   40, a walk a vertex, hierarchical softmax): vertices/s and peak
+   memory; then ``GraphVectorSerializer`` and ``WordVectorSerializer``'s
+   text, Google binary and zip files of the card-trained model, read back
+   on the card, within each format's precision;
+17. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
-   ``attention`` and ``keras``.
+   ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove`` and
+   ``deepwalk``.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -461,6 +514,52 @@ ATTN_F32_RTOL = 1e-5       # kernel against the built-in path, f32
 KERAS_FIXTURES = ("tests", "fixtures", "keras")
 KERAS_FIT = dict(epochs=2, batch=64)
 KERAS_CARD_CPU_RTOL = 1e-5
+# the lm_persist phase: the slice's LM at full width saved and resumed:
+# 6 fit_batch steps uninterrupted (twice, the card's own spread), and 3,
+# a training checkpoint, a fresh LM resumed from it, 3 more; the archive
+# through write_model/restore_model; ContinuousLM over the restored
+# weights; a 2-layer dropout copy resumed the same way
+LM_PERSIST = dict(steps=6, save_after=3, batch=TRAIN_BATCH, out_rows=2)
+LM_PERSIST_SERVE = dict(slots=16, chunk=8, requests=8, prompt=64, n_new=32)
+LM_PERSIST_DROPOUT = dict(n_layers=2, dropout=0.1)
+# the records phase: tests/fixtures/real_digits (1,500 training and 297
+# held-out 8x8 UCI digits) as CSV into fit(iterator), and as one CSV
+# sequence file a digit (its rows, cut to a seeded 4-8) into a GravesLSTM
+DIGITS_FIXTURE = ("tests", "fixtures", "real_digits")
+RECORDS_MLN = dict(hidden=256, batch=64, epochs=30, lr=1e-3, seed=SEED + 7)
+# held-out bars: the dense net reached 0.91-0.93 over 4 init seeds on the
+# CPU, the sequence LSTM 0.80-0.82 over 2 (10 epochs; a digit cut to 4-8
+# of its 8 rows): the card draws other initial weights, so the bars leave
+# room (chance is 0.10)
+RECORDS_HELD_OUT_BAR = 0.88
+RECORDS_CPU_STEPS = 3
+RECORDS_SEQ = dict(hidden=200, batch=32, epochs=10, lr=5e-3, min_len=4,
+                   max_len=8, seed=SEED + 8)
+RECORDS_SEQ_BAR = 0.70     # held-out accuracy at each digit's last row
+# the glove phase: bench.py:bench_word2vec's corpus (default_rng(0), 30k
+# words, sentences of 1000) cut to its first 500,000 words, Glove at the
+# reference's defaults (d 100, window 5, x_max 100, alpha 0.75, lr 0.05,
+# batch 512; seed 42, bench's model seed), 2 epochs, fitted twice
+GLOVE = dict(vocab=30_000, full_total=2_000_000, total=500_000,
+             sent_len=1000, corpus_seed=0, layer_size=100, window=5,
+             x_max=100.0, alpha=0.75, learning_rate=0.05, batch_size=512,
+             epochs=2, seed=42)
+# card against CPU: a small corpus from the same seed, f32; the tables
+# within the CPU test's bar against the reference (tests/test_torch_glove.py
+# TABLE_REL): 1e-5 of the embedding's max abs
+GLOVE_SMALL = dict(vocab=300, total=20_000, sent_len=100, layer_size=32,
+                   epochs=2, batch_size=512, seed=7)
+GLOVE_CARD_CPU_RTOL = 1e-5
+# the deepwalk phase: a seeded undirected graph of 10,000 vertices and
+# ~50,000 edge lines, through GraphLoader from the edge-list file the phase
+# writes; DeepWalk (vector 100, window 5, walk length 40, a walk a vertex,
+# hierarchical softmax)
+DEEPWALK = dict(vertices=10_000, edges=50_000, vector_size=100,
+                window_size=5, walk_length=40, walks_per_vertex=1,
+                batch_size=512, seed=SEED + 9)
+# the text format's %.6f: half a unit, then the f32 rounding of the value
+# read back (one f32 step of it)
+TEXT_ATOL, TEXT_RTOL = 5e-7, 2.0 ** -23
 
 
 def emit(obj):
@@ -3895,7 +3994,9 @@ def phase_order_check(card):
     t0 = time.perf_counter()
     result = {"phase": "order_check", "after": ["decode", "serve_scale",
                                                 "word2vec", "attention",
-                                                "keras"],
+                                                "keras", "lm_persist",
+                                                "records", "glove",
+                                                "deepwalk"],
               "resnet_narrow_f32": cnn_graph_card_vs_cpu(
                   "resnet50", RESNET_NARROW, 8, SEED + 3),
               "card": card}
@@ -4339,7 +4440,8 @@ def phase_keras(card):
     with tempfile.TemporaryDirectory() as tmp:
         for key, step in (("lenet_k1_tf", lambda: keras_lenet(tmp)),
                           ("residual_k1_th", keras_residual),
-                          ("lstm_k2_charrnn", keras_lstm)):
+                          ("lstm_k2_charrnn", keras_lstm),
+                          ("trained_vgg16_tiny", keras_trained_vgg)):
             t0 = time.perf_counter()
             if key == "lstm_k2_charrnn":
                 lstm_before = read_lstm_launches()
@@ -4354,6 +4456,683 @@ def phase_keras(card):
     seconds["phase"] = time.perf_counter() - t_phase
     rec["seconds"] = seconds
     emit(rec)
+    return rec
+
+
+def _tree_bits_equal(a, b):
+    """Whether two LM trees (parameters or an optimizer state) hold the
+    same bits, and the largest difference of any leaf."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    worst = max(float((fa[k].detach().float() - fb[k].detach().float())
+                      .abs().max()) for k in fa)
+    return all(torch.equal(fa[k].detach(), fb[k].detach()) for k in fa), \
+        worst
+
+
+def _lm_batches(conf, n, seed, batch):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randint(0, conf.vocab_size,
+                                         (batch, conf.max_len)))
+            .to(DEVICE) for _ in range(n)]
+
+
+def lm_resume(conf, batches, tmp):
+    """Uninterrupted runs (two, from the same weights: the card's own
+    spread) against a run saved after ``save_after`` steps and resumed
+    in a fresh LM from the training checkpoint; the flash launches of the
+    resumed steps (the main path), counted by the wrappers."""
+    import dataclasses
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.utils import training_checkpoint as tc
+    c = LM_PERSIST
+
+    def run(steps, lm=None):
+        lm = lm or TransformerLM(conf, device=DEVICE).init()
+        for b in batches[lm.iteration:steps]:
+            lm.fit_batch(b)
+        return lm
+    full = run(c["steps"])
+    again = run(c["steps"])
+    spread = {t: _tree_bits_equal(getattr(full, t), getattr(again, t))
+              for t in ("params", "opt_state")}
+    del again
+    part = run(c["save_after"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tc.save_training_checkpoint(part, tmp)
+    save_s = time.perf_counter() - t0
+    del part
+    fresh = TransformerLM(dataclasses.replace(conf, seed=conf.seed + 100),
+                          device=DEVICE).init()
+    t0 = time.perf_counter()
+    cursor = tc.apply_training_checkpoint(fresh, path)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    assert cursor == {} and fresh.iteration == c["save_after"]
+    reset_launches()                        # the main path starts here
+    run(c["steps"], fresh)
+    torch.cuda.synchronize()
+    launches = read_launches()              # ... ends
+    resumed = {t: _tree_bits_equal(getattr(fresh, t), getattr(full, t))
+               for t in ("params", "opt_state")}
+    n = (c["steps"] - c["save_after"]) * conf.n_layers
+    assert launches == (n, n, n), launches
+    # one more step of the resumed LM under the profiler: each flash
+    # kernel once a layer on the device (another step if the profiler
+    # dropped an event, up to five)
+    for tries in range(1, 6):
+        _, names, _ = profiled(lambda: fresh.fit_batch(batches[-1]))
+        by_name = _flash_names(names)
+        if all(v == conf.n_layers for v in by_name.values()):
+            break
+    assert all(v == conf.n_layers for v in by_name.values()), \
+        (by_name, tries)
+    for t in resumed:
+        # bitwise, or within the spread of two uninterrupted card runs
+        assert resumed[t][0] or resumed[t][1] <= spread[t][1], \
+            (t, resumed, spread)
+    rec = {"steps": c["steps"], "save_after": c["save_after"],
+           "uninterrupted_bitwise": {t: v[0] for t, v in spread.items()},
+           "uninterrupted_max_abs_diff": {t: v[1]
+                                          for t, v in spread.items()},
+           "resumed_bitwise": {t: v[0] for t, v in resumed.items()},
+           "resumed_max_abs_diff": {t: v[1] for t, v in resumed.items()},
+           "checkpoint_save_s": save_s, "checkpoint_apply_s": apply_s,
+           "kernel_launches": {"flash_attn_fwd": launches[0],
+                               "flash_attn_dq": launches[1],
+                               "flash_attn_dkv": launches[2]},
+           "profiled_step_kernels": by_name, "steps_profiled": tries}
+    return full, rec
+
+
+def lm_archive(lm, tmp):
+    """``write_model`` then ``restore_model`` on the card: archive bytes,
+    write and restore seconds, and ``output()`` of the restored LM equal
+    to the original's, bit for bit."""
+    import os
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    path = os.path.join(tmp, "lm.zip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_serializer.write_model(lm, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = model_serializer.restore_model(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert back.device == lm.device and back.iteration == lm.iteration
+    x = np.random.RandomState(SEED + 21).randint(
+        0, lm.conf.vocab_size, (LM_PERSIST["out_rows"], lm.conf.max_len))
+    got, want = back.output(x), lm.output(x)
+    params_equal, _ = _tree_bits_equal(back.params, lm.params)
+    opt_equal, _ = _tree_bits_equal(back.opt_state, lm.opt_state)
+    rec = {"archive_bytes": os.path.getsize(path), "write_s": write_s,
+           "restore_s": restore_s,
+           "params_bitwise": params_equal, "opt_state_bitwise": opt_equal,
+           "output_bitwise": bool(np.array_equal(got, want)),
+           "output_rows": list(x.shape)}
+    assert params_equal and opt_equal and rec["output_bitwise"], rec
+    return path, rec
+
+
+def lm_serve_restored(lm, path):
+    """Greedy tokens of ContinuousLM over ``lm`` against a ContinuousLM
+    whose model held other weights when it captured its programs, and
+    then took the archive in place (``apply_training_checkpoint``): the
+    same tokens, no graph captured after the load."""
+    import dataclasses
+    import numpy as np
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+    from deeplearning4j_tpu_torch.utils import training_checkpoint as tc
+    c = LM_PERSIST_SERVE
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, lm.conf.vocab_size, (c["prompt"],))
+               .astype(np.int32) for _ in range(c["requests"])]
+
+    def serve(model, load=None):
+        srv = ContinuousLM(model, slots=c["slots"], chunk=c["chunk"],
+                           device=DEVICE)
+        try:
+            srv.warm_start()
+            if load is not None:
+                srv.submit(prompts[0], c["n_new"]).result(600)
+                load()
+            cap0 = capture_count()
+            rows = [f.result(600) for f in
+                    [srv.submit(p, c["n_new"]) for p in prompts]]
+            return rows, capture_count() - cap0
+        finally:
+            srv.stop()
+    want, _ = serve(lm)
+    other = TransformerLM(dataclasses.replace(lm.conf, seed=lm.conf.seed
+                                              + 200), device=DEVICE).init()
+    params = other.params
+    got, captured = serve(other, lambda: tc.apply_training_checkpoint(
+        other, path))
+    equal = sum(np.array_equal(a, b) for a, b in zip(got, want))
+    rec = {"requests": c["requests"], "slots": c["slots"],
+           "prompt": c["prompt"], "n_new": c["n_new"],
+           "rows_equal": int(equal), "graphs_captured_after_load": captured,
+           "same_parameter_tensors": other.params is params}
+    assert equal == len(prompts) and captured == 0 \
+        and rec["same_parameter_tensors"], rec
+    return rec
+
+
+def phase_lm_persist(card):
+    """The slice's LM saved and resumed on the card (the module
+    docstring's phase 13)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+    t_phase = time.perf_counter()
+    conf = TransformerConfig(**SLICE)
+    batches = _lm_batches(conf, LM_PERSIST["steps"], SEED + 20,
+                          LM_PERSIST["batch"])
+    rec = {"phase": "lm_persist", "config": SLICE, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        lm, rec["resume"] = lm_resume(conf, batches, tmp)
+        assert lm.num_params() == SLICE_PARAMS
+        path, rec["archive"] = lm_archive(lm, tmp)
+        rec["serve_restored"] = lm_serve_restored(lm, path)
+        del lm
+        torch.cuda.empty_cache()
+        drop = dataclasses.replace(conf, **LM_PERSIST_DROPOUT)
+        dtmp = tempfile.mkdtemp(dir=tmp)
+        _, rec["dropout_resume"] = lm_resume(drop, batches, dtmp)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["kernel_launches"] = rec["resume"]["kernel_launches"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def digits():
+    """The fixture's real digits: (train images, labels), (test ...), the
+    images [n, 8, 8] uint8."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import read_idx
+    d = _repo_path(*DIGITS_FIXTURE)
+    out = []
+    for split in ("train", "t10k"):
+        x = read_idx(f"{d}/{split}-images-idx3-ubyte")
+        y = read_idx(f"{d}/{split}-labels-idx1-ubyte")
+        out.append((x, y))
+    assert out[0][0].shape == (1500, 8, 8) and out[1][0].shape == (297, 8, 8)
+    return out
+
+
+def _write_digit_csv(path, x, y):
+    import numpy as np
+    rows = np.concatenate([x.reshape(len(x), -1), y[:, None]], axis=1)
+    with open(path, "w") as f:
+        f.write("\n".join(",".join(str(int(v)) for v in r) for r in rows))
+        f.write("\n")
+
+
+def _records_conf(device_seed):
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    c = RECORDS_MLN
+    return (NeuralNetConfiguration.Builder().seed(device_seed)
+            .updater("adam").learning_rate(c["lr"]).list()
+            .layer(DenseLayer(n_in=64, n_out=c["hidden"], activation="relu"))
+            .layer(DenseLayer(n_in=c["hidden"], n_out=c["hidden"],
+                              activation="relu"))
+            .layer(OutputLayer(n_in=c["hidden"], n_out=10,
+                               activation="softmax", loss="mcxent"))
+            .build())
+
+
+def _csv_iterator(path, batch):
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    return RecordReaderDataSetIterator(CSVRecordReader(path=path), batch,
+                                       label_index=64, num_possible_labels=10)
+
+
+def records_csv(tmp, train, test):
+    """CSVRecordReader → RecordReaderDataSetIterator → a fitted
+    NormalizerStandardize set as its pre-processor → an MLN of dense
+    layers through fit(iterator): held-out accuracy and images/s; a 3-step
+    f32 run on the card against the CPU; the archive with the normalizer
+    restored on the card to the same output bits."""
+    import os
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.normalizers import \
+        NormalizerStandardize
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    c = RECORDS_MLN
+    tr_path, te_path = os.path.join(tmp, "train.csv"), \
+        os.path.join(tmp, "test.csv")
+    _write_digit_csv(tr_path, *train)
+    _write_digit_csv(te_path, *test)
+    it = _csv_iterator(tr_path, c["batch"])
+    t0 = time.perf_counter()
+    norm = NormalizerStandardize().fit(it)
+    fit_norm_s = time.perf_counter() - t0
+    it.set_pre_processor(norm)
+    held = next(iter(_csv_iterator(te_path, len(test[0]))))
+    norm.pre_process(held)
+    conf = _records_conf(c["seed"])
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.fit(it)                           # warm-up epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=c["epochs"] - 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = float((net.output(held.features).argmax(1)
+                 == held.labels.argmax(1)).mean())
+    rec = {"train": len(train[0]), "held_out": len(test[0]),
+           "batch": c["batch"], "epochs": c["epochs"],
+           "normalizer_fit_s": fit_norm_s, "timed_epochs": c["epochs"] - 1,
+           "timed_s": wall,
+           "images_per_s": len(train[0]) * (c["epochs"] - 1) / wall,
+           "held_out_accuracy": acc, "bar": RECORDS_HELD_OUT_BAR,
+           "final_score": float(net.score_)}
+    assert acc >= RECORDS_HELD_OUT_BAR, rec
+    # f32, card against CPU, from the same weights on the same batches
+    card = MultiLayerNetwork(conf, device=DEVICE).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    it.reset()
+    for _, ds in zip(range(RECORDS_CPU_STEPS), it):
+        card.fit_batch(ds.features, ds.labels)
+        cpu.fit_batch(ds.features, ds.labels)
+    got, want = card.params(), cpu.params()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    rec["card_vs_cpu"] = {"steps": RECORDS_CPU_STEPS, "param_max_rel_err":
+                          rel, "tol": CPU_GPU_TOL}
+    assert rel <= CPU_GPU_TOL, rec
+    # the archive carries the normalizer
+    path = os.path.join(tmp, "digits.zip")
+    model_serializer.write_model(net, path, normalizer=norm)
+    back = model_serializer.restore_model(path)
+    back_norm = model_serializer.restore_normalizer_from_file(path)
+    raw = next(iter(_csv_iterator(te_path, len(test[0]))))
+    again = DataSet(torch.from_numpy(raw.features).to(DEVICE), None)
+    back_norm.pre_process(again)          # a batch on the card, normalised
+    same_x = bool(np.array_equal(again.features.cpu().numpy(),
+                                 held.features))
+    same_out = bool(np.array_equal(back.output(again.features),
+                                   net.output(held.features)))
+    rec["archive"] = {"normalizer": type(back_norm).__name__,
+                      "normalized_on_card_bitwise": same_x,
+                      "output_bitwise": same_out}
+    assert same_x and same_out, rec
+    return rec
+
+
+def _write_digit_sequences(tmp, x, y, rng):
+    """A CSV file a digit: its 8 rows (8 pixels and the label), cut to a
+    seeded length of min_len-max_len rows."""
+    import os
+    c = RECORDS_SEQ
+    paths = []
+    os.makedirs(tmp, exist_ok=True)
+    for i, (img, lab) in enumerate(zip(x, y)):
+        n = rng.randint(c["min_len"], c["max_len"] + 1)
+        p = os.path.join(tmp, f"d{i:04d}.csv")
+        with open(p, "w") as f:
+            f.write("".join(",".join(str(int(v)) for v in row) + f",{lab}\n"
+                            for row in img[:n]))
+        paths.append(p)
+    return paths
+
+
+def _seq_conf():
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    c = RECORDS_SEQ
+    return (NeuralNetConfiguration.Builder().seed(c["seed"])
+            .updater("adam").learning_rate(c["lr"]).list()
+            .layer(GravesLSTM(n_in=8, n_out=c["hidden"], activation="tanh"))
+            .layer(RnnOutputLayer(n_in=c["hidden"], n_out=10,
+                                  activation="softmax", loss="mcxent"))
+            .build())
+
+
+def records_sequences(tmp, train, test):
+    """CSVSequenceRecordReader → SequenceRecordReaderDataSetIterator
+    (ALIGN_END) → a GravesLSTM at the char-RNN's width and an
+    RnnOutputLayer, per batch (masked batches): the LSTM kernels' launches
+    by the wrappers and by torch.profiler over an epoch, the held-out
+    accuracy at each digit's last row, and one masked f32 batch on the
+    card against the CPU within the charrnn phase's bars."""
+    import os
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.normalizers import \
+        NormalizerStandardize
+    from deeplearning4j_tpu_torch.datasets.records import (
+        ALIGN_END, CSVSequenceRecordReader,
+        SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    c = RECORDS_SEQ
+    rng = np.random.RandomState(c["seed"])
+    tr = _write_digit_sequences(os.path.join(tmp, "seq_train"), *train, rng)
+    te = _write_digit_sequences(os.path.join(tmp, "seq_test"), *test, rng)
+
+    def iterator(paths, batch):
+        return SequenceRecordReaderDataSetIterator(
+            CSVSequenceRecordReader(paths), batch, num_possible_labels=10,
+            label_index=8, alignment=ALIGN_END)
+    it = iterator(tr, c["batch"])
+    raw = next(iter(it))
+    assert raw.features_mask is not None and raw.labels_mask is not None
+    # ALIGN_END: every row's last step is real
+    assert bool((raw.features_mask[:, -1] == 1).all())
+    # the pixels standardised over the real steps only (the masked fit)
+    norm = NormalizerStandardize().fit(it)
+    it.set_pre_processor(norm)
+    first = next(iter(it))
+    n_batches = -(-len(tr) // c["batch"])
+    net = MultiLayerNetwork(_seq_conf(), device=DEVICE).init()
+    net.fit(it)                              # warm-up epoch
+    torch.cuda.synchronize()
+    reset_launches()                         # the main path starts here
+    t0 = time.perf_counter()
+    net.fit(it, epochs=c["epochs"] - 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seq, bwd = read_lstm_launches()          # ... ends
+    assert seq == n_batches * (c["epochs"] - 2) and bwd > 0, (seq, bwd)
+    # one more epoch under the profiler: the kernels on the device, as
+    # many as the wrappers launched in it (the profiler can drop an event
+    # at its start: another epoch is profiled then, up to five)
+    for tries in range(1, 6):
+        reset_launches()
+        _, names, _ = profiled(lambda: net.fit(it))
+        prof, wrapped = lstm_kernels(names), read_lstm_launches()
+        if prof == wrapped:
+            break
+    assert prof == wrapped and prof[0] == n_batches, (prof, wrapped, tries)
+    held = next(iter(iterator(te, len(te))))
+    norm.pre_process(held)
+    out = net.output(held.features, fmask=held.features_mask)
+    acc = float((out[:, -1].argmax(-1) == held.labels[:, -1].argmax(-1))
+                .mean())
+    # f32 card against CPU, one masked batch from the same weights
+    card = MultiLayerNetwork(_seq_conf(), device=DEVICE).init()
+    cpu = MultiLayerNetwork(_seq_conf(), device="cpu").init()
+    cpu.set_params(card.params())
+    ds = first
+    got = float(card.fit_batch(ds.features, ds.labels, ds.features_mask,
+                               ds.labels_mask))
+    want = float(cpu.fit_batch(ds.features, ds.labels, ds.features_mask,
+                               ds.labels_mask))
+    p_got, p_want = card.params(), cpu.params()
+    rel = float(np.abs(p_got - p_want).max() / np.abs(p_want).max())
+    rec = {"sequences": len(tr), "held_out": len(te), "batch": c["batch"],
+           "hidden": c["hidden"], "lengths": [c["min_len"], c["max_len"]],
+           "alignment": "ALIGN_END", "timed_epochs": c["epochs"] - 2,
+           "timed_s": wall,
+           "sequences_per_s": len(tr) * (c["epochs"] - 2) / wall,
+           "held_out_last_step_accuracy": acc, "bar": RECORDS_SEQ_BAR,
+           "kernel_launches": {"lstm_cell_fwd": seq, "lstm_cell_bwd": bwd,
+                               "counted_by": "wrappers"},
+           "profiled_epoch_kernels": {"lstm_seq_kernel": prof[0],
+                                      "lstm_bwd_kernel": prof[1],
+                                      "epochs_profiled": tries},
+           "card_vs_cpu": {"loss_card": got, "loss_cpu": want,
+                           "loss_abs_err": abs(got - want),
+                           "param_max_rel_err": rel,
+                           "tol": [CHARRNN_LOSS_TOL, CHARRNN_PARAM_RTOL]}}
+    assert abs(got - want) <= CHARRNN_LOSS_TOL and \
+        rel <= CHARRNN_PARAM_RTOL, rec
+    assert acc >= RECORDS_SEQ_BAR, rec
+    return rec
+
+
+def phase_records(card):
+    import tempfile
+    t_phase = time.perf_counter()
+    train, test = digits()
+    rec = {"phase": "records", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["csv_mln"] = records_csv(tmp, train, test)
+        rec["sequences_lstm"] = records_sequences(tmp, train, test)
+    rec["kernel_launches"] = rec["sequences_lstm"]["kernel_launches"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def _glove(device, **kw):
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    c = dict(GLOVE, **kw)
+    return Glove(layer_size=c["layer_size"], window=c["window"],
+                 x_max=c["x_max"], alpha=c["alpha"],
+                 learning_rate=c["learning_rate"],
+                 batch_size=c["batch_size"], epochs=c["epochs"],
+                 seed=c["seed"], min_word_frequency=1, device=device)
+
+
+def glove_fit(sents):
+    """One Glove fit at GLOVE: the co-occurrence build's seconds, the
+    distinct pairs, the training's pairs/s, each epoch's loss, peak
+    memory, and the embedding."""
+    import torch
+    g = _glove(DEVICE)
+    tokens = [g.tokenizer_factory.create(s).get_tokens() for s in sents]
+    from deeplearning4j_tpu_torch.nlp.vocab import Sequence, VocabWord
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g.build_vocab(Sequence([VocabWord(t) for t in toks])
+                  for toks in tokens if toks)
+    vocab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, cols, vals = g.co_occurrences(tokens).pairs()
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    g._fit_pairs(rows, cols, vals)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    return g, {"vocab_s": vocab_s, "co_occurrence_build_s": build_s,
+               "distinct_pairs": int(len(vals)), "fit_s": fit_s,
+               "pairs_per_s": len(vals) * g.epochs / fit_s,
+               "epoch_losses": list(g.epoch_losses_),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "package_kernel_launches":
+                   list(read_launches() + read_lstm_launches())}
+
+
+def glove_card_vs_cpu():
+    import numpy as np
+    c = GLOVE_SMALL
+    sents = w2v_corpus(c["vocab"], c["total"], c["sent_len"], 1)
+    tables = []
+    for dev in (DEVICE, "cpu"):
+        g = _glove(dev, layer_size=c["layer_size"], epochs=c["epochs"],
+                   batch_size=c["batch_size"], seed=c["seed"])
+        g.fit_corpus(sents)
+        tables.append((g.lookup_table.all_vectors(), g.loss_))
+    rel = float(np.abs(tables[0][0] - tables[1][0]).max()
+                / np.abs(tables[1][0]).max())
+    out = {"config": c, "max_rel_err": rel, "loss_card": tables[0][1],
+           "loss_cpu": tables[1][1], "tolerance": GLOVE_CARD_CPU_RTOL}
+    assert rel <= GLOVE_CARD_CPU_RTOL, out
+    return out
+
+
+def phase_glove(card):
+    import torch
+    t_phase = time.perf_counter()
+    c = GLOVE
+    t0 = time.perf_counter()
+    sents = w2v_corpus(c["vocab"], c["full_total"], c["sent_len"],
+                       c["corpus_seed"])[:c["total"] // c["sent_len"]]
+    rec = {"phase": "glove", "config": c, "corpus_s":
+           time.perf_counter() - t0, "card": card,
+           "cut": f"bench_word2vec's corpus cut from {c['full_total']:,} "
+                  f"to its first {c['total']:,} words"}
+    fits = []
+    for _ in range(2):
+        g, r = glove_fit(sents)
+        fits.append((g.lookup_table.syn0.clone(), r))
+        del g
+    (a, r0), (b, r1) = fits
+    rec["fits"] = [r0, r1]
+    rec["bitwise_across_two_fits"] = bool(torch.equal(a, b))
+    rec["embedding_finite"] = bool(torch.isfinite(a).all())
+    rec["card_vs_cpu"] = glove_card_vs_cpu()
+    for r in (r0, r1):
+        assert r["epoch_losses"][-1] < r["epoch_losses"][0], r
+        assert r["package_kernel_launches"] == [0] * 5, r
+    assert rec["bitwise_across_two_fits"] and rec["embedding_finite"], rec
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def _write_edge_list(path, n, m, seed):
+    """~m edge lines over n vertices: a ring (every vertex connected) and
+    seeded random pairs."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, n, m - n)
+    b = rng.randint(0, n, m - n)
+    ring = np.arange(n)
+    src = np.concatenate([ring, a])
+    dst = np.concatenate([(ring + 1) % n, b])
+    with open(path, "w") as f:
+        f.write("# seeded undirected graph\n")
+        f.write("\n".join(f"{s},{d}" for s, d in zip(src, dst)) + "\n")
+
+
+def deepwalk_round_trips(dw, tmp):
+    """GraphVectorSerializer, then WordVectorSerializer's text, Google
+    binary and zip, of the card-trained model, read back on the card."""
+    import os
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import GraphVectorSerializer
+    from deeplearning4j_tpu_torch.nlp.serializer import WordVectorSerializer
+    sv = dw._sv
+    want = sv.lookup_table.all_vectors()
+    words = sv.vocab.words()
+    out = {}
+    p = os.path.join(tmp, "graph_vectors.txt")
+    GraphVectorSerializer.write_graph_vectors(dw, p)
+    back = GraphVectorSerializer.read_graph_vectors(p)
+    got = np.stack([back.get_vertex_vector(int(w)) for w in words])
+    scale = float(np.abs(want).max())
+    out["graph_vectors"] = {"max_abs_err": float(np.abs(got - want).max()),
+                            "tol": 5e-9 + 1e-7 * scale}
+    for fmt, write, read, atol, rtol in (
+            ("text", "write_word_vectors", "read_word_vectors", TEXT_ATOL,
+             TEXT_RTOL),
+            ("binary", "write_google_binary", "read_google_binary", 0.0, 0.0),
+            ("zip", "write_word2vec_model", "read_word2vec_model", 0.0, 0.0)):
+        p = os.path.join(tmp, f"vectors.{fmt}")
+        getattr(WordVectorSerializer, write)(sv, p)
+        back = getattr(WordVectorSerializer, read)(p)
+        assert back.vocab.words() == words
+        got = back.lookup_table.all_vectors()
+        excess = np.abs(got - want) - (atol + rtol * np.abs(want))
+        out[fmt] = {"max_abs_err": float(np.abs(got - want).max()),
+                    "atol": atol, "rtol": rtol,
+                    "within": bool((excess <= 0).all()),
+                    "bytes": os.path.getsize(p)}
+    g = out["graph_vectors"]
+    g["within"] = g["max_abs_err"] <= g["tol"]
+    assert all(r["within"] for r in out.values()), out
+    return out
+
+
+def phase_deepwalk(card):
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.graph import DeepWalk, GraphLoader
+    t_phase = time.perf_counter()
+    c = DEEPWALK
+    rec = {"phase": "deepwalk", "config": c, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "edges.csv")
+        _write_edge_list(path, c["vertices"], c["edges"], c["seed"])
+        t0 = time.perf_counter()
+        g = GraphLoader.load_undirected_graph_edge_list_file(
+            path, c["vertices"])
+        rec["load_s"] = time.perf_counter() - t0
+        degrees = [g.get_degree(v) for v in range(g.num_vertices())]
+        rec["graph"] = {"vertices": g.num_vertices(),
+                        "edges_out_total": int(sum(degrees)),
+                        "max_degree": int(max(degrees))}
+        dw = DeepWalk(vector_size=c["vector_size"],
+                      window_size=c["window_size"],
+                      walk_length=c["walk_length"],
+                      walks_per_vertex=c["walks_per_vertex"],
+                      batch_size=c["batch_size"], seed=c["seed"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        dw.fit(g)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        vecs = dw._sv.lookup_table.all_vectors()
+        rec.update({"fit_s": dt, "vertices_per_s": c["vertices"] / dt,
+                    "walk_tokens": c["vertices"] * c["walks_per_vertex"]
+                    * (c["walk_length"] + 1),
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "trained_vertices": dw.num_vertices(),
+                    "vectors_finite": bool(np.isfinite(vecs).all()),
+                    "package_kernel_launches":
+                        list(read_launches() + read_lstm_launches())})
+        assert rec["vectors_finite"] and dw.num_vertices() == c["vertices"]
+        assert rec["package_kernel_launches"] == [0] * 5, rec
+        rec["round_trips"] = deepwalk_round_trips(dw, tmp)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def keras_trained_vgg():
+    """TrainedModelHelper(VGG16) on the committed tiny VGG-shaped file:
+    VGG16ImagePreProcessor, output() on the card and decode_predictions,
+    against the same on the CPU."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.modelimport.trained_models import (
+        TrainedModelHelper, TrainedModels)
+    helper = TrainedModelHelper(TrainedModels.VGG16).set_path_to_h5(
+        _keras_file("vgg16_tiny_k1_tf.h5"))
+    card, cpu = helper.load_model(), helper.load_model(device="cpu")
+    img = np.random.RandomState(SEED + 15).randint(
+        0, 256, (4, 8, 8, 3)).astype(np.float32)
+    ds = DataSet(img, None)
+    TrainedModels.get_pre_processor(TrainedModels.VGG16).pre_process(ds)
+    got, want = card.output(ds.features), cpu.output(ds.features)
+    top_card = TrainedModels.decode_predictions(got)
+    top_cpu = TrainedModels.decode_predictions(want)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    labels = [[lbl for _, lbl, _ in row] for row in top_card]
+    rec = {"images": 4, "output_shape": list(got.shape),
+           "card_vs_cpu_rel": rel, "top5_card": labels,
+           "top5_equal": labels == [[lbl for _, lbl, _ in row]
+                                    for row in top_cpu]}
+    assert rec["top5_equal"] and rel <= KERAS_CARD_CPU_RTOL, rec
     return rec
 
 
@@ -4396,6 +5175,10 @@ def main():
     phase_word2vec(card)
     at = phase_attention(card)
     ke = phase_keras(card)
+    lp = phase_lm_persist(card)
+    rr = phase_records(card)
+    phase_glove(card)
+    phase_deepwalk(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -4434,6 +5217,7 @@ def main():
          "launches": launches["flash_attn_fwd"],
          "launches_serve": sl["kernel_launches"],
          "launches_attention": at["kernel_launches"]["flash_attn_fwd"],
+         "launches_lm_persist": lp["kernel_launches"]["flash_attn_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -4443,6 +5227,7 @@ def main():
          "source": src + "flash_attn_dq.cu", "replaces": ref + "185",
          "launches": launches["flash_attn_dq"],
          "launches_attention": at["kernel_launches"]["flash_attn_dq"],
+         "launches_lm_persist": lp["kernel_launches"]["flash_attn_dq"],
          "max_abs_err": bwd["errors"]["dq"]["max_abs_err"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_bwd_ms"],
          "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
@@ -4453,6 +5238,7 @@ def main():
          "source": src + "flash_attn_dkv.cu", "replaces": ref + "235",
          "launches": launches["flash_attn_dkv"],
          "launches_attention": at["kernel_launches"]["flash_attn_dkv"],
+         "launches_lm_persist": lp["kernel_launches"]["flash_attn_dkv"],
          "max_abs_err": max(bwd["errors"][g]["max_abs_err"]
                             for g in ("dk", "dv")),
          "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_bwd_ms"],
@@ -4470,6 +5256,7 @@ def main():
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_seq_kernel"],
          "launches_keras": ke["kernel_launches"]["lstm_cell_fwd"],
+         "launches_records": rr["kernel_launches"]["lstm_cell_fwd"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -4486,6 +5273,7 @@ def main():
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_bwd_kernel"],
          "launches_keras": ke["kernel_launches"]["lstm_cell_bwd"],
+         "launches_records": rr["kernel_launches"]["lstm_cell_bwd"],
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

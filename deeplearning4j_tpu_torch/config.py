@@ -114,6 +114,10 @@ _declare("DL4J_TORCH_LSTM_KERNEL", "str", "auto",
 _declare("DL4J_TORCH_METRICS", "flag", True,
          "Record into the obs metric registry; 0 turns every record into "
          "a no-op. Counterpart: DL4J_TPU_METRICS.")
+_declare("DL4J_TORCH_MODEL_CACHE", "str", "~/.dl4j_torch/trainedmodels",
+         "Root of the pretrained-model weight cache that TrainedModelHelper "
+         "looks in (modelimport/trained_models.py; local files only). "
+         "Counterpart: DL4J_TPU_MODEL_CACHE.")
 _declare("DL4J_TORCH_NANGUARD", "flag", True,
          "Non-finite guard in MultiLayerNetwork's train step: a step whose "
          "loss or gradients are not finite is reverted on the device "

@@ -59,8 +59,8 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     blockwise_attention, dense_attention)
 
 __all__ = ["DECODE_MODES", "TransformerConfig", "TransformerLM",
-           "decode_state_from_numpy", "gumbel_noise", "opt_state_from_numpy",
-           "params_from_numpy"]
+           "decode_state_from_numpy", "gumbel_noise", "leaf_paths",
+           "opt_state_from_numpy", "params_from_numpy"]
 
 _OBS_OUTPUT_SECONDS = obs.histogram(
     "infer.output_seconds",
@@ -245,6 +245,26 @@ def _flatten(tree, prefix=""):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
             out[prefix + k] = v
+    return out
+
+
+def leaf_paths(tree, prefix=""):
+    """The paths of ``tree``'s leaves (``"b0.qkv"``, as :func:`_flatten`
+    names them) in the reference's leaf order, which the archives' flat
+    vectors follow. ``jax.tree.leaves`` walks a dict's keys sorted as
+    strings at every level, so the blocks come ``b0, b1, b10, b11, b2,
+    ...`` once there are more than ten; a block's leaves come ``fc, fc_b,
+    ln1_b, ln1_g, ln2_b, ln2_g, out, out_b, proj, proj_b, qkv, qkv_b``;
+    then ``lnf_b, lnf_g, wpe`` (absent under rope) and ``wte``. ``qkv``
+    has ``d + 2 kv_heads hd`` columns (GQA), and an optimizer state
+    ``{"ema", "m", "v"}`` flattens its trees in that order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, (dict, nn.ParameterDict)):
+            out += leaf_paths(v, f"{prefix}{k}.")
+        else:
+            out.append(prefix + k)
     return out
 
 
@@ -679,6 +699,22 @@ class TransformerLM(nn.Module):
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
+
+    def rng_state(self):
+        """The dropout generator's state (a uint8 host tensor), or None
+        while no dropout step has drawn from it."""
+        return None if self._rng is None else self._rng.get_state()
+
+    def set_rng_state(self, state):
+        """Continue the dropout stream from ``state`` (from
+        :meth:`rng_state`); None starts it afresh, seeded ``conf.seed +
+        1`` at the next dropout step, as a new model's is."""
+        if state is None:
+            self._rng = None
+            return
+        if self._rng is None:
+            self._rng = torch.Generator(device=self.device)
+        self._rng.set_state(torch.as_tensor(state, dtype=torch.uint8))
 
     # ---- forward -------------------------------------------------------
     def _drop(self, x, keep):

@@ -1,8 +1,8 @@
-"""NLP: Word2Vec and ParagraphVectors over SequenceVectors, the
-vocabulary and its Huffman coding, and the tokenizer and sentence-iterator
-pipeline (the reference's ``nlp/`` package; GloVe, the serializers, the
+"""NLP: Word2Vec, ParagraphVectors and GloVe over SequenceVectors, the
+vocabulary and its Huffman coding, the tokenizer and sentence-iterator
+pipeline, and WordVectorSerializer (the reference's ``nlp/`` package; the
 vectorizers, the parsers and the other tokenizers are not ported yet:
-ROADMAP.md, queue 1)."""
+ROADMAP.md, queue 1, "The rest")."""
 
 from deeplearning4j_tpu_torch.nlp.text import (  # noqa: F401
     BasicLineIterator, CollectionSentenceIterator, CommonPreprocessor,
@@ -18,3 +18,7 @@ from deeplearning4j_tpu_torch.nlp.sequence_vectors import (  # noqa: F401
     CBOW, DBOW, DM, SequenceVectors, SkipGram)
 from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: F401
     ParagraphVectors, Word2Vec)
+from deeplearning4j_tpu_torch.nlp.glove import (  # noqa: F401
+    AbstractCoOccurrences, Glove)
+from deeplearning4j_tpu_torch.nlp.serializer import (  # noqa: F401
+    VectorsConfiguration, WordVectorSerializer)

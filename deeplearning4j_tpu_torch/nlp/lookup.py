@@ -48,7 +48,8 @@ from deeplearning4j_tpu_torch.device import resolve_device
 __all__ = ["COLLISION_CAP", "InMemoryLookupTable", "cbow_hs_scan",
            "cbow_hs_step", "cbow_ns_scan", "cbow_ns_scan_devneg",
            "cbow_ns_step", "hs_scan", "hs_step", "ns_scan",
-           "ns_scan_devneg", "ns_step", "scatter_impl", "set_scatter_impl"]
+           "ns_scan_devneg", "ns_step", "scatter_add_sorted",
+           "scatter_impl", "set_scatter_impl", "sorted_runs"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -203,28 +204,55 @@ def _collision_scale(cnt):
     return torch.clamp(COLLISION_CAP / torch.clamp(cnt, min=1.0), max=1.0)
 
 
+def sorted_runs(idx):
+    """``idx`` sorted (stable), the sorting permutation, and each sorted
+    position's run of equal indices (its first and last positions): what
+    the sorted scatters need, shared by the adds that use one index."""
+    si, order = torch.sort(idx, stable=True)
+    start = torch.searchsorted(si, si)
+    end = torch.searchsorted(si, si, right=True) - 1
+    return si, order, start, end
+
+
+def _run_totals(vals, runs):
+    """Each sorted position's run total of ``vals`` (N, C), as f32 (N, C):
+    the difference of f64 prefix sums (a scan, the same on every call) at
+    the run's two ends, with no atomic add and no loop over a run's
+    length."""
+    _, order, start, end = runs
+    cs = torch.cumsum(vals[order].double().t().contiguous(), dim=1)
+    before = torch.where(start > 0, cs[:, (start - 1).clamp(min=0)],
+                         torch.zeros((), dtype=cs.dtype, device=cs.device))
+    return (cs[:, end] - before).t().float()
+
+
+def scatter_add_sorted(table, idx, vals, runs=None):
+    """``table[idx] += vals`` in place, colliding indices summed, by the
+    sorted route of :func:`_scatter_damped_sorted` without its damping.
+    On the card the result is the same bits on every run (``index_add_``
+    adds with atomics, in an order that varies). ``table``: (V,) or
+    (V, D); ``idx``: (N,) int64; ``vals``: (N,) or (N, D) f32; ``runs``:
+    ``sorted_runs(idx)``, if already made."""
+    runs = runs if runs is not None else sorted_runs(idx)
+    si = runs[0]
+    run = _run_totals(vals.reshape(vals.shape[0], -1), runs)
+    table.index_put_((si,), table[si] + run.reshape(
+        (-1,) + table.shape[1:]).to(table.dtype))
+
+
 def _scatter_damped_sorted(table, idx, rows, w):
     """``table[idx] += rows w``, damped by the collision cap, by sort and
     segment sum: contributions sorted by row (stable), each run of equal
-    rows summed, and each row written once with its total.
-
-    A run's sum is the difference of f64 prefix sums (a scan, the same on
-    every call) at its two ends, then rounded to f32: no atomic add and no
-    loop over a run's length, which on a Zipf corpus reaches thousands of
-    rows for the most frequent words. Every position of a run computes
-    the run's new row, and the write (no accumulation) puts those equal
-    values into the row, so the result does not depend on which write
-    lands last."""
-    si, order = torch.sort(idx, stable=True)
-    # each position's run: its first and last positions in the sorted rows
-    start = torch.searchsorted(si, si)
-    end = torch.searchsorted(si, si, right=True) - 1
-    # prefix sums along each column: [D + 1, n], the count last
-    contrib = torch.cat([rows * w[:, None], w[:, None]], dim=1)[order]
-    cs = torch.cumsum(contrib.double().t().contiguous(), dim=1)
-    before = torch.where(start > 0, cs[:, (start - 1).clamp(min=0)],
-                         torch.zeros((), dtype=cs.dtype, device=cs.device))
-    run = (cs[:, end] - before).t().float()               # (n, D + 1)
+    rows summed (:func:`_run_totals`), and each row written once with its
+    total. A run's sum reaches thousands of rows for the most frequent
+    words of a Zipf corpus. Every position of a run computes the run's
+    new row, and the write (no accumulation) puts those equal values into
+    the row, so the result does not depend on which write lands last."""
+    runs = sorted_runs(idx)
+    si = runs[0]
+    # the rows and the count last: (N, D + 1)
+    run = _run_totals(torch.cat([rows * w[:, None], w[:, None]], dim=1),
+                      runs)
     upd = run[:, :-1] * _collision_scale(run[:, -1])[:, None]
     table.index_put_((si,), table[si] + upd.to(table.dtype))
 

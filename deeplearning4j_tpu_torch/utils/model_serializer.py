@@ -16,15 +16,28 @@ either package loads in the other:
   (BatchNormalization's ``mean`` and ``var``);
 - ``metadata.json``: ``model_type``, ``iteration``, ``epoch`` and
   ``framework`` (this package's name);
-- ``preprocessor.bin``: a fitted normalizer's bytes, kept as they are;
+- ``preprocessor.bin``: a fitted normalizer (``datasets/normalizers.py``,
+  whose bytes both packages read);
 - ``manifest.json``: the CRC-32 of each entry (``utils/atomic_io.py``).
+
+A ``TransformerLM`` archive (the reference's pytree family) holds the
+configuration dataclass as JSON (the 27 fields of ``TransformerConfig``,
+which the reference rebuilds with ``TransformerConfig(**json)``), the
+parameters and the optimizer state (``ema`` if kept, then ``m``, then
+``v``) each flattened in the reference's leaf order
+(``models/transformer.py`` :func:`leaf_paths`), and ``metadata.json``
+with ``iteration``. The reference's metadata carries its threefry
+dropout key under ``rng``, which no torch generator can continue (the
+ROADMAP's RNG rule): the port reads such an archive and starts its
+dropout stream afresh, seeded as ``init`` seeds it, and writes its own
+generator's state under ``torch_rng`` (with ``torch_rng_device``), which
+the reference ignores. ``MoETransformerLM`` and ``ViT`` archives raise
+``NotImplementedError`` naming ROADMAP.md.
 
 Every write commits through ``atomic_io`` (temporary file, fsync,
 rename); a restore verifies the manifest and raises
 ``CheckpointCorruptError`` for a torn or bit-rotted archive. The write
-side is numpy on the host. TransformerLM archives and the normalizer
-classes are not ported yet: they raise ``NotImplementedError`` naming
-ROADMAP.md.
+side is numpy on the host.
 """
 
 from __future__ import annotations
@@ -37,11 +50,14 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.normalizers import DataNormalization
 from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
 from deeplearning4j_tpu_torch.models.computation_graph import \
     ComputationGraph
 from deeplearning4j_tpu_torch.models.multi_layer_network import \
     MultiLayerNetwork
+from deeplearning4j_tpu_torch.models.transformer import (
+    TransformerConfig, TransformerLM, _flatten, _fresh_opt_state, leaf_paths)
 from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
@@ -50,9 +66,10 @@ from deeplearning4j_tpu_torch.utils import atomic_io, flat_params
 
 __all__ = ["CONFIG_NAME", "COEFFICIENTS_NAME", "META_NAME", "NORMALIZER_NAME",
            "STATE_NAME", "UPDATER_NAME", "add_normalizer_to_model",
-           "model_entries", "model_type", "restore_computation_graph",
-           "restore_model", "restore_multi_layer_network",
-           "restore_normalizer_from_file", "write_model"]
+           "load_transformer_lm_", "model_entries", "model_type",
+           "restore_computation_graph", "restore_model",
+           "restore_multi_layer_network", "restore_normalizer_from_file",
+           "restore_transformer_lm", "write_model"]
 
 CONFIG_NAME = "configuration.json"
 COEFFICIENTS_NAME = "coefficients.npy"
@@ -63,10 +80,20 @@ NORMALIZER_NAME = "preprocessor.bin"
 FRAMEWORK = "deeplearning4j_tpu_torch"
 
 
+# the reference's pytree family: a configuration dataclass and parameter
+# and optimizer trees, one zip layout, dispatched by metadata's
+# model_type; None marks a kind this package has not ported
+_PYTREE_FAMILY = {"TransformerLM": (TransformerLM, TransformerConfig),
+                  "MoETransformerLM": None, "ViT": None}
+# the configuration fields that fix the parameter shapes
+_LM_SHAPE_FIELDS = ("vocab_size", "max_len", "d_model", "n_heads",
+                    "n_layers", "d_ff", "n_kv_heads", "pos_embed")
+
+
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
-        "queue 1, \"Persistence gaps\")")
+        "queue 1, \"The rest\")")
 
 
 def _np_bytes(arr):
@@ -113,12 +140,177 @@ def _verified(path):
             f"checkpoint {path!r} failed to read: {e!r}") from e
 
 
+def _normalizer_bytes(normalizer):
+    """A normalizer's ``preprocessor.bin`` bytes; bytes pass as they are."""
+    if isinstance(normalizer, DataNormalization):
+        return normalizer.to_bytes()
+    return bytes(normalizer)
+
+
+def _tree_vec(tree):
+    """The tree's leaves as one flat f32 host vector, in the reference's
+    leaf order (one device-side concatenation, one copy to the host)."""
+    flat = _flatten(tree)
+    paths = leaf_paths(tree)
+    if not paths:
+        return np.zeros((0,), np.float32)
+    with torch.no_grad():
+        return torch.cat([flat[p].detach().reshape(-1).float()
+                          for p in paths]).cpu().numpy()
+
+
+def _check_tree_vec(tree, vec, what):
+    n = sum(t.numel() for t in _flatten(tree).values())
+    if vec.shape[0] != n:
+        raise ValueError(f"{what} vector length {vec.shape[0]} != "
+                         f"expected {n}")
+
+
+def _load_tree_(tree, vec):
+    """Copy the flat vector ``vec`` into the tree's tensors, in place and
+    in the reference's leaf order, so that programs captured over those
+    tensors stay bound to them. The caller checked the length."""
+    flat = _flatten(tree)
+    paths = leaf_paths(tree)
+    if not paths:
+        return
+    dev = flat[paths[0]].device
+    src = torch.from_numpy(np.ascontiguousarray(vec, np.float32)).to(dev)
+    ofs = 0
+    with torch.no_grad():
+        for p in paths:
+            t = flat[p]
+            t.copy_(src[ofs:ofs + t.numel()].view(t.shape))
+            ofs += t.numel()
+
+
+def _transformer_entries(net, save_updater, normalizer):
+    import dataclasses
+    meta = {"model_type": type(net).__name__,
+            "iteration": int(net.iteration),
+            "framework": FRAMEWORK}
+    state = net.rng_state()
+    if state is not None:
+        # the dropout stream advances with each step; without it a
+        # restored dropout model would start it again and leave the
+        # original's continuation
+        meta["torch_rng"] = state.tolist()
+        meta["torch_rng_device"] = net.device.type
+    entries = {CONFIG_NAME: json.dumps(dataclasses.asdict(net.conf)),
+               COEFFICIENTS_NAME: _np_bytes(_tree_vec(net.params))}
+    if save_updater and net.opt_state is not None:
+        entries[UPDATER_NAME] = _np_bytes(_tree_vec(net.opt_state))
+    entries[META_NAME] = json.dumps(meta)
+    if normalizer is not None:
+        entries[NORMALIZER_NAME] = _normalizer_bytes(normalizer)
+    return entries
+
+
+def _family(kind, path):
+    if kind not in _PYTREE_FAMILY:
+        raise ValueError(
+            f"checkpoint {path!r} holds a {kind!r} model, not one of the "
+            f"pytree family {sorted(_PYTREE_FAMILY)}: use restore_model()")
+    if _PYTREE_FAMILY[kind] is None:
+        raise _not_ported(f"restoring a {kind} archive")
+    return _PYTREE_FAMILY[kind]
+
+
+def _read_transformer(path, load_updater):
+    """(kind, configuration dict, metadata, coefficients, updater vector
+    or None) of a pytree-family archive, verified."""
+    with _verified(path) as z:
+        names = set(z.namelist())
+        meta = (json.loads(z.read(META_NAME).decode())
+                if META_NAME in names else {})
+        kind = meta.get("model_type", "TransformerLM")
+        _family(kind, path)
+        conf = json.loads(z.read(CONFIG_NAME).decode())
+        coeff = _np_load(z.read(COEFFICIENTS_NAME))
+        upd = (_np_load(z.read(UPDATER_NAME))
+               if load_updater and UPDATER_NAME in names else None)
+    return kind, conf, meta, coeff, upd
+
+
+def _adopt_rng(net, meta):
+    """The archive's dropout stream, if this package wrote it for this
+    kind of device; otherwise (a reference archive's threefry ``rng``,
+    or a generator of another device kind) the stream starts afresh."""
+    state = meta.get("torch_rng")
+    if state is not None and meta.get("torch_rng_device",
+                                      net.device.type) == net.device.type:
+        net.set_rng_state(state)
+    else:
+        net.set_rng_state(None)
+
+
+def restore_transformer_lm(path, load_updater=True, device=None):
+    """Restore a pytree-family model (a ``TransformerLM``; the class comes
+    from the metadata, the configuration from its dataclass) on
+    ``device`` (the card unless the caller asks for the CPU).
+    ``MoETransformerLM`` and ``ViT`` archives raise."""
+    kind, conf, meta, coeff, upd = _read_transformer(path, load_updater)
+    cls, conf_cls = _family(kind, path)
+    net = cls(conf_cls(**conf), device=device).init()
+    _check_tree_vec(net.params, coeff, "coefficients")
+    if upd is not None:
+        _check_tree_vec(net.opt_state, upd, "updater state")
+        _load_tree_(net.opt_state, upd)
+    _load_tree_(net.params, coeff)
+    net.iteration = int(meta.get("iteration", 0))
+    _adopt_rng(net, meta)
+    return net
+
+
+def load_transformer_lm_(net, path, load_updater=True):
+    """Load an LM archive into the existing ``net``, in place: the
+    archive's parameters, optimizer state, iteration and dropout stream
+    go into the tensors ``net`` already holds, so CUDA graphs captured
+    over them (``ContinuousLM``'s programs, ``generate()``'s) answer from
+    the loaded weights without a new capture. The archive's parameter
+    shapes must be ``net``'s; a failure leaves ``net`` as it was. Without
+    an optimizer state in the archive (or with ``load_updater`` False) the
+    LM gets a fresh one, as a restored model does. Returns the archive's
+    metadata."""
+    kind, conf, meta, coeff, upd = _read_transformer(path, load_updater)
+    if kind != type(net).__name__:
+        raise ValueError(f"checkpoint {path!r} holds a {kind}, cannot load "
+                         f"it into a {type(net).__name__}")
+    mine = {f: getattr(net.conf, f) for f in _LM_SHAPE_FIELDS}
+    theirs = {f: conf.get(f, mine[f]) for f in _LM_SHAPE_FIELDS}
+    if mine != theirs:
+        raise ValueError(f"checkpoint {path!r} holds an LM of other shapes: "
+                         f"{theirs} against {mine}")
+    if net.params is None:
+        net.init()
+    opt = net.opt_state
+    if upd is not None and opt is None:
+        opt = _fresh_opt_state(net.conf, net.params)
+    _check_tree_vec(net.params, coeff, "coefficients")
+    if upd is not None:
+        _check_tree_vec(opt, upd, "updater state")
+    _load_tree_(net.params, coeff)
+    if upd is not None:
+        _load_tree_(opt, upd)
+        net.opt_state = opt
+    else:
+        # no optimizer state in the archive (or not asked for): a fresh
+        # one, as a restored model's is
+        net.opt_state = _fresh_opt_state(net.conf, net.params)
+    net.iteration = int(meta.get("iteration", 0))
+    _adopt_rng(net, meta)
+    net.score_ = float("nan")
+    return meta
+
+
 def model_entries(net, save_updater=True, normalizer=None):
     """The archive's entries ({name: bytes | str}) for a
-    MultiLayerNetwork or a ComputationGraph: the common part of
-    :func:`write_model` and the training checkpoint (which adds its own
-    entry before the commit). ``normalizer`` is a fitted normalizer's
-    bytes, stored as they are."""
+    MultiLayerNetwork, a ComputationGraph or a TransformerLM: the common
+    part of :func:`write_model` and the training checkpoint (which adds
+    its own entry before the commit). ``normalizer`` is a fitted
+    normalizer (or its ``preprocessor.bin`` bytes)."""
+    if isinstance(net, TransformerLM):
+        return _transformer_entries(net, save_updater, normalizer)
     if not isinstance(net, (MultiLayerNetwork, ComputationGraph)):
         raise _not_ported(f"the {type(net).__name__} archive")
     graph = isinstance(net, ComputationGraph)
@@ -146,15 +338,17 @@ def model_entries(net, save_updater=True, normalizer=None):
         "framework": FRAMEWORK,
     })
     if normalizer is not None:
-        entries[NORMALIZER_NAME] = bytes(normalizer)
+        entries[NORMALIZER_NAME] = _normalizer_bytes(normalizer)
     return entries
 
 
 def write_model(net, path, save_updater=True, normalizer=None,
                 extra_entries=None):
-    """Save a MultiLayerNetwork (ModelSerializer.writeModel) through the
-    atomic commit. ``extra_entries`` ride in the same commit (the training
-    checkpoint's state)."""
+    """Save a MultiLayerNetwork, a ComputationGraph or a TransformerLM
+    (ModelSerializer.writeModel) through the atomic commit. ``normalizer``
+    goes in as ``preprocessor.bin`` (ModelSerializer.addNormalizerToModel);
+    ``extra_entries`` ride in the same commit (the training checkpoint's
+    state)."""
     entries = model_entries(net, save_updater, normalizer)
     if extra_entries:
         entries.update(extra_entries)
@@ -162,18 +356,23 @@ def write_model(net, path, save_updater=True, normalizer=None,
 
 
 def add_normalizer_to_model(path, normalizer):
-    """Attach a normalizer's bytes to an existing archive, replacing any
-    there (ModelSerializer.addNormalizerToModel). The archive is committed
-    again whole: an append would leave a moment where a crash tears the
-    only copy."""
+    """Attach a fitted normalizer (or its bytes) to an existing archive,
+    replacing any there (ModelSerializer.addNormalizerToModel). The
+    archive is committed again whole: an append would leave a moment
+    where a crash tears the only copy."""
     entries = atomic_io.read_zip_entries(path, exclude=(NORMALIZER_NAME,))
-    entries[NORMALIZER_NAME] = bytes(normalizer)
+    entries[NORMALIZER_NAME] = _normalizer_bytes(normalizer)
     atomic_io.write_zip_atomic(path, entries)
 
 
 def restore_normalizer_from_file(path):
-    """Not ported: the normalizer classes come later."""
-    raise _not_ported("restore_normalizer_from_file (the normalizers)")
+    """The archive's normalizer, or None
+    (ModelSerializer.restoreNormalizerFromFile). It keeps its statistics
+    on the host; a batch on the card is normalised there."""
+    with _verified(path) as z:
+        if NORMALIZER_NAME not in z.namelist():
+            return None
+        return DataNormalization.from_bytes(z.read(NORMALIZER_NAME))
 
 
 def _restore(path, load_updater, make_net, slot_of):
@@ -225,15 +424,16 @@ def restore_computation_graph(path, load_updater=True, device=None):
 
 
 def restore_model(path, load_updater=True, device=None):
-    """Load a model archive of any kind this package has (ModelGuesser's
-    role): a MultiLayerNetwork or a ComputationGraph; the other kinds
-    raise."""
+    """Load a model archive of any kind (ModelGuesser's role), dispatched
+    by its metadata's ``model_type``: a ComputationGraph, a pytree-family
+    model (``MoETransformerLM`` and ``ViT`` raise), else a
+    MultiLayerNetwork."""
     kind = model_type(path)
-    if kind in (None, "MultiLayerNetwork"):
-        return restore_multi_layer_network(path, load_updater, device=device)
     if kind == "ComputationGraph":
         return restore_computation_graph(path, load_updater, device=device)
-    raise _not_ported(f"restoring a {kind} archive")
+    if kind in _PYTREE_FAMILY:
+        return restore_transformer_lm(path, load_updater, device=device)
+    return restore_multi_layer_network(path, load_updater, device=device)
 
 
 def model_type(path):

@@ -20,8 +20,16 @@ The cursor counts real batches, which also fixes the fused-group offset:
 groups form again in the same way from any batch index that starts a
 group (fit checkpoints only between groups), so a resumed run is bitwise
 the uninterrupted one. The reference keeps its PRNG key under ``rng``;
-the port's generator state goes under ``torch_rng``, which the reference
-ignores (their random streams cannot agree anyway).
+the port's generator state goes under ``torch_rng`` (and the generator's
+device kind under ``torch_rng_device``), which the reference ignores
+(their random streams cannot agree anyway).
+
+A ``TransformerLM`` (the reference's pytree branch) keeps its
+parameters, optimizer state, iteration and dropout generator. Applied
+to an existing LM, the checkpoint is copied into the tensors the LM
+already holds (``model_serializer.load_transformer_lm_``), so CUDA
+graphs captured over them, such as ``ContinuousLM``'s programs, answer
+from the restored weights without a new capture.
 
 Checkpoints are ``ckpt_<iteration>.zip`` in a directory with rolling
 retention (``DL4J_TORCH_CKPT_KEEP`` newest kept); each write goes through
@@ -42,6 +50,7 @@ import torch
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.config import env_int
 from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
+from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 from deeplearning4j_tpu_torch.utils import atomic_io, model_serializer
 
 __all__ = ["TRAIN_STATE_NAME", "apply_training_checkpoint",
@@ -64,13 +73,14 @@ def _training_state(net, cursor):
     state = {"version": _VERSION, "cursor": dict(cursor or {})}
     if net._rng is not None:
         state["torch_rng"] = net._rng.get_state().tolist()
-    skipped = net._nan_skipped
+        state["torch_rng_device"] = net.device.type
+    skipped = getattr(net, "_nan_skipped", None)
     state["nan"] = {
         # the caller flushes the guard's pending read first (fit does), so
-        # seen and bad_consec agree with the counter
+        # seen and bad_consec agree with the counter; an LM has no guard
         "skipped": 0 if skipped is None else int(skipped),
-        "seen": int(net._nan_seen),
-        "bad_consec": int(net._nan_bad_consec),
+        "seen": int(getattr(net, "_nan_seen", 0)),
+        "bad_consec": int(getattr(net, "_nan_bad_consec", 0)),
     }
     return state
 
@@ -156,12 +166,27 @@ def _read_training_state(path):
             f"checkpoint {path!r}: unreadable training state: {e!r}") from e
 
 
+def _apply_lm(net, path):
+    """The pytree branch: the archive goes into ``net``'s own tensors, in
+    place; the training state's generator, if any, wins over the
+    archive's."""
+    state = _read_training_state(path)
+    model_serializer.load_transformer_lm_(net, path)
+    if "torch_rng" in state and state.get(
+            "torch_rng_device", net.device.type) == net.device.type:
+        net.set_rng_state(state["torch_rng"])
+    return state.get("cursor", {})
+
+
 def apply_training_checkpoint(net, path):
-    """Load a TrainingCheckpoint into an existing MultiLayerNetwork or
-    ComputationGraph in place, on its device, and return the data cursor ({} for a plain model
-    archive). Parameters, layer and updater state, counters, generator
-    and guard state are all replaced, so the continuation is bitwise the
-    uninterrupted run. A failure leaves ``net`` as it was."""
+    """Load a TrainingCheckpoint into an existing MultiLayerNetwork,
+    ComputationGraph or TransformerLM in place, on its device, and return
+    the data cursor ({} for a plain model archive). Parameters, layer and
+    updater state, counters, generator and guard state are all replaced,
+    so the continuation is bitwise the uninterrupted run. A failure
+    leaves ``net`` as it was."""
+    if isinstance(net, TransformerLM):
+        return _apply_lm(net, path)
     restored = model_serializer.restore_model(path, device=net.device)
     if type(restored).__name__ != type(net).__name__:
         raise ValueError(f"checkpoint {path!r} holds a "

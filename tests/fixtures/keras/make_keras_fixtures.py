@@ -32,6 +32,13 @@ import's state copy shows).
 - ``lstm_k2_charrnn.h5``: a Keras 2 Sequential at the char-RNN's width:
   LSTM 200 units over 65 inputs, T 50, ``recurrent_activation`` sigmoid,
   ``return_sequences`` False, then Dense 65 softmax.
+- ``vgg16_tiny_k1_tf.h5``: a miniature VGG-shaped Keras 1 Sequential,
+  'tf' ordering, that ``TrainedModelHelper(VGG16).set_path_to_h5`` loads
+  in place of the real VGG16 weights: 8x8x3 input, Convolution2D 2
+  filters 3x3 'same' relu, MaxPooling2D 2x2, Flatten, Dense 1000
+  softmax, with the weights the reference's ``tests/test_trained_models.py``
+  draws (``RandomState(7)``: the conv ``randn * 0.1`` HWIO, the dense
+  ``randn * 0.1``, biases 0).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ SEED = 2024
 LENET_FILE = "lenet_k1_tf.h5"
 RESIDUAL_FILE = "residual_k1_th.h5"
 LSTM_FILE = "lstm_k2_charrnn.h5"
+VGG_FILE = "vgg16_tiny_k1_tf.h5"
 HELD_OUT_BAR = 0.90
 LEARN = dict(epochs=40, batch=64, shuffle_seed=5)
 
@@ -265,11 +273,42 @@ def make_lstm(path, r, vocab=65, units=200):
                 _sgd("categorical_crossentropy"), "2.1.6")
 
 
+def vgg_tiny_config():
+    return {"class_name": "Sequential", "config": [
+        {"class_name": "Convolution2D",
+         "config": {"name": "conv", "nb_filter": 2, "nb_row": 3, "nb_col": 3,
+                    "subsample": [1, 1], "border_mode": "same",
+                    "activation": "relu", "dim_ordering": "tf",
+                    "batch_input_shape": [None, 8, 8, 3]}},
+        {"class_name": "MaxPooling2D",
+         "config": {"name": "pool", "pool_size": [2, 2], "strides": [2, 2],
+                    "border_mode": "valid", "dim_ordering": "tf"}},
+        {"class_name": "Flatten", "config": {"name": "flatten"}},
+        {"class_name": "Dense",
+         "config": {"name": "predictions", "output_dim": 1000,
+                    "activation": "softmax"}}]}
+
+
+def make_vgg_tiny(path):
+    r = np.random.RandomState(7)
+    conv = (r.randn(3, 3, 3, 2) * 0.1).astype(np.float32)
+    dense = (r.randn(2 * 4 * 4, 1000) * 0.1).astype(np.float32)
+    weights = {"conv": [("conv_W", conv),
+                        ("conv_b", np.zeros(2, np.float32))],
+               "pool": [], "flatten": [],
+               "predictions": [("predictions_W", dense),
+                               ("predictions_b",
+                                np.zeros(1000, np.float32))]}
+    write_keras(path, vgg_tiny_config(), weights,
+                _sgd("categorical_crossentropy"), "1.2.2")
+
+
 def main():
     sys.path.insert(0, str(REPO))
     r = np.random.RandomState(SEED)
     make_residual(HERE / RESIDUAL_FILE, r)
     make_lstm(HERE / LSTM_FILE, r)
+    make_vgg_tiny(HERE / VGG_FILE)
     acc = make_lenet(HERE / LENET_FILE)
     sizes = {p.name: p.stat().st_size for p in sorted(HERE.glob("*.h5"))}
     print(json.dumps({"lenet_held_out_accuracy": acc, "bytes": sizes,

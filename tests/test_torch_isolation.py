@@ -21,7 +21,11 @@
   ingress, and a Word2Vec fit on the CPU capture no CUDA graph and load
   no kernel; SelfAttentionLayer on the CPU declines its flash helper
   (counted) and a Keras-imported LSTM runs the LSTM kernels' plain twins,
-  with no kernel loaded.
+  with no kernel loaded;
+- an LM archive restored, GloVe, DeepWalk, the word- and graph-vector
+  readers and the trained-model helper refuse the CPU without CUDA
+  unless asked for it, and GloVe and DeepWalk fits on the CPU capture no
+  CUDA graph and load no kernel.
 """
 
 import ast
@@ -81,7 +85,13 @@ def _port_sources():
                 "nlp/sequence_vectors.py", "nlp/word2vec.py",
                 "nn/helpers.py", "nn/layers/attention.py", "eval/roc.py",
                 "utils/h5.py", "modelimport/__init__.py",
-                "modelimport/keras.py", "modelimport/keras_server.py"):
+                "modelimport/keras.py", "modelimport/keras_server.py",
+                "datasets/normalizers.py", "datasets/records.py",
+                "datasets/magic_queue.py", "nlp/glove.py",
+                "nlp/serializer.py", "graph/__init__.py", "graph/graph.py",
+                "graph/walkers.py", "graph/deepwalk.py",
+                "modelimport/imagenet_labels.py",
+                "modelimport/trained_models.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -675,3 +685,50 @@ def test_cpu_attention_and_keras_nets_never_load_a_kernel(monkeypatch):
     lstm.output(seq)
     lstm.fit_batch(seq, np.eye(65, dtype=np.float32)[[3, 4]])
     assert _launches() + _lstm_launches() == before
+
+
+def test_persistence_embeddings_and_helper_without_device_refuse_the_cpu(
+        no_cuda, tmp_path):
+    from deeplearning4j_tpu_torch.graph import (DeepWalk,
+                                                GraphVectorSerializer)
+    from deeplearning4j_tpu_torch.modelimport.trained_models import \
+        TrainedModelHelper
+    from deeplearning4j_tpu_torch.nlp import Glove, WordVectorSerializer
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
+    path = str(tmp_path / "lm.zip")
+    model_serializer.write_model(lm, path)
+    text = tmp_path / "v.txt"
+    text.write_text("1 2\nw 0.5 0.25\n")
+    graph = tmp_path / "g.txt"
+    graph.write_text("0\t0.5\t0.25\n")
+    for call in (lambda: model_serializer.restore_model(path),
+                 lambda: model_serializer.restore_transformer_lm(path),
+                 lambda: Glove(layer_size=4), lambda: DeepWalk(),
+                 lambda: WordVectorSerializer.read_word_vectors(str(text)),
+                 lambda: GraphVectorSerializer.read_graph_vectors(
+                     str(graph)),
+                 lambda: TrainedModelHelper("vgg16").set_path_to_h5(
+                     str(KERAS / "vgg16_tiny_k1_tf.h5")).load_model()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_cpu_glove_and_deepwalk_never_load_a_kernel_or_capture(
+        monkeypatch):
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.models._cuda_graph import capture_count
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    captured = capture_count()
+    g = Glove(layer_size=4, window=2, epochs=1, batch_size=8, device="cpu")
+    g.fit_corpus(["a b c a", "b c d"])
+    gr = Graph(4)
+    for a, b in ((0, 1), (1, 2), (2, 3)):
+        gr.add_edge(a, b)
+    DeepWalk(vector_size=4, walk_length=4, batch_size=8,
+             device="cpu").fit(gr)
+    assert capture_count() == captured

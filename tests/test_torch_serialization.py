@@ -236,8 +236,12 @@ def test_committed_archives_reproduce_their_outputs(name):
         net.fit(DataSet(rng.rand(8, 8, 8, 1).astype(np.float32),
                         np.eye(3, dtype=np.float32)[rng.randint(0, 3, 8)]))
         assert np.isfinite(net.score_)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_serializer.restore_normalizer_from_file(path)
+        # its preprocessor.bin reads as the reference reads it
+        norm = model_serializer.restore_normalizer_from_file(path)
+        want = jser.restore_normalizer_from_file(path)
+        assert type(norm).__name__ == type(want).__name__
+        for k, v in vars(want).items():
+            np.testing.assert_array_equal(getattr(norm, k), v)
 
 
 @pytest.mark.parametrize("mode", ["truncate", "bitflip"])
@@ -338,30 +342,30 @@ def test_resume_falls_back_past_a_corrupt_newest_checkpoint(tmp_path,
 
 
 def test_kinds_not_ported_raise_and_name_the_roadmap(tmp_path):
-    """A TransformerLM archive, and a model that is neither a
-    MultiLayerNetwork nor a ComputationGraph, raise
-    ``NotImplementedError`` naming ROADMAP.md; a ComputationGraph archive
-    now goes to the graph's restore (this one, which has no
-    configuration, fails there as a corrupt archive)."""
+    """The archive kinds still not ported (MoETransformerLM, ViT), and a
+    model that is no MultiLayerNetwork, ComputationGraph or
+    TransformerLM, raise ``NotImplementedError`` naming ROADMAP.md; a
+    ComputationGraph or TransformerLM archive goes to its restore (these,
+    which have no configuration, fail there as corrupt archives)."""
     from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
-    from deeplearning4j_tpu_torch.models.transformer import (
-        TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.utils import atomic_io
-    for kind in ("ComputationGraph", "TransformerLM"):
+    for kind in ("ComputationGraph", "TransformerLM", "MoETransformerLM",
+                 "ViT"):
         path = str(tmp_path / f"{kind}.zip")
         atomic_io.write_zip_atomic(path, {"metadata.json": json.dumps(
             {"model_type": kind, "iteration": 0})})
         assert model_serializer.model_type(path) == kind
-        want = CheckpointCorruptError if kind == "ComputationGraph" \
-            else NotImplementedError
-        with pytest.raises(want, match="configuration.json"
-                           if kind == "ComputationGraph" else "ROADMAP"):
+        ported = kind in ("ComputationGraph", "TransformerLM")
+        with pytest.raises(CheckpointCorruptError if ported
+                           else NotImplementedError,
+                           match="configuration.json" if ported
+                           else "ROADMAP"):
             model_serializer.restore_model(path, device="cpu")
-    lm = TransformerLM(TransformerConfig(vocab_size=8, max_len=4, d_model=8,
-                                         n_heads=2, n_layers=1, d_ff=8),
-                       device="cpu")
+
+    class Unported:
+        pass
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_serializer.write_model(lm, str(tmp_path / "lm.zip"))
+        model_serializer.write_model(Unported(), str(tmp_path / "x.zip"))
 
 
 def test_checkpoint_arguments_need_an_iterator_and_a_directory(tmp_path):
