@@ -110,7 +110,7 @@ Phases, each fatal on failure:
 7. resnet50 — ``zoo.resnet50()`` at full width (224x224x3, 1000 classes,
    25,557,032 parameters; bf16 compute, f32 masters; nesterovs 0.9, lr
    0.1) as a ComputationGraph through ``fit(iterator)`` (per batch: the
-   fused loop declines graphs), on seeded normal images and one-hot
+   fused loop declines BatchNormalization), on seeded normal images and one-hot
    labels as bench.py's ``_resnet_throughput`` makes them (3 pre-made
    batches, cycled): at batch 128 and again at 256, 3 warm-up and 15
    timed batches each (host clock ending in a synchronise), with the
@@ -281,10 +281,62 @@ Phases, each fatal on failure:
    memory; then ``GraphVectorSerializer`` and ``WordVectorSerializer``'s
    text, Google binary and zip files of the card-trained model, read back
    on the card, within each format's precision;
-17. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+17. fused_autotune — bench.py's ``bench_fused`` uncut: ``zoo.lenet_mnist``
+   on the fixture's digits tiled to 160 batches of 128, through ``fit()``
+   with the fusion autotuner armed (``DL4J_TORCH_FUSE_AUTOTUNE=1``,
+   ``DL4J_TORCH_FUSE_STEPS`` unset) in a temporary tune cache: 8 warm-up
+   batches, in which the probe times zero-weight groups at each rung of
+   the ladder (1, 4, 8, 16) once, then the best of 2 timed fits with a
+   checkpoint every 16 updates and the obs layer on (metrics and span
+   tracing), against the per-batch arm (``DL4J_TORCH_FUSE_STEPS=1``). The
+   timed fits must probe nothing and capture 0 graphs (one window graph
+   in all); the autotuned fit must equal a fit pinned at the decided K
+   bit for bit; a fresh model on the same cache directory, its memory
+   dropped, must adopt K with 0 probes. It reports images/s of both
+   arms, the decided K and each rung's seconds a step;
+18. dropout_fused — ``zoo.alexnet`` as a MultiLayerNetwork (224x224x3,
+   1,000 classes, dropout 0.5, batch 64) and ``zoo.googlenet`` as a
+   ComputationGraph (head dropout 0.4, batch 32) on seeded images, each
+   from the same parameters through the fused loop at K 8 and per batch:
+   images/s, the busy share and the top device ops of both paths (2
+   warm-up batches, 16 timed, 16 profiled, cuDNN's defaults); after 8
+   batches the parameters and the draw counter the same bits (under
+   ``cudnn.deterministic`` if the defaults differ); a
+   ``nan-step`` poisoned inside a group of 8 gives the group without
+   that batch, bit for bit; the retain fraction of the first dropout
+   layer's masks over 16 draws within 5 binomial standard deviations of
+   its retain probability; and two per-batch steps, the guard off, under
+   ``torch.cuda.set_sync_debug_mode("warn")`` with no synchronising
+   call;
+19. graph_fused — ``charrnn_graph_conf()`` at full width (vocab 77, H 200,
+   tBPTT 50) through ``ComputationGraph.fit(iterator)`` at K 8 on phase
+   ``charrnn``'s data (2 warm-up and 8 timed batches of 32 x 200): one
+   graph captured, in the warm-up; no wrapper call in the timed run,
+   whose profile must count the sequence kernel 8 times and the backward
+   kernel 400 times a batch (the ``kernels`` line's
+   ``launches_graph_fused``); the parameters the MultiLayerNetwork's
+   fused turn's bits from the same start; characters/s beside phase
+   ``charrnn``'s fused turn; and a copy with retain 0.8 on the second
+   GravesLSTM, fused against per batch, bit for bit
+   (``launches_graph_fused_dropout``);
+20. solvers — ``zoo.mlp_mnist`` at full width (784-1000-10) on the
+   fixture's 320 digits as one batch under ``lbfgs``,
+   ``conjugate_gradient`` and ``line_gradient_descent`` at ``iterations``
+   10 through ``fit_batch``, on the card and on the CPU from the same
+   parameters: the score falls on both; where every line search decided
+   alike, the f32 parameters within SOLVER_CARD_CPU_RTOL; the same 10
+   iterations in float64 (the model's loss over an f64 flat vector), the
+   check for a line search that decides otherwise in f32, within
+   SOLVER_F64_RTOL with every line search deciding alike; ms a call and
+   forward evaluations an iteration. Then ``zoo.lenet_mnist`` under each of the
+   six ``optax:*`` rules, 16 batches fused at K 8: the loss falls, card
+   against CPU within OPTAX_CARD_CPU_RTOL (lion: 2 lr a step), and
+   ``optax:adamw`` resumed from a checkpoint mid-fit equals the
+   uninterrupted run bit for bit;
+21. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
-   ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove`` and
-   ``deepwalk``.
+   ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
+   ``deepwalk`` and the four above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -560,6 +612,32 @@ DEEPWALK = dict(vertices=10_000, edges=50_000, vector_size=100,
 # the text format's %.6f: half a unit, then the f32 rounding of the value
 # read back (one f32 step of it)
 TEXT_ATOL, TEXT_RTOL = 5e-7, 2.0 ** -23
+# phase fused_autotune: bench.py's bench_fused uncut (LeNet, batch 128,
+# 160 batches, 8 warm-up batches in which the probe runs, best of 2 timed
+# fits with a checkpoint every 16 updates)
+FUSED_AUTOTUNE = dict(batch=LENET_BATCH, batches=LENET_BATCHES, warmup=8,
+                      ckpt_every=16, fits=2)
+# phase dropout_fused: the zoo's AlexNet (an MLN, dropout 0.5 on its two
+# 4096-wide layers) and GoogLeNet (a graph, head dropout 0.4) at full
+# width on seeded images, 16 batches each path
+DROPOUT_FUSED = {"alexnet": dict(batch=64, batches=16, retain=0.5),
+                 "googlenet": dict(batch=32, batches=16, retain=0.4)}
+# phase solvers: zoo.mlp_mnist (784-1000-10) on the fixture's 320 digits
+# as one batch, 10 solver iterations a call; the card against the CPU
+# (TF32 off): the f32 parameters within SOLVER_CARD_CPU_RTOL of their max
+# abs where every line search decided alike, and in float64 within
+# SOLVER_F64_RTOL, every line search deciding alike
+SOLVERS = dict(model="zoo.mlp_mnist (784-1000-10)", rows=320, iterations=10)
+# spin kernels that open every profile (see ``profiled``)
+PROFILE_WARM = 1000
+SOLVER_CARD_CPU_RTOL = 1e-4
+SOLVER_F64_RTOL = 1e-9
+# LeNet under each optax rule, 16 batches fused at K 8: learning rates,
+# and the card's parameters within OPTAX_CARD_CPU_RTOL of the CPU's
+# (lion: each element within 2 lr a step, its sign's flip)
+OPTAX_LR = {"adam": 1e-3, "adamw": 1e-3, "lion": 1e-4, "lamb": 1e-3,
+            "sgd": 1e-2, "rmsprop": 1e-3}
+OPTAX_CARD_CPU_RTOL = 1e-3
 
 
 def emit(obj):
@@ -1710,16 +1788,22 @@ def charrnn_window_breakdown(net, ds):
             "update_ms": ev[2].elapsed_time(ev[3])}
 
 
-def profiled(fn, aten_rows=None):
+def profiled(fn, aten_rows=None, warm=None):
     """``fn()`` once under ``torch.profiler``: (its wall seconds, the names
     of the run's device-side events, and ``(name, calls, device µs)`` of
     each device-side op with device time: kernels, copies, memsets). A
     CPU op's entry repeats the time of the kernels it launched, so only
     the device-side entries count. ``aten_rows``, a list, receives
     ``(aten op, calls, self device µs)`` of each host op that launched
-    device work: the same time by the op that asked for it."""
+    device work: the same time by the op that asked for it. ``warm``
+    (default PROFILE_WARM) spin kernels run inside the profile before
+    the clock starts, and their events are left out: late in a long
+    process the profiler drops a region's first device events (phase
+    ``records``' first sequence launch in PR 13, the first window of
+    phase ``graph_fused`` in PR 14)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    warm = PROFILE_WARM if warm is None else warm
 
     def device_us(e):
         return getattr(e, "self_device_time_total",
@@ -1727,15 +1811,20 @@ def profiled(fn, aten_rows=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(warm):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     names = [e.name for e in prof.events()
-             if str(e.device_type).endswith("CUDA")]
+             if str(e.device_type).endswith("CUDA")
+             and "spin_kernel" not in e.name]
     averages = prof.key_averages()
     ops = [(e.key, e.count, device_us(e)) for e in averages
-           if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+           if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+           and "spin_kernel" not in e.key]
     if aten_rows is not None:
         aten_rows.extend((e.key, e.count, device_us(e)) for e in averages
                          if e.key.startswith("aten::") and device_us(e) > 0
@@ -2941,7 +3030,7 @@ def phase_resnet50(card):
               "1000 classes, bottleneck stages 3-4-6-3, BatchNormalization; "
               "nesterovs 0.9, lr 0.1), compute_dtype bfloat16, f32 masters",
               "params": RESNET_PARAMS, "path": "fit(iterator), per batch "
-              "(fuse_allowed declines graphs)", "card": card}
+              "(fuse_allowed declines BatchNormalization)", "card": card}
     seconds = {}
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -3996,7 +4085,10 @@ def phase_order_check(card):
                                                 "word2vec", "attention",
                                                 "keras", "lm_persist",
                                                 "records", "glove",
-                                                "deepwalk"],
+                                                "deepwalk",
+                                                "fused_autotune",
+                                                "dropout_fused",
+                                                "graph_fused", "solvers"],
               "resnet_narrow_f32": cnn_graph_card_vs_cpu(
                   "resnet50", RESNET_NARROW, 8, SEED + 3),
               "card": card}
@@ -5136,6 +5228,823 @@ def keras_trained_vgg():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase fused_autotune: bench.py's bench_fused (LeNet fit() with the
+# fusion autotuner) uncut, against the per-batch arm
+# ---------------------------------------------------------------------------
+def _autotune_arm(arm):
+    """Select an arm of ``fit()``: the armed autotuner (FUSE_STEPS unset),
+    a pinned K, or per batch (K 1)."""
+    import os
+    os.environ.pop("DL4J_TORCH_FUSE_AUTOTUNE", None)
+    os.environ.pop("DL4J_TORCH_FUSE_STEPS", None)
+    if arm == "autotune":
+        os.environ["DL4J_TORCH_FUSE_AUTOTUNE"] = "1"
+    else:
+        os.environ["DL4J_TORCH_FUSE_STEPS"] = str(arm)
+
+
+def _probes():
+    from deeplearning4j_tpu_torch import obs
+    return obs.metrics.value("fuse.autotune_probes_total")
+
+
+def autotune_run(conf, feats, labels, arm, ckdir):
+    """bench_fused's run: a fresh net, FUSED_AUTOTUNE["warmup"] batches
+    (the autotuner probes in them), then the best of ``fits`` timed fits
+    of all the batches with a checkpoint every ``ckpt_every`` updates."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    cfg = FUSED_AUTOTUNE
+    warm = cfg["warmup"] * cfg["batch"]
+    _autotune_arm(arm)
+    try:
+        net = MultiLayerNetwork(conf, device=DEVICE).init()
+        p0 = _probes()
+        net.fit(ArrayDataSetIterator(feats[:warm], labels[:warm],
+                                     cfg["batch"]))
+        float(net.score_)
+        probes_warm = _probes() - p0
+        captures_warm = net._fused.captures if net._fused else 0
+        best = 0.0
+        p1 = _probes()
+        for _ in range(cfg["fits"]):
+            t0 = time.perf_counter()
+            net.fit(ArrayDataSetIterator(feats, labels, cfg["batch"]),
+                    checkpoint_every=cfg["ckpt_every"], checkpoint_dir=ckdir)
+            float(net.score_)
+            best = max(best, len(feats) / (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    finally:
+        _fit_path(True)
+        import os
+        os.environ.pop("DL4J_TORCH_FUSE_AUTOTUNE", None)
+    captures = net._fused.captures if net._fused else 0
+    return {"net": net, "images_per_s": best,
+            "probes_in_warmup": probes_warm,
+            "probes_in_timed_fits": _probes() - p1,
+            "graphs_captured_in_warmup": captures_warm,
+            "graphs_captured_in_timed_fits": captures - captures_warm,
+            "window_graphs": len(net._fused.graphs) if net._fused else 0,
+            "fuse_stats": net._last_fuse_stats}
+
+
+def autotune_bitwise(conf, feats, labels):
+    """The autotuned fit against a fit pinned at the K it decided, from
+    the same parameters over the same batches: bitwise (under
+    ``cudnn.deterministic`` if the defaults differ). The decision is the
+    phase's (adopted from memory: no probe)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.tuning import autotuner
+    n = 24 * FUSED_AUTOTUNE["batch"]
+    seen = {}
+
+    def run():
+        params = []
+        for arm in ("autotune", "pinned"):
+            net = MultiLayerNetwork(conf, device=DEVICE).init()
+            if arm == "pinned":
+                arm = seen["k"]
+            _autotune_arm(arm)
+            try:
+                p0 = _probes()
+                net.fit(ArrayDataSetIterator(feats[:n], labels[:n],
+                                             FUSED_AUTOTUNE["batch"]))
+                seen.setdefault("probes", []).append(_probes() - p0)
+            finally:
+                _fit_path(True)
+                import os
+                os.environ.pop("DL4J_TORCH_FUSE_AUTOTUNE", None)
+            if "k" not in seen:
+                seen["k"] = autotuner.lookup_decision(
+                    autotuner.model_key(net), autotuner.backend_key(DEVICE),
+                    _lenet_bucket())
+            params.append(net.params())
+        return params
+    out = _bitwise_or_deterministic(run)
+    assert not any(seen["probes"]), seen
+    return {"pinned_k": seen["k"], "batches": 24, **out}
+
+
+def _lenet_bucket():
+    b = FUSED_AUTOTUNE["batch"]
+    return ("ds", (b, 28, 28, 1), (b, 10))
+
+
+def phase_fused_autotune(card):
+    import json as _json
+    import os
+    import tempfile
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.tuning import autotuner
+
+    conf = zoo.lenet_mnist()
+    _, _, feats, labels = lenet_images()
+    assert len(feats) == FUSED_AUTOTUNE["batches"] * FUSED_AUTOTUNE["batch"]
+    ladder = autotuner.candidate_ladder()
+    saved = {k: os.environ.get(k) for k in ("DL4J_TORCH_TUNE_CACHE_DIR",
+                                            "DL4J_TORCH_TRACE_DIR")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tune_dir = os.path.join(tmp, "tune")
+        os.environ["DL4J_TORCH_TUNE_CACHE_DIR"] = tune_dir
+        # the obs layer fully on: metrics and span tracing, as bench_fused
+        os.environ["DL4J_TORCH_TRACE_DIR"] = os.path.join(tmp, "trace")
+        autotuner._reset_for_tests()
+        try:
+            auto = autotune_run(conf, feats, labels, "autotune",
+                                os.path.join(tmp, "ck_auto"))
+            plain = autotune_run(conf, feats, labels, 1,
+                                 os.path.join(tmp, "ck_plain"))
+            (path,) = [os.path.join(tune_dir, f) for f in
+                       os.listdir(tune_dir)]
+            with open(path, encoding="utf-8") as fh:
+                doc = _json.loads(fh.read())
+            entry = doc["decisions"][repr(_lenet_bucket())]
+            k = entry["k"]
+            bitwise = autotune_bitwise(conf, feats, labels)
+            # a restarted process: the decisions in memory dropped, the
+            # file on disk kept; a fresh model adopts K with 0 probes
+            autotuner._reset_for_tests()
+            _autotune_arm("autotune")
+            try:
+                fresh = MultiLayerNetwork(conf, device=DEVICE).init()
+                p0 = _probes()
+                warm = FUSED_AUTOTUNE["warmup"] * FUSED_AUTOTUNE["batch"]
+                fresh.fit(ArrayDataSetIterator(feats[:warm], labels[:warm],
+                                               FUSED_AUTOTUNE["batch"]))
+                adopted = {"probes": _probes() - p0,
+                           "k": autotuner.lookup_decision(
+                               autotuner.model_key(fresh),
+                               autotuner.backend_key(DEVICE),
+                               _lenet_bucket())}
+            finally:
+                _fit_path(True)
+                os.environ.pop("DL4J_TORCH_FUSE_AUTOTUNE", None)
+            metrics = {name: obs.metrics.value(name) for name in (
+                "fuse.autotune_probes_total", "fuse.selected_k",
+                "checkpoint.commits_total", "train.dispatch_groups_total")}
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+            autotuner._reset_for_tests()
+    assert auto["probes_in_warmup"] == len(ladder), auto
+    assert auto["probes_in_timed_fits"] == 0, auto
+    assert auto["graphs_captured_in_timed_fits"] == 0, auto
+    assert auto["window_graphs"] == 1, auto
+    assert plain["net"]._fused is None
+    assert adopted == {"probes": 0, "k": k}, (adopted, k)
+    assert bitwise["pinned_k"] == k
+    del auto["net"], plain["net"]
+    result = {"phase": "fused_autotune",
+              "config": "zoo.lenet_mnist, bench.py:bench_fused uncut",
+              **FUSED_AUTOTUNE, "ladder": list(ladder), "decided_k": k,
+              "per_step_s_by_k": entry["per_step_s"],
+              "autotune": auto, "per_batch": plain,
+              "speedup": auto["images_per_s"] / plain["images_per_s"],
+              "autotuned_vs_pinned": bitwise, "fresh_model_adopts": adopted,
+              "metrics": metrics, "card": card}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase dropout_fused: AlexNet (an MLN) and GoogLeNet (a graph) with
+# dropout through the fused loop, against the per-batch loop
+# ---------------------------------------------------------------------------
+def _dropout_images(kind, n, seed):
+    import numpy as np
+    cfg = DROPOUT_FUSED[kind]
+    rng = np.random.default_rng(seed)
+    b = cfg["batch"]
+    x = rng.standard_normal((n * b, 224, 224, 3), dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n * b)]
+    return x, y
+
+
+def _dropout_net(kind):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    if kind == "alexnet":
+        return MultiLayerNetwork(zoo.alexnet(), device=DEVICE).init()
+    return ComputationGraph(zoo.googlenet(), device=DEVICE).init()
+
+
+def _dropout_iter(kind, x, y):
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ArrayDataSetIterator, ArrayMultiDataSetIterator)
+    b = DROPOUT_FUSED[kind]["batch"]
+    if kind == "alexnet":
+        return ArrayDataSetIterator(x, y, b)
+    return ArrayMultiDataSetIterator([x], [y], batch_size=b)
+
+
+def dropout_paths(kind, x, y):
+    """Each path (fused at K 8, per batch) from the same parameters under
+    cuDNN's default algorithms: 2 warm-up batches, the timed batches,
+    then the same batches profiled (the busy share). Returns the
+    counters and rates."""
+    import os
+    import torch
+    cfg = DROPOUT_FUSED[kind]
+    b, n = cfg["batch"], cfg["batches"]
+    out = {}
+    for path in ("fused", "per_batch"):
+        os.environ["DL4J_TORCH_FUSE_STEPS"] = "8" if path == "fused" else "1"
+        try:
+            net = _dropout_net(kind)
+            net.fit(_dropout_iter(kind, x[:2 * b], y[:2 * b]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(_dropout_iter(kind, x, y))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for _ in range(5):
+                pwall, names, ops = profiled(
+                    lambda: net.fit(_dropout_iter(kind, x, y)))
+                if names:
+                    break
+            else:
+                raise AssertionError("torch.profiler recorded no device "
+                                     "event in five profiles")
+            share = device_share(names, ops, n, wall / n * 1e3)
+        finally:
+            _fit_path(True)
+        stats = net._last_fuse_stats
+        out[path] = {"draws": net.dropout_draws,
+                     "iteration": net.iteration,
+                     "images_per_s": n * b / wall,
+                     "ms_per_batch": wall / n * 1e3,
+                     "busy_share": share["busy_share_of_timed_batch"],
+                     "device_busy_ms_per_batch":
+                         share["device_busy_ms_per_batch"],
+                     "device_events_per_batch":
+                         share["cuda_kernels_per_batch"]["all"],
+                     "top_device_ops": share["top_device_ops"][:5],
+                     "graphs_captured": net._fused.captures
+                     if net._fused else 0, "fuse_stats": stats}
+        del net
+        torch.cuda.empty_cache()
+    assert out["fused"]["graphs_captured"] == 1, out["fused"]
+    assert out["per_batch"]["graphs_captured"] == 0
+    assert out["fused"]["draws"] == out["per_batch"]["draws"] == 2 + 2 * n
+    return out
+
+
+def dropout_bitwise(kind, x, y):
+    """8 batches fused at K 8 and per batch from the same parameters: the
+    same bits and draw counter (under ``cudnn.deterministic`` if the
+    defaults differ)."""
+    import os
+    b, n = DROPOUT_FUSED[kind]["batch"], 8
+
+    def run():
+        out = []
+        for k in ("8", "1"):
+            os.environ["DL4J_TORCH_FUSE_STEPS"] = k
+            try:
+                net = _dropout_net(kind)
+                net.fit(_dropout_iter(kind, x[:n * b], y[:n * b]))
+                out.append((net.params(), net.dropout_draws))
+            finally:
+                _fit_path(True)
+        assert out[0][1] == out[1][1] == n, (out[0][1], out[1][1])
+        return out[0][0], out[1][0]
+    return {"batches": n, **_bitwise_or_deterministic(run)}
+
+
+def dropout_nan_step(kind, x, y):
+    """``nan-step@0:1`` in a fused group of 8 against the group without
+    batch 1, from the same parameters: the same bits and the same draw
+    counter (the rejected step's successor redraws its masks)."""
+    import os
+    import numpy as np
+    import warnings
+    from deeplearning4j_tpu_torch.testing import faults
+    b = DROPOUT_FUSED[kind]["batch"]
+    keep = np.r_[0:b, 2 * b:8 * b]
+
+    def run():
+        os.environ["DL4J_TORCH_FUSE_STEPS"] = "8"
+        try:
+            a = _dropout_net(kind)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with faults.inject("nan-step@0:1"):
+                    a.fit(_dropout_iter(kind, x[:8 * b], y[:8 * b]))
+            c = _dropout_net(kind)
+            c.fit(_dropout_iter(kind, x[keep], y[keep]))
+            assert a.nan_skipped_steps == 1
+            assert a.dropout_draws == c.dropout_draws == 7
+        finally:
+            _fit_path(True)
+        return a.params(), c.params()
+    return _bitwise_or_deterministic(run)
+
+
+def dropout_retain(kind):
+    """The retain fraction of the first dropout layer's masks over the
+    keys of draws 0..15 at its input's shape, within 5 binomial standard
+    deviations of its retain probability."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import random as random_mod
+    net = _dropout_net(kind)
+    i, layer = next((i, l) for i, l in enumerate(net.layers)
+                    if (l.dropout or 0.0) not in (0.0, 1.0))
+    width = layer.n_in * DROPOUT_FUSED[kind]["batch"]
+    kept = 0
+    for c in range(16):
+        key = random_mod.DropoutKey(net.conf.seed, torch.tensor(
+            c, dtype=torch.int64, device=DEVICE), i)
+        kept += int(random_mod.dropout_keep(key, (width,), layer.dropout,
+                                            DEVICE).sum())
+    n = 16 * width
+    p = layer.dropout
+    sd = (n * p * (1 - p)) ** 0.5
+    frac = kept / n
+    assert abs(kept - p * n) <= 5 * sd, (kept, p * n, sd)
+    return {"layer": i, "retain": p, "elements": n, "kept_fraction": frac,
+            "bound": f"|kept - p n| <= 5 sd, sd = {sd:.1f}",
+            "z": (kept - p * n) / sd}
+
+
+def dropout_no_host_read(kind, x, y):
+    """Three per-batch steps on batches already on the card, the guard
+    off, under ``torch.cuda.set_sync_debug_mode("warn")``: no operation
+    of a step waits for the card (with the guard on, its one deferred
+    read a step, of the previous step's counter, is the only one)."""
+    import os
+    import warnings
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    b = DROPOUT_FUSED[kind]["batch"]
+    net = _dropout_net(kind)
+    xs = torch.from_numpy(x[:3 * b]).to(DEVICE)
+    ys = torch.from_numpy(y[:3 * b]).to(DEVICE)
+
+    def step(i):
+        xb, yb = xs[i * b:(i + 1) * b], ys[i * b:(i + 1) * b]
+        if kind == "alexnet":
+            net.fit_batch(xb, yb)
+        else:
+            net.fit_batch(MultiDataSet([xb], [yb]))
+    os.environ["DL4J_TORCH_NANGUARD"] = "0"
+    try:
+        step(0)                        # first use: allocations, cuDNN picks
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(1)
+                step(2)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        os.environ.pop("DL4J_TORCH_NANGUARD", None)
+    # each synchronising call warns "called a synchronizing CUDA
+    # operation"; the mode's own notice that it is a prototype is not one
+    syncs = [str(w.message)[:200] for w in seen
+             if "called a synchronizing" in str(w.message)]
+    assert not syncs, syncs
+    return {"steps": 2, "synchronizing_calls": 0}
+
+
+def phase_dropout_fused(card):
+    import os
+    import numpy as np
+    result = {"phase": "dropout_fused", "config": DROPOUT_FUSED,
+              "card": card}
+    # a group of 8 AlexNet batches (38.5 MB each) past the default 256 MB
+    # staging cap would shrink to 6
+    os.environ["DL4J_TORCH_TRANSFER_STAGE_BYTES"] = str(1 << 30)
+    try:
+        for kind in ("alexnet", "googlenet"):
+            result[kind] = dropout_model(kind)
+    finally:
+        os.environ.pop("DL4J_TORCH_TRANSFER_STAGE_BYTES", None)
+    emit(result)
+    return result
+
+
+def dropout_model(kind):
+    """One configuration of phase dropout_fused: the two paths (bitwise,
+    rates, busy share), a poisoned step, the retain fraction and the
+    per-batch step's host reads."""
+    import numpy as np
+    cfg = DROPOUT_FUSED[kind]
+    x, y = _dropout_images(kind, cfg["batches"], SEED + 11)
+    t0 = time.perf_counter()
+    paths = dropout_paths(kind, x, y)
+    rec = {"paths": paths, "fused_vs_per_batch": dropout_bitwise(kind, x, y),
+           "nan_step": dropout_nan_step(kind, x, y),
+           "retain": dropout_retain(kind),
+           "per_batch_host_reads": dropout_no_host_read(kind, x, y),
+           "seconds": time.perf_counter() - t0}
+    assert np.isfinite(paths["fused"]["images_per_s"])
+    # the last fit's groups: its batches in groups of 8
+    assert paths["fused"]["fuse_stats"]["fused_groups"] == \
+        -(-cfg["batches"] // 8), paths["fused"]["fuse_stats"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase graph_fused: the char-RNN as a ComputationGraph through the fused
+# loop (a tBPTT window a captured graph, over the LSTM vertices)
+# ---------------------------------------------------------------------------
+def graph_fused_turn(conf, data, params, k, profile):
+    """A graph from ``params`` through ``fit(iterator)`` at ``k``: the
+    warm-up batches, then the timed batches (profiled when asked), the
+    launch counts set to 0 just before the timed run and read just
+    after."""
+    import os
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    os.environ["DL4J_TORCH_FUSE_STEPS"] = str(k)
+    try:
+        net = ComputationGraph(conf, device=DEVICE).init()
+        net.set_params(params)
+        net.fit(ListDataSetIterator(data[:CHARRNN_WARMUP]))
+        torch.cuda.synchronize()
+        captures_warm = net._fused.captures if net._fused else 0
+
+        def timed():
+            net.fit(ListDataSetIterator(data[CHARRNN_WARMUP:]))
+        reset_launches()
+        if profile:
+            wall, names, ops = profiled(timed)
+        else:
+            t0 = time.perf_counter()
+            timed()
+            torch.cuda.synchronize()
+            wall, names, ops = time.perf_counter() - t0, None, None
+        calls = read_lstm_launches()
+    finally:
+        _fit_path(True)
+    return {"net": net, "wall": wall, "names": names, "ops": ops,
+            "calls": calls,
+            "captures_warm": captures_warm,
+            "captures": net._fused.captures if net._fused else 0}
+
+
+def graph_fused_profiled(conf, data, start, want, tries=5):
+    """``graph_fused_turn`` at K 8, profiled, until its profile counts
+    ``want`` LSTM launches; returns the turn and the counts of the
+    profiles run again (it fails after ``tries``)."""
+    seen = []
+    for _ in range(tries):
+        turn = graph_fused_turn(conf, data, start, 8, True)
+        got = lstm_kernels(turn["names"]) if turn["names"] else None
+        if got == want:
+            return turn, seen
+        seen.append(got)
+    raise AssertionError(f"torch.profiler counted {seen} LSTM launches in "
+                         f"{tries} runs of the graph's fused loop, not "
+                         f"{want}")
+
+
+def phase_graph_fused(card, charrnn):
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    rng = np.random.RandomState(SEED + 3)     # phase charrnn's data
+    data, _ = markov_batches(CHARRNN_WARMUP + CHARRNN_BATCHES, rng)
+    seg, t = CHARRNN["tbptt_length"], CHARRNN["seq_len"]
+    windows = t // seg
+    want = (2 * windows * CHARRNN_BATCHES, 2 * t * CHARRNN_BATCHES)
+    mconf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                         hidden=CHARRNN["hidden"], tbptt_length=seg,
+                         learning_rate=CHARRNN["learning_rate"])
+    mln = MultiLayerNetwork(mconf, device=DEVICE).init()
+    start = mln.params()
+    conf = charrnn_graph_conf()
+    # the main path: the graph's fused loop at K 8, its timed run
+    # profiled (behind PROFILE_WARM spin kernels: late in the script the
+    # profiler dropped the first window's events, 62 of 64 sequence
+    # launches, PR 14); a run whose profile still counts otherwise than
+    # `want` is run again from the same start, up to five times
+    main, seen = graph_fused_profiled(conf, data, start, want)
+    launches = lstm_kernels(main["names"])
+    assert main["calls"] == (0, 0), main["calls"]
+    assert main["captures_warm"] == main["captures"] == 1, main
+    net = main["net"]
+    assert net._last_fuse_stats["fused_groups"] == 1
+    # the MultiLayerNetwork's fused turn from the same start
+    _fit_path(True)
+    mln.fit(ListDataSetIterator(data[:CHARRNN_WARMUP]))
+    mln.fit(ListDataSetIterator(data[CHARRNN_WARMUP:]))
+    mln_diff = float(np.abs(mln.params() - net.params()).max())
+    assert mln_diff == 0.0, mln_diff
+    ms_per_batch = main["wall"] / CHARRNN_BATCHES * 1e3
+    chars = CHARRNN["batch"] * t * CHARRNN_BATCHES
+    share = device_share(main["names"], main["ops"], CHARRNN_BATCHES,
+                         ms_per_batch)
+    # the dropout copy: retain 0.8 on the second LSTM, fused against per
+    # batch, bitwise
+    dconf = charrnn_graph_conf()
+    dconf.vertices["lstm2"].layer.dropout = 0.8
+    fused_d, seen_d = graph_fused_profiled(dconf, data, start, want)
+    plain_d = graph_fused_turn(dconf, data, start, 1, False)
+    d_launches = lstm_kernels(fused_d["names"])
+    assert plain_d["calls"] == want, plain_d["calls"]
+    d_diff = float(np.abs(fused_d["net"].params()
+                          - plain_d["net"].params()).max())
+    assert d_diff == 0.0, d_diff
+    assert fused_d["net"].dropout_draws == plain_d["net"].dropout_draws == \
+        (CHARRNN_WARMUP + CHARRNN_BATCHES) * windows
+    result = {"phase": "graph_fused", "config": CHARRNN,
+              "conf": "charrnn_graph_conf() (two GravesLSTM vertices, "
+              "RnnOutputLayer, rmsprop, tBPTT 50)", "k": 8,
+              "warmup_batches": CHARRNN_WARMUP,
+              "timed_batches": CHARRNN_BATCHES,
+              "chars_per_s": chars / main["wall"],
+              "ms_per_batch": ms_per_batch,
+              "charrnn_mln_fused_chars_per_s": charrnn["chars_per_s"],
+              "kernel_launches": {"lstm_cell_fwd": launches[0],
+                                  "lstm_cell_bwd": launches[1],
+                                  "counted_by": "torch.profiler, the "
+                                  "timed run",
+                                  "profiles_run_again": seen},
+              "wrapper_calls": list(main["calls"]),
+              "graphs_captured_in_warmup": main["captures_warm"],
+              "graphs_captured": main["captures"],
+              "device_share": share,
+              "params_vs_mln_fused_max_abs_diff": mln_diff,
+              "dropout_copy": {
+                  "retain": 0.8, "vertex": "lstm2",
+                  "fused_vs_per_batch_max_abs_diff": d_diff,
+                  "fused_chars_per_s": chars / fused_d["wall"],
+                  "per_batch_chars_per_s": chars / plain_d["wall"],
+                  "fused_kernel_launches": d_launches,
+                  "profiles_run_again": seen_d,
+                  "per_batch_wrapper_calls": list(plain_d["calls"]),
+                  "draws": fused_d["net"].dropout_draws},
+              "card": card}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase solvers: the line-search solvers on mlp_mnist, and LeNet under
+# the six optax rules
+# ---------------------------------------------------------------------------
+def _recording_line_search(log):
+    """A stand-in for ``solvers.backtrack_line_search`` that records each
+    search's backtracks, step and Armijo margin (in float64, from the
+    values the search compared)."""
+    from deeplearning4j_tpu_torch.optimize import solvers
+    real = solvers.backtrack_line_search
+
+    def search(f, x, fx, g, d, **kw):
+        probes = []
+
+        def counted(v):
+            fv = f(v)
+            probes.append(fv)
+            return fv
+        step, fnew = real(counted, x, fx, g, d, **kw)
+        gd = float(solvers._vdot(g, d))
+        margin = float(fnew) - (float(fx) + 1e-4 * float(step) * gd)
+        log.append({"probes": len(probes), "step": float(step),
+                    "fx": float(fx), "armijo_margin": margin})
+        return step, fnew
+    return real, search
+
+
+def solver_run(conf, x, y, device, algo, iterations, start):
+    """``fit_batch`` once (``iterations`` solver iterations) on the whole
+    batch from the parameters ``start``: the score before and after, the
+    line searches' records, the forward evaluations an iteration and the
+    call's seconds."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.optimize import solvers
+    conf.optimization_algo = algo
+    conf.iterations = iterations
+    net = MultiLayerNetwork(conf, device=device).init()
+    net.set_params(start)
+    counts = {"value_and_grad": 0, "value": 0}
+    vg, val = net._solver_value_and_grad, net._solver_value
+
+    def count_vg(*a):
+        counts["value_and_grad"] += 1
+        return vg(*a)
+
+    def count_v(*a):
+        counts["value"] += 1
+        return val(*a)
+    net._solver_value_and_grad, net._solver_value = count_vg, count_v
+    s0 = net.score(DataSet(x, y))
+    log = []
+    real, search = _recording_line_search(log)
+    solvers.backtrack_line_search = search
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = float(net.fit_batch(x, y))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        solvers.backtrack_line_search = real
+    return {"net": net, "score_before": s0, "score_after": score,
+            "ms_per_call": secs * 1e3, "line_searches": log,
+            "forward_evaluations_per_iteration":
+                (counts["value"] + counts["value_and_grad"]) / iterations,
+            "value_and_grad_calls": counts["value_and_grad"],
+            "probe_calls": counts["value"]}
+
+
+def solver_f64(algo, x, y):
+    """The solver's loop in float64 on the card and on the CPU from the
+    same parameters: the model's own value-and-gradient and forward over
+    an f64 flat vector and f64 inputs, SOLVERS["iterations"] iterations.
+    Returns the parameters' largest difference against their max abs and
+    both runs' line-search records."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.optimize import solvers
+    from deeplearning4j_tpu_torch.utils import flat_params
+    start = None
+    runs = []
+    for device in (DEVICE, "cpu"):
+        net = MultiLayerNetwork(zoo.mlp_mnist(), device=device).init()
+        if start is None:
+            start = net.params()
+        net.set_params(start)
+        vec0 = flat_params.params_to_vector(
+            net.layers, net.params_list).detach().double()
+        xs = torch.from_numpy(x).double().to(net.device)
+        ys = torch.from_numpy(y).double().to(net.device)
+        log = []
+        real, search = _recording_line_search(log)
+        solvers.backtrack_line_search = search
+        try:
+            run = solvers.solver_for(algo).make_run(
+                net._solver_value_and_grad, SOLVERS["iterations"],
+                value=net._solver_value)
+            vec, score, _ = run(vec0, xs, ys, None, None, None)
+        finally:
+            solvers.backtrack_line_search = real
+        runs.append((vec.detach().cpu().numpy(), float(score), log))
+    (card, cs_, clog), (cpu, ps_, plog) = runs
+    assert [a["probes"] for a in clog] == [a["probes"] for a in plog], \
+        (algo, clog, plog)
+    return {"params_card_vs_cpu_rel": float(np.abs(card - cpu).max()
+                                            / np.abs(cpu).max()),
+            "score_card": cs_, "score_cpu": ps_,
+            "backtracks": [a["probes"] - 1 for a in clog]}
+
+
+def solvers_card_vs_cpu(x, y):
+    """mlp_mnist at full width under each solver, on the card and on the
+    CPU from the same parameters (TF32 off), through ``fit_batch``
+    (SOLVERS["iterations"] iterations): the score must fall on both;
+    where every line search took the same steps on both, the f32
+    parameters within SOLVER_CARD_CPU_RTOL; and in float64
+    (``solver_f64``, which also covers a line search that decided
+    otherwise in f32) within SOLVER_F64_RTOL, every line search
+    deciding alike."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    # one start for both devices (a generator draws otherwise on each)
+    start = MultiLayerNetwork(zoo.mlp_mnist(), device="cpu").init().params()
+    it = SOLVERS["iterations"]
+    # first use of the card's GEMMs, outside the timed calls
+    solver_run(zoo.mlp_mnist(), x, y, DEVICE, "lbfgs", 1, start)
+    out = {}
+    for algo in ("lbfgs", "conjugate_gradient", "line_gradient_descent"):
+        card = solver_run(zoo.mlp_mnist(), x, y, DEVICE, algo, it, start)
+        cpu = solver_run(zoo.mlp_mnist(), x, y, "cpu", algo, it, start)
+        for r in (card, cpu):
+            assert r["score_after"] < r["score_before"], (algo, r)
+        rec = {k: card[k] for k in (
+            "score_before", "score_after", "ms_per_call",
+            "forward_evaluations_per_iteration", "value_and_grad_calls",
+            "probe_calls")}
+        rec["cpu_score_after"] = cpu["score_after"]
+        rec["cpu_ms_per_call"] = cpu["ms_per_call"]
+        rec["backtracks"] = [a["probes"] - 1 for a in card["line_searches"]]
+        cpu_bt = [a["probes"] - 1 for a in cpu["line_searches"]]
+        want = cpu["net"].params()
+        err = float(np.abs(card["net"].params() - want).max()
+                    / np.abs(want).max())
+        rec["f32_params_card_vs_cpu_rel"] = err
+        if rec["backtracks"] == cpu_bt:
+            assert err <= SOLVER_CARD_CPU_RTOL, (algo, err)
+            rec["f32_decisions"] = "same"
+        else:
+            rec["f32_decisions"] = {"cpu_backtracks": cpu_bt}
+        f64 = solver_f64(algo, x, y)
+        assert f64["params_card_vs_cpu_rel"] <= SOLVER_F64_RTOL, (algo, f64)
+        rec["f64"] = f64
+        out[algo] = rec
+    return out
+
+
+def _lenet_batches(feats, labels, n):
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    return ArrayDataSetIterator(feats[:n * LENET_BATCH],
+                                labels[:n * LENET_BATCH], LENET_BATCH)
+
+
+def optax_rule(rule, feats, labels):
+    """LeNet under ``optax:<rule>``, 16 batches fused at K 8 on the card
+    and on the CPU from the same parameters: the loss must fall on the
+    card, and the card's parameters lie within OPTAX_CARD_CPU of the
+    CPU's (lion's sign can flip where an update rounds near 0: its
+    elements may differ by up to 2 lr a step)."""
+    import os
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    lr = OPTAX_LR[rule]
+    conf = zoo.lenet_mnist(learning_rate=lr, updater=f"optax:{rule}")
+    # one start for both devices (a generator draws otherwise on each)
+    start = MultiLayerNetwork(conf, device="cpu").init().params()
+    os.environ["DL4J_TORCH_FUSE_STEPS"] = "8"
+    try:
+        out = {}
+        for device in (DEVICE, "cpu"):
+            net = MultiLayerNetwork(conf, device=device).init()
+            net.set_params(start)
+            rec = _ScoreRecorder()
+            net.set_listeners(rec)
+            t0 = time.perf_counter()
+            net.fit(_lenet_batches(feats, labels, 16))
+            scores = [float(s) for s in rec.scores]
+            out[device] = (net.params(), scores, time.perf_counter() - t0,
+                           net)
+    finally:
+        _fit_path(True)
+    card, cpu = out[DEVICE], out["cpu"]
+    assert np.isfinite(card[1]).all()
+    assert np.mean(card[1][-4:]) < np.mean(card[1][:4]), card[1]
+    assert card[3]._fused.captures == 1
+    diff = np.abs(card[0] - cpu[0])
+    rel = float(diff.max() / np.abs(cpu[0]).max())
+    if rule == "lion":
+        assert float(diff.max()) <= 2 * lr * 16 + 1e-6, float(diff.max())
+    else:
+        assert rel <= OPTAX_CARD_CPU_RTOL, (rule, rel)
+    return {"lr": lr, "loss_first_4": float(np.mean(card[1][:4])),
+            "loss_last_4": float(np.mean(card[1][-4:])),
+            "params_card_vs_cpu_rel": rel,
+            "params_card_vs_cpu_max_abs": float(diff.max()),
+            "card_fit_s": card[2], "cpu_fit_s": cpu[2]}
+
+
+def phase_solvers(card):
+    import tempfile
+    from deeplearning4j_tpu_torch.models import zoo
+    train, _, feats, labels = lenet_images()
+    x = train.features.reshape(len(train.features), -1)
+    y = train.labels
+    assert x.shape == (320, 784)
+    t0 = time.perf_counter()
+    result = {"phase": "solvers", "config": SOLVERS,
+              "solvers": solvers_card_vs_cpu(x, y)}
+    result["solvers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["optax"] = {rule: optax_rule(rule, feats, labels)
+                       for rule in OPTAX_LR}
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = zoo.lenet_mnist(learning_rate=OPTAX_LR["adamw"],
+                               updater="optax:adamw")
+        result["optax"]["adamw_resume"] = lenet_resume(conf, feats, labels,
+                                                       tmp)
+    result["optax_s"] = time.perf_counter() - t0
+    result["card"] = card
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -5179,6 +6088,10 @@ def main():
     rr = phase_records(card)
     phase_glove(card)
     phase_deepwalk(card)
+    phase_fused_autotune(card)
+    phase_dropout_fused(card)
+    gf = phase_graph_fused(card, cr)
+    phase_solvers(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -5255,6 +6168,9 @@ def main():
          "launches": cr["kernel_launches"]["lstm_cell_fwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_seq_kernel"],
+         "launches_graph_fused": gf["kernel_launches"]["lstm_cell_fwd"],
+         "launches_graph_fused_dropout":
+             gf["dropout_copy"]["fused_kernel_launches"][0],
          "launches_keras": ke["kernel_launches"]["lstm_cell_fwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_fwd"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
@@ -5272,6 +6188,9 @@ def main():
          "launches": cr["kernel_launches"]["lstm_cell_bwd"],
          "launches_counted_by": cr["kernel_launches"]["counted_by"],
          "launches_cg": cg["lstm_bwd_kernel"],
+         "launches_graph_fused": gf["kernel_launches"]["lstm_cell_bwd"],
+         "launches_graph_fused_dropout":
+             gf["dropout_copy"]["fused_kernel_launches"][1],
          "launches_keras": ke["kernel_launches"]["lstm_cell_bwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_bwd"],
          "max_abs_err": max(e["max_abs_err"] for g, e in

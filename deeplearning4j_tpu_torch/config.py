@@ -77,10 +77,15 @@ _declare("DL4J_TORCH_FUSE_ADAPT", "flag", True,
          "1), and a bucket that thrashes halves its K toward 1; 0 pads "
          "every short group to K. Counterpart: DL4J_TPU_FUSE_ADAPT.")
 _declare("DL4J_TORCH_FUSE_AUTOTUNE", "flag", False,
-         "First-compile fusion autotuner: not ported yet (ROADMAP.md, queue "
-         "1, \"The fused loop's remaining pieces\"); when set, fit() of an "
-         "iterator raises NotImplementedError. "
+         "Fusion autotuner: with DL4J_TORCH_FUSE_STEPS unset, fit() groups "
+         "an undecided shape bucket at the probe size, times zero-weight "
+         "groups at each DL4J_TORCH_FUSE_PROBE_KS rung once and keeps the "
+         "fastest per-step K (persisted under DL4J_TORCH_TUNE_CACHE_DIR). "
          "Counterpart: DL4J_TPU_FUSE_AUTOTUNE.")
+_declare("DL4J_TORCH_FUSE_PROBE_KS", "str", "1,4,8,16",
+         "Fused-K candidates the fusion autotuner probes (comma-separated "
+         "ints; the largest is the probe group size). Counterpart: "
+         "DL4J_TPU_FUSE_PROBE_KS.")
 _declare("DL4J_TORCH_FUSE_STEPS", "int", 8,
          "Fused-loop group size K for MultiLayerNetwork.fit(iterator): the "
          "prefetch worker stacks up to K same-shape batches into one "

@@ -4,8 +4,9 @@ iterators."""
 from deeplearning4j_tpu_torch.datasets.dataset import (
     ArrayDataSetIterator, ArrayMultiDataSetIterator, DataSet,
     DataSetIterator, ListDataSetIterator, MultiDataSet, MultiDataSetIterator,
-    StackedDataSet)
+    StackedDataSet, StackedMultiDataSet)
 
 __all__ = ["ArrayDataSetIterator", "ArrayMultiDataSetIterator", "DataSet",
            "DataSetIterator", "ListDataSetIterator", "MultiDataSet",
-           "MultiDataSetIterator", "StackedDataSet"]
+           "MultiDataSetIterator", "StackedDataSet",
+           "StackedMultiDataSet"]

@@ -10,17 +10,14 @@ ever made from the worker.
 
 ``fuse`` > 1 is the fused loop's input side: up to ``fuse`` consecutive
 batches of one shape bucket travel as one :class:`StackedDataSet` [K, B,
-...] with [K, B] example weights (zero on padded rows and steps), which
-``MultiLayerNetwork.fit_fused`` trains in one pass.
-
-A ``MultiDataSet`` batch (ComputationGraph's) travels alone: with
-staging on, the consumer copies each of its arrays to the device when it
-dequeues the batch, as for a lone ``DataSet``.
+...] (a ComputationGraph's ``MultiDataSet`` batches as one
+:class:`StackedMultiDataSet`, every stream stacked, the bucket keyed by
+every stream's shape) with [K, B] example weights (zero on padded rows
+and steps), which ``fit_fused`` trains in one pass. ``k_resolver`` is
+the fusion autotuner's seam: it gives each bucket its group size.
 
 Not ported yet (ROADMAP.md, queue 1): ``sharding``/``fuse_sharding``
-(data parallelism), ``k_resolver`` (the fusion autotuner) and stacking
-``MultiDataSet`` batches into groups (``fuse`` > 1, the graph's fused
-loop); each raises ``NotImplementedError``.
+(data parallelism), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +34,7 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.config import env_flag, env_int
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet, DataSetIterator, MultiDataSet, MultiDataSetIterator,
-    StackedDataSet)
+    StackedDataSet, StackedMultiDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.errors import PrefetchWorkerDiedError
 from deeplearning4j_tpu_torch.testing import faults
@@ -143,20 +140,20 @@ class AsyncDataSetIterator(DataSetIterator):
         ``example_weights``), and a bucket that keeps thrashing halves its
         K toward 1 and doubles it back once full groups return.
 
-        ``bucket_pad`` row-pads ragged batches in the per-batch
-        (``fuse`` 1) path too, with the zero-weight tail as
+        ``k_resolver`` (optional) maps a bucket key (``_shapes_of``) to
+        that bucket's group size: the fusion autotuner's seam
+        (``tuning/autotuner.py``), the probe size while the bucket is
+        undecided and the decided K after. It runs on the worker thread
+        and touches no device. ``bucket_pad`` row-pads ragged batches in
+        the per-batch (``fuse`` 1) path too, with the zero-weight tail as
         ``example_weights``. ``device`` is where staged batches go (None:
         ``cuda``)."""
         if sharding is not None or fuse_sharding is not None:
             raise NotImplementedError(
                 "AsyncDataSetIterator(sharding=...): data parallelism "
                 + _not_ported("Data parallelism"))
-        if k_resolver is not None:
-            raise NotImplementedError(
-                "AsyncDataSetIterator(k_resolver=...): the fusion "
-                "autotuner " + _not_ported("The fused loop's remaining "
-                                           "pieces"))
         self.base = base
+        self._k_resolver = k_resolver
         self.device = resolve_device(device)
         self.fuse = max(1, int(fuse))
         self._bucket_pad = bool(bucket_pad)
@@ -213,12 +210,10 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def _stageable(self, ds):
         if _is_multi(ds):
-            if self.fuse > 1:
-                raise NotImplementedError(
-                    "AsyncDataSetIterator(fuse > 1) over MultiDataSet "
-                    "batches: stacking them "
-                    + _not_ported("The fused loop's remaining pieces"))
-            return False    # staged alone, never concatenated
+            # masks do not stack; device tensors are already staged
+            return (ds.features_masks is None and ds.labels_masks is None
+                    and all(isinstance(a, np.ndarray)
+                            for a in list(ds.features) + list(ds.labels)))
         # a batch already on a device is staged: concatenating would copy
         # it back to the host
         return (isinstance(ds, DataSet) and ds.features is not None
@@ -237,7 +232,11 @@ class AsyncDataSetIterator(DataSetIterator):
             return 0    # masked / odd batches: exempt from the budget
 
     def _bucket_base_k(self, key):
-        """The bucket's group size before adaptation and byte caps."""
+        """The bucket's group size before adaptation and byte caps: the
+        resolver's (the tuner's decision, or its probe size) when one is
+        wired, else ``fuse``."""
+        if self._k_resolver is not None:
+            return max(1, int(self._k_resolver(key)))
         return self.fuse
 
     def _always_pad_k(self, key):
@@ -302,45 +301,83 @@ class AsyncDataSetIterator(DataSetIterator):
 
     @staticmethod
     def _shapes_of(ds):
-        """Grouping key: every array's shape must match."""
+        """Grouping key: every array's shape must match (a MultiDataSet's
+        every stream)."""
+        if _is_multi(ds):
+            return ("mds", tuple(a.shape for a in ds.features),
+                    tuple(a.shape for a in ds.labels))
         return ("ds", ds.features.shape, ds.labels.shape)
 
     @staticmethod
     def _pad_rows(ds, bucket):
         """Pad a ragged (smaller) batch up to the bucket's batch size with
         copies of its last row and a zero weight tail. Returns
-        (padded DataSet, weights [B]) or None when ``ds`` differs from the
+        (padded batch, weights [B]) or None when ``ds`` differs from the
         bucket in more than the batch dimension."""
+        def pad_to(a, bn):
+            n = a.shape[0]
+            return np.concatenate([a, np.repeat(a[-1:], bn - n, axis=0)])
+
+        if _is_multi(ds):
+            if bucket[0] != "mds":
+                return None
+            _, fshapes, lshapes = bucket
+            bn = fshapes[0][0]
+            n = ds.features[0].shape[0]
+            if (n >= bn or len(ds.features) != len(fshapes)
+                    or len(ds.labels) != len(lshapes)
+                    or not all(a.shape == (n,) + ref[1:] for a, ref in
+                               zip(list(ds.features) + list(ds.labels),
+                                   list(fshapes) + list(lshapes)))):
+                return None
+            w = np.zeros(bn, np.float32)
+            w[:n] = 1.0
+            return (MultiDataSet([pad_to(a, bn) for a in ds.features],
+                                 [pad_to(a, bn) for a in ds.labels]), w)
+        if bucket[0] != "ds":
+            return None
         _, fshape, lshape = bucket
         bn = fshape[0]
         n = ds.features.shape[0]
         if (n >= bn or ds.features.shape[1:] != fshape[1:]
                 or ds.labels.shape != (n,) + lshape[1:]):
             return None
-
-        def pad_to(a):
-            return np.concatenate([a, np.repeat(a[-1:], bn - n, axis=0)])
         w = np.zeros(bn, np.float32)
         w[:n] = 1.0
-        return DataSet(pad_to(ds.features), pad_to(ds.labels)), w
+        return DataSet(pad_to(ds.features, bn), pad_to(ds.labels, bn)), w
 
     @staticmethod
     def _host_stack(group, k_target):
-        """Stack a fused group, a list of (ds, weights [B] or None), to
-        [K, B, ...] arrays, padding it up to ``k_target`` steps with
-        zero-weight copies of its last batch."""
-        bn = group[0][0].features.shape[0]
+        """Stack a fused group, a list of (batch, weights [B] or None), to
+        [K, B, ...] arrays (one per stream of a MultiDataSet), padding it
+        up to ``k_target`` steps with zero-weight copies of its last
+        batch."""
+        first = group[0][0]
+        multi = _is_multi(first)
+        bn = (first.features[0] if multi else first.features).shape[0]
         ws = [np.ones(bn, np.float32) if w is None else w for _, w in group]
         n_real = len(group)
         pad_steps = k_target - n_real
         dss = [d for d, _ in group] + [group[-1][0]] * pad_steps
+        w = np.stack(ws + [np.zeros(bn, np.float32)] * pad_steps)
+        if multi:
+            xs = [np.stack([d.features[i] for d in dss])
+                  for i in range(len(first.features))]
+            ys = [np.stack([d.labels[i] for d in dss])
+                  for i in range(len(first.labels))]
+            return ("fmds", xs, ys, w, n_real)
         xs = np.stack([np.asarray(d.features) for d in dss])
         ys = np.stack([np.asarray(d.labels) for d in dss])
-        w = np.stack(ws + [np.zeros(bn, np.float32)] * pad_steps)
         return ("fds", xs, ys, w, n_real)
 
     @staticmethod
     def _host_concat(group):
+        if _is_multi(group[0]):
+            xs = [np.concatenate([d.features[i] for d in group])
+                  for i in range(len(group[0].features))]
+            ys = [np.concatenate([d.labels[i] for d in group])
+                  for i in range(len(group[0].labels))]
+            return ("mds", xs, ys, [d.features[0].shape[0] for d in group])
         xs = np.concatenate([np.asarray(d.features) for d in group])
         ys = np.concatenate([np.asarray(d.labels) for d in group])
         return ("ds", xs, ys, [d.features.shape[0] for d in group])
@@ -368,10 +405,25 @@ class AsyncDataSetIterator(DataSetIterator):
         method that touches the device; it runs on the consumer thread."""
         if staged.single is not None:
             return [self._emit_single(staged.single)]
-        if staged.concat[0] == "fds":
+        kind = staged.concat[0]
+        if kind == "fmds":
+            _, xs, ys, w, n_real = staged.concat
+            return [StackedMultiDataSet([self._put(x) for x in xs],
+                                        [self._put(y) for y in ys],
+                                        self._put(w), n_real)]
+        if kind == "fds":
             _, xs, ys, w, n_real = staged.concat
             return [StackedDataSet(self._put(xs), self._put(ys),
                                    self._put(w), n_real)]
+        if kind == "mds":
+            _, xs, ys, sizes = staged.concat
+            dxs, dys = [self._put(x) for x in xs], [self._put(y) for y in ys]
+            out, pos = [], 0
+            for n in sizes:
+                out.append(MultiDataSet([x[pos:pos + n] for x in dxs],
+                                        [y[pos:pos + n] for y in dys]))
+                pos += n
+            return out
         _, xs, ys, sizes = staged.concat
         dxs, dys = self._put(xs), self._put(ys)
         out, pos = [], 0

@@ -15,7 +15,7 @@ import numpy as np
 
 __all__ = ["ArrayDataSetIterator", "ArrayMultiDataSetIterator", "DataSet",
            "DataSetIterator", "ListDataSetIterator", "MultiDataSet",
-           "MultiDataSetIterator", "StackedDataSet"]
+           "MultiDataSetIterator", "StackedDataSet", "StackedMultiDataSet"]
 
 
 def _as_batch_array(a):
@@ -88,6 +88,27 @@ class StackedDataSet:
     def __init__(self, features, labels, weights, n_steps):
         self.features = features
         self.labels = labels
+        self.weights = weights
+        self.n_steps = int(n_steps)
+
+    def num_steps(self):
+        return self.n_steps
+
+    def num_examples(self):
+        """Real examples across the whole stack (the weights' sum)."""
+        return int(float(self.weights[:self.n_steps].sum()))
+
+
+class StackedMultiDataSet:
+    """K same-shape multi-minibatches stacked on a leading step axis: the
+    unit of ComputationGraph's fused loop. Every feature and label stream
+    is [K, B, ...]; ``weights`` and ``n_steps`` keep the contract of
+    :class:`StackedDataSet`. Masks do not stack: a masked MultiDataSet
+    keeps the per-batch path."""
+
+    def __init__(self, features, labels, weights, n_steps):
+        self.features = list(features)
+        self.labels = list(labels)
         self.weights = weights
         self.n_steps = int(n_steps)
 

@@ -19,11 +19,11 @@ MultiLayerNetwork and ComputationGraph need.
   ``TrainingDivergedError`` raised;
 - ``fit``'s periodic training checkpoints and their resume
   (``utils/training_checkpoint.py``);
-- the fused loop's gate (:func:`fuse_allowed`), which declines every
-  ComputationGraph for now;
+- the fused loop's gate (:func:`fuse_allowed`), the reference's;
 - mixed precision: ``_compute_dtype``/``_cast_floats``.
 
-Not ported here: the solver plumbing (ROADMAP.md, queue 1).
+The solver plumbing (the reference's ``_solver_run`` and its neighbours)
+lives beside the train step in ``models/_layered.py``.
 """
 
 from __future__ import annotations
@@ -71,35 +71,22 @@ def uses_dropout(layers):
 
 def fuse_allowed(conf, layers):
     """Whether ``fit()`` may train K updates a pass through the fused loop
-    for this model: the single-update SGD path only (line-search solvers
-    and multi-iteration configs interleave host logic between updates),
-    and no layer with batch statistics: BatchNormalization's batch moments
-    would see the rows that bucketing pads a ragged batch with, and
-    normalize the real rows (and move the running moments) otherwise
-    than the per-batch loop. tBPTT fuses unless
-    ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch back to the host window
-    loop.
-
-    Two differences from the reference's gate:
-    - a model with dropout is declined (a captured step cannot revert a
-      ``torch.Generator`` on the device, and the per-batch path computes
-      the same numbers; ROADMAP.md lists dropout inside the captured
-      step);
-    - every ComputationGraph is declined: the graph's fused loop (a
-      captured step over a ``StackedMultiDataSet``, and the prefetcher's
-      stacking of MultiDataSet batches) is not ported yet (ROADMAP.md,
-      queue 1). The zoo's graphs would be declined anyway: ResNet-50 for
-      BatchNormalization, GoogLeNet for dropout."""
-    if hasattr(conf, "vertices"):     # a ComputationGraphConfiguration
-        return False
+    for this model (a MultiLayerNetwork or a ComputationGraph): the
+    single-update SGD path only (line-search solvers and multi-iteration
+    configs interleave host logic between updates), and no layer with
+    batch statistics: BatchNormalization's batch moments would see the
+    rows that bucketing pads a ragged batch with, and normalize the real
+    rows (and move the running moments) otherwise than the per-batch
+    loop. tBPTT fuses unless ``DL4J_TORCH_FUSE_TBPTT=0``, the escape hatch
+    back to the host window loop. Dropout fuses: its masks come from the
+    device draw counter, which the step's select-revert keeps with the
+    parameters. The reference's gate, clause for clause."""
     if (conf.optimization_algo != "stochastic_gradient_descent"
             or conf.iterations != 1):
         return False
     if conf.backprop_type == "tbptt" and not env_flag("DL4J_TORCH_FUSE_TBPTT"):
         return False
-    if any(isinstance(l, BatchNormalization) for l in layers):
-        return False
-    return not uses_dropout(layers)
+    return not any(isinstance(l, BatchNormalization) for l in layers)
 
 
 class DeviceStateMixin:

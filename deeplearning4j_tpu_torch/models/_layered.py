@@ -7,19 +7,40 @@ three lists beside it: ``params_list`` (per-layer dicts of f32 leaves),
 ``updater_states`` (the updater rule's state). Over these this module
 holds one copy of:
 
-- the per-batch train step: the rng draw, loss and gradients
+- the per-batch train step: the dropout keys, loss and gradients
   (``torch.autograd.grad`` through the model's ``_loss_fn``), and the
   update (:meth:`LayeredModel._apply_update`): each layer's updater rule
-  written in place, the tBPTT carries detached, the iteration counter,
-  and the non-finite guard's select-revert and skipped counter;
+  written in place, the tBPTT carries detached, the iteration and draw
+  counters, and the non-finite guard's select-revert and skipped
+  counter;
+- the fused loop (``fit_fused``): a ``StackedDataSet`` (or a graph's
+  ``StackedMultiDataSet``) one window step at a time over static tensors
+  updated in place (:class:`_FusedLoop`); on the card each window
+  signature is captured once in a CUDA graph (:class:`_WindowGraph`) and
+  replayed, on the CPU the same function is called directly; with the
+  fusion autotuner armed, ``tuning/autotuner.py`` plans the chunks;
+- the line-search solvers' plumbing (``_fit_batch_solver``): the flat
+  parameter vector through ``optimize/solvers.py``, the layer state fixed
+  during the line searches and refreshed once after;
 - remat through ``torch.utils.checkpoint``;
 - the flat parameter API (``params()``, ``set_params()``);
 - ``fit(iterator)``'s loop: the prefetch wrap, the resume cursor, the
   periodic checkpoints and the guard's flush at the end. What a batch
   does is each model's own (``_fit_item``).
+
+Dropout draws no generator: each layer's mask is a pure function of
+``conf.seed``, the model's device int64 draw counter, the layer's index
+and the element's index (``ops/random.py``). Every update advances the
+counter, and the guard's select-revert puts it back with the parameters
+where the step is not kept, so a rejected step's successor draws the
+same masks, a remat recomputation draws the masks of its first run, and
+the per-batch and fused paths draw the same masks. No step reads the
+device on the host.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -35,11 +56,25 @@ from deeplearning4j_tpu_torch.models._device_state import (
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
+from deeplearning4j_tpu_torch.ops.random import DropoutKey
+from deeplearning4j_tpu_torch.testing import faults
 from deeplearning4j_tpu_torch.tuning import autotuner
 from deeplearning4j_tpu_torch.utils import flat_params
 
-__all__ = ["LayeredModel", "host", "is_carry_layer", "leaves",
+__all__ = ["LayeredModel", "clone_tree", "host", "is_carry_layer", "leaves",
            "tensor_leaves"]
+
+_OBS_GROUP_SECONDS = obs.histogram(
+    "train.dispatch_group_seconds",
+    "Host wall-clock of one fused dispatch group (its windows' graph "
+    "replays and their input copies)")
+_OBS_STEPS = obs.counter("train.steps_total",
+                         "Real (non-padding) parameter updates dispatched")
+_OBS_GROUPS = obs.counter("train.dispatch_groups_total",
+                          "Fused dispatch groups (fit_fused calls)")
+
+# warm-up calls of a window step on a side stream before its capture
+_GRAPH_WARMUP = 2
 
 
 def leaves(params, device):
@@ -72,21 +107,167 @@ def tensor_leaves(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def _captures_graphs(t):
+    """Whether window steps on ``t``'s device run as captured CUDA graphs
+    (the card) or as direct calls of the same function (the CPU)."""
+    return t.is_cuda
+
+
+def _rebuild(tree, leaves_iter):
+    """``tree``'s containers around the tensors drawn from
+    ``leaves_iter``, in :func:`tensor_leaves` order."""
+    if isinstance(tree, dict):
+        out = {k: _rebuild(tree[k], leaves_iter) for k in sorted(tree)}
+        return {k: out[k] for k in tree}   # the tree's own key order
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves_iter) for v in tree)
+    return next(leaves_iter) if isinstance(tree, torch.Tensor) else tree
+
+
+def clone_tree(tree):
+    """A copy of nested dicts/lists of tensors, each tensor cloned."""
+    return _rebuild(tree, iter([t.detach().clone()
+                                for t in tensor_leaves(tree)]))
+
+
+class _WindowGraph:
+    """One window signature of the fused loop: static input buffers (one
+    per feature and label stream) and, on the card, the CUDA graph of the
+    window step over them. Warm-up and capture run with an all-zero
+    ``ew``, so that the padding-step revert leaves every state as it was;
+    every real window fills x, y and ew and replays."""
+
+    def __init__(self, xw, yw, ew):
+        self.x = [torch.empty_like(a, memory_format=torch.contiguous_format)
+                  for a in xw]
+        self.y = [torch.empty_like(a, memory_format=torch.contiguous_format)
+                  for a in yw]
+        self.ew = torch.zeros_like(ew)
+        self.graph = None
+
+    def fill(self, xw, yw):
+        for dst, src in zip(self.x + self.y, list(xw) + list(yw)):
+            dst.copy_(src)
+
+    def capture(self, step):
+        """Warm ``step`` up on a side stream, then capture it. A failed
+        capture raises: there is no eager fallback on the card."""
+        dev = self.ew.device
+        self.ew.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_GRAPH_WARMUP):
+                step(self)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(self)
+        self.graph = graph
+
+
+class _FusedLoop:
+    """The static tensors the fused window step reads and writes in place,
+    and its window graphs (one per signature; ``captures`` counts them).
+
+    The graphs point at the tensors they were captured over, so those are
+    kept: :meth:`bind` copies a rebound value (``init``,
+    ``reset_updater_state``, ``set_params``, a restore) into the bound
+    tensor and points the model back at it. The graph cache stays valid;
+    a new model (``clone``) starts its own."""
+
+    def __init__(self, device):
+        self.device = device
+        self.bound = {}        # model attribute -> the tensors bound
+        self.iteration = torch.zeros((), dtype=torch.int32, device=device)
+        self.skipped = torch.zeros((), dtype=torch.int32, device=device)
+        self.draws = torch.zeros((), dtype=torch.int64, device=device)
+        self.score = torch.zeros((), dtype=torch.float32, device=device)
+        self.last_grads = None
+        self.carries = {}      # (batch, dtype) -> (flat buffer, views)
+        self.graphs = {}       # window signature -> _WindowGraph
+        self.captures = 0
+
+    def bind(self, net):
+        """Point ``net`` at the bound tensors, copying in any value it was
+        given since the last group."""
+        for attr in ("params_list", "updater_states", "states_list"):
+            tree = getattr(net, attr)
+            cur = tensor_leaves(tree)
+            bound = self.bound.setdefault(attr, cur)
+            if len(cur) != len(bound):
+                raise RuntimeError(f"the model's {attr} changed structure "
+                                   "under the fused loop")
+            if any(c is not b for c, b in zip(cur, bound)):
+                with torch.no_grad():
+                    for c, b in zip(cur, bound):
+                        if c is not b:
+                            b.copy_(c)
+                setattr(net, attr, _rebuild(tree, iter(bound)))
+        if self.last_grads is None:
+            self.last_grads = [{k: torch.zeros_like(v).detach()
+                                for k, v in p.items()}
+                               for p in net.params_list]
+        with torch.no_grad():
+            it = net._device_iteration()
+            if it is not self.iteration:
+                self.iteration.copy_(it)
+                net._iter_dev = self.iteration
+            sk = net._nan_skipped_arg()
+            if sk is not self.skipped:
+                self.skipped.copy_(sk)
+                net._nan_skipped = self.skipped
+            dc = net._draw_counter_arg()
+            if dc is not self.draws:
+                self.draws.copy_(dc)
+                net._draw_counter = self.draws
+
+    def batch_carries(self, net, batch, dtype):
+        """The carries of a batch's windows, zeroed: one flat buffer per
+        batch size, (h, c) views per carry layer, None elsewhere."""
+        key = (batch, dtype)
+        if key not in self.carries:
+            widths = [l.n_out if is_carry_layer(l) else 0
+                      for l in net.layers]
+            flat = torch.zeros(2 * batch * sum(widths), dtype=dtype,
+                               device=self.device)
+            views, pos = [], 0
+            for w in widths:
+                if not w:
+                    views.append(None)
+                    continue
+                h = flat[pos:pos + batch * w].view(batch, w)
+                c = flat[pos + batch * w:pos + 2 * batch * w].view(batch, w)
+                views.append((h, c))
+                pos += 2 * batch * w
+            self.carries[key] = (flat, views)
+        flat, views = self.carries[key]
+        flat.zero_()
+        return views
+
+
 class LayeredModel(DeviceStateMixin):
     """The shared part of the two layer models. A subclass sets ``conf``,
-    ``layers``, ``device``, the three per-layer lists, ``_rng``,
-    ``listeners``, ``iteration`` and ``epoch_count``, and defines
-    ``_loss_fn(params_list, states_list, x, y, fmask, lmask, rngs, train,
-    carries, ew)`` (``x``/``y``/masks: tensors, or lists of them for a
-    graph) and ``_fit_item(ds, use_ew)``."""
+    ``layers``, ``device``, the three per-layer lists, ``listeners``,
+    ``iteration`` and ``epoch_count``, and defines ``_loss_fn(params_list,
+    states_list, x, y, fmask, lmask, rngs, train, carries, ew)``
+    (``x``/``y``/masks: tensors, or lists of them for a graph),
+    ``_fit_item(ds, use_ew)`` and the fused loop's four hooks
+    (``_fused_streams``, ``_poison_step``, ``_tbptt_window_plan``,
+    ``_window_xy``)."""
 
     _last_fuse_stats = None
+    _fused = None              # _FusedLoop, made by the first group
+    _fuse_autotune = False     # set by fit() while the tuner is armed
+    _draw_counter = None       # device int64: the dropout stream
+    _solver_runs = None        # solver signature -> run function
 
     # ---- parameters ---------------------------------------------------
     def reset_updater_state(self):
         self.updater_states = [
             updaters_mod.init_state(
-                l.updater_config(self.conf.max_iterations), p)
+                l.updater_config(self.conf.max_iterations), p,
+                device=self.device)
             for l, p in zip(self.layers, self.params_list)]
 
     def num_params(self):
@@ -124,44 +305,50 @@ class LayeredModel(DeviceStateMixin):
             t = t.to(torch.float32)
         return t.to(self.device)
 
-    def _check_solver_supported(self):
-        algo = self.conf.optimization_algo
-        if algo != "stochastic_gradient_descent":
-            raise NotImplementedError(
-                f"optimization_algo={algo!r}: the line-search solvers are "
-                "not ported to the PyTorch package yet (ROADMAP.md, "
-                "queue 1, \"Line-search solvers and the optax rules\")")
+    # ---- the dropout draw counter ---------------------------------------
+    def _draw_counter_arg(self):
+        if self._draw_counter is None:
+            self._draw_counter = torch.zeros((), dtype=torch.int64,
+                                             device=self.device)
+        return self._draw_counter
+
+    @property
+    def dropout_draws(self):
+        """The draw counter (reads the device): one a kept update, one a
+        solver call. The dropout masks of the next update are a function
+        of it."""
+        return int(self._draw_counter_arg())
+
+    def set_dropout_draws(self, n):
+        """Continue the dropout stream from draw ``n`` (a restore)."""
+        with torch.no_grad():
+            self._draw_counter_arg().fill_(int(n))
+
+    def _uses_dropout(self):
+        return uses_dropout(self.layers)
+
+    def _dropout_keys(self):
+        """Each layer's dropout key at the current counter value, or None
+        for a model without dropout."""
+        if not self._uses_dropout():
+            return None
+        c = self._draw_counter_arg()
+        return [DropoutKey(self.conf.seed, c, i)
+                for i in range(len(self.layers))]
 
     # ---- forward ------------------------------------------------------
     def _layer_forward(self, layer, train, rng):
         """The layer's forward, under ``torch.utils.checkpoint`` when the
-        configuration asks for remat. A recomputation draws its dropout
-        masks from the generator state the first run started from."""
+        configuration asks for remat. A recomputation reads the same draw
+        counter as the first run, so it draws the same dropout masks."""
         def fwd(p, x, s, m):
             return layer.forward(p, x, s, train=train, rng=rng, mask=m)
         if not (self.conf.remat and train):
             return fwd
-        start = None if rng is None else rng.get_state()
-
-        def replay(p, x, s, m):
-            if start is None:
-                return fwd(p, x, s, m)
-            after = rng.get_state()
-            rng.set_state(start)
-            try:
-                return fwd(p, x, s, m)
-            finally:
-                if recomputing[0]:
-                    rng.set_state(after)
-                recomputing[0] = True
-        recomputing = [False]
-        return lambda p, x, s, m: checkpoint(replay, p, x, s, m,
+        return lambda p, x, s, m: checkpoint(fwd, p, x, s, m,
                                              use_reentrant=False)
 
     # ---- the train step -----------------------------------------------
-    def _uses_dropout(self):
-        return uses_dropout(self.layers)
-
     def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew):
         """(score, (new_states, new_carries), grads as a list of dicts) at
         the current parameters."""
@@ -182,33 +369,28 @@ class LayeredModel(DeviceStateMixin):
         """One update, eagerly: the body of the reference's
         ``_build_train_step``; tBPTT ``carries`` are updated in place to
         the ones the next window starts from. Returns (score, grads)."""
-        rng = self._rng if self._uses_dropout() else None
-        rng_start = None if rng is None else rng.get_state()
-        rngs = None if rng is None else [rng] * len(self.layers)
         score, (new_states, new_carries), grads = self._value_and_grad(
-            x, y, fmask, lmask, rngs, True, carries, ew)
+            x, y, fmask, lmask, self._dropout_keys(), True, carries, ew)
         guard = nanguard_enabled()
         self._apply_update(score, grads, new_states, new_carries, carries,
-                           guard, rng_start=rng_start)
+                           guard)
         if guard:
             # the host reads the counter one step late
             self._nanguard_record()
         return score, grads
 
     def _apply_update(self, score, grads, new_states, new_carries, carries,
-                      guard, real=None, rng_start=None):
+                      guard, real=None):
         """The update half of the step, written in place into the
         model's tensors: each layer's updater rule, the tBPTT
         ``carries`` (None without tBPTT) set to the window's final ones
-        without their graph, and the iteration counter, all of it
-        select-reverted where ``keep`` is false. ``keep`` is ``real`` (the
-        fused loop's device bool: the window weighs anything) and, under
-        the guard, the step's loss and gradients being finite; a real,
-        non-finite step bumps the skipped counter. No host read, but one:
-        when dropout drew from the generator (``rng_start``, its state
-        before the step), the guard decides on the host whether to put it
-        back, since a generator cannot be selected on the device."""
+        without their graph, and the iteration and draw counters, all of
+        it select-reverted where ``keep`` is false. ``keep`` is ``real``
+        (the fused loop's device bool: the window weighs anything) and,
+        under the guard, the step's loss and gradients being finite; a
+        real, non-finite step bumps the skipped counter. No host read."""
         it = self._device_iteration()
+        draws = self._draw_counter_arg()
         with torch.no_grad():
             keep = real
             if guard:
@@ -240,8 +422,7 @@ class LayeredModel(DeviceStateMixin):
                                     tensor_leaves(carries)):
                     put(old, new.detach())
             put(it, it + 1)
-            if guard and rng_start is not None and not bool(ok):
-                self._rng.set_state(rng_start)
+            put(draws, draws + 1)
 
     def _after_update(self, score, grads, batch):
         self.score_ = score   # device scalar; read lazily
@@ -251,6 +432,283 @@ class LayeredModel(DeviceStateMixin):
         self._iter_dev_py = self.iteration
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
+
+    # ---- the line-search solvers --------------------------------------
+    def _uses_solver(self):
+        return self.conf.optimization_algo != "stochastic_gradient_descent"
+
+    def _refuse_solver_tbptt(self):
+        raise ValueError(
+            "truncated BPTT training supports only "
+            "'stochastic_gradient_descent'; got optimization_algo="
+            f"{self.conf.optimization_algo!r}")
+
+    @staticmethod
+    def _solver_signature(x, y, fmask, lmask):
+        """The batch part of a solver run's cache key: shapes and dtypes
+        of the streams (tensors or lists of them) and the masks'
+        presence."""
+        def sig(a):
+            if isinstance(a, (list, tuple)):
+                return tuple(sig(b) for b in a)
+            return None if a is None else (tuple(a.shape), str(a.dtype))
+        return (sig(x), sig(y), sig(fmask), sig(lmask))
+
+    def _solver_run(self, sig_extra, x0, args):
+        """Fetch or build the run function of this batch signature and
+        (algorithm, iterations), and run it from ``x0``."""
+        from deeplearning4j_tpu_torch.optimize import solvers as solvers_mod
+        conf = self.conf
+        sig = ("solver", conf.optimization_algo, int(conf.iterations)) \
+            + tuple(sig_extra)
+        if self._solver_runs is None:
+            self._solver_runs = {}
+        run = self._solver_runs.get(sig)
+        if run is None:
+            run = self._solver_runs[sig] = solvers_mod.solver_for(
+                conf.optimization_algo).make_run(
+                    self._solver_value_and_grad, max(1, conf.iterations),
+                    value=self._solver_value)
+        vec, score, _hist = run(x0, *args)
+        return vec, score
+
+    def _solver_loss(self, vec, x, y, fmask, lmask, keys):
+        plist = flat_params.vector_to_params(self.layers, vec)
+        score, _ = self._loss_fn(plist, self.states_list, x, y, fmask, lmask,
+                                 keys, True, None)
+        return score
+
+    def _solver_value_and_grad(self, vec, *args):
+        """(loss, flat gradient) at the flat parameter vector ``vec``,
+        the layer state held fixed."""
+        v = vec.detach().requires_grad_(True)
+        with torch.enable_grad():
+            score = self._solver_loss(v, *args)
+            (g,) = torch.autograd.grad(score, [v], allow_unused=True)
+        return score.detach(), (torch.zeros_like(v) if g is None else g)
+
+    def _solver_value(self, vec, *args):
+        """The loss alone: one forward evaluation (a line-search probe)."""
+        with torch.no_grad():
+            return self._solver_loss(vec, *args)
+
+    def _fit_batch_solver(self, x, y, fmask, lmask):
+        """The line-search path (Solver.java:48 → ConjugateGradient, LBFGS,
+        LineGradientDescent): ``conf.iterations`` whole-batch solver
+        iterations over the flat parameter vector. The layer state stays
+        fixed during the line searches (a consistent loss is what makes
+        the Armijo probes meaningful) and is refreshed by one forward at
+        the final parameters; the dropout masks are those of one counter
+        value for the whole call, which then advances the counter once."""
+        keys = self._dropout_keys()
+        args = (x, y, fmask, lmask, keys)
+        x0 = flat_params.params_to_vector(self.layers,
+                                          self.params_list).detach()
+        vec, score = self._solver_run(self._solver_signature(x, y, fmask,
+                                                             lmask), x0, args)
+        with torch.no_grad():
+            new = flat_params.vector_to_params(self.layers, vec)
+            for p, q in zip(tensor_leaves(self.params_list),
+                            tensor_leaves(new)):
+                p.copy_(q)
+        self._refresh_states_after_solver(args)
+        with torch.no_grad():
+            self._draw_counter_arg().add_(1)
+        first = x[0] if isinstance(x, (list, tuple)) else x
+        self._post_solver_bookkeeping(score, int(first.shape[0]))
+        return score
+
+    def _refresh_states_after_solver(self, args):
+        """One forward at the final parameters adopts the layer state it
+        computes (BatchNormalization's running moments)."""
+        with torch.no_grad():
+            _, (new_states, _) = self._loss_fn(
+                self.params_list, self.states_list, *args, True, None)
+            for new, old in zip(tensor_leaves(new_states),
+                                tensor_leaves(self.states_list)):
+                old.copy_(new)
+
+    def _post_solver_bookkeeping(self, score, batch_size):
+        self.score_ = score
+        # the solvers keep no per-layer gradient: gradient() reads None
+        self._last_gradients = None
+        self._last_batch_size = batch_size
+        self.iteration += max(1, self.conf.iterations)
+        self._iter_dev = None   # the device counter refreshes next step
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    # ---- the fused loop -------------------------------------------------
+    def _fused_streams(self, stacked):
+        """(feature tensors, label tensors, [K, B] weights) of a stacked
+        group on the model's device."""
+        raise NotImplementedError
+
+    def _poison_step(self, xs, ys, j):
+        """The ``nan-step`` fault's poisoned copy of step ``j``."""
+        raise NotImplementedError
+
+    def _tbptt_window_plan(self, xs):
+        """``(seg, full windows, remainder)`` of a stacked group, or None
+        when it trains standard backprop."""
+        raise NotImplementedError
+
+    def _window_xy(self, win):
+        """A window's static buffers as ``_loss_fn`` takes them."""
+        raise NotImplementedError
+
+    def _fused_carries(self, views):
+        """The per-layer carry views as ``_loss_fn`` takes them."""
+        return views
+
+    def fit_fused(self, stacked):
+        """The real steps of a stacked group ([K, B, ...] streams, [K, B]
+        weights, ``n_steps`` real steps leading): each step's windows
+        (tBPTT) or whole batch as one window step of the fused loop.
+        Padding steps are identity updates by contract, so only the
+        ``n_steps`` real ones run; padded rows (weight 0) leave the loss
+        through the example weights. Listeners are replayed afterwards,
+        one ``iteration_done`` per update. The ``nan-step`` fault fires
+        once a group; its param is the step it poisons. With the fusion
+        autotuner armed (``fit()`` under ``DL4J_TORCH_FUSE_AUTOTUNE=1``)
+        the first full group of an undecided bucket is probed and groups
+        are re-chunked to the decided K (``tuning/autotuner.py``)."""
+        if self.params_list is None:
+            self.init()
+        xs, ys, ews = self._fused_streams(stacked)
+        spec = faults.fire("nan-step")
+        step = None if spec is None else spec.param_int(0)
+        if step is not None and 0 <= step < ews.shape[0]:
+            xs, ys = self._poison_step(xs, ys, step)
+        guard = nanguard_enabled()
+        k = stacked.n_steps
+        plan = autotuner.plan_fused(
+            self, xs, ys, ews, k, guard,
+            autotuner.stacked_bucket_key(stacked)) \
+            if self._fuse_autotune else [(xs, ys, ews, k)]
+        score = None
+        for cxs, cys, cews, ck in plan:
+            score = self._fused_dispatch(cxs, cys, cews, ck, guard)
+        return score
+
+    def _fused_loop(self):
+        if self._fused is None:
+            self._fused = _FusedLoop(self.device)
+        return self._fused
+
+    def _fused_run(self, xs, ys, ews, n, guard):
+        """The first ``n`` steps of a group through the window graphs;
+        returns the device scores of their windows and the windows a
+        step."""
+        plan = self._tbptt_window_plan(xs)
+        if plan is None:
+            windows = [slice(None)]
+        else:
+            seg, n_full, rem = plan
+            windows = [slice(a, a + seg)
+                       for a in range(0, seg * n_full + rem, seg)]
+        n_w = len(windows)
+        fl = self._fused_loop()
+        fl.bind(self)
+        scores = torch.empty(n * n_w, dtype=torch.float32, device=self.device)
+        for i in range(n):
+            x, y, ew = [a[i] for a in xs], [a[i] for a in ys], ews[i]
+            carries = None if plan is None else self._fused_carries(
+                fl.batch_carries(self, x[0].shape[0], x[0].dtype))
+            for j, w in enumerate(windows):
+                xw = [a[:, w] if plan is not None and a.ndim == 3 else a
+                      for a in x]
+                yw = [a[:, w] if plan is not None and a.ndim == 3 else a
+                      for a in y]
+                self._fused_window(xw, yw, ew, carries, guard)
+                scores[i * n_w + j].copy_(fl.score)
+        return scores, n_w
+
+    def _fused_window_step(self, win, carries, guard):
+        """One window's update, written into the fused loop's static
+        tensors in place: loss and gradients, the per-layer update, the
+        tBPTT carries detached, and the select-revert of all of it
+        (params, layer and updater state, carries, iteration and draw
+        counters) where ``keep = real and finite`` (``real``: a row of
+        ``win.ew`` weighs more than 0), the skipped counter bumped for a
+        real, non-finite step, and the last gradients taken where
+        ``real``. No host read: a CUDA graph holds it."""
+        fl = self._fused
+        x, y = self._window_xy(win)
+        score, (new_states, new_carries), grads = self._value_and_grad(
+            x, y, None, None, self._dropout_keys(), True, carries, win.ew)
+        with torch.no_grad():
+            real = (win.ew > 0).any()
+            self._apply_update(score, grads, new_states, new_carries,
+                               carries, guard, real=real)
+            for lg, g in zip(fl.last_grads, grads):
+                for k in lg:
+                    lg[k].copy_(torch.where(real, g[k], lg[k]))
+            fl.score.copy_(score)
+
+    def _fused_window(self, xw, yw, ew, carries, guard):
+        """Run one window of the fused loop: fill its signature's static
+        inputs and replay its graph (capturing it on first use), or on the
+        CPU call the step directly."""
+        fl = self._fused
+        sig = (tuple((tuple(a.shape), a.dtype) for a in xw),
+               tuple((tuple(a.shape), a.dtype) for a in yw),
+               carries is not None, guard, xw[0].device)
+        win = fl.graphs.get(sig)
+        if win is None:
+            win = fl.graphs[sig] = _WindowGraph(xw, yw, ew)
+        win.fill(xw, yw)
+        if _captures_graphs(win.ew):
+            if win.graph is None:
+                win.capture(lambda w: self._fused_window_step(w, carries,
+                                                              guard))
+                fl.captures += 1
+            win.ew.copy_(ew)
+            win.graph.replay()
+        else:
+            win.ew.copy_(ew)
+            self._fused_window_step(win, carries, guard)
+
+    def _fused_dispatch(self, xs, ys, ews, k, guard):
+        """The ``k`` real steps of a group through the fused loop, then the
+        host bookkeeping: the guard's record (one deferred read a group),
+        metrics and span, fresh copies of the scores and last gradients,
+        and the listener replay (``k`` times the windows a batch)."""
+        t0 = time.perf_counter()
+        scores, n_w = self._fused_run(xs, ys, ews, k, guard)
+        if guard:
+            self._nanguard_record()
+        self._last_gradients = [{name: g.clone() for name, g in lg.items()}
+                                for lg in self._fused.last_grads]
+        ku = k * n_w
+        dt = time.perf_counter() - t0
+        _OBS_GROUP_SECONDS.record(dt)
+        _OBS_GROUPS.inc()
+        _OBS_STEPS.inc(ku)
+        obs.add_span("fit.dispatch_group", t0, dt, steps=ku)
+        it0 = self.iteration
+        self._last_batch_size = int(xs[0].shape[1])
+        if self.listeners:
+            for i in range(ku):
+                self.iteration = it0 + i + 1
+                self._score = scores[i]
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration)
+        self.iteration = it0 + ku
+        self._iter_dev_py = self.iteration
+        self._score = scores[ku - 1]
+        return self._score
+
+    def _fused_probe_dispatch(self, xs, ys, ews, guard):
+        """One ZERO-WEIGHT group for the autotuner: every window step
+        select-reverts (the padding-step mechanism), so parameters,
+        updater and layer state, iteration and draw counters come back
+        bit-equal. The last score's read is the timing barrier. Returns
+        wall seconds."""
+        t0 = time.perf_counter()
+        scores, _ = self._fused_run(xs, ys, ews, int(ews.shape[0]), guard)
+        float(scores[-1])
+        return time.perf_counter() - t0
 
     # ---- fit(iterator) ------------------------------------------------
     def _fit_item(self, ds, use_ew):
@@ -262,17 +720,20 @@ class LayeredModel(DeviceStateMixin):
                       resume_from=None):
         """The reference's ``fit(DataSetIterator)``: wrap a plain iterator
         (a DataSetIterator, or a graph's MultiDataSetIterator) in the
-        prefetcher with ``fuse_wrap_config``'s grouping and hand each item
-        to ``_fit_item``. A resume skips the cursor's batches in the
-        prefetch worker, before grouping, so the groups form as they did
-        in the uninterrupted run; checkpoints are committed only between
+        prefetcher with ``fuse_wrap_config``'s grouping (and, with the
+        autotuner armed, its bucket resolver) and hand each item to
+        ``_fit_item``. A resume skips the cursor's batches in the prefetch
+        worker, before grouping, so the groups form as they did in the
+        uninterrupted run; checkpoints are committed only between
         dispatches."""
         wrapped = None
         use_ew = False
         self._last_fuse_stats = None
         if isinstance(data, (DataSetIterator, MultiDataSetIterator)) and \
                 not isinstance(data, AsyncDataSetIterator):
-            fuse, k_resolver, bucket_pad, _ = autotuner.fuse_wrap_config(self)
+            fuse, k_resolver, bucket_pad, armed = \
+                autotuner.fuse_wrap_config(self)
+            self._fuse_autotune = armed
             use_ew = bucket_pad
             data = wrapped = AsyncDataSetIterator(
                 data, queue_size=4, stage=default_stage(), fuse=fuse,
@@ -316,10 +777,10 @@ class LayeredModel(DeviceStateMixin):
             # the last group's counter must not ride past the fit unread
             self._nanguard_flush()
         finally:
+            self._fuse_autotune = False
             if wrapped is not None:
                 wrapped.shutdown()
                 self._last_fuse_stats = wrapped.fuse_stats()
             if obs.tracing.enabled():
                 obs.tracing.flush()
         return self
-

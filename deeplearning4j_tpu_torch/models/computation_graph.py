@@ -22,24 +22,34 @@ non-finite guard's select-revert. ``params_map``/``states_map`` (and
 and ``set_params()`` use its flat vector (layers in topological order).
 
 ``fit`` takes a (Multi)DataSet, X and y, or an iterator (DataSetIterator
-or MultiDataSetIterator, wrapped in ``AsyncDataSetIterator`` at fuse 1:
-one device copy a batch, on the consumer's thread), with the periodic
-checkpoints and resume of the MultiLayerNetwork. The graph runs on the
-card unless the caller passes ``device="cpu"``; its randomness (init,
-dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
+or MultiDataSetIterator), with the periodic checkpoints and resume of the
+MultiLayerNetwork. An iterator goes through ``fuse_wrap_config`` as the
+MultiLayerNetwork's does: the prefetcher stacks up to
+``DL4J_TORCH_FUSE_STEPS`` maskless batches into a ``StackedMultiDataSet``
+and ``fit_fused`` trains each group through the shared fused loop (one
+captured CUDA graph a window signature on the card; tBPTT windows over
+the LSTM vertices included); masked batches keep the per-batch path. The
+line-search solvers (``optimization_algo``) share the MultiLayerNetwork's
+plumbing too. The graph runs on the card unless the caller passes
+``device="cpu"``; its init draws from a ``torch.Generator`` seeded with
+``conf.seed``, its dropout masks from the counter-based hash keyed by
+``conf.seed`` and the device draw counter.
 
 Not ported yet (ROADMAP.md, queue 1), each raising
-``NotImplementedError``: the fused loop for graphs (``fit_fused``), the
-line-search solvers, layer-wise pretraining and sharding plans.
+``NotImplementedError``: layer-wise pretraining and sharding plans.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.dataset import (DataSet, MultiDataSet,
+                                                       StackedDataSet,
+                                                       StackedMultiDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models._layered import (LayeredModel, host,
+from deeplearning4j_tpu_torch.models._layered import (LayeredModel,
+                                                      clone_tree, host,
                                                       is_carry_layer, leaves)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     params_from_numpy as _mln_params_from_numpy,
@@ -64,9 +74,6 @@ def _not_ported(what, item):
     return NotImplementedError(
         f"ComputationGraph {what} is not ported to the PyTorch package yet "
         f"(ROADMAP.md, queue 1, \"{item}\")")
-
-
-_FUSED = "The fused loop's remaining pieces"
 
 
 def _as_multi(data) -> MultiDataSet:
@@ -119,7 +126,6 @@ class ComputationGraph(LayeredModel):
         self.iteration = 0
         self.epoch_count = 0
         self.listeners = []
-        self._rng = None
         self._rnn_carries = None
         self._last_gradients = None
         self._last_batch_size = None
@@ -131,9 +137,8 @@ class ComputationGraph(LayeredModel):
         """Parameters, layer state and updater state, layer vertex by
         layer vertex in topological order, drawn from a
         ``torch.Generator`` seeded with ``conf.seed`` on the graph's
-        device, which then serves dropout."""
+        device. The dropout draw counter starts at 0."""
         g = torch.Generator(device=self.device).manual_seed(self.conf.seed)
-        self._rng = g
         self.params_list = [leaves(l.init_params(g), self.device)
                             for l in self.layers]
         self.states_list = [{k: v.to(self.device)
@@ -142,6 +147,7 @@ class ComputationGraph(LayeredModel):
         self.reset_updater_state()
         self.iteration = 0
         self._iter_dev = None
+        self._draw_counter = None
         if params is not None:
             self.set_params(params)
         return self
@@ -343,15 +349,20 @@ class ComputationGraph(LayeredModel):
                 inputs[0] = torch.full_like(inputs[0], float("nan"))
         fmasks = self._tensors(mds.features_masks)
         lmasks = self._tensors(mds.labels_masks)
-        self._check_solver_supported()
+        tbptt = self.conf.backprop_type == "tbptt" and \
+            any(x.ndim == 3 for x in inputs)
+        solver = self._uses_solver()
+        if tbptt and solver:
+            self._refuse_solver_tbptt()
         if ew is not None:
-            if lmasks is not None:
+            if lmasks is not None or solver:
                 raise ValueError("example weights (ew) apply only to the "
                                  "maskless SGD path (tBPTT included)")
             ew = self._tensor(ew)
-        if self.conf.backprop_type == "tbptt" and \
-                any(x.ndim == 3 for x in inputs):
+        if tbptt:
             return self._fit_tbptt(inputs, labels, fmasks, lmasks, ew)
+        if solver:
+            return self._fit_batch_solver(inputs, labels, fmasks, lmasks)
         score, grads = self._train_step(inputs, labels, fmasks, lmasks, ew,
                                         None)
         self._after_update(score, grads, inputs[0].shape[0])
@@ -401,8 +412,53 @@ class ComputationGraph(LayeredModel):
         self.score_ = last_score
         return last_score
 
-    def fit_fused(self, stacked):
-        raise _not_ported("fit_fused (the fused loop for graphs)", _FUSED)
+    # ------------------------------------------------------------------
+    # the fused loop's hooks (the loop itself: models/_layered.py)
+    # ------------------------------------------------------------------
+    def _fused_streams(self, stacked):
+        """A ``StackedMultiDataSet`` (a ``StackedDataSet`` counts as one
+        input and one output) as lists of [K, B, ...] tensors."""
+        if isinstance(stacked, StackedDataSet):
+            stacked = StackedMultiDataSet([stacked.features],
+                                          [stacked.labels], stacked.weights,
+                                          stacked.n_steps)
+        return (self._tensors(stacked.features),
+                self._tensors(stacked.labels), self._tensor(stacked.weights))
+
+    def _poison_step(self, xs, ys, j):
+        """Step ``j`` of the first input stream, where it is a float one,
+        set to NaN."""
+        if xs[0].is_floating_point():
+            x0 = xs[0].clone()
+            x0[j] = float("nan")
+            xs = [x0] + list(xs[1:])
+        return xs, ys
+
+    def _tbptt_window_plan(self, xs):
+        """``(seg, full windows, remainder)`` of a stacked group whose
+        temporal streams are the rank-4 [K, B, T, F] ones, or None for
+        standard backprop. The temporal streams must share one length: the
+        windows cut them all alike."""
+        if self.conf.backprop_type != "tbptt":
+            return None
+        ts = sorted({x.shape[2] for x in xs if x.ndim == 4})
+        if not ts:
+            return None
+        if len(ts) > 1:
+            raise ValueError(
+                "fused tBPTT needs all temporal inputs to share one "
+                f"sequence length, got {ts}; set DL4J_TORCH_FUSE_TBPTT=0 to "
+                "train mixed-length multi-input graphs through the host "
+                "window loop")
+        seg = int(self.conf.tbptt_fwd_length)
+        return (seg, ts[0] // seg, ts[0] % seg)
+
+    def _window_xy(self, win):
+        return win.x, win.y
+
+    def _fused_carries(self, views):
+        return {n: views[i] for i, n in enumerate(self.layer_names)
+                if views[i] is not None}
 
     def fit(self, data, labels=None, *, epochs=1, checkpoint_every=None,
             checkpoint_dir=None, resume_from=None):
@@ -438,14 +494,20 @@ class ComputationGraph(LayeredModel):
         raise ValueError(f"Cannot fit on {type(data)}")
 
     def _fit_item(self, ds, use_ew):
-        """One batch of ``fit(iterator)``'s stream. A graph never gets a
-        stacked group: ``fuse_allowed`` declines graphs."""
-        if not isinstance(ds, (DataSet, MultiDataSet)):
-            raise _not_ported(f"fit on a {type(ds).__name__} (the fused "
-                              "loop for graphs)", _FUSED)
+        """One item of ``fit(iterator)``'s stream: a stacked group through
+        ``fit_fused``, any other batch through ``fit_batch`` (with unit
+        example weights where the run is bucketed, so a row-padded ragged
+        batch takes the same path). Returns the real batches."""
+        if isinstance(ds, (StackedDataSet, StackedMultiDataSet)):
+            self.fit_fused(ds)
+            return ds.n_steps
+        mds = _as_multi(ds)
         ew = getattr(ds, "example_weights", None)
+        if (ew is None and use_ew and mds.features_masks is None
+                and mds.labels_masks is None):
+            ew = np.ones(int(mds.features[0].shape[0]), np.float32)
         for _ in range(self.conf.iterations):
-            self.fit_batch(_as_multi(ds), ew=ew)
+            self.fit_batch(mds, ew=ew)
         return 1
 
     def pretrain(self, iterator, epochs=1):
@@ -501,7 +563,7 @@ class ComputationGraph(LayeredModel):
     def feed_forward(self, *inputs, train=False):
         """Every vertex's activation by name, the inputs included, as host
         numpy (feedForward)."""
-        rngs = [self._rng] * len(self.layers) if train else None
+        rngs = self._dropout_keys() if train else None
         with torch.no_grad():
             acts, _, _, _, _ = self._forward_graph(
                 self.params_list, self.states_list, self._tensors(inputs),
@@ -557,17 +619,14 @@ class ComputationGraph(LayeredModel):
 
     def clone(self):
         """An independent copy: parameters, layer and updater state,
-        iteration and generator state."""
+        iteration and dropout draw counter."""
         net = ComputationGraph(self.conf, device=self.device)
         net.params_list = [leaves(p, self.device) for p in self.params_list]
         net.states_list = [{k: v.clone() for k, v in s.items()}
                            for s in self.states_list]
-        net.updater_states = [
-            {key: {k: v.clone() for k, v in sub.items()}
-             for key, sub in s.items()} for s in self.updater_states]
+        net.updater_states = clone_tree(self.updater_states)
         net.iteration = self.iteration
-        net._rng = torch.Generator(device=self.device)
-        net._rng.set_state(self._rng.get_state())
+        net._draw_counter = self._draw_counter_arg().clone()
         return net
 
     def summary(self):

@@ -19,9 +19,10 @@ over static tensors updated in place (:class:`_FusedLoop`): on the card
 it is captured once per window signature in a CUDA graph and replayed;
 on the CPU the same function is called directly. Masked batches, models
 ``fuse_allowed`` declines and ``DL4J_TORCH_FUSE_STEPS=1`` keep the
-per-batch path. ``fit`` also writes periodic training checkpoints and
-resumes from them (``checkpoint_every``, ``checkpoint_dir``,
-``resume_from``). Inference: ``output``, ``feed_forward``, ``score``,
+per-batch path; ``DL4J_TORCH_FUSE_AUTOTUNE=1`` picks K per shape bucket
+(``tuning/autotuner.py``). ``fit`` also writes periodic training
+checkpoints and resumes from them (``checkpoint_every``,
+``checkpoint_dir``, ``resume_from``). Inference: ``output``, ``feed_forward``, ``score``,
 ``rnn_time_step``, ``evaluate``. Features are [B, F], [B, T, F] or NHWC
 [B, H, W, C], as the reference's.
 
@@ -30,29 +31,28 @@ and layouts; :func:`params_from_numpy`, :func:`states_from_numpy` and
 :func:`updater_state_from_numpy` carry a JAX net's parameters, layer state
 and updater state across, and ``params()``
 /``set_params()`` use the reference's flat vector. The network runs on
-the card unless the caller passes ``device="cpu"``; its randomness (init,
-dropout) comes from one ``torch.Generator`` seeded with ``conf.seed``.
-The per-batch step's body, the flat parameter API and ``fit(iterator)``'s
-loop are ComputationGraph's too (``models/_layered.py``).
+the card unless the caller passes ``device="cpu"``; its init draws from a
+``torch.Generator`` seeded with ``conf.seed``, its dropout masks from the
+counter-based hash of ``ops/random.py`` keyed by ``conf.seed`` and the
+device draw counter (``models/_layered.py``). The per-batch step's body,
+the fused loop, the line-search solvers' plumbing (``optimization_algo``
+``lbfgs``, ``conjugate_gradient``, ``line_gradient_descent``), the flat
+parameter API and ``fit(iterator)``'s loop are ComputationGraph's too
+(``models/_layered.py``).
 
-Not ported yet (ROADMAP.md, queue 1): line-search solvers, pretraining
-and the fusion autotuner.
+Not ported yet (ROADMAP.md, queue 1): layer-wise pretraining.
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, StackedDataSet
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models._device_state import nanguard_enabled
-from deeplearning4j_tpu_torch.models._layered import (LayeredModel, host,
-                                                      is_carry_layer, leaves,
-                                                      tensor_leaves)
+from deeplearning4j_tpu_torch.models._layered import (LayeredModel,
+                                                      clone_tree, host,
+                                                      is_carry_layer, leaves)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import (BaseOutputLayer,
@@ -64,16 +64,6 @@ from deeplearning4j_tpu_torch.utils import flat_params
 
 __all__ = ["MultiLayerNetwork", "params_from_numpy", "states_from_numpy",
            "updater_state_from_numpy"]
-
-_OBS_GROUP_SECONDS = obs.histogram(
-    "train.dispatch_group_seconds",
-    "Host wall-clock of one fused dispatch group (its windows' graph "
-    "replays and their input copies)")
-_OBS_STEPS = obs.counter("train.steps_total",
-                         "Real (non-padding) parameter updates dispatched")
-_OBS_GROUPS = obs.counter("train.dispatch_groups_total",
-                          "Fused dispatch groups (fit_fused calls)")
-
 
 def params_from_numpy(layers, params_list, device=None):
     """The port's parameters from a JAX net's ``params_list`` given as
@@ -117,137 +107,18 @@ def states_from_numpy(layers, states_list, device=None):
 def updater_state_from_numpy(updater_states, device=None):
     """The port's updater state from a JAX net's ``updater_states``
     (per layer ``{rule key: {param name: array}}``, e.g. rmsprop's
-    ``{"r": {...}}``), so that a JAX run continues in the port."""
+    ``{"r": {...}}``; an optax rule's ``{"optax": [leaves]}`` given as
+    the list ``jax.tree.leaves`` makes of its state, dtypes kept), so that
+    a JAX run continues in the port."""
     dev = resolve_device(device)
-    return [{key: {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
-                   for k, v in sub.items()} for key, sub in s.items()}
+
+    def sub_state(sub):
+        if isinstance(sub, dict):
+            return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                    for k, v in sub.items()}
+        return [torch.from_numpy(np.array(v)).to(dev) for v in sub]
+    return [{key: sub_state(sub) for key, sub in s.items()}
             for s in updater_states]
-
-
-def _rebuild(tree, leaves_iter):
-    """``tree``'s containers around the tensors drawn from
-    ``leaves_iter``, in :func:`tensor_leaves` order."""
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], leaves_iter) for k in sorted(tree)}
-        return {k: out[k] for k in tree}   # the tree's own key order
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves_iter) for v in tree)
-    return next(leaves_iter) if isinstance(tree, torch.Tensor) else tree
-
-
-# warm-up calls of a window step on a side stream before its capture
-_GRAPH_WARMUP = 2
-
-
-def _captures_graphs(t):
-    """Whether window steps on ``t``'s device run as captured CUDA graphs
-    (the card) or as direct calls of the same function (the CPU)."""
-    return t.is_cuda
-
-
-class _WindowGraph:
-    """One window signature of the fused loop: static input buffers and,
-    on the card, the CUDA graph of the window step over them. Warm-up and
-    capture run with an all-zero ``ew``, so that the padding-step revert
-    leaves every state as it was; every real window fills x, y and ew and
-    replays."""
-
-    def __init__(self, xw, yw, ew):
-        self.x = torch.empty_like(xw, memory_format=torch.contiguous_format)
-        self.y = torch.empty_like(yw, memory_format=torch.contiguous_format)
-        self.ew = torch.zeros_like(ew)
-        self.graph = None
-
-    def capture(self, step):
-        """Warm ``step`` up on a side stream, then capture it. A failed
-        capture raises: there is no eager fallback on the card."""
-        dev = self.x.device
-        self.ew.zero_()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(_GRAPH_WARMUP):
-                step(self)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            step(self)
-        self.graph = graph
-
-
-class _FusedLoop:
-    """The static tensors the fused window step reads and writes in place,
-    and its window graphs (one per signature; ``captures`` counts them).
-
-    The graphs point at the tensors they were captured over, so those are
-    kept: :meth:`bind` copies a rebound value (``init``,
-    ``reset_updater_state``, ``set_params``) into the bound tensor and
-    points the model back at it. The graph cache stays valid; a new model
-    (``clone``) starts its own."""
-
-    def __init__(self, device):
-        self.device = device
-        self.bound = {}        # model attribute -> the tensors bound
-        self.iteration = torch.zeros((), dtype=torch.int32, device=device)
-        self.skipped = torch.zeros((), dtype=torch.int32, device=device)
-        self.score = torch.zeros((), dtype=torch.float32, device=device)
-        self.last_grads = None
-        self.carries = {}      # (batch, dtype) -> (flat buffer, views)
-        self.graphs = {}       # window signature -> _WindowGraph
-        self.captures = 0
-
-    def bind(self, net):
-        """Point ``net`` at the bound tensors, copying in any value it was
-        given since the last group."""
-        for attr in ("params_list", "updater_states", "states_list"):
-            tree = getattr(net, attr)
-            cur = tensor_leaves(tree)
-            bound = self.bound.setdefault(attr, cur)
-            if len(cur) != len(bound):
-                raise RuntimeError(f"the model's {attr} changed structure "
-                                   "under the fused loop")
-            if any(c is not b for c, b in zip(cur, bound)):
-                with torch.no_grad():
-                    for c, b in zip(cur, bound):
-                        if c is not b:
-                            b.copy_(c)
-                setattr(net, attr, _rebuild(tree, iter(bound)))
-        if self.last_grads is None:
-            self.last_grads = [{k: torch.zeros_like(v).detach()
-                                for k, v in p.items()}
-                               for p in net.params_list]
-        with torch.no_grad():
-            it = net._device_iteration()
-            if it is not self.iteration:
-                self.iteration.copy_(it)
-                net._iter_dev = self.iteration
-            sk = net._nan_skipped_arg()
-            if sk is not self.skipped:
-                self.skipped.copy_(sk)
-                net._nan_skipped = self.skipped
-
-    def batch_carries(self, net, batch, dtype):
-        """The carries of a batch's windows, zeroed: one flat buffer per
-        batch size, (h, c) views per carry layer, None elsewhere."""
-        key = (batch, dtype)
-        if key not in self.carries:
-            widths = [l.n_out if is_carry_layer(l) else 0
-                      for l in net.layers]
-            flat = torch.zeros(2 * batch * sum(widths), dtype=dtype,
-                               device=self.device)
-            views, pos = [], 0
-            for w in widths:
-                if not w:
-                    views.append(None)
-                    continue
-                h = flat[pos:pos + batch * w].view(batch, w)
-                c = flat[pos + batch * w:pos + 2 * batch * w].view(batch, w)
-                views.append((h, c))
-                pos += 2 * batch * w
-            self.carries[key] = (flat, views)
-        flat, views = self.carries[key]
-        flat.zero_()
-        return views
 
 
 class MultiLayerNetwork(LayeredModel):
@@ -261,12 +132,9 @@ class MultiLayerNetwork(LayeredModel):
         self.iteration = 0
         self.epoch_count = 0
         self.listeners = []
-        self._rng = None
         self._rnn_carries = None
         self._last_gradients = None
         self._last_batch_size = None
-        self._fused = None            # _FusedLoop, made by the first group
-        self._last_fuse_stats = None
 
     # ------------------------------------------------------------------
     # init & parameter API
@@ -274,9 +142,9 @@ class MultiLayerNetwork(LayeredModel):
     def init(self, params=None):
         """Parameters and updater state (MultiLayerNetwork.init): drawn
         layer by layer from a ``torch.Generator`` seeded with
-        ``conf.seed`` on the network's device, which then serves dropout."""
+        ``conf.seed`` on the network's device. The dropout draw counter
+        starts at 0."""
         g = torch.Generator(device=self.device).manual_seed(self.conf.seed)
-        self._rng = g
         self.params_list = [leaves(l.init_params(g), self.device)
                             for l in self.layers]
         self.states_list = [{k: v.to(self.device)
@@ -285,6 +153,7 @@ class MultiLayerNetwork(LayeredModel):
         self.reset_updater_state()
         self.iteration = 0
         self._iter_dev = None
+        self._draw_counter = None
         if params is not None:
             self.set_params(params)
         return self
@@ -401,14 +270,19 @@ class MultiLayerNetwork(LayeredModel):
             else:
                 y = torch.full_like(y, float("nan"))
         fmask, lmask = self._tensor(fmask), self._tensor(lmask)
-        self._check_solver_supported()
+        tbptt = self.conf.backprop_type == "tbptt" and x.ndim == 3
+        solver = self._uses_solver()
+        if tbptt and solver:
+            self._refuse_solver_tbptt()
         if ew is not None:
-            if lmask is not None:
+            if lmask is not None or solver:
                 raise ValueError("example weights (ew) apply only to the "
                                  "maskless SGD path (tBPTT included)")
             ew = self._tensor(ew)
-        if self.conf.backprop_type == "tbptt" and x.ndim == 3:
+        if tbptt:
             return self._fit_tbptt(x, y, fmask, lmask, ew)
+        if solver:
+            return self._fit_batch_solver(x, y, fmask, lmask)
         score, grads = self._train_step(x, y, fmask, lmask, ew, None)
         self._after_update(score, grads, x.shape[0])
         return score
@@ -438,138 +312,34 @@ class MultiLayerNetwork(LayeredModel):
     # the fused loop: a StackedDataSet, one window step at a time over
     # static tensors (a replayed CUDA graph on the card)
     # ------------------------------------------------------------------
+    def _fused_streams(self, stacked):
+        return ([self._tensor(stacked.features)],
+                [self._tensor(stacked.labels)], self._tensor(stacked.weights))
+
+    def _poison_step(self, xs, ys, j):
+        """Step ``j``'s float features (else its labels) set to NaN."""
+        (x,), (y,) = xs, ys
+        if x.is_floating_point():
+            x = x.clone()
+            x[j] = float("nan")
+        else:
+            y = y.clone()
+            y[j] = float("nan")
+        return [x], [y]
+
     def _tbptt_window_plan(self, xs):
         """The tBPTT window plan ``(seg, full windows, remainder)`` of a
         stacked [K, B, T, F] group, or None when the group trains standard
         backprop; from the configuration and the group's shape only."""
-        if self.conf.backprop_type != "tbptt" or xs.ndim != 4:
+        x = xs[0]
+        if self.conf.backprop_type != "tbptt" or x.ndim != 4:
             return None
         seg = int(self.conf.tbptt_fwd_length)
-        t = xs.shape[2]
+        t = x.shape[2]
         return (seg, t // seg, t % seg)
 
-    def _fused_window_step(self, win, carries, guard):
-        """One window's update, written into the fused loop's static
-        tensors in place: loss and gradients, the per-layer update, the
-        tBPTT carries detached, and the select-revert of all of it (params,
-        layer and updater state, carries, iteration) where ``keep = real
-        and finite`` (``real``: a row of ``win.ew`` weighs more than 0),
-        the skipped counter bumped for a real, non-finite step, and the
-        last gradients taken where ``real``. No host read: a CUDA graph
-        holds it."""
-        fl = self._fused
-        score, (new_states, new_carries), grads = self._value_and_grad(
-            win.x, win.y, None, None, None, True, carries, win.ew)
-        with torch.no_grad():
-            real = (win.ew > 0).any()
-            self._apply_update(score, grads, new_states, new_carries,
-                               carries, guard, real=real)
-            for lg, g in zip(fl.last_grads, grads):
-                for k in lg:
-                    lg[k].copy_(torch.where(real, g[k], lg[k]))
-            fl.score.copy_(score)
-
-    def _fused_window(self, xw, yw, ew, carries, guard):
-        """Run one window of the fused loop: fill its signature's static
-        inputs and replay its graph (capturing it on first use), or on the
-        CPU call the step directly."""
-        fl = self._fused
-        sig = (tuple(xw.shape), xw.dtype, tuple(yw.shape), yw.dtype,
-               carries is not None, guard, xw.device)
-        win = fl.graphs.get(sig)
-        if win is None:
-            win = fl.graphs[sig] = _WindowGraph(xw, yw, ew)
-        win.x.copy_(xw)
-        win.y.copy_(yw)
-        if _captures_graphs(win.x):
-            if win.graph is None:
-                win.capture(lambda w: self._fused_window_step(w, carries,
-                                                              guard))
-                fl.captures += 1
-            win.ew.copy_(ew)
-            win.graph.replay()
-        else:
-            win.ew.copy_(ew)
-            self._fused_window_step(win, carries, guard)
-
-    def fit_fused(self, stacked):
-        """The real steps of a ``StackedDataSet`` ([K, B, ...] features and
-        labels, [K, B] weights, ``n_steps`` real steps leading): each
-        step's windows (tBPTT) or whole batch as one window step of the
-        fused loop. Padding steps are identity updates by contract, so
-        only the ``n_steps`` real ones run; padded rows (weight 0) leave
-        the loss through the example weights. Listeners are replayed
-        afterwards, one ``iteration_done`` per update. The ``nan-step``
-        fault fires once a group; its param is the step it poisons."""
-        if self.params_list is None:
-            self.init()
-        self._check_solver_supported()
-        if self._uses_dropout():
-            raise NotImplementedError(
-                "fit_fused with dropout: the captured step cannot revert "
-                "the generator on the device yet (ROADMAP.md, queue 1, "
-                "\"The fused loop's remaining pieces\": dropout inside the "
-                "captured step); fit() keeps such models on the per-batch "
-                "path")
-        xs, ys = self._tensor(stacked.features), self._tensor(stacked.labels)
-        ews = self._tensor(stacked.weights)
-        spec = faults.fire("nan-step")
-        step = None if spec is None else spec.param_int(0)
-        if step is not None and 0 <= step < xs.shape[0]:
-            if xs.is_floating_point():
-                xs = xs.clone()
-                xs[step] = float("nan")
-            else:
-                ys = ys.clone()
-                ys[step] = float("nan")
-        return self._fused_dispatch(xs, ys, ews, stacked.n_steps,
-                                    nanguard_enabled())
-
-    def _fused_dispatch(self, xs, ys, ews, k, guard):
-        """The ``k`` real steps of a group through the fused loop, then the
-        host bookkeeping: the guard's record (one deferred read a group),
-        metrics and span, fresh copies of the scores and last gradients,
-        and the listener replay (``k`` times the windows a batch)."""
-        t0 = time.perf_counter()
-        plan = self._tbptt_window_plan(xs)
-        windows = [slice(None)] if plan is None else \
-            [slice(a, a + plan[0]) for a in range(0, xs.shape[2], plan[0])]
-        n_w = len(windows)
-        ku = k * n_w
-        if self._fused is None:
-            self._fused = _FusedLoop(self.device)
-        fl = self._fused
-        fl.bind(self)
-        scores = torch.empty(ku, dtype=torch.float32, device=self.device)
-        for i in range(k):
-            x, y, ew = xs[i], ys[i], ews[i]
-            carries = None if plan is None else fl.batch_carries(
-                self, x.shape[0], x.dtype)
-            for j, w in enumerate(windows):
-                yw = y[:, w] if plan is not None and y.ndim == 3 else y
-                self._fused_window(x[:, w], yw, ew, carries, guard)
-                scores[i * n_w + j].copy_(fl.score)
-        if guard:
-            self._nanguard_record()
-        self._last_gradients = [{name: g.clone() for name, g in lg.items()}
-                                for lg in fl.last_grads]
-        dt = time.perf_counter() - t0
-        _OBS_GROUP_SECONDS.record(dt)
-        _OBS_GROUPS.inc()
-        _OBS_STEPS.inc(ku)
-        obs.add_span("fit.dispatch_group", t0, dt, steps=ku)
-        it0 = self.iteration
-        self._last_batch_size = int(xs.shape[1])
-        if self.listeners:
-            for i in range(ku):
-                self.iteration = it0 + i + 1
-                self._score = scores[i]
-                for lst in self.listeners:
-                    lst.iteration_done(self, self.iteration)
-        self.iteration = it0 + ku
-        self._iter_dev_py = self.iteration
-        self._score = scores[ku - 1]
-        return self._score
+    def _window_xy(self, win):
+        return win.x[0], win.y[0]
 
     # ------------------------------------------------------------------
     # public training API
@@ -647,7 +417,7 @@ class MultiLayerNetwork(LayeredModel):
     def feed_forward(self, x, train=False):
         """All layer activations, input first, as host numpy."""
         x = self._tensor(x)
-        rngs = [self._rng] * len(self.layers) if train else None
+        rngs = self._dropout_keys() if train else None
         with torch.no_grad():
             acts, _, _, _, _ = self._forward_layers(
                 self.params_list, self.states_list, x, train=train,
@@ -723,17 +493,14 @@ class MultiLayerNetwork(LayeredModel):
 
     def clone(self):
         """An independent copy: parameters, layer and updater state,
-        iteration and generator state."""
+        iteration and dropout draw counter."""
         net = MultiLayerNetwork(self.conf, device=self.device)
         net.params_list = [leaves(p, self.device) for p in self.params_list]
         net.states_list = [{k: v.clone() for k, v in s.items()}
                            for s in self.states_list]
-        net.updater_states = [
-            {key: {k: v.clone() for k, v in sub.items()}
-             for key, sub in s.items()} for s in self.updater_states]
+        net.updater_states = clone_tree(self.updater_states)
         net.iteration = self.iteration
-        net._rng = torch.Generator(device=self.device)
-        net._rng.set_state(self._rng.get_state())
+        net._draw_counter = self._draw_counter_arg().clone()
         return net
 
     def summary(self):

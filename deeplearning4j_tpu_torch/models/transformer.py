@@ -55,6 +55,7 @@ from deeplearning4j_tpu_torch.config import env_int, env_str
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.ops.random import M32, mix32, mul32
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     blockwise_attention, dense_attention)
 
@@ -445,9 +446,6 @@ _ADMIT_FIELDS = 8
 # int64 fields of the prefill staging record before the window's tokens
 _PREFILL_FIELDS = 4
 
-_M32 = 0xFFFFFFFF
-
-
 def _mm(x, w):
     """``x @ w``. On the card one GEMM. On the CPU every output element
     is summed over the inner dim in one fixed order, in f32, whatever the
@@ -539,21 +537,6 @@ def _scatter_window(row, pages, idx, valid):
                               row[:, idx])
 
 
-def _mul32(x, c):
-    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
-    constant, in two 16-bit halves so that no product overflows int64."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """A 32-bit integer finaliser: xorshift-multiply rounds."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
 def gumbel_noise(base, seeds, pos, vocab):
     """Gumbel(0, 1) noise [B, vocab] in f32 for the sampler
     ``argmax(logits / temperature + noise)`` (what
@@ -564,12 +547,12 @@ def gumbel_noise(base, seeds, pos, vocab):
     runs inside a captured graph. ``base``: 0-d int64; ``seeds``, ``pos``:
     [B] int64. JAX's threefry draws cannot be reproduced in torch: the
     values differ from the reference's, the property is the same."""
-    h = _mix32((base & _M32) ^ 0x3C6EF372)
-    h = _mix32(h ^ (seeds & _M32))
-    h = _mix32(h ^ (pos & _M32))
+    h = mix32((base & M32) ^ 0x3C6EF372)
+    h = mix32(h ^ (seeds & M32))
+    h = mix32(h ^ (pos & M32))
     v = torch.arange(vocab, device=h.device, dtype=torch.int64)
-    x = _mix32(h[:, None] ^ _mul32(v, 0x9E3779B9))
-    x = _mix32(x ^ 0x85EBCA6B)
+    x = mix32(h[:, None] ^ mul32(v, 0x9E3779B9))
+    x = mix32(x ^ 0x85EBCA6B)
     # 23 bits: (k + 0.5) / 2**23 is exact in f32 and lies in (0, 1)
     u = ((x >> 9).to(torch.float32) + 0.5) * (1.0 / 8388608.0)
     return -torch.log(-torch.log(u))

@@ -3,10 +3,11 @@
 As in the reference, one dataclass per layer carries the hyperparameters
 (JSON-serializable, cascaded from the global builder) and the layer's
 init and forward functions; backprop comes from autograd. Parameters are
-plain dicts of tensors that the network owns. Randomness comes from an
-explicit ``torch.Generator`` the network passes in: its values differ
-from JAX's threefry draws, so init and dropout agree with the reference
-in distribution only.
+plain dicts of tensors that the network owns. Init draws from an
+explicit ``torch.Generator`` the network passes in; dropout masks come
+from the counter-based hash of ``ops/random.py``. Both differ from JAX's
+threefry draws, so init and dropout agree with the reference in
+distribution only.
 
 Cascade semantics: fields default to ``None`` = "inherit from the global
 NeuralNetConfiguration builder values".
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.ops import activations as activations_mod
+from deeplearning4j_tpu_torch.ops import random as random_mod
 from deeplearning4j_tpu_torch.ops import weights as weights_mod
 from deeplearning4j_tpu_torch.ops.updaters import UpdaterConfig
 
@@ -203,12 +205,14 @@ class BaseLayer:
 
     def apply_dropout(self, x, *, train, rng):
         """Inverted dropout on the layer input, ``dropout`` being the
-        RETAIN probability (DL4J 0.7); 0 disables. ``rng`` is the
-        network's ``torch.Generator``."""
+        RETAIN probability (DL4J 0.7); 0 disables. ``rng`` is the layer's
+        :class:`~deeplearning4j_tpu_torch.ops.random.DropoutKey`: the mask
+        is a pure function of the seed, the model's draw counter, the
+        layer's index and the element's index (``ops/random.py``)."""
         p = self.dropout or 0.0
         if not train or p == 0.0 or p == 1.0 or rng is None:
             return x
-        keep = torch.rand(x.shape, generator=rng, device=x.device) < p
+        keep = random_mod.dropout_keep(rng, x.shape, p, x.device)
         return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 

@@ -44,21 +44,20 @@ class UpdaterConfig:
     max_iterations: int = 10000
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
+    weight_decay: float = 0.0          # optax:* rules (adamw/lion/lamb)
 
 
-def _optax_refused(conf):
-    return NotImplementedError(
-        f"updater {conf.rule!r}: the optax rules are not ported to the "
-        "PyTorch package yet (ROADMAP.md, queue 1, \"Line-search "
-        "solvers and the optax rules\")")
-
-
-def init_state(conf: UpdaterConfig, params):
+def init_state(conf: UpdaterConfig, params, device=None):
     """The updater state for a layer's param dict: zeros shaped like each
-    parameter under the rule's keys."""
+    parameter under the rule's keys. An optax rule's state goes to
+    ``device`` (a layer without parameters still keeps its step count,
+    as the reference's optax state does)."""
     rule = conf.rule.lower()
     if rule.startswith("optax:"):
-        raise _optax_refused(conf)
+        from deeplearning4j_tpu_torch.ops import optax_adapter
+        state = optax_adapter.resolve(conf).init(params)
+        return {"optax": [t.to(device) if device is not None else t
+                          for t in state]}
 
     def zeros():
         return {k: torch.zeros_like(v).detach() for k, v in params.items()}
@@ -113,9 +112,13 @@ def compute_updates(conf: UpdaterConfig, grads, state, iteration,
     """(updates to subtract, new state) for one layer. Bias parameters
     ("b", "gb", "vb", "beta") take ``bias_learning_rate`` when set."""
     rule = conf.rule.lower()
-    if rule.startswith("optax:"):
-        raise _optax_refused(conf)
     grads = normalize_gradients(conf, grads)
+    if rule.startswith("optax:"):
+        from deeplearning4j_tpu_torch.ops import optax_adapter
+        updates, inner = optax_adapter.resolve(conf).update(
+            grads, state["optax"], params)
+        # optax updates are ADDED; this contract subtracts
+        return {k: -u for k, u in updates.items()}, {"optax": inner}
     sched = dict(decay_rate=conf.lr_policy_decay_rate,
                  steps=conf.lr_policy_steps, power=conf.lr_policy_power,
                  schedule=conf.lr_schedule,

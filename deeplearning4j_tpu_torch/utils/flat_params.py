@@ -6,8 +6,11 @@ in its declared ``param_order``, each raveled row-major. So
 ``port_net.set_params(jax_net.params())`` carries a JAX net's parameters
 across, and the two ``params()`` vectors compare element for element.
 The updater-state vector is the reference's too: layers in order, each
-layer's state keys sorted, each key's tensors in ``param_order``. A model
-archive stores both vectors, so archives load in either package.
+layer's state keys sorted, each key's tensors in ``param_order``; an
+optax rule's state (a list of tensors in the optax state's leaf order,
+its int32 step count included) is raveled leaf by leaf, as the
+reference ravels ``jax.tree.leaves``. A model archive stores both
+vectors, so archives load in either package.
 """
 
 from __future__ import annotations
@@ -63,13 +66,21 @@ def params_to_vector_np(layer_confs, params_list):
 
 def updater_state_to_vector(layer_confs, updater_states):
     """Flatten per-layer updater state (e.g. Adam's m and v) into one
-    tensor, in the reference's leaf order."""
-    chunks = [state[key][pname].reshape(-1)
-              for conf, state in zip(layer_confs, updater_states)
-              for key in sorted(state) for pname in conf.param_order]
+    f32 tensor, in the reference's leaf order."""
+    chunks = []
+    for conf, state in zip(layer_confs, updater_states):
+        for key in sorted(state):
+            sub = state[key]
+            if isinstance(sub, dict):
+                chunks.extend(sub[pname].reshape(-1)
+                              for pname in conf.param_order)
+            else:   # an optax rule's leaves
+                chunks.extend(leaf.reshape(-1).to(torch.float32)
+                              for leaf in sub)
     if not chunks:
         return torch.zeros((0,), dtype=torch.float32)
-    return torch.cat(chunks)
+    dev = chunks[0].device
+    return torch.cat([c.to(dev) for c in chunks])
 
 
 def updater_state_to_vector_np(layer_confs, updater_states):
@@ -88,6 +99,17 @@ def vector_to_updater_state(layer_confs, updater_states_template, vec):
         shapes = conf.param_shapes()
         new_state = {}
         for key in sorted(state):
+            tpl = state[key]
+            if not isinstance(tpl, dict):
+                # an optax rule's leaves, in the template's shapes and dtypes
+                sub = []
+                for leaf in tpl:
+                    n = leaf.numel()
+                    sub.append(vec[offset:offset + n].reshape(leaf.shape)
+                               .to(leaf.dtype).clone())
+                    offset += n
+                new_state[key] = sub
+                continue
             sub = {}
             for pname in conf.param_order:
                 shape = shapes[pname]

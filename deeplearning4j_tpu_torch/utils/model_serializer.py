@@ -14,8 +14,12 @@ either package loads in the other:
 - ``state.npz``: non-trainable layer state under ``{layer}.{key}``, the
   layer being a MultiLayerNetwork's index or a graph's vertex name
   (BatchNormalization's ``mean`` and ``var``);
-- ``metadata.json``: ``model_type``, ``iteration``, ``epoch`` and
-  ``framework`` (this package's name);
+- ``metadata.json``: ``model_type``, ``iteration``, ``epoch``,
+  ``framework`` (this package's name) and ``dropout_draws``, the
+  model's dropout draw counter (the masks of its next update are a
+  function of it), which the reference ignores. An archive without it
+  (the reference's, or one this package wrote before the counter) starts
+  the counter at its ``iteration``;
 - ``preprocessor.bin``: a fitted normalizer (``datasets/normalizers.py``,
   whose bytes both packages read);
 - ``manifest.json``: the CRC-32 of each entry (``utils/atomic_io.py``).
@@ -336,6 +340,7 @@ def model_entries(net, save_updater=True, normalizer=None):
         "iteration": int(net.iteration),
         "epoch": int(net.epoch_count),
         "framework": FRAMEWORK,
+        "dropout_draws": net.dropout_draws,
     })
     if normalizer is not None:
         entries[NORMALIZER_NAME] = _normalizer_bytes(normalizer)
@@ -399,6 +404,7 @@ def _restore(path, load_updater, make_net, slot_of):
             meta = json.loads(z.read(META_NAME).decode())
             net.iteration = meta.get("iteration", 0)
             net.epoch_count = meta.get("epoch", 0)
+            net.set_dropout_draws(meta.get("dropout_draws", net.iteration))
     return net
 
 

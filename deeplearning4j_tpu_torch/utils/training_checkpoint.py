@@ -2,14 +2,14 @@
 ``deeplearning4j_tpu/utils/training_checkpoint.py``.
 
 A model archive (``model_serializer.write_model``) holds parameters,
-updater and layer state and the iteration and epoch counters: enough to
-deploy a model, not to continue a run, which also needs the generator
-state, the non-finite guard's counters and the position in the data
-stream. A TrainingCheckpoint is the same archive plus one entry,
+updater and layer state, the iteration and epoch counters and the
+dropout draw counter: enough to deploy a model, not to continue a run,
+which also needs the non-finite guard's counters and the position in the
+data stream. A TrainingCheckpoint is the same archive plus one entry,
 ``trainingState.json``::
 
     {"version": 1,
-     "torch_rng": [..],          # the network's torch.Generator state (bytes)
+     "dropout_draws": n,         # the draw counter (as in the metadata)
      "nan": {"skipped": n,       # the device's skipped-step counter
              "seen": n,          # its last value read on the host
              "bad_consec": n},   # consecutive dispatches with a bad step
@@ -20,9 +20,11 @@ The cursor counts real batches, which also fixes the fused-group offset:
 groups form again in the same way from any batch index that starts a
 group (fit checkpoints only between groups), so a resumed run is bitwise
 the uninterrupted one. The reference keeps its PRNG key under ``rng``;
-the port's generator state goes under ``torch_rng`` (and the generator's
-device kind under ``torch_rng_device``), which the reference ignores
-(their random streams cannot agree anyway).
+the port's dropout stream is the draw counter (``dropout_draws``), which
+the reference ignores (their random streams cannot agree anyway). A
+checkpoint an earlier version of this package wrote holds a
+``torch_rng`` generator state instead: it still loads, its generator
+state is ignored and the counter starts at the checkpoint's iteration.
 
 A ``TransformerLM`` (the reference's pytree branch) keeps its
 parameters, optimizer state, iteration and dropout generator. Applied
@@ -71,9 +73,12 @@ _VERSION = 1
 
 def _training_state(net, cursor):
     state = {"version": _VERSION, "cursor": dict(cursor or {})}
-    if net._rng is not None:
-        state["torch_rng"] = net._rng.get_state().tolist()
-        state["torch_rng_device"] = net.device.type
+    if isinstance(net, TransformerLM):
+        if net._rng is not None:
+            state["torch_rng"] = net._rng.get_state().tolist()
+            state["torch_rng_device"] = net.device.type
+    else:
+        state["dropout_draws"] = net.dropout_draws
     skipped = getattr(net, "_nan_skipped", None)
     state["nan"] = {
         # the caller flushes the guard's pending read first (fit does), so
@@ -198,11 +203,8 @@ def apply_training_checkpoint(net, path):
     net.updater_states = restored.updater_states
     net.iteration = restored.iteration
     net.epoch_count = restored.epoch_count
-    if "torch_rng" in state:
-        if net._rng is None:
-            net._rng = torch.Generator(device=net.device)
-        net._rng.set_state(torch.tensor(state["torch_rng"],
-                                        dtype=torch.uint8))
+    net.set_dropout_draws(state.get("dropout_draws",
+                                    restored.dropout_draws))
     nan = state.get("nan")
     if nan is not None:
         net._nan_skipped = torch.tensor(int(nan.get("skipped", 0)),

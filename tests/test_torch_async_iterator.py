@@ -27,7 +27,8 @@ from deeplearning4j_tpu_torch.datasets.async_iterator import (
     default_stage)
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
                                                        ListDataSetIterator,
-                                                       StackedDataSet)
+                                                       StackedDataSet,
+                                                       StackedMultiDataSet)
 from deeplearning4j_tpu_torch.errors import PrefetchWorkerDiedError
 from deeplearning4j_tpu_torch.testing import faults
 
@@ -230,17 +231,31 @@ def test_worker_thread_makes_no_torch_call(monkeypatch):
 
 
 def test_not_ported_options_raise_and_name_the_roadmap():
+    """Sharding still raises, naming ROADMAP.md; ``k_resolver`` and the
+    stacking of MultiDataSet batches are ported: the resolver sets each
+    bucket's group size, and MultiDataSet batches stack into a
+    ``StackedMultiDataSet``."""
     base = ListDataSetIterator(_make([(8, 4)], DataSet))
-    for kw in (dict(sharding=object()), dict(fuse_sharding=object()),
-               dict(k_resolver=lambda key: 4)):
+    for kw in (dict(sharding=object()), dict(fuse_sharding=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AsyncDataSetIterator(base, device="cpu", **kw)
+    seen = []
+
+    def resolver(key):
+        seen.append(key)
+        return 3
+    out = list(AsyncDataSetIterator(
+        ListDataSetIterator(_make([(8, 4)] * 6, DataSet)), fuse=8,
+        k_resolver=resolver, device="cpu"))
+    assert [d.n_steps for d in out] == [3, 3]
+    assert seen and all(k == ("ds", (8, 4), (8, 3)) for k in seen)
 
     class Multi:
         features, labels = [np.zeros((2, 3))], [np.zeros((2, 1))]
         features_masks = labels_masks = None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(AsyncDataSetIterator([Multi()], fuse=2, device="cpu"))
+    (st,) = list(AsyncDataSetIterator([Multi()], fuse=2, device="cpu"))
+    assert isinstance(st, StackedMultiDataSet) and st.n_steps == 1
+    assert tuple(st.features[0].shape) == (2, 2, 3)
 
 
 def test_defaults_read_the_knobs(monkeypatch):

@@ -1520,3 +1520,85 @@ def test_keras_fixture_on_card_matches_cpu(cuda_device, name):
     if name.startswith("lstm"):
         assert port_lc.lstm_sequence.launches == seq + 1
     assert _rel(got, cpu.output(x)) <= 1e-5
+
+
+def _card_rnn_graph(device, dropout=0.0):
+    """A DAG char-RNN on the card: two GravesLSTM vertices, a skip merge,
+    tBPTT windows of 10."""
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.nn.conf import graph as pgraph
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as L
+    conf = (NeuralNetConfiguration.Builder().seed(0).learning_rate(0.01)
+            .updater("rmsprop").graph_builder().add_inputs("in")
+            .add_layer("l1", L.GravesLSTM(n_in=20, n_out=32,
+                                          activation="tanh"), "in")
+            .add_layer("l2", L.GravesLSTM(n_in=32, n_out=32,
+                                          activation="tanh",
+                                          dropout=dropout), "l1")
+            .add_vertex("skip", pgraph.MergeVertex(), "l1", "l2")
+            .add_layer("out", L.RnnOutputLayer(n_in=64, n_out=20,
+                                               activation="softmax",
+                                               loss="mcxent"), "skip")
+            .set_outputs("out").backprop_type("tbptt").tbptt_fwd_length(10)
+            .tbptt_back_length(10).build())
+    return ComputationGraph(conf, device=device).init()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.8])
+def test_graph_window_replay_equals_its_eager_step_on_card(cuda_device,
+                                                           monkeypatch,
+                                                           dropout):
+    """A graph's tBPTT window captured once and replayed (the fused loop
+    at K 4) against the same windows run eagerly on the card (the
+    per-batch loop at K 1) from the same parameters: the same bits, the
+    same draw counter; one window signature, captured once."""
+    batches = _card_batches(6, 30, seed=7)
+    fused = _card_rnn_graph(cuda_device, dropout)
+    plain = _card_rnn_graph(cuda_device, dropout)
+    plain.set_params(fused.params())
+    _card_fit(fused, batches, monkeypatch, 4)
+    _card_fit(plain, batches, monkeypatch, 1)
+    assert fused._fused.captures == len(fused._fused.graphs) == 1
+    assert plain._fused is None
+    np.testing.assert_array_equal(fused.params(), plain.params())
+    assert fused.dropout_draws == plain.dropout_draws == 6 * 3
+
+
+@pytest.mark.cuda
+def test_dropout_counter_in_a_captured_graph_advances_and_reverts(
+        cuda_device, monkeypatch):
+    """The draw counter inside a captured window graph: a replay with real
+    example weights advances it by one, as an eager step does, and draws
+    the eager step's masks (the same parameters after); a replay with
+    zero weights (a padding or probe step) leaves it, and every other
+    state, where it was."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    conf = zoo.char_rnn(vocab_size=20, hidden=32, tbptt_length=30,
+                        learning_rate=0.01)
+    conf.layers[1].dropout = 0.5
+    a = MultiLayerNetwork(conf, device=cuda_device).init()
+    b = MultiLayerNetwork(conf, device=cuda_device).init()
+    b.set_params(a.params())
+    batches = _card_batches(2, 30, seed=8)
+    _card_fit(a, batches[:1], monkeypatch, 4)    # captures, one update
+    _card_fit(b, batches[:1], monkeypatch, 1)    # eagerly
+    assert a.dropout_draws == b.dropout_draws == 1
+    np.testing.assert_array_equal(a.params(), b.params())
+    (win,) = a._fused.graphs.values()
+    before, draws = a.params(), a.dropout_draws
+    win.ew.zero_()
+    win.graph.replay()
+    torch.cuda.synchronize()
+    assert a.dropout_draws == draws
+    np.testing.assert_array_equal(a.params(), before)
+    _card_fit(a, batches[1:], monkeypatch, 4)    # a replay, real weights
+    _card_fit(b, batches[1:], monkeypatch, 1)
+    assert a._fused.captures == 1
+    assert a.dropout_draws == b.dropout_draws == 2
+    np.testing.assert_array_equal(a.params(), b.params())

@@ -319,9 +319,10 @@ def test_nan_step_in_a_group_equals_the_stream_without_that_batch(
 
 
 def test_dropout_model_is_declined(monkeypatch):
-    """A model with dropout keeps the per-batch path (a captured step
-    cannot revert the generator on the device): no group, no fused loop,
-    and the numbers of the per-batch run."""
+    """A model with dropout is no longer declined: its masks come from
+    the device draw counter, so it fuses, and the fused run equals the
+    per-batch run bitwise: parameters, updater state and the counter,
+    which every kept update advanced once."""
     def net():
         conf = (NeuralNetConfiguration.Builder().seed(5).learning_rate(0.1)
                 .dropout(0.5).list()
@@ -331,23 +332,22 @@ def test_dropout_model_is_declined(monkeypatch):
                 .build())
         return MultiLayerNetwork(conf, device="cpu").init()
     a = net()
-    assert not fuse_allowed(a.conf, a.layers)
-    assert fuse_wrap_config(a) == (1, None, False, False)
-    st = StackedDataSet(np.zeros((1, 8, 6), np.float32),
-                        np.zeros((1, 8, 3), np.float32),
-                        np.ones((1, 8), np.float32), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a.fit_fused(st)
+    assert fuse_allowed(a.conf, a.layers)
+    assert fuse_wrap_config(a) == (8, None, True, False)
     r = np.random.RandomState(1)
     batches = [(r.rand(8, 6).astype(np.float32),
                 np.eye(3, dtype=np.float32)[r.randint(0, 3, 8)])
-               for _ in range(3)]
+               for _ in range(5)]
     _fit(a, batches, monkeypatch, 4)
-    assert a._last_fuse_stats["fused_groups"] == 0 and a._fused is None
-    b = net()
+    assert a._last_fuse_stats["fused_groups"] == 2 and a._fused is not None
+    b = _fit(net(), batches, monkeypatch, 1)
+    assert b._fused is None
+    _assert_same_training(a, b)
+    assert a.dropout_draws == b.dropout_draws == 5
+    c = net()
     for x, y in batches:
-        b.fit_batch(x, y)
-    np.testing.assert_array_equal(a.params(), b.params())
+        c.fit_batch(x, y, ew=np.ones(8, np.float32))
+    np.testing.assert_array_equal(a.params(), c.params())
 
 
 def test_set_params_after_a_fused_fit_is_honoured(monkeypatch):
@@ -440,8 +440,8 @@ def test_fuse_gate_and_wrap_config_agree_with_jax(monkeypatch, case):
 
 
 def test_gate_declines_dropout_where_the_reference_fuses():
-    """The one intended difference: the reference fuses a dropout model
-    (its rng splits inside the scan); the port keeps it per batch."""
+    """The gate is the reference's: a dropout model fuses in both
+    packages (the port's former difference is gone)."""
     def conf(start, dense, out):
         return (start.seed(1).dropout(0.5).list()
                 .layer(dense(n_in=4, n_out=8, activation="relu"))
@@ -450,16 +450,29 @@ def test_gate_declines_dropout_where_the_reference_fuses():
     jconf = conf(JBuilder.Builder(), JDense, JOut)
     pconf = conf(NeuralNetConfiguration.Builder(), DenseLayer, OutputLayer)
     assert jfuse_allowed(jconf, jconf.layers)
-    assert not fuse_allowed(pconf, pconf.layers)
+    assert fuse_allowed(pconf, pconf.layers)
 
 
-def test_autotune_raises_and_names_the_roadmap(monkeypatch):
+def test_autotune_raises_and_names_the_roadmap(monkeypatch, tmp_path):
+    """The fusion autotuner is ported: with ``DL4J_TORCH_FUSE_AUTOTUNE=1``
+    a fit arms it (groups of the probe size and a bucket resolver) and
+    trains; an explicit K still wins over the tuner, as in the
+    reference."""
+    from deeplearning4j_tpu_torch.tuning import autotuner
     monkeypatch.delenv("DL4J_TORCH_FUSE_STEPS", raising=False)
     monkeypatch.setenv("DL4J_TORCH_FUSE_AUTOTUNE", "1")
-    net = _port_charrnn()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setenv("DL4J_TORCH_FUSE_PROBE_KS", "1,2")
+    monkeypatch.setenv("DL4J_TORCH_TUNE_CACHE_DIR", str(tmp_path))
+    autotuner._reset_for_tests()
+    try:
+        net = _port_charrnn()
+        fuse, resolver, pad, armed = fuse_wrap_config(net)
+        assert (fuse, pad, armed) == (2, True, True) and callable(resolver)
         net.fit(ListDataSetIterator([DataSet(x, y) for x, y in
-                                     _char_batches(1)]))
-    # an explicit K wins over the tuner, as in the reference
-    monkeypatch.setenv("DL4J_TORCH_FUSE_STEPS", "2")
-    assert fuse_wrap_config(net) == (2, None, True, False)
+                                     _char_batches(2)]))
+        assert net.iteration == 2 * WINDOWS
+        # an explicit K wins over the tuner, as in the reference
+        monkeypatch.setenv("DL4J_TORCH_FUSE_STEPS", "2")
+        assert fuse_wrap_config(net) == (2, None, True, False)
+    finally:
+        autotuner._reset_for_tests()

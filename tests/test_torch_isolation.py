@@ -4,9 +4,10 @@
   ``datasets/async_iterator.py`` and ``tuning/autotuner.py`` included),
   nor ``chip_smoke.py`` or the design-variant timers ``flash_variants.py``,
   ``lstm_variants.py``, ``conv_variants.py`` and ``serve_variants.py``,
-  imports ``jax``, ``jaxlib`` or
-  ``deeplearning4j_tpu`` (AST scan), and
-  importing the whole package in a fresh interpreter loads no ``jax``;
+  imports ``jax``, ``jaxlib``, ``optax`` or
+  ``deeplearning4j_tpu`` (AST scan; the optax rules, the solvers and the
+  counter-based draws included), and
+  importing the whole package in a fresh interpreter loads none of them;
 - a CPU tensor never touches a kernel: no launch count moves and no
   kernel library is loaded, forward, backward or a training step; the
   ``scan`` parity routes (``DL4J_TORCH_LM_ATTN``, ``DL4J_TORCH_FLASH_BWD``)
@@ -55,7 +56,7 @@ from deeplearning4j_tpu_torch.serving import ContinuousLM, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deeplearning4j_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "deeplearning4j_tpu"}
 SMALL = dict(vocab_size=32, max_len=16, d_model=16, n_heads=2, n_layers=1,
              d_ff=32, block_size=8)
 
@@ -91,7 +92,9 @@ def _port_sources():
                 "nlp/serializer.py", "graph/__init__.py", "graph/graph.py",
                 "graph/walkers.py", "graph/deepwalk.py",
                 "modelimport/imagenet_labels.py",
-                "modelimport/trained_models.py"):
+                "modelimport/trained_models.py", "ops/random.py",
+                "ops/optax_adapter.py", "ops/updaters.py",
+                "optimize/solvers.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -130,7 +133,7 @@ def test_import_loads_no_jax():
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
             "                                    'deeplearning4j_tpu'))\n"
             "print(len(sys.modules), bad)\n"
             "assert not bad, bad\n")
