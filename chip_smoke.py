@@ -333,10 +333,45 @@ Phases, each fatal on failure:
    against CPU within OPTAX_CARD_CPU_RTOL (lion: 2 lr a step), and
    ``optax:adamw`` resumed from a checkpoint mid-fit equals the
    uninterrupted run bit for bit;
-21. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+21. pretrain — layer-wise pretraining on the fixture's real MNIST
+   digits (320 and 64 held out) at dl4j-examples 0.7's widths:
+   VariationalAutoEncoderExample's VAE through ``net.pretrain(iterator,
+   epochs=20)`` (the negative ELBO by epoch, which must fall, examples/s,
+   ``reconstruction_log_probability`` of the 64 held-out digits, and one
+   step against the CPU with the same eps injected, PRETRAIN_CARD_CPU_RTOL);
+   the same VAE as a graph vertex through ``pretrain_vertex`` against the
+   MLN's layer on the same draws (PRETRAIN_VERTEX_TOL);
+   DeepAutoEncoderExample's binary RBM stack, each RBM's reconstruction
+   error before and after its pass, then ``fit()`` (pretraining once more,
+   its contract, then backprop; a second fit does not pretrain) and the
+   reconstruction MSE, with its two cuts (SGD, batch 320) in the output;
+   and a denoising AutoEncoder 784 -> 1000 at corruption 0.3;
+22. transfer — the char-RNN at phase ``charrnn``'s widths: a base of 8
+   batches, ``TransferLearning.Builder(base).set_feature_extractor(0)
+   .n_out_replace(2, 77)``, fine-tuned under an ``EarlyStoppingTrainer``
+   (8 batches an epoch, 2 held out through ``DataSetLossCalculator``,
+   ``MaxEpochsTerminationCondition(4)``,
+   ``ScoreImprovementEpochTerminationCondition(2)``, a
+   ``LocalFileModelSaver``) with a ``ProfilerListener`` over iterations
+   [2, 4): layer 0 and the base net bitwise unchanged, the result, the
+   restored best model's output bits equal to the saved net's, the
+   trace's LSTM kernel events, the wrappers' launches (the ``kernels``
+   line's ``launches_transfer``) and ms a batch;
+23. gradcheck — the gradient checker in float64 on the card: an MLP under
+   each loss, a conv/max-pool/BN/dense net, the VAE's supervised forward
+   under an output layer and a two-input graph must pass
+   (GRADCHECK_MAX_REL), each analytic gradient within GRADCHECK_CARD_CPU
+   of the CPU's; a GravesLSTM net's check must raise the LSTM kernels'
+   ``TypeError`` (they take f32 and bf16 only);
+24. tsne_kmeans — the fixture's 1,797 digits whole: ``KMeansClustering``
+   (k 10, k-means++, at most 100 iterations) on the card against the CPU
+   (assignments agreeing, KMEANS' bar), exact ``Tsne`` (perplexity 30,
+   1,000 iterations) on both (KL within TSNE's bar) and ``BarnesHutTsne``
+   on the host, cut (BH_TSNE_CUT), timed;
+25. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
-   ``deepwalk`` and the four above.
+   ``deepwalk`` and the eight above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -638,6 +673,43 @@ SOLVER_F64_RTOL = 1e-9
 OPTAX_LR = {"adam": 1e-3, "adamw": 1e-3, "lion": 1e-4, "lamb": 1e-3,
             "sgd": 1e-2, "rmsprop": 1e-3}
 OPTAX_CARD_CPU_RTOL = 1e-3
+# phase pretrain: dl4j-examples 0.7's VariationalAutoEncoderExample (784 ->
+# encoder 256, 256 -> latent 2 -> decoder 256, 256 -> Bernoulli over 784,
+# leaky ReLU, rmsprop 1e-3, l2 1e-4, xavier, batch 128, 20 epochs) and
+# DeepAutoEncoderExample (binary RBMs 784-1000-500-250-100-30, the
+# mirror, an OutputLayer 1000 -> 784; SGD at the default lr 0.1 and batch
+# 320 are the cuts; 60 updates a pass, as the example's one pass over
+# 60,000 digits at batch 1,000), and a denoising AutoEncoder of the
+# phase's own
+PRETRAIN_VAE = dict(encoder=(256, 256), latent=2, decoder=(256, 256),
+                    lr=1e-3, l2=1e-4, batch=128, epochs=20, seed=12345,
+                    log_prob_samples=16)
+PRETRAIN_DEEP_AE = dict(encoder=(1000, 500, 250, 100, 30), batch=320,
+                        lr=0.1, seed=123, pass_epochs=60,
+                        backprop_epochs=60)
+PRETRAIN_DAE = dict(n_out=1000, corruption=0.3, lr=0.1, batch=128,
+                    epochs=10)
+PRETRAIN_CARD_CPU_RTOL = 1e-5   # one VAE step, the same eps injected
+PRETRAIN_VERTEX_TOL = 1e-6      # the VAE as a graph vertex and as a layer
+# phase transfer: the char-RNN of phase charrnn (its CHARRNN widths and
+# corpus), a base of 8 batches, then layer 0 frozen and the head replaced,
+# fine-tuned under the EarlyStoppingTrainer on 8 batches an epoch against
+# 2 held-out batches; the ProfilerListener's window
+TRANSFER = dict(base=8, train=8, held_out=2, max_epochs=4, patience=2,
+                profile_start=2, profile_iterations=2)
+# phase gradcheck, float64 on the card: the checker's bar (the reference's
+# default) and the card's analytic gradient against the CPU's
+GRADCHECK_MAX_REL = 1e-3
+GRADCHECK_CARD_CPU = 1e-10
+# phase tsne_kmeans on the 1,797 digits: scikit-learn's demos' settings
+KMEANS = dict(k=10, init="kmeans++", max_iterations=100,
+              agreement_bar=0.99)
+TSNE = dict(perplexity=30.0, max_iter=1000, kl_rel_bar=0.05)
+BH_TSNE = dict(theta=0.5, max_iter=20, points=300)
+BH_TSNE_CUT = ("300 points and 20 iterations in place of 1,797 and 300: "
+               "the Barnes-Hut trees are host Python, as the reference's, "
+               "and the whole set's 300 iterations do not fit the run's "
+               "time limit")
 
 
 def emit(obj):
@@ -6045,6 +6117,722 @@ def phase_solvers(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase pretrain: layer-wise pretraining on the fixture's real MNIST
+# digits, at dl4j-examples 0.7's widths
+# ---------------------------------------------------------------------------
+def mnist_flat():
+    """The fixture's 320 training and 64 held-out MNIST digits as
+    [n, 784] f32 in [0, 1]."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        MnistDataSetIterator
+    fixture = _repo_path(*MNIST_FIXTURE)
+    train = MnistDataSetIterator(PRETRAIN_VAE["batch"], data_dir=fixture)
+    test = MnistDataSetIterator(PRETRAIN_VAE["batch"], train=False,
+                                data_dir=fixture)
+    assert not train.synthetic
+    x = train.features.reshape(len(train.features), -1)
+    xt = test.features.reshape(len(test.features), -1)
+    assert x.shape == (320, 784) and xt.shape == (64, 784)
+    assert 0.0 <= x.min() and x.max() <= 1.0
+    return x, xt
+
+
+def _unlabelled(x, batch):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(x[i:i + batch], None) for i in range(0, len(x), batch)]
+
+
+def vae_layer():
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoder
+    v = PRETRAIN_VAE
+    return VariationalAutoencoder(
+        n_in=784, n_out=v["latent"], encoder_layer_sizes=v["encoder"],
+        decoder_layer_sizes=v["decoder"], activation="leakyrelu",
+        pzx_activation="identity", reconstruction_distribution="bernoulli",
+        reconstruction_activation="sigmoid")
+
+
+def _vae_builder():
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    v = PRETRAIN_VAE
+    return (NeuralNetConfiguration.Builder().seed(v["seed"])
+            .updater("rmsprop").learning_rate(v["lr"])
+            .weight_init("xavier").regularization(True).l2(v["l2"]))
+
+
+class _EpochScores:
+    """An epoch's batches; each new pass keeps the model's device score
+    of the pass before (its last batch's), with no host read."""
+
+    def __init__(self, net, batches):
+        self.net, self.batches, self.scores = net, batches, []
+
+    def __iter__(self):
+        if self.net._score is not None:
+            self.scores.append(self.net._score)
+        return iter(self.batches)
+
+
+class _InjectedNormals:
+    """The pretrain layers' N(0, 1) draws taken from ``draws`` in order
+    (the test seam of ``nn/layers/pretrain.py``)."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def __enter__(self):
+        import torch
+        from deeplearning4j_tpu_torch.nn.layers import pretrain
+        self.mod, self.real = pretrain, pretrain._normal
+
+        def take(g, shape, like):
+            d = self.draws.pop(0)
+            assert tuple(d.shape) == tuple(shape), (d.shape, shape)
+            return torch.from_numpy(d).to(device=like.device,
+                                          dtype=like.dtype)
+        pretrain._normal = take
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._normal = self.real
+        assert exc[0] is not None or not self.draws, "draws left unused"
+
+
+def _rel(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def vae_example(x, xt):
+    """VariationalAutoEncoderExample: 784 -> (256, 256) -> 2 -> (256,
+    256) -> Bernoulli over 784, ``net.pretrain(iterator, epochs=20)``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    v = PRETRAIN_VAE
+    conf = (_vae_builder().list().layer(vae_layer()).pretrain(True)
+            .backprop(False).build())
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    layer = net.layers[0]
+    xd, xtd = torch.from_numpy(x).to(net.device), \
+        torch.from_numpy(xt).to(net.device)
+    with torch.no_grad():
+        at_mean_before = float(layer.pretrain_loss(net.params_list[0], xd,
+                                                   None))
+    epochs = _EpochScores(net, _unlabelled(x, v["batch"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(epochs, epochs=v["epochs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_epoch = [float(s) for s in epochs.scores + [net._score]]
+    assert len(by_epoch) == v["epochs"] and np.isfinite(by_epoch).all()
+    assert net.iteration == v["epochs"] * len(epochs.batches)
+    with torch.no_grad():
+        at_mean_after = float(layer.pretrain_loss(net.params_list[0], xd,
+                                                  None))
+        g = torch.Generator(device=net.device).manual_seed(SEED)
+        logp = layer.reconstruction_log_probability(
+            net.params_list[0], xtd, g, num_samples=v["log_prob_samples"])
+        logp = logp.cpu().numpy()
+        z = layer.forward(net.params_list[0], xtd, {})[0].cpu().numpy()
+    assert np.isfinite(logp).all() and z.shape == (64, v["latent"])
+    # the ELBO falls: the last three epochs' mean below the first three's
+    assert np.mean(by_epoch[-3:]) < np.mean(by_epoch[:3]), by_epoch
+    assert at_mean_after < at_mean_before
+    return {"config": {k: list(vv) if isinstance(vv, tuple) else vv
+                       for k, vv in v.items()},
+            "params": net.num_params(),
+            "neg_elbo_by_epoch_last_batch": by_epoch,
+            "neg_elbo_at_mean_all_320": [at_mean_before, at_mean_after],
+            "examples_per_s": len(x) * v["epochs"] / wall, "wall_s": wall,
+            "test_reconstruction_log_probability_mean": float(logp.mean()),
+            "test_latent_mean_abs": float(np.abs(z).mean()),
+            "one_step_card_vs_cpu": vae_step_card_vs_cpu(conf, x)}
+
+
+def vae_step_card_vs_cpu(conf, x):
+    """One pretraining step of the VAE on the card and on the CPU from
+    the same parameters, with the same eps injected: parameters and
+    score within PRETRAIN_CARD_CPU_RTOL of their scale."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    b = PRETRAIN_VAE["batch"]
+    start = MultiLayerNetwork(conf, device="cpu").init().params()
+    eps = np.random.RandomState(SEED + 15).randn(
+        b, PRETRAIN_VAE["latent"]).astype(np.float32)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        net = MultiLayerNetwork(conf, device=device).init()
+        net.set_params(start)
+        with _InjectedNormals([eps]):
+            net.pretrain_layer(0, _unlabelled(x[:b], b))
+        out[device] = (net.params(), float(net.score_))
+    card, cpu = out[DEVICE], out["cpu"]
+    rel = _rel(card[0], cpu[0])
+    score_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    assert rel <= PRETRAIN_CARD_CPU_RTOL and \
+        score_rel <= PRETRAIN_CARD_CPU_RTOL, (rel, score_rel)
+    return {"params_rel": rel, "score_rel": score_rel, "score": card[1],
+            "moved_from_start_rel": _rel(card[0], start)}
+
+
+def vae_vertex_equals_layer(x):
+    """The example's VAE as a graph vertex (in -> vae -> out) through
+    ``pretrain_vertex`` and as an MLN layer through ``pretrain_layer``,
+    from the same parameters and draws: within PRETRAIN_VERTEX_TOL."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer
+    v = PRETRAIN_VAE
+
+    def out_layer():
+        return OutputLayer(n_in=v["latent"], n_out=10, activation="softmax")
+    mln = MultiLayerNetwork(_vae_builder().list().layer(vae_layer())
+                            .layer(out_layer()).build(),
+                            device=DEVICE).init()
+    graph = ComputationGraph(
+        _vae_builder().graph_builder().add_inputs("in")
+        .add_layer("vae", vae_layer(), "in")
+        .add_layer("out", out_layer(), "vae").set_outputs("out").build(),
+        device=DEVICE).init()
+    with torch.no_grad():
+        for k, t in graph.params_map["vae"].items():
+            t.copy_(mln.params_list[0][k])
+    batches = _unlabelled(x, v["batch"])
+    r = np.random.RandomState(SEED + 16)
+    draws = [r.randn(len(d.features), v["latent"]).astype(np.float32)
+             for d in batches]
+    t0 = time.perf_counter()
+    with _InjectedNormals(draws):
+        mln.pretrain_layer(0, batches)
+    with _InjectedNormals(draws):
+        graph.pretrain_vertex("vae", batches)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        err = max(float((graph.params_map["vae"][k] - p).abs().max()
+                        / p.abs().max())
+                  for k, p in mln.params_list[0].items())
+    assert err <= PRETRAIN_VERTEX_TOL, err
+    assert graph.iteration == mln.iteration == len(batches)
+    return {"max_rel_diff": err, "batches": len(batches),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _rbm_recon_error(net, i, x):
+    """Layer ``i``'s (an RBM's) reconstruction MSE on the activations the
+    layers below give ``x``."""
+    import torch
+    with torch.no_grad():
+        h = torch.from_numpy(x).to(net.device)
+        for j in range(i):
+            h, _ = net.layers[j].forward(net.params_list[j], h, {})
+        layer, p = net.layers[i], net.params_list[i]
+        return float(((h - layer.prop_down(p, layer.prop_up(p, h))) ** 2)
+                     .mean())
+
+
+def deep_autoencoder(x):
+    """DeepAutoEncoderExample: binary RBMs 784-1000-500-250-100-30 and the
+    mirror 30-100-250-500-1000, an OutputLayer 1000 -> 784 (sigmoid, MSE),
+    ``pretrain(true).backprop(true)``; cut to SGD (the reference refuses a
+    line-search solver while pretraining) at batch 320."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
+                                                           ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import RBM, OutputLayer
+    d = PRETRAIN_DEEP_AE
+    widths = [784, *d["encoder"], *d["encoder"][-2::-1]]
+    b = (NeuralNetConfiguration.Builder().seed(d["seed"]).iterations(1)
+         .optimization_algo("stochastic_gradient_descent")
+         .learning_rate(d["lr"]).list())
+    for n_in, n_out in zip(widths[:-1], widths[1:]):
+        b = b.layer(RBM(n_in=n_in, n_out=n_out))
+    conf = b.layer(OutputLayer(n_in=widths[-1], n_out=784,
+                               activation="sigmoid", loss="mse")) \
+        .pretrain(True).backprop(True).build()
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    n_rbm = len(widths) - 1
+    data = [DataSet(x[i:i + d["batch"]], x[i:i + d["batch"]])
+            for i in range(0, len(x), d["batch"])]
+    passes = []
+    t_pre = time.perf_counter()
+    for i in range(n_rbm):
+        before = _rbm_recon_error(net, i, x)
+        t0 = time.perf_counter()
+        net.pretrain_layer(i, ListDataSetIterator(data),
+                           epochs=d["pass_epochs"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        passes.append({"layer": i, "n_in": widths[i], "n_out": widths[i + 1],
+                       "recon_mse_before": before,
+                       "recon_mse_after": _rbm_recon_error(net, i, x),
+                       "examples_per_s": len(x) * d["pass_epochs"] / dt})
+    pre_wall = time.perf_counter() - t_pre
+    assert all(np.isfinite(p["recon_mse_after"]) for p in passes)
+    # the first RBM, on the pixels, learns: its error falls
+    assert passes[0]["recon_mse_after"] < passes[0]["recon_mse_before"]
+    mse_before = float(((net.output(x) - x) ** 2).mean())
+    it0 = net.iteration
+    t0 = time.perf_counter()
+    # fit() pretrains once a net (one more pass a layer here, its
+    # contract), then backpropagates
+    net.fit(ListDataSetIterator(data), epochs=d["backprop_epochs"])
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    assert net._pretrained
+    assert net.iteration - it0 == len(data) * (n_rbm + d["backprop_epochs"])
+    it1 = net.iteration
+    net.fit(ListDataSetIterator(data))          # no second pretraining
+    assert net.iteration - it1 == len(data)
+    mse_after = float(((net.output(x) - x) ** 2).mean())
+    assert np.isfinite(mse_after) and mse_after < mse_before, \
+        (mse_before, mse_after)
+    return {"widths": widths + [784], "params": net.num_params(),
+            "cuts": {"optimization_algo": "stochastic_gradient_descent in "
+                     "place of line_gradient_descent (refused while "
+                     "pretraining)", "batch": f"{d['batch']} (the "
+                     "fixture's whole set) in place of 1,000"},
+            "config": {k: list(vv) if isinstance(vv, tuple) else vv
+                       for k, vv in d.items()},
+            "rbm_passes": passes, "pretrain_wall_s": pre_wall,
+            "recon_mse_before_fit": mse_before,
+            "recon_mse_after_fit": mse_after,
+            "fit_examples_per_s":
+                len(x) * (n_rbm + d["backprop_epochs"]) / fit_wall,
+            "fit_wall_s": fit_wall}
+
+
+def denoising_autoencoder(x):
+    """The phase's own choice: one denoising AutoEncoder 784 -> 1000 at
+    corruption 0.3 (sgd), its uncorrupted loss before and after."""
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import AutoEncoder
+    a = PRETRAIN_DAE
+    conf = (NeuralNetConfiguration.Builder().seed(SEED).learning_rate(a["lr"])
+            .list().layer(AutoEncoder(n_in=784, n_out=a["n_out"],
+                                      corruption_level=a["corruption"],
+                                      activation="sigmoid"))
+            .pretrain(True).build())
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    layer, xd = net.layers[0], torch.from_numpy(x).to(net.device)
+
+    def loss():
+        with torch.no_grad():
+            return float(layer.pretrain_loss(net.params_list[0], xd, None))
+    before = loss()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(_unlabelled(x, a["batch"]), epochs=a["epochs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = loss()
+    assert after < before, (before, after)
+    return {"config": a, "why": "the phase's own choice, not an example's",
+            "loss_uncorrupted": [before, after],
+            "examples_per_s": len(x) * a["epochs"] / wall, "wall_s": wall}
+
+
+def phase_pretrain(card):
+    t0 = time.perf_counter()
+    x, xt = mnist_flat()
+    result = {"phase": "pretrain",
+              "data": "tests/fixtures/real_mnist: 320 training and 64 "
+                      "held-out digits in place of MNIST's 60,000/10,000",
+              "vae": vae_example(x, xt),
+              "vae_vertex_vs_layer": vae_vertex_equals_layer(x),
+              "deep_autoencoder": deep_autoencoder(x),
+              "denoising_autoencoder": denoising_autoencoder(x)}
+    result["seconds"] = time.perf_counter() - t0
+    result["card"] = card
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase transfer: the char-RNN fine-tuned with a frozen layer under the
+# EarlyStoppingTrainer, profiled by the ProfilerListener
+# ---------------------------------------------------------------------------
+def _bits(net):
+    return [t.detach().cpu().numpy().copy() for p in net.params_list
+            for t in p.values()]
+
+
+def _same_bits(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(np.array_equal(x, y, equal_nan=True)
+                                    for x, y in zip(a, b))
+
+
+def _trace_kernels(path):
+    """(sequence, backward) LSTM kernel events in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("ph") == "X"]
+    return lstm_kernels(names)
+
+
+def phase_transfer(card):
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import early_stopping as es
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.transfer_learning import (
+        TransferLearning)
+    from deeplearning4j_tpu_torch.optimize.listeners import ProfilerListener
+    t_phase = time.perf_counter()
+    tr = TRANSFER
+    v = CHARRNN["vocab_size"]
+    conf = zoo.char_rnn(vocab_size=v, hidden=CHARRNN["hidden"],
+                        tbptt_length=CHARRNN["tbptt_length"],
+                        learning_rate=CHARRNN["learning_rate"])
+    rng = np.random.RandomState(SEED + 17)
+    data, floor = markov_batches(tr["base"] + tr["train"] + tr["held_out"],
+                                 rng)
+    base_data = data[:tr["base"]]
+    train = data[tr["base"]:tr["base"] + tr["train"]]
+    held = data[tr["base"] + tr["train"]:]
+    base = MultiLayerNetwork(conf, device=DEVICE).init()
+    t0 = time.perf_counter()
+    base.fit(ListDataSetIterator(base_data))
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    base_bits = _bits(base)
+    tuned = (TransferLearning.Builder(base).set_feature_extractor(0)
+             .n_out_replace(2, v).build())
+    assert tuned.layers[0].updater == "none" and tuned.layers[0].frozen
+    frozen_bits = [t.detach().cpu().numpy().copy()
+                   for t in tuned.params_list[0].values()]
+    probe = held[0].features[:4]
+    outputs, epoch_ends, fit_s = {}, [], []
+
+    def on_epoch(epoch, score, net):
+        outputs[epoch] = net.output(probe)
+        epoch_ends.append(time.perf_counter())
+    real_fit = tuned.fit
+
+    def timed_fit(ds):
+        # each batch's fit(DataSet) alone (it ends in the guard's host
+        # read); the first batch holds the profiler's window
+        t = time.perf_counter()
+        real_fit(ds)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t)
+    tuned.fit = timed_fit
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = ProfilerListener(f"{tmp}/prof",
+                                start_iteration=tr["profile_start"],
+                                num_iterations=tr["profile_iterations"],
+                                log_fn=lambda m: None)
+        tuned.set_listeners(prof)
+        cfg = es.EarlyStoppingConfiguration(
+            score_calculator=es.DataSetLossCalculator(held),
+            model_saver=es.LocalFileModelSaver(f"{tmp}/es"),
+            epoch_termination_conditions=[
+                es.MaxEpochsTerminationCondition(tr["max_epochs"]),
+                es.ScoreImprovementEpochTerminationCondition(
+                    tr["patience"])])
+        torch.cuda.synchronize()
+        reset_launches()                      # the main path starts here
+        t0 = time.perf_counter()
+        res = es.EarlyStoppingTrainer(cfg, tuned, train, on_epoch).fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_lstm_launches()       # ... and ends here
+        del tuned.fit
+        prof.close(tuned)
+        assert prof.captured, "the profiler window did not close"
+        trace_kernels = _trace_kernels(prof.trace_path)
+        trace_name = prof.trace_path.split(f"{tmp}/")[-1]
+        best = res.best_model
+        best_bits = np.array_equal(best.output(probe),
+                                   outputs[res.best_model_epoch])
+    assert best_bits, "the restored best model differs from the saved net"
+    assert best.device == tuned.device, best.device
+    frozen_same = _same_bits(frozen_bits,
+                             [t.detach().cpu().numpy()
+                              for t in tuned.params_list[0].values()])
+    base_same = _same_bits(base_bits, _bits(base))
+    assert frozen_same and base_same, (frozen_same, base_same)
+    epochs_run = res.total_epochs
+    batches = epochs_run * len(train)
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    n_layers = 2
+    want = (n_layers * windows * batches, n_layers * CHARRNN["seq_len"]
+            * batches)
+    # every batch through fit(DataSet): each window on the per-batch path,
+    # whose wrappers launch every kernel; the held-out scoring and the
+    # listener's probe output add one forward launch a layer a batch an
+    # epoch (no backward)
+    scored = n_layers * (len(held) + 1) * epochs_run
+    assert launches == (want[0] + scored, want[1]), (launches, want, scored)
+    assert trace_kernels[0] >= 1 and trace_kernels[1] >= 1, trace_kernels
+    assert res.termination_reason == "EpochTerminationCondition"
+    scores = [res.score_vs_epoch[e] for e in sorted(res.score_vs_epoch)]
+    assert np.isfinite(scores).all()
+    result = {"phase": "transfer", "config": {**CHARRNN, **tr},
+              "base_fit_s": base_s,
+              "builder": "TransferLearning.Builder(base)"
+                         ".set_feature_extractor(0).n_out_replace(2, "
+                         f"{v}).build()",
+              "layer0_bitwise_unchanged": frozen_same,
+              "base_bitwise_unchanged": base_same,
+              "termination_reason": res.termination_reason,
+              "termination_details": res.termination_details,
+              "held_out_loss_by_epoch": scores,
+              "best_model_epoch": res.best_model_epoch,
+              "best_model_score": res.best_model_score,
+              "total_epochs": epochs_run,
+              "loss_floor_per_batch": floor * CHARRNN["seq_len"],
+              "restored_best_output_bitwise": best_bits,
+              "trace_file": trace_name,
+              "trace_lstm_kernel_events": {"lstm_cell_fwd": trace_kernels[0],
+                                           "lstm_cell_bwd": trace_kernels[1]},
+              "trace_window": [tr["profile_start"] + 1,
+                               tr["profile_start"] + tr["profile_iterations"]],
+              "kernel_launches": {"lstm_cell_fwd": launches[0],
+                                  "lstm_cell_bwd": launches[1],
+                                  "counted_by": "the wrappers"},
+              "ms_per_batch": wall / batches * 1e3,
+              "fit_ms_per_batch_median": float(np.median(fit_s)) * 1e3,
+              "fit_ms_first_batch_with_profile": fit_s[0] * 1e3,
+              "epoch_wall_s": [b - a for a, b in zip([t0] + epoch_ends,
+                                                       epoch_ends)],
+              "fine_tune_wall_s": wall,
+              "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase gradcheck: the gradient checker on the card in float64
+# ---------------------------------------------------------------------------
+def _gradcheck_nets():
+    """(name, MultiLayerNetwork or ComputationGraph configuration, data)
+    of the checks that must pass on the card."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration as B)
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, DenseLayer, OutputLayer,
+        SubsamplingLayer, VariationalAutoencoder)
+    r = np.random.RandomState(SEED + 18)
+    out = []
+    for loss, act in (("mse", "identity"), ("l1", "identity"),
+                      ("xent", "sigmoid"), ("mcxent", "softmax"),
+                      ("squared_hinge", "identity"),
+                      ("poisson", "softplus"),
+                      ("cosine_proximity", "identity")):
+        conf = (B.Builder().seed(42).list()
+                .layer(DenseLayer(n_in=3, n_out=6, activation="tanh"))
+                .layer(OutputLayer(n_out=4, activation=act, loss=loss))
+                .build())
+        y = {"xent": lambda: (r.rand(5, 4) > 0.5).astype(float),
+             "mcxent": lambda: np.eye(4)[r.randint(0, 4, 5)],
+             "squared_hinge": lambda: 2.0 * (r.rand(5, 4) > 0.5) - 1.0,
+             "poisson": lambda: r.poisson(2.0, (5, 4)).astype(float)}.get(
+                 loss, lambda: r.randn(5, 4))()
+        out.append((f"mlp_{loss}", conf, (r.randn(5, 3), y)))
+    cnn = (B.Builder().seed(42).list()
+           .layer(ConvolutionLayer(n_out=3, kernel_size=(3, 3),
+                                   activation="tanh"))
+           .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                   stride=(2, 2)))
+           .layer(BatchNormalization())
+           .layer(DenseLayer(n_out=5, activation="tanh"))
+           .layer(OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+           .set_input_type(InputType.convolutional(6, 6, 2)).build())
+    out.append(("cnn_conv_pool_bn_dense", cnn,
+                (r.randn(4, 6, 6, 2), np.eye(2)[r.randint(0, 2, 4)])))
+    vae = (B.Builder().seed(42).list()
+           .layer(VariationalAutoencoder(n_in=4, n_out=3,
+                                         encoder_layer_sizes=(5,),
+                                         decoder_layer_sizes=(5,),
+                                         activation="tanh"))
+           .layer(OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+           .build())
+    out.append(("vae_supervised", vae,
+                (r.randn(5, 4), np.eye(2)[r.randint(0, 2, 5)])))
+    graph = (B.Builder().seed(3).graph_builder().add_inputs("a", "b")
+             .add_layer("da", DenseLayer(n_in=3, n_out=4, activation="tanh"),
+                        "a")
+             .add_layer("db", DenseLayer(n_in=2, n_out=4,
+                                         activation="sigmoid"), "b")
+             .add_vertex("merge", MergeVertex(), "da", "db")
+             .add_layer("out", OutputLayer(n_in=8, n_out=2,
+                                           activation="softmax"), "merge")
+             .set_outputs("out").build())
+    out.append(("graph_merge", graph,
+                MultiDataSet([r.randn(5, 3), r.randn(5, 2)],
+                             [np.eye(2)[r.randint(0, 2, 5)]])))
+    return out
+
+
+def phase_gradcheck(card):
+    import numpy as np
+    from deeplearning4j_tpu_torch.gradientcheck import (
+        gradient_check_util as gc)
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration as B)
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    t_phase = time.perf_counter()
+    checks = {}
+    for name, conf, data in _gradcheck_nets():
+        is_graph = not isinstance(data, tuple)
+        nets = {}
+        for device in (DEVICE, "cpu"):
+            net = (ComputationGraph if is_graph else MultiLayerNetwork)(
+                conf, device=device).init()
+            if device != DEVICE:
+                net.set_params(nets[DEVICE].params())
+            nets[device] = net
+        card_net = nets[DEVICE]
+        t0 = time.perf_counter()
+        if is_graph:
+            ok, max_rel, fails = gc.check_gradients_graph(
+                card_net, data, max_rel_error=GRADCHECK_MAX_REL)
+            grads = [gc.analytic_gradient(*gc._graph_loss(n, data))
+                     for n in (card_net, nets["cpu"])]
+        else:
+            ok, max_rel, fails = gc.check_gradients(
+                card_net, *data, max_rel_error=GRADCHECK_MAX_REL)
+            grads = [gc.analytic_gradient(*gc._mln_loss(n, *data))
+                     for n in (card_net, nets["cpu"])]
+        dt = time.perf_counter() - t0
+        assert ok, (name, max_rel, fails)
+        rel = _rel(grads[0], grads[1])
+        assert rel <= GRADCHECK_CARD_CPU, (name, rel)
+        checks[name] = {"passed": ok, "max_rel_error": max_rel,
+                        "params": card_net.num_params(),
+                        "analytic_card_vs_cpu_rel": rel, "seconds": dt}
+    lstm = (B.Builder().seed(42).list()
+            .layer(GravesLSTM(n_in=3, n_out=4, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=2, activation="softmax",
+                                  loss="mcxent")).build())
+    r = np.random.RandomState(SEED + 19)
+    net = MultiLayerNetwork(lstm, device=DEVICE).init()
+    try:
+        gc.check_gradients(net, r.randn(3, 4, 3),
+                           np.eye(2)[r.randint(0, 2, (3, 4))])
+    except TypeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a float64 LSTM check ran on the card")
+    assert "float32 or bfloat16" in refusal, refusal
+    result = {"phase": "gradcheck", "dtype": "float64",
+              "max_rel_error_bar": GRADCHECK_MAX_REL,
+              "card_vs_cpu_bar": GRADCHECK_CARD_CPU, "checks": checks,
+              "lstm_float64_refusal": refusal,
+              "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase tsne_kmeans: k-means and t-SNE on the whole digits fixture
+# ---------------------------------------------------------------------------
+def all_digits():
+    """The fixture's 1,797 digits (scikit-learn's; train then test) as
+    [n, 64] f32 in [0, 1]."""
+    import numpy as np
+    (x, _), (xt, _) = digits()
+    out = np.concatenate([x, xt]).reshape(-1, 64).astype(np.float32) / 255
+    assert out.shape == (1797, 64)
+    return out
+
+
+def phase_tsne_kmeans(card):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+    t_phase = time.perf_counter()
+    x = all_digits()
+    km = {}
+    for device in (DEVICE, "cpu"):
+        k = KMeansClustering.setup(KMEANS["k"], KMEANS["max_iterations"],
+                                   seed=SEED, device=device)
+        t0 = time.perf_counter()
+        cs = k.apply_to(x)
+        dt = time.perf_counter() - t0
+        assign = np.empty(len(x), np.int64)
+        for c in cs.clusters:
+            for p in c.points:
+                assign[int(p.id)] = c.idx
+        km[device] = (assign, cs.get_centers(), k.iterations_done, dt)
+    agree = float((km[DEVICE][0] == km["cpu"][0]).mean())
+    assert agree >= KMEANS["agreement_bar"], agree
+    centers = km[DEVICE][1]
+    cost = float(np.linalg.norm(x - centers[km[DEVICE][0]], axis=1).sum())
+    ts = {}
+    for device in (DEVICE, "cpu"):
+        t = Tsne(max_iter=TSNE["max_iter"], perplexity=TSNE["perplexity"],
+                 seed=SEED, device=device)
+        t0 = time.perf_counter()
+        y = t.fit(x)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+        ts[device] = (y, t.kl_, time.perf_counter() - t0)
+    assert np.isfinite(ts[DEVICE][0]).all()
+    kl_rel = abs(ts[DEVICE][1] - ts["cpu"][1]) / ts["cpu"][1]
+    assert kl_rel <= TSNE["kl_rel_bar"], (ts[DEVICE][1], ts["cpu"][1])
+    bh = BarnesHutTsne(theta=BH_TSNE["theta"], max_iter=BH_TSNE["max_iter"],
+                       perplexity=TSNE["perplexity"], seed=SEED)
+    xb = x[:BH_TSNE["points"]]
+    t0 = time.perf_counter()
+    yb = bh.fit(xb)
+    bh_s = time.perf_counter() - t0
+    assert np.isfinite(yb).all() and np.isfinite(bh.kl_)
+    result = {"phase": "tsne_kmeans",
+              "data": "tests/fixtures/real_digits, all 1,797 x 64, "
+                      "scaled to [0, 1]",
+              "kmeans": {**KMEANS, "iterations_card": km[DEVICE][2],
+                         "iterations_cpu": km["cpu"][2],
+                         "assignment_agreement": agree,
+                         "assignments_identical": agree == 1.0,
+                         "cost_card": cost, "card_s": km[DEVICE][3],
+                         "cpu_s": km["cpu"][3]},
+              "tsne_exact": {**TSNE, "kl_card": ts[DEVICE][1],
+                             "kl_cpu": ts["cpu"][1], "kl_rel": kl_rel,
+                             "card_s": ts[DEVICE][2], "cpu_s": ts["cpu"][2],
+                             "card_ms_per_iteration_incl_p":
+                                 ts[DEVICE][2] / TSNE["max_iter"] * 1e3},
+              "tsne_barnes_hut": {**BH_TSNE, "kl": bh.kl_, "host_s": bh_s,
+                                  "cut": BH_TSNE_CUT},
+              "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    return result
+
+
+
 def main():
     try:
         import torch
@@ -6092,6 +6880,10 @@ def main():
     phase_dropout_fused(card)
     gf = phase_graph_fused(card, cr)
     phase_solvers(card)
+    phase_pretrain(card)
+    tf = phase_transfer(card)
+    phase_gradcheck(card)
+    phase_tsne_kmeans(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -6173,6 +6965,7 @@ def main():
              gf["dropout_copy"]["fused_kernel_launches"][0],
          "launches_keras": ke["kernel_launches"]["lstm_cell_fwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_fwd"],
+         "launches_transfer": tf["kernel_launches"]["lstm_cell_fwd"],
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -6193,6 +6986,7 @@ def main():
              gf["dropout_copy"]["fused_kernel_launches"][1],
          "launches_keras": ke["kernel_launches"]["lstm_cell_bwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_bwd"],
+         "launches_transfer": tf["kernel_launches"]["lstm_cell_bwd"],
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

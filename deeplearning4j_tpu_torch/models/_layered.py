@@ -19,6 +19,9 @@ holds one copy of:
   signature is captured once in a CUDA graph (:class:`_WindowGraph`) and
   replayed, on the CPU the same function is called directly; with the
   fusion autotuner armed, ``tuning/autotuner.py`` plans the chunks;
+- layer-wise pretraining's step (``_pretrain_loop``): a pretrain
+  layer's ``pretrain_grads`` on the activations below it and its updater
+  rule, in place, drawing from the model's pretrain generator;
 - the line-search solvers' plumbing (``_fit_batch_solver``): the flat
   parameter vector through ``optimize/solvers.py``, the layer state fixed
   during the line searches and refreshed once after;
@@ -261,6 +264,8 @@ class LayeredModel(DeviceStateMixin):
     _fuse_autotune = False     # set by fit() while the tuner is armed
     _draw_counter = None       # device int64: the dropout stream
     _solver_runs = None        # solver signature -> run function
+    _pretrain_gen = None       # torch.Generator of the pretrain layers
+    _pretrained = False        # fit() has pretrained this model
 
     # ---- parameters ---------------------------------------------------
     def reset_updater_state(self):
@@ -432,6 +437,58 @@ class LayeredModel(DeviceStateMixin):
         self._iter_dev_py = self.iteration
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
+
+    # ---- layer-wise pretraining ------------------------------------------
+    def _pretrain_generator(self):
+        """The ``torch.Generator`` the pretrain layers draw from (corruption
+        masks, Gibbs samples, the VAE's eps), seeded with ``conf.seed`` on
+        the model's device at first use."""
+        if self._pretrain_gen is None:
+            self._pretrain_gen = torch.Generator(
+                device=self.device).manual_seed(self.conf.seed)
+        return self._pretrain_gen
+
+    def _pretrain_loop(self, i, data, epochs, layer_input):
+        """Pretrain layer ``i`` (the reference's ``pretrain_layer`` /
+        ``pretrain_vertex`` body): for each batch, the layer's input from
+        ``layer_input(batch)`` under ``torch.no_grad()`` (the layers below
+        in inference mode), the layer's ``pretrain_grads``, and its
+        updater rule written in place. ``score_`` stays a device scalar and
+        the device iteration counter grows with the Python one: no host
+        read a batch. A single (Multi)DataSet, labels or not, is one
+        batch."""
+        if self._uses_solver():
+            raise ValueError(
+                "layer-wise pretraining runs on the SGD updater path; "
+                f"optimization_algo={self.conf.optimization_algo!r} would "
+                "be silently ignored. Pretrain with "
+                "'stochastic_gradient_descent', then fine-tune with the "
+                "line-search solver.")
+        layer = self.layers[i]
+        if not layer.is_pretrain_layer():
+            return self
+        conf_u = layer.updater_config(self.conf.max_iterations)
+        gen = self._pretrain_generator()
+        p, state = self.params_list[i], self.updater_states[i]
+        for _ in range(epochs):
+            for ds in data:
+                with torch.no_grad():
+                    h = layer_input(ds)
+                grads, score = layer.pretrain_grads(p, h, gen)
+                it = self._device_iteration()
+                with torch.no_grad():
+                    upd, new_state = updaters_mod.compute_updates(
+                        conf_u, grads, state, it, params=p)
+                    for k in p:
+                        p[k].copy_(p[k] - upd[k])
+                    for new, old in zip(tensor_leaves(new_state),
+                                        tensor_leaves(state)):
+                        old.copy_(new)
+                    it.add_(1)
+                self.score_ = score
+                self.iteration += 1
+                self._iter_dev_py = self.iteration
+        return self
 
     # ---- the line-search solvers --------------------------------------
     def _uses_solver(self):

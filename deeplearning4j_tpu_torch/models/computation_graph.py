@@ -35,8 +35,10 @@ plumbing too. The graph runs on the card unless the caller passes
 ``conf.seed``, its dropout masks from the counter-based hash keyed by
 ``conf.seed`` and the device draw counter.
 
-Not ported yet (ROADMAP.md, queue 1), each raising
-``NotImplementedError``: layer-wise pretraining and sharding plans.
+Layer-wise pretraining (``pretrain``, ``pretrain_vertex``; with
+``conf.pretrain``, ``fit``'s first call) shares the MultiLayerNetwork's
+step. Not ported yet (ROADMAP.md, queue 1): sharding plans (``shard``
+raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -471,9 +473,10 @@ class ComputationGraph(LayeredModel):
         one. Iterator fits only, for those."""
         if self.params_list is None:
             self.init()
-        if self.conf.pretrain:
-            raise _not_ported("pretrain (layer-wise pretraining)",
-                              "Pretraining")
+        if self.conf.pretrain and not self._pretrained:
+            # once a graph, then backprop (as the reference)
+            self.pretrain(data if labels is None else DataSet(data, labels))
+            self._pretrained = True
         if labels is not None:
             data = DataSet(data, labels)
         every, ck_dir, keep = self._resolve_ckpt_args(
@@ -510,12 +513,61 @@ class ComputationGraph(LayeredModel):
             self.fit_batch(mds, ew=ew)
         return 1
 
-    def pretrain(self, iterator, epochs=1):
-        raise _not_ported("pretrain (layer-wise pretraining)", "Pretraining")
+    # ------------------------------------------------------------------
+    # unsupervised layer-wise pretraining (ComputationGraph.pretrain:529)
+    # ------------------------------------------------------------------
+    def pretrain(self, data, epochs=1):
+        """Greedy pretraining of every pretrain layer vertex, in
+        topological order."""
+        if self.params_list is None:
+            self.init()
+        for name in self.topological_order:
+            v = self.conf.vertices[name]
+            if isinstance(v, LayerVertex) and v.layer.is_pretrain_layer():
+                self.pretrain_vertex(name, data, epochs=epochs)
+        return self
 
-    def pretrain_vertex(self, name, iterator, epochs=1):
-        raise _not_ported("pretrain_vertex (layer-wise pretraining)",
-                          "Pretraining")
+    def _forward_until(self, inputs, upto_name):
+        """The (preprocessed) input of vertex ``upto_name``, computing only
+        the vertices before it in topological order, in inference mode."""
+        conf = self.conf
+        acts = dict(zip(conf.network_inputs, inputs))
+        for name in self.topological_order:
+            if name == upto_name:
+                break
+            v = conf.vertices[name]
+            xs = [acts[i] for i in conf.vertex_inputs[name]]
+            if isinstance(v, LayerVertex):
+                x = xs[0]
+                if v.preprocessor is not None:
+                    x = v.preprocessor.pre_process(x, None)
+                i = self._index[name]
+                acts[name], _ = v.layer.forward(
+                    self.params_list[i], x, self.states_list[i],
+                    train=False, rng=None, mask=None)
+            else:
+                acts[name] = v.forward(xs, None)
+        v = conf.vertices[upto_name]
+        x = acts[conf.vertex_inputs[upto_name][0]]
+        if v.preprocessor is not None:
+            x = v.preprocessor.pre_process(x, None)
+        return x
+
+    def pretrain_vertex(self, name, data, epochs=1):
+        """Pretrain layer vertex ``name`` on its input, computed from the
+        network inputs through the vertices before it
+        (ComputationGraph.pretrainLayer). ``data``: an iterator, or one
+        (Multi)DataSet (labels may be None)."""
+        if self.params_list is None:
+            self.init()
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = [data]
+
+        def layer_input(ds):
+            mds = _as_multi(ds)
+            return self._forward_until(self._tensors(mds.features), name)
+        return self._pretrain_loop(self._index[name], data, epochs,
+                                   layer_input)
 
     def shard(self, *args, **kwargs):
         raise _not_ported("shard (sharding plans)", "Data parallelism")

@@ -8,7 +8,10 @@ per-layer updater rule, tBPTT carries detached, and the non-finite
 guard's select-revert, all on the network's device. ``fit_batch`` takes
 one minibatch (tBPTT models: one update per window of
 ``tbptt_fwd_length`` steps, carries zero at the start of each call);
-``fit`` walks a DataSet or an iterator.
+``fit`` walks a DataSet or an iterator; with ``conf.pretrain`` its first
+call pretrains every pretrain layer first (``pretrain``,
+``pretrain_layer``: AutoEncoder, RBM, VariationalAutoencoder), once a
+net.
 
 ``fit(iterator)`` follows the reference's default path: the iterator is
 wrapped in an ``AsyncDataSetIterator`` that groups up to
@@ -39,8 +42,6 @@ the fused loop, the line-search solvers' plumbing (``optimization_algo``
 ``lbfgs``, ``conjugate_gradient``, ``line_gradient_descent``), the flat
 parameter API and ``fit(iterator)``'s loop are ComputationGraph's too
 (``models/_layered.py``).
-
-Not ported yet (ROADMAP.md, queue 1): layer-wise pretraining.
 """
 
 from __future__ import annotations
@@ -361,10 +362,10 @@ class MultiLayerNetwork(LayeredModel):
         scratch. Iterator fits only."""
         if self.params_list is None:
             self.init()
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                "layer-wise pretraining is not ported to the PyTorch "
-                "package yet (ROADMAP.md, queue 1, \"Pretraining\")")
+        if self.conf.pretrain and not self._pretrained:
+            # once a net, then backprop (the reference ignores backprop=False)
+            self.pretrain(data if labels is None else DataSet(data, labels))
+            self._pretrained = True
         if labels is not None:
             data = DataSet(data, labels)
         every, ck_dir, keep = self._resolve_ckpt_args(
@@ -384,6 +385,42 @@ class MultiLayerNetwork(LayeredModel):
             return self._fit_iterator(data, epochs, every, ck_dir, keep,
                                       resume_from)
         raise ValueError(f"Cannot fit on {type(data)}")
+
+    # ------------------------------------------------------------------
+    # unsupervised layer-wise pretraining (fit:932 -> pretrainLayer:178)
+    # ------------------------------------------------------------------
+    def pretrain(self, data, epochs=1):
+        """Greedy layer-wise pretraining of every pretrain layer, in
+        order (MultiLayerNetwork.pretrain)."""
+        if self.params_list is None:
+            self.init()
+        for i, layer in enumerate(self.layers):
+            if layer.is_pretrain_layer():
+                self.pretrain_layer(i, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, i, data, epochs=1):
+        """Pretrain layer ``i`` on the activations of the layers below it
+        (MultiLayerNetwork.pretrainLayer): the input goes through layers
+        [0, i) in inference mode, then the layer's own unsupervised update
+        runs. ``data``: an iterator, or one DataSet (labels may be None)."""
+        if self.params_list is None:
+            self.init()
+        if isinstance(data, DataSet):
+            data = [data]
+
+        def layer_input(ds):
+            h = self._tensor(ds.features)
+            for j in range(i + 1):
+                pre = self.conf.input_preprocessors.get(j)
+                if pre is not None:
+                    h = pre.pre_process(h, None)
+                if j < i:
+                    h, _ = self.layers[j].forward(
+                        self.params_list[j], h, self.states_list[j],
+                        train=False, rng=None, mask=None)
+            return h
+        return self._pretrain_loop(i, data, epochs, layer_input)
 
     def _fit_item(self, ds, use_ew):
         """One item of ``fit(iterator)``'s stream: a ``StackedDataSet``

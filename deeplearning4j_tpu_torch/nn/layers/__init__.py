@@ -1,5 +1,6 @@
 """Layers of the port: core feed-forward layers, the recurrent family,
-self-attention, convolution, pooling and normalization."""
+self-attention, convolution, pooling, normalization and the unsupervised
+pretrain layers."""
 
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.nn.layers.base import (BaseLayer,
@@ -15,15 +16,17 @@ from deeplearning4j_tpu_torch.nn.layers.core import (
 from deeplearning4j_tpu_torch.nn.layers.norm import (
     BatchNormalization, LocalResponseNormalization)
 from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
+from deeplearning4j_tpu_torch.nn.layers.pretrain import (
+    RBM, AutoEncoder, VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer)
 
-__all__ = ["ActivationLayer", "BaseLayer", "BaseOutputLayer",
+__all__ = ["ActivationLayer", "AutoEncoder", "BaseLayer", "BaseOutputLayer",
            "BatchNormalization", "CenterLossOutputLayer", "ConvolutionLayer",
            "DenseLayer", "DropoutLayer", "EmbeddingLayer",
            "FeedForwardLayer", "GlobalPoolingLayer",
            "GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
            "LastTimeStepLayer", "LocalResponseNormalization", "LossLayer",
-           "OutputLayer", "RnnOutputLayer", "SelfAttentionLayer",
-           "SubsamplingLayer",
+           "OutputLayer", "RBM", "RnnOutputLayer", "SelfAttentionLayer",
+           "SubsamplingLayer", "VariationalAutoencoder",
            "ZeroPaddingLayer", "layer_from_dict", "register_layer"]

@@ -30,8 +30,6 @@ __all__ = ["BaseLayer", "CASCADE_FIELDS", "FeedForwardLayer",
            "LAYER_REGISTRY", "layer_from_dict", "register_layer"]
 
 LAYER_REGISTRY: dict[str, type] = {}
-# the reference's layer types this package does not have yet
-_NOT_PORTED = ("AutoEncoder", "RBM", "VariationalAutoencoder")
 
 
 def register_layer(cls):
@@ -42,10 +40,6 @@ def register_layer(cls):
 def layer_from_dict(d):
     d = dict(d)
     name = d.pop("type")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer type {name} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1, \"Pretraining\")")
     if name not in LAYER_REGISTRY:
         raise ValueError(f"Unknown layer type {name!r}. Known: "
                          f"{sorted(LAYER_REGISTRY)}")

@@ -73,14 +73,21 @@ def lstm_cell_supported(gate_activation, cell_activation):
         (cell_activation or "tanh") == "tanh"
 
 
+def _acc_dtype(zx):
+    """The twins' arithmetic type: f32, as both reference kernels compute,
+    and float64 for float64 inputs (the kernels refuse those; on the CPU
+    the gradient checker runs the twins in float64)."""
+    return torch.float64 if zx.dtype == torch.float64 else torch.float32
+
+
 def _gates(zx, h_prev, c_prev, rw, peep):
-    """(i, f, g, o, c, tanh(c)) in f32, as both reference kernels compute
-    them."""
-    hp, cp = h_prev.float(), c_prev.float()
-    z = zx.float() + torch.matmul(hp, rw.float())
+    """(i, f, g, o, c, tanh(c)) in :func:`_acc_dtype`."""
+    acc = _acc_dtype(zx)
+    hp, cp = h_prev.to(acc), c_prev.to(acc)
+    z = zx.to(acc) + torch.matmul(hp, rw.to(acc))
     i, f, g, o = torch.chunk(z, 4, dim=1)
     if peep is not None:
-        p = peep.float()
+        p = peep.to(acc)
         i = i + cp * p[0:1]
         f = f + cp * p[1:2]
     i, f, g = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g)
@@ -102,12 +109,13 @@ def lstm_cell_bwd_plain(zx, h_prev, c_prev, rw, peep, dh, dc):
     """The backward kernel's plain twin (``_lstm_cell_bwd_kernel``),
     formula by formula. Returns (dzx, dh_prev, dc_prev, dRW, dP or None)."""
     i, f, g, o, c, tc = _gates(zx, h_prev, c_prev, rw, peep)
-    cp = c_prev.float()
-    dh, dc = dh.float(), dc.float()
+    acc = _acc_dtype(zx)
+    cp = c_prev.to(acc)
+    dh, dc = dh.to(acc), dc.to(acc)
     d_opre = dh * tc * o * (1.0 - o)
     dc_tot = dc + dh * o * (1.0 - tc * tc)
     if peep is not None:
-        p = peep.float()
+        p = peep.to(acc)
         dc_tot = dc_tot + d_opre * p[2:3]
     d_ipre = dc_tot * g * i * (1.0 - i)
     d_fpre = dc_tot * cp * f * (1.0 - f)
@@ -116,8 +124,8 @@ def lstm_cell_bwd_plain(zx, h_prev, c_prev, rw, peep, dh, dc):
     if peep is not None:
         dc_prev = dc_prev + d_ipre * p[0:1] + d_fpre * p[1:2]
     dz = torch.cat([d_ipre, d_fpre, d_gpre, d_opre], dim=1)
-    dh_prev = torch.matmul(dz, rw.float().t())
-    drw = torch.matmul(h_prev.float().t(), dz)
+    dh_prev = torch.matmul(dz, rw.to(acc).t())
+    drw = torch.matmul(h_prev.to(acc).t(), dz)
     dp = None
     if peep is not None:
         dp = torch.stack([(d_ipre * cp).sum(0), (d_fpre * cp).sum(0),

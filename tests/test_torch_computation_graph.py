@@ -249,15 +249,20 @@ def test_cycles_and_unknown_inputs_are_rejected():
 
 
 def test_not_ported_paths_raise_and_name_the_roadmap():
-    """Pretraining and sharding still raise, naming ROADMAP.md; the fused
-    loop (``fit_fused``) and the line-search solvers are ported: a graph
-    under ``lbfgs`` trains its batch and lowers its score."""
+    """Sharding still raises, naming ROADMAP.md; pretraining runs (a graph
+    without pretrain layers is left as it was, and a vertex that is no
+    pretrain layer is skipped, as the reference's), and the fused loop
+    (``fit_fused``) and the line-search solvers are ported: a graph under
+    ``lbfgs`` trains its batch and lowers its score."""
     conf = zoo.resnet50(n_classes=3, height=16, width=16, stages=(1,))
     net = ComputationGraph(conf, device="cpu").init()
-    for call in (lambda: net.pretrain([]),
-                 lambda: net.pretrain_vertex("fc", []), lambda: net.shard()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    start = net.params()
+    assert net.pretrain([]) is net
+    assert net.pretrain_vertex("fc", []) is net
+    np.testing.assert_array_equal(net.params(), start)
+    assert net.iteration == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        net.shard()
     x, y = _images(0, 2, 16, 3)
     st = StackedMultiDataSet([x[None]], [y[None]],
                              np.ones((1, 2), np.float32), 1)

@@ -1602,3 +1602,124 @@ def test_dropout_counter_in_a_captured_graph_advances_and_reverts(
     assert a._fused.captures == 1
     assert a.dropout_draws == b.dropout_draws == 2
     np.testing.assert_array_equal(a.params(), b.params())
+
+
+# ---------------------------------------------------------------------------
+# layer-wise pretraining, the gradient checker, k-means and t-SNE on the
+# card
+# ---------------------------------------------------------------------------
+def _pretrain_net(device, layer):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater("rmsprop")
+            .learning_rate(1e-2).list().layer(layer).pretrain(True).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["autoencoder", "rbm", "vae"])
+def test_pretrain_step_on_card_matches_cpu(cuda_device, monkeypatch, kind):
+    """Two pretrain steps of each pretrain layer on the card and on the
+    CPU from the same parameters and the same draws (injected through the
+    ``_uniform``/``_normal`` seam): f32 parameters within 1e-5 of their
+    max abs (a binary unit sampled with u far from p: the draws are 0 or
+    1, so no decision can round the other way)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import pretrain as ppre
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM, AutoEncoder, VariationalAutoencoder)
+    make = {"autoencoder": lambda: AutoEncoder(n_in=40, n_out=24,
+                                               activation="sigmoid"),
+            "rbm": lambda: RBM(n_in=40, n_out=24, k=2),
+            "vae": lambda: VariationalAutoencoder(
+                n_in=40, n_out=3, encoder_layer_sizes=(32, 16),
+                decoder_layer_sizes=(16,), activation="leakyrelu")}[kind]
+    r = np.random.RandomState(5)
+    x = (r.rand(16, 40) > 0.5).astype(np.float32)
+    draws = {"u": [r.rand(16, 40) < 0.5 for _ in range(12)],
+             "n": [r.randn(16, 3).astype(np.float32) for _ in range(4)]}
+
+    def seam(kind_, shape, like):
+        arr = draws[kind_].pop(0)
+        if kind_ == "u":
+            arr = np.where(arr[:, :shape[1]], 0.0, 1.0)
+        return torch.as_tensor(arr, dtype=like.dtype, device=like.device)
+    out = {}
+    for device in (cuda_device, "cpu"):
+        saved = {k: list(v) for k, v in draws.items()}
+        monkeypatch.setattr(ppre, "_uniform",
+                            lambda g, shape, like: seam("u", shape, like))
+        monkeypatch.setattr(ppre, "_normal",
+                            lambda g, shape, like: seam("n", shape, like))
+        net = _pretrain_net(device, make())
+        if device == "cpu":
+            net.set_params(out[cuda_device][1])
+        start = net.params()
+        net.pretrain_layer(0, [DataSet(x, None), DataSet(x[::-1].copy(),
+                                                         None)])
+        out[device] = (net.params(), start)
+        draws = saved
+    card, cpu = out[cuda_device][0], out["cpu"][0]
+    assert np.abs(card - cpu).max() <= 1e-5 * np.abs(cpu).max()
+    assert not np.array_equal(card, out[cuda_device][1])
+
+
+@pytest.mark.cuda
+def test_gradient_check_on_card_in_float64(cuda_device):
+    """The checker's float64 copies live on the card: an MLP passes and
+    its analytic gradient is the CPU's within 1e-12; a GravesLSTM net's
+    check raises the kernels' TypeError rather than reach a twin."""
+    from deeplearning4j_tpu_torch.gradientcheck import (
+        gradient_check_util as gc)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration as B)
+    from deeplearning4j_tpu_torch.nn.layers import (DenseLayer, GravesLSTM,
+                                                    OutputLayer,
+                                                    RnnOutputLayer)
+    r = np.random.RandomState(0)
+    conf = (B.Builder().seed(1).list()
+            .layer(DenseLayer(n_in=4, n_out=6, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax")).build())
+    x, y = r.randn(5, 4), np.eye(3)[r.randint(0, 3, 5)]
+    card = MultiLayerNetwork(conf, device=cuda_device).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    assert gc.check_gradients(card, x, y)[0]
+    fn, vec = gc._mln_loss(card, x, y)
+    assert vec.is_cuda and vec.dtype == torch.float64
+    g_card = gc.analytic_gradient(fn, vec)
+    g_cpu = gc.analytic_gradient(*gc._mln_loss(cpu, x, y))
+    assert np.abs(g_card - g_cpu).max() <= 1e-12 * np.abs(g_cpu).max()
+    lstm = (B.Builder().seed(1).list()
+            .layer(GravesLSTM(n_in=3, n_out=4, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=2, activation="softmax")).build())
+    net = MultiLayerNetwork(lstm, device=cuda_device).init()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gc.check_gradients(net, r.randn(2, 3, 3),
+                           np.eye(2)[r.randint(0, 2, (2, 3))])
+
+
+@pytest.mark.cuda
+def test_kmeans_and_tsne_on_card_match_cpu(cuda_device):
+    """k-means on the card gives the CPU's assignments and centres (1e-5
+    of their scale); 30 exact t-SNE iterations on the card stay within
+    1e-3 of the CPU's embedding scale (f32, early exaggeration's
+    expansion)."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.plot import Tsne
+    r = np.random.RandomState(2)
+    x = np.concatenate([r.randn(60, 8) + 4 * c for c in range(3)]) \
+        .astype(np.float32)
+    sets = [KMeansClustering(3, seed=1, device=d).apply_to(x)
+            for d in (cuda_device, "cpu")]
+    a, b = (s.get_centers() for s in sets)
+    assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    for ca, cb in zip(sets[0].clusters, sets[1].clusters):
+        assert [p.id for p in ca.points] == [p.id for p in cb.points]
+    ys = [Tsne(max_iter=30, perplexity=10.0, learning_rate=20.0, seed=3,
+               device=d).fit(x) for d in (cuda_device, "cpu")]
+    assert np.abs(ys[0] - ys[1]).max() <= 1e-3 * np.abs(ys[1]).max()

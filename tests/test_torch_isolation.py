@@ -26,7 +26,11 @@
 - an LM archive restored, GloVe, DeepWalk, the word- and graph-vector
   readers and the trained-model helper refuse the CPU without CUDA
   unless asked for it, and GloVe and DeepWalk fits on the CPU capture no
-  CUDA graph and load no kernel.
+  CUDA graph and load no kernel;
+- k-means, exact t-SNE and the early-stopping file saver's restore
+  refuse the CPU without CUDA unless asked for it; the pretrain layers,
+  transfer learning, early stopping, the gradient checker, the profiler
+  listener, the reports and the trees are scanned like every module.
 """
 
 import ast
@@ -94,7 +98,16 @@ def _port_sources():
                 "modelimport/imagenet_labels.py",
                 "modelimport/trained_models.py", "ops/random.py",
                 "ops/optax_adapter.py", "ops/updaters.py",
-                "optimize/solvers.py"):
+                "optimize/solvers.py", "nn/layers/pretrain.py",
+                "nn/transfer_learning.py", "earlystopping/__init__.py",
+                "earlystopping/early_stopping.py",
+                "gradientcheck/__init__.py",
+                "gradientcheck/gradient_check_util.py",
+                "optimize/listeners.py", "ui/__init__.py",
+                "ui/components.py", "eval/evaluation_tools.py",
+                "clustering/__init__.py", "clustering/trees.py",
+                "clustering/kmeans.py", "plot/__init__.py",
+                "plot/tsne.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -248,6 +261,35 @@ def test_server_without_device_refuses_the_cpu(no_cuda):
         InferenceServer(lm, buckets=(2,))
     srv = InferenceServer(lm, buckets=(2,), device="cpu")
     srv.stop()
+
+
+def test_clustering_tsne_and_saver_without_device_refuse_the_cpu(no_cuda,
+                                                                tmp_path):
+    """k-means, exact t-SNE and the file model saver's restore run on the
+    card unless asked for the CPU; a transferred net stays on its
+    source's device."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.earlystopping.early_stopping import (
+        LocalFileModelSaver)
+    from deeplearning4j_tpu_torch.nn.transfer_learning import (
+        TransferLearning)
+    from deeplearning4j_tpu_torch.plot import Tsne
+    x = np.random.RandomState(0).rand(40, 3).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KMeansClustering(2).apply_to(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Tsne(max_iter=2, perplexity=5.0).fit(x)
+    assert len(KMeansClustering(2, device="cpu").apply_to(x).clusters) == 2
+    net = MultiLayerNetwork(zoo.mlp_mnist(hidden=8), device="cpu").init()
+    saver = LocalFileModelSaver(str(tmp_path / "es"))
+    saver.save_best_model(net, 0.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        saver.get_best_model()
+    assert LocalFileModelSaver(str(tmp_path / "es"), device="cpu") \
+        .get_best_model().device.type == "cpu"
+    tuned = TransferLearning.Builder(net).set_feature_extractor(0).build()
+    assert all(t.device.type == "cpu" for p in tuned.params_list
+               for t in p.values())
 
 
 def test_params_without_device_refuse_the_cpu(no_cuda):

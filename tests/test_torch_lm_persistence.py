@@ -294,4 +294,5 @@ def test_not_ported_messages_name_roadmap_items():
             assert any(" ".join(t.split()).startswith(item)
                        for t in titles), \
                 (str(path.relative_to(REPO)), item, titles)
-    assert {"The rest", "Pretraining"} <= named
+    assert {"The rest", "Data parallelism"} <= named
+    assert "Pretraining" not in named and "Pretraining" not in titles

@@ -117,15 +117,21 @@ def test_one_json_builds_both_nets(build):
     assert again.layers[0].param_shapes() == jconf.layers[0].param_shapes()
 
 
-def test_layer_types_not_ported_raise_and_name_the_roadmap():
+def test_reference_autoencoder_json_builds_a_port_net():
+    """The reference's AutoEncoder JSON builds a port net (the pretrain
+    layers are ported; this test asserted their refusal before)."""
     from deeplearning4j_tpu.nn.layers import OutputLayer as JOut
     from deeplearning4j_tpu.nn.layers.pretrain import AutoEncoder as JAE
     jconf = (JBuilder.Builder().list()
              .layer(JAE(n_in=10, n_out=4))
              .layer(JOut(n_out=3, activation="softmax", loss="mcxent"))
              .build())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerConfiguration.from_json(jconf.to_json())
+    pconf = MultiLayerConfiguration.from_json(jconf.to_json())
+    assert pconf.to_json() == jconf.to_json()
+    assert type(pconf.layers[0]).__name__ == "AutoEncoder"
+    net = MultiLayerNetwork(pconf, device="cpu").init()
+    assert net.num_params() == JNet(jconf).init().num_params()
+    assert net.output(np.zeros((2, 10), np.float32)).shape == (2, 3)
 
 
 def test_builder_cascade_and_auto_preprocessors_match_jax():
