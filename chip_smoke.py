@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    nvcc (one process per source, started together) and report the time;
 2. kernels — each kernel on the card against its plain PyTorch twin on
    the same inputs, at the serving and training paths' shapes and a few
-   edge shapes (T 1, T 65, d 36, a q view with a storage offset, and d
-   256, the widest the kernels take, with GQA 2): the
+   edge shapes (T 1, T 65, d 36, a q view with a storage offset, d
+   256, the widest the kernels take, with GQA 2, and phase ``vit``'s
+   attention: n 768, T 196, non-causal): the
    forward, and the two backward kernels (dQ, dK/dV) against the plain
    backward, each with its time, the twin's, one PyTorch library call's
    (a yardstick the port never calls) and the least time the card could
@@ -232,6 +233,10 @@ Phases, each fatal on failure:
    ``TrainedModelHelper(VGG16).set_path_to_h5`` on the committed tiny
    VGG-shaped file (8x8x3 to 1000), ``VGG16ImagePreProcessor``,
    ``output()`` on the card and ``decode_predictions``: the CPU's top-5;
+   and the full-depth Keras 1 ResNet-50 topology with its filters
+   narrowed 16x (176 vertices, seeded weights) on the card against the
+   CPU, then one ``/fit`` on two seeded 224x224x3 minibatches of 8 and
+   its archive restored on the card;
 13. lm_persist — the slice phase's LM at full width (bf16 compute): 6
    ``fit_batch`` steps uninterrupted, twice (the card's own spread), and
    a run that commits ``save_training_checkpoint`` after step 3, applied
@@ -368,10 +373,42 @@ Phases, each fatal on failure:
    (assignments agreeing, KMEANS' bar), exact ``Tsne`` (perplexity 30,
    1,000 iterations) on both (KL within TSNE's bar) and ``BarnesHutTsne``
    on the host, cut (BH_TSNE_CUT), timed;
-25. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+25. vit — ViT-B/16 as published (224x224x3, patch 16, d 768, 12 heads,
+   12 layers, MLP 3072; 85,804,810 parameters with a 10-class head) in
+   bf16 with f32 masters at AdamW's fine-tuning rate 1e-5, on batch 64
+   of the fetchers' seeded class prototypes plus noise: 2 warm-up and
+   10 timed ``fit_batch`` steps (ms a step, images/s, MFU on 6 x
+   parameters x tokens plus the attention products against the bf16
+   peak, peak memory); the loss finite and falling, 12 launches of each
+   flash kernel a step by the wrappers and by ``torch.profiler`` over one
+   more step (busy share, top device ops), every leaf's gradient finite
+   and non-zero; 16 concurrent requests through ``InferenceServer``, rows
+   equal to ``output()`` of their batch and no backward launch; a 2-layer
+   f32 copy's logits and one step's gradients on the card against the
+   CPU within VIT_CARD_CPU_RTOL; tests/test_vit.py's learner through
+   ``fit(DigitsDataSetIterator)`` (150 batches of 64 real digits) to its
+   0.85 train accuracy, the held-out accuracy beside, and its archive
+   restored to the same ``output()`` bits;
+26. moe — the MoE LM at the slice's widths (V 32768, T 512, d 512, L 8,
+   H 8, ff 2048, bf16, flash block 128; 4 experts in every 2nd block,
+   top-1, aux 0.01; 67,464,192 parameters) on batch 32 of a seeded token
+   chain: at the initial weights every expert of every MoE block takes
+   tokens and gets a gradient; 2 warm-up and 10 timed ``fit_batch``
+   steps, the loss finite and falling, 8 launches of each flash kernel a
+   step; tokens/s, ms a step, peak memory, MFU on the active (top-1)
+   FLOPs and on the executed ones (dense routing runs every expert), the
+   tokens each expert takes after the timed steps; 16 requests served
+   as in ``vit``; ``generate()``, ``beam_search()`` and ``ContinuousLM``
+   refused with the reference's words; a copy cut to 2 layers written and
+   restored, ``output()`` and one further step the same bits; and 2-layer
+   f32 copies, top-1 and top-2, with weights drawn on the CPU: each
+   token's routing equal on the card and the CPU, the smallest gate
+   margins beside (they must exceed MOE_MARGIN), logits within
+   CPU_GPU_TOL, one step within the train phase's bars;
+27. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
-   ``deepwalk`` and the eight above.
+   ``deepwalk`` and the ten above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -445,6 +482,9 @@ KERNEL_CASES = [
     ("train", 256, 256, 511, 64, True, None, False),
     # the widest head dim the kernels take (their DP 256 instances), GQA 2
     ("d256", 16, 8, 512, 256, True, None, False),
+    # phase vit's attention: 64 images x 12 heads, 196 patches (no multiple
+    # of a tile: the ragged edge), non-causal
+    ("vit", 768, 768, 196, 64, False, None, False),
 ]
 # what the kernels line says of the bf16 flash kernels and the LSTM
 # kernels
@@ -710,6 +750,47 @@ BH_TSNE_CUT = ("300 points and 20 iterations in place of 1,797 and 300: "
                "the Barnes-Hut trees are host Python, as the reference's, "
                "and the whole set's 300 iterations do not fit the run's "
                "time limit")
+# phase vit: ViT-B/16 as published (Dosovitskiy et al., "An Image is Worth
+# 16x16 Words", ICLR 2021, Table 1) with a 10-class head, bf16 compute, at
+# AdamW's fine-tuning rate 1e-5: the configuration has no warmup, and
+# without one the first steps at the default 3e-4 (and at 3e-5 on the
+# CPU) throw the loss from 2.4 to 5-7
+VIT_B16 = dict(image_size=224, n_channels=3, patch_size=16, n_classes=10,
+               d_model=768, n_heads=12, n_layers=12, d_ff=3072,
+               compute_dtype="bfloat16", learning_rate=1e-5, seed=SEED)
+VIT_BATCH = 64
+VIT_WARMUP = 2
+VIT_STEPS = 10
+VIT_REQUESTS = 16
+# the f32 copy on the card against the CPU: the flash kernels' f32 bar,
+# relative to each tensor's max abs (logits, each gradient leaf)
+VIT_CPU_CHECK = dict(n_layers=2, batch=2)
+VIT_CARD_CPU_RTOL = 1e-5
+# tests/test_vit.py's learner on the committed real digits: its width,
+# its 150 batches of 64 (320 digits, 30 epochs of 5) and its bar
+VIT_DIGITS = dict(image_size=8, n_channels=1, patch_size=2, n_classes=10,
+                  d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                  learning_rate=1e-3, seed=SEED)
+VIT_DIGITS_FIT = dict(examples=320, batch=64, epochs=30, train_bar=0.85)
+# phase moe: the slice LM's widths as an MoETransformerConfig at the
+# reference's defaults (4 experts every 2nd block, top-1, aux 0.01)
+MOE = dict(SLICE, n_experts=4, moe_every=2, router_top_k=1, aux_weight=0.01)
+MOE_WARMUP = 2
+MOE_STEPS = 10
+MOE_REQUESTS = 16
+# the archive round trip at full width cut to 2 layers (one MoE block):
+# the full depth's ~800 MB archive takes over a minute to deflate
+MOE_ARCHIVE_LAYERS = 2
+# the 2-layer f32 copy on the card against the CPU, top-1 and top-2: the
+# weights drawn on the CPU from this seed, whose every gate margin (top-1
+# against top-2, and top-2 against top-3) exceeds MOE_MARGIN, so a route
+# that flips fails as a flip, not as a numerics error
+MOE_CPU_CHECK = dict(n_layers=2, batch=2, seed=SEED + 4)
+MOE_MARGIN = 1e-3
+MOE_CARD_CPU_RTOL = 1e-4   # the train phase's bars: V 32768 products
+# phase keras, extended: the committed narrow ResNet-50 topology
+KERAS_RESNET50 = dict(file="resnet50_narrow_k1_tf.h5", images=4,
+                      fit_batches=2, fit_batch=8)
 
 
 def emit(obj):
@@ -1660,7 +1741,7 @@ def train_card_vs_cpu(conf, rng):
     import dataclasses
     import torch
     from deeplearning4j_tpu_torch.models.transformer import (
-        TransformerLM, _flatten, params_from_numpy)
+        TransformerLM, params_from_numpy)
 
     c2 = dataclasses.replace(conf, n_layers=2, compute_dtype=None)
     card = TransformerLM(c2, device=DEVICE).init()
@@ -1677,18 +1758,14 @@ def train_card_vs_cpu(conf, rng):
     # each layer launched the forward and both backward kernels once
     assert [a - b for a, b in zip(after, before)] == [2, 2, 2], \
         (before, after)
-    got, want = _flatten(got), _flatten(want)
-    rel = {k: ((got[k].cpu() - w).abs().max()
-               / w.abs().max().clamp(min=1e-30)).item()
-           for k, w in want.items()}
+    grad_rel, worst = _leaf_rel(got, want)
     loss_err = abs(float(got_loss) - float(want_loss))
-    worst = max(rel, key=rel.get)
-    assert loss_err <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_RTOL, \
-        (loss_err, worst, rel[worst])
+    assert loss_err <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_RTOL, \
+        (loss_err, worst, grad_rel)
     return {"config": {"n_layers": 2, "d_model": c2.d_model,
                        "T": CPU_CHECK_T, "batch": 2, "dtype": "float32"},
             "loss_card": float(got_loss), "loss_cpu": float(want_loss),
-            "loss_abs_err": loss_err, "grad_max_rel_err": rel[worst],
+            "loss_abs_err": loss_err, "grad_max_rel_err": grad_rel,
             "grad_worst_leaf": worst}
 
 
@@ -1725,8 +1802,7 @@ def phase_train(card):
     assert losses[-1] < losses[0], losses     # one fixed batch: it falls
     breakdown, grads = train_breakdown(lm, batch)
     assert breakdown["attention_backward_launches"] == 2 * conf.n_layers
-    zero = [k for k, g in grads.items()
-            if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0)]
+    zero = _bad_grad_leaves(grads)
     assert not zero, f"leaves with no gradient: {zero}"
     n_leaves = len(grads)
     del grads
@@ -4160,13 +4236,557 @@ def phase_order_check(card):
                                                 "deepwalk",
                                                 "fused_autotune",
                                                 "dropout_fused",
-                                                "graph_fused", "solvers"],
+                                                "graph_fused", "solvers",
+                                                "pretrain", "transfer",
+                                                "gradcheck", "tsne_kmeans",
+                                                "vit", "moe"],
               "resnet_narrow_f32": cnn_graph_card_vs_cpu(
                   "resnet50", RESNET_NARROW, 8, SEED + 3),
               "card": card}
     result["seconds"] = time.perf_counter() - t0
     emit(result)
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase vit: ViT-B/16 on the flash kernels (non-causal), served, held
+# against the CPU, learning the real digits
+# ---------------------------------------------------------------------------
+def _bad_grad_leaves(grads):
+    """The leaves whose gradient is not finite or is all zero."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    return [k for k, g in _flatten(grads).items()
+            if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0)]
+
+
+def _leaf_rel(got, want):
+    """The largest error of any leaf of two gradient trees, relative to
+    the leaf's max abs, and that leaf's path."""
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    got, want = _flatten(got), _flatten(want)
+    rel = {k: ((got[k].cpu() - w).abs().max()
+               / w.abs().max().clamp(min=1e-30)).item()
+           for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def vit_train_flops_per_image(conf):
+    """Matmul FLOPs of one image's training step (hw.py's convention: 2
+    a multiply-add, 3x the forward): per patch token the patch embedding,
+    qkv, the output projection, QKᵀ and PV against T keys, the MLP; then
+    the head on the pooled vector."""
+    from deeplearning4j_tpu_torch import hw
+    d, t = conf.d_model, conf.n_patches
+    pdim = conf.patch_size ** 2 * conf.n_channels
+    per_layer = 2 * d * 3 * d + 2 * d * d + 4 * t * d + 4 * d * conf.d_ff
+    fwd = t * (conf.n_layers * per_layer + 2 * pdim * d) \
+        + 2 * d * conf.n_classes
+    return hw.TRAIN_FLOPS_MULTIPLIER * fwd
+
+
+def _served(model, rows, row_shape):
+    """``rows`` through ``InferenceServer`` over ``model.output()`` from
+    concurrent clients (bucket 8): the served rows, the batches
+    dispatched (inputs and outputs), the forward and backward launches
+    between the first request and the last answer (the main path), and
+    the wall seconds; every served row must equal ``output()`` of its
+    batch computed again."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    srv = InferenceServer(model, buckets=(BUCKET,), device=DEVICE)
+    srv.warm_start([row_shape])
+    batches = []
+    served_output = model.output
+
+    def recording_output(x):
+        y = served_output(x)
+        batches.append((x, y))
+        return y
+    model.output = recording_output
+    torch.cuda.synchronize()
+    reset_launches()                           # the main path starts here
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max_workers=len(rows)) as pool:
+            served = list(pool.map(lambda x: srv.infer(x, timeout=600),
+                                   rows))
+        wall = time.perf_counter() - t0
+        launches = read_launches()             # ... and ends here
+    finally:
+        srv.stop()
+        del model.output                       # back to the class method
+    err = 0.0
+    for x, y in batches:
+        err = max(err, float(np.abs(model.output(x) - y).max()))
+    for row, got in zip(rows, served):
+        hits = [y[j] for x, y in batches for j in range(len(x))
+                if np.array_equal(x[j], row)]
+        assert hits and np.isfinite(got).all(), "a row served from nowhere"
+        err = max(err, float(np.abs(got - hits[0]).max()))
+    assert err <= 1e-6, err
+    assert launches[1:] == (0, 0), launches    # inference: no backward
+    return {"requests": len(rows), "batches": len(batches),
+            "flash_fwd_launches": launches[0], "wall_s": wall,
+            "requests_per_s": len(rows) / wall,
+            "served_vs_output_max_abs_err": err}
+
+
+def vit_full_width(card):
+    """ViT-B/16 at batch 64 in bf16: 2 warm-up and 10 timed ``fit_batch``
+    steps, the launches of the timed steps by the wrappers and of one
+    more step by ``torch.profiler``, every leaf's gradient, and 16
+    concurrent requests served. Returns (record, the model)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers import _synthetic_images
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
+    conf = ViTConfig(**VIT_B16)
+    s, ch = conf.image_size, conf.n_channels
+    x, y = _synthetic_images(VIT_BATCH, s, s, ch, conf.n_classes, SEED + 20)
+    vit = ViT(conf, device=DEVICE).init()
+    xd, yd = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    warm = [float(vit.fit_batch(xd, yd)) for _ in range(VIT_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                           # the main path starts here
+    t0 = time.perf_counter()
+    scores = [vit.fit_batch(xd, yd) for _ in range(VIT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [float(v) for v in scores]
+    assert launches == (conf.n_layers * VIT_STEPS,) * 3, launches
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    for _ in range(5):
+        p_wall, names, ops = profiled(lambda: vit.fit_batch(xd, yd))
+        if names:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device event")
+    by_name = _flash_names(names)
+    assert all(v == conf.n_layers for v in by_name.values()), by_name
+    _, grads = vit._value_and_grad(xd, vit._device_labels(yd))
+    bad = _bad_grad_leaves(grads)
+    assert not bad, f"leaves without a finite non-zero gradient: {bad}"
+    n_leaves = len(_flatten(grads))
+    del grads
+    step_s = wall / VIT_STEPS
+    flops = vit_train_flops_per_image(conf) * VIT_BATCH
+    busy_ms = sum(us for _, _, us in ops) / 1e3
+    rec = {"config": VIT_B16, "batch": VIT_BATCH,
+           "tokens_per_image": conf.n_patches, "num_params": vit.num_params(),
+           "warmup_steps": VIT_WARMUP, "timed_steps": VIT_STEPS,
+           "losses": losses, "step_ms": step_s * 1e3,
+           "images_per_s": VIT_BATCH / step_s,
+           "flops_per_step": flops,
+           "mfu_vs_bf16_peak": flops / step_s / PEAK_OPS_PER_S["bfloat16"],
+           "peak_memory_bytes": peak,
+           "kernel_launches": {"flash_attn_fwd": launches[0],
+                               "flash_attn_dq": launches[1],
+                               "flash_attn_dkv": launches[2],
+                               "counted_by": "the wrappers, timed steps"},
+           "profiled_step_kernels": by_name,
+           "profiled_step_ms": p_wall * 1e3,
+           "busy_share_of_profiled_step": busy_ms / (p_wall * 1e3),
+           "profiled_step_top_ops": [
+               {"name": n[:80], "calls": c, "device_ms": us / 1e3}
+               for n, c, us in sorted(ops, key=lambda o: -o[2])[:6]],
+           "leaves_with_finite_nonzero_gradient": n_leaves}
+    rows = list(x[:VIT_REQUESTS])
+    rec["serve"] = _served(vit, rows, (s, s, ch))
+    # one forward launch a layer a dispatched batch
+    assert rec["serve"]["flash_fwd_launches"] == \
+        conf.n_layers * rec["serve"]["batches"], rec["serve"]
+    return rec, vit
+
+
+def vit_card_vs_cpu(conf):
+    """A 2-layer f32 copy (TF32 off): logits and one step's loss and
+    gradients on the card and on the CPU from the same weights, within
+    VIT_CARD_CPU_RTOL of each tensor's max abs."""
+    import dataclasses
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers import _synthetic_images
+    from deeplearning4j_tpu_torch.models.transformer import params_from_numpy
+    from deeplearning4j_tpu_torch.models.vit import ViT
+    c2 = dataclasses.replace(conf, n_layers=VIT_CPU_CHECK["n_layers"],
+                             compute_dtype=None)
+    n, s = VIT_CPU_CHECK["batch"], c2.image_size
+    x, y = _synthetic_images(n, s, s, c2.n_channels, c2.n_classes, SEED + 21)
+    card = ViT(c2, device=DEVICE).init()
+    cpu = ViT(c2, device="cpu")
+    cpu.params = params_from_numpy(_numpy_tree(card.params), "cpu")
+    xc, yc = torch.from_numpy(x), cpu._device_labels(y)
+    with torch.no_grad():
+        got = card._logits(card.params, xc.to(DEVICE)).cpu()
+        want = cpu._logits(cpu.params, xc)
+    logits_rel = float((got - want).abs().max() / want.abs().max())
+    before = read_launches()
+    got_loss, got_g = card._value_and_grad(xc.to(DEVICE), yc.to(DEVICE))
+    torch.cuda.synchronize()
+    after = read_launches()
+    want_loss, want_g = cpu._value_and_grad(xc, yc)
+    assert [a - b for a, b in zip(after, before)] == [c2.n_layers] * 3, \
+        (before, after)
+    grad_rel, worst = _leaf_rel(got_g, want_g)
+    loss_err = abs(float(got_loss) - float(want_loss))
+    rec = {"config": {"n_layers": c2.n_layers, "d_model": c2.d_model,
+                      "batch": n, "dtype": "float32"},
+           "logits_rel_err": logits_rel, "loss_abs_err": loss_err,
+           "grad_max_rel_err": grad_rel, "grad_worst_leaf": worst,
+           "tol": VIT_CARD_CPU_RTOL}
+    assert logits_rel <= VIT_CARD_CPU_RTOL and grad_rel <= \
+        VIT_CARD_CPU_RTOL and loss_err <= VIT_CARD_CPU_RTOL, rec
+    return rec
+
+
+def vit_digits(tmp):
+    """tests/test_vit.py's learner through ``fit(DigitsDataSetIterator)``
+    on the card: 30 epochs of the first 320 training digits at batch 64
+    (its 150 batches), the train accuracy against its bar and the
+    held-out accuracy; then ``write_model``/``restore_model`` of the
+    learned ViT on the card: the same ``output()`` bits."""
+    import os
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        DigitsDataSetIterator
+    from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        restore_model, write_model)
+    f = VIT_DIGITS_FIT
+    it = DigitsDataSetIterator(f["batch"], num_examples=f["examples"])
+    test = DigitsDataSetIterator(f["batch"], train=False)
+    vit = ViT(ViTConfig(**VIT_DIGITS), device=DEVICE).init()
+    t0 = time.perf_counter()
+    vit.fit(it, epochs=f["epochs"])
+    train_acc = vit.evaluate(it.features, it.label_ids)
+    fit_s = time.perf_counter() - t0
+    rec = {"config": VIT_DIGITS, "batches": vit.iteration,
+           "fit_s": fit_s, "final_score": float(vit.score_),
+           "train_accuracy": train_acc, "bar": f["train_bar"],
+           "held_out_accuracy": vit.evaluate(test.features,
+                                             test.label_ids)}
+    assert vit.iteration == f["epochs"] * f["examples"] // f["batch"]
+    assert train_acc >= f["train_bar"], rec
+    path = os.path.join(tmp, "vit.zip")
+    write_model(vit, path)
+    back = restore_model(path, device=DEVICE)
+    rec["archive_output_bitwise"] = bool(np.array_equal(
+        back.output(test.features), vit.output(test.features)))
+    rec["archive_bytes"] = os.path.getsize(path)
+    assert type(back) is ViT and rec["archive_output_bitwise"], rec
+    return rec
+
+
+def phase_vit(card):
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    rec, vit = vit_full_width(card)
+    rec = {"phase": "vit", **rec, "card": card}
+    conf = vit.conf
+    del vit
+    torch.cuda.empty_cache()
+    seconds = {"full_width": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    rec["f32_card_vs_cpu"] = vit_card_vs_cpu(conf)
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["digits"] = vit_digits(tmp)
+    seconds["digits"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    rec["seconds"] = seconds
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase moe: the MoE LM at the slice's widths on the LM's flash route
+# ---------------------------------------------------------------------------
+class _MoERoutes:
+    """Watches ``moe_ffn_dense`` (the module attribute the MoE LM calls):
+    per call, each token's experts in order of gate logit and the
+    smallest gaps between the first and second, and the second and
+    third, gate logits."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.models import moe_transformer as mt
+        self.module, self.real = mt, mt.moe_ffn_dense
+        self.order, self.margins = [], []
+
+    def __enter__(self):
+        import torch
+
+        def spy(bp, h, n_experts, top_k=1):
+            with torch.no_grad():
+                gl = (h @ bp["gate"]).float().reshape(-1, n_experts)
+                top = torch.sort(gl, dim=-1, descending=True)
+                gaps = (top.values[:, :-1] - top.values[:, 1:]).min(0)
+                self.order.append(top.indices[:, :3].cpu())
+                self.margins.append(gaps.values[:2].cpu())
+            return self.real(bp, h, n_experts, top_k)
+        self.module.moe_ffn_dense = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_ffn_dense = self.real
+
+
+def _tokens_per_expert(conf, moe_blocks, routes):
+    """{block: tokens whose first choice is each expert} of one
+    watched forward."""
+    import numpy as np
+    return {f"b{i}": np.bincount(o[:, 0].numpy(),
+                                 minlength=conf.n_experts).tolist()
+            for i, o in zip(moe_blocks, routes.order)}
+
+
+def token_chain(rows, t, vocab, seed):
+    """[rows, t] int64 tokens of a seeded chain: each token is followed by
+    ``(7919 * token + 13) % vocab`` with probability 0.9, else by a
+    uniform draw, so a model has something to learn."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = np.empty((rows, t), np.int64)
+    out[:, 0] = rng.randint(0, vocab, rows)
+    for j in range(1, t):
+        follow = (7919 * out[:, j - 1] + 13) % vocab
+        out[:, j] = np.where(rng.rand(rows) < 0.9, follow,
+                             rng.randint(0, vocab, rows))
+    return out
+
+
+def moe_full_width(card):
+    """The MoE LM at the slice's widths in bf16: 2 warm-up and 10 timed
+    ``fit_batch`` steps on one batch of 32 rows of the seeded token
+    chain, every expert's routing and gradient, and 16 requests served.
+    Returns (record, the model)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import hw
+    from deeplearning4j_tpu_torch.models.moe_transformer import (
+        MoETransformerConfig, MoETransformerLM)
+    conf = MoETransformerConfig(**MOE)
+    t = conf.max_len
+    lm = MoETransformerLM(conf, device=DEVICE).init()
+    batch = torch.from_numpy(token_chain(TRAIN_BATCH, t, conf.vocab_size,
+                                         SEED + 30)).to(DEVICE)
+    moe_blocks = [i for i in range(conf.n_layers) if conf.is_moe_layer(i)]
+    # the routing and its gradients, from the initial weights: every
+    # expert of every MoE block takes tokens and gets a gradient
+    with _MoERoutes() as routes:
+        _, grads = lm._value_and_grad(batch[:, :-1], batch[:, 1:], None)
+    assert len(routes.order) == len(moe_blocks)
+    first_routes = _tokens_per_expert(conf, moe_blocks, routes)
+    bad = _bad_grad_leaves(grads)
+    dead = [f"b{i}.expert{e}" for i in moe_blocks
+            for e in range(conf.n_experts)
+            if not (grads[f"b{i}"]["W1"][e].abs().max() > 0
+                    and grads[f"b{i}"]["W2"][e].abs().max() > 0)]
+    assert not bad and not dead, (bad, dead, first_routes)
+    assert all(min(c) > 0 for c in first_routes.values()), first_routes
+    del grads
+    warm = [float(lm.fit_batch(batch)) for _ in range(MOE_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                           # the main path starts here
+    t0 = time.perf_counter()
+    scores = [lm.fit_batch(batch) for _ in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [float(v) for v in scores]
+    assert launches == (conf.n_layers * MOE_STEPS,) * 3, launches
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    # where the tokens go after the timed steps (reported: a gate trained
+    # on one fixed batch may starve an expert)
+    with _MoERoutes() as routes, torch.no_grad():
+        lm._logits(lm.params, batch[:, :-1])
+    step_s = wall / MOE_STEPS
+    tokens = TRAIN_BATCH * (t - 1)
+    h = conf.d_expert or conf.d_ff
+    active = hw.TRAIN_FLOPS_MULTIPLIER * hw.transformer_fwd_flops_per_token(
+        t, conf.d_model, conf.n_layers, h, conf.vocab_size)
+    # dense routing runs every expert on every token: E/k times the
+    # expert MLP's FLOPs in each MoE block
+    extra = hw.TRAIN_FLOPS_MULTIPLIER * len(moe_blocks) * (
+        conf.n_experts / conf.router_top_k - 1) * 4 * conf.d_model * h
+    rec = {"config": MOE, "batch": TRAIN_BATCH, "tokens_per_row": t,
+           "num_params": lm.num_params(), "moe_blocks": moe_blocks,
+           "warmup_steps": MOE_WARMUP, "timed_steps": MOE_STEPS,
+           "losses": losses, "step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "active_flops_per_token": active,
+           "mfu_active_vs_bf16_peak": tokens * active / step_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "executed_flops_per_token": active + extra,
+           "mfu_executed_vs_bf16_peak": tokens * (active + extra) / step_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "flops_note": "MFU counts the active (top-1) FLOPs; dense "
+                         "routing executes E/k = 4x the expert FLOPs "
+                         "(executed_flops_per_token)",
+           "peak_memory_bytes": peak,
+           "kernel_launches": {"flash_attn_fwd": launches[0],
+                               "flash_attn_dq": launches[1],
+                               "flash_attn_dkv": launches[2],
+                               "counted_by": "the wrappers, timed steps"},
+           "tokens_per_expert_at_init": first_routes,
+           "tokens_per_expert_after_timed_steps": _tokens_per_expert(
+               conf, moe_blocks, routes),
+           "min_gate_margin_after": float(min(m[0]
+                                              for m in routes.margins))}
+    rows = [r.astype(np.int32) for r in batch[:MOE_REQUESTS].cpu().numpy()]
+    rec["serve"] = _served(lm, rows, (t,))
+    assert rec["serve"]["flash_fwd_launches"] == \
+        conf.n_layers * rec["serve"]["batches"], rec["serve"]
+    return rec, lm
+
+
+def moe_refusals(lm):
+    """generate(), beam_search() and a ContinuousLM over the MoE LM raise
+    NotImplementedError at once, with the reference's words."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+    prompt = np.zeros((1, 4), np.int32)
+    said = []
+    for call in (lambda: lm.generate(prompt, 2),
+                 lambda: lm.beam_search(prompt, 2),
+                 lambda: ContinuousLM(lm, slots=2, device=DEVICE)):
+        try:
+            call()
+        except NotImplementedError as e:
+            said.append(str(e))
+        else:
+            raise AssertionError("MoE generation did not raise")
+    assert len(set(said)) == 1 and "MoE family" in said[0], said
+    return said[0]
+
+
+def moe_archive(conf, tmp):
+    """A copy at full width cut to MOE_ARCHIVE_LAYERS layers, one step,
+    written and restored on the card: ``output()`` the same bits, and one
+    further step from each the same parameter and moment bits."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.moe_transformer import \
+        MoETransformerLM
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        restore_model, write_model)
+    c2 = dataclasses.replace(conf, n_layers=MOE_ARCHIVE_LAYERS)
+    batches = [token_chain(8, c2.max_len, c2.vocab_size, SEED + 31 + i)
+               for i in range(2)]
+    lm = MoETransformerLM(c2, device=DEVICE).init()
+    lm.fit_batch(batches[0])
+    path = os.path.join(tmp, "moe.zip")
+    t0 = time.perf_counter()
+    write_model(lm, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_model(path, device=DEVICE)
+    restore_s = time.perf_counter() - t0
+    rows = batches[1][:2]
+    out_bits = bool(np.array_equal(back.output(rows), lm.output(rows)))
+    for m in (lm, back):
+        m.fit_batch(batches[1])
+    torch.cuda.synchronize()
+    params_bits, p_err = _tree_bits_equal(lm.params, back.params)
+    opt_bits, o_err = _tree_bits_equal(lm.opt_state, back.opt_state)
+    rec = {"n_layers": c2.n_layers, "archive_bytes": os.path.getsize(path),
+           "write_s": write_s, "restore_s": restore_s,
+           "output_bitwise": out_bits, "resume_params_bitwise": params_bits,
+           "resume_moments_bitwise": opt_bits,
+           "resume_max_abs_diff": max(p_err, o_err)}
+    assert type(back) is MoETransformerLM and out_bits and params_bits \
+        and opt_bits, rec
+    return rec
+
+
+def moe_card_vs_cpu(conf, top_k):
+    """A 2-layer f32 copy with ``router_top_k`` = ``top_k``, weights drawn
+    on the CPU (MOE_CPU_CHECK's seed) and copied to the card: the
+    routing (each token's first choice, and its second under top-2)
+    equal on both, with the smallest gate margins; the logits within
+    CPU_GPU_TOL; one step's loss within TRAIN_LOSS_TOL and gradients
+    within MOE_CARD_CPU_RTOL of each leaf's max abs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.moe_transformer import \
+        MoETransformerLM
+    from deeplearning4j_tpu_torch.models.transformer import params_from_numpy
+    c2 = dataclasses.replace(conf, n_layers=MOE_CPU_CHECK["n_layers"],
+                             compute_dtype=None, router_top_k=top_k,
+                             seed=MOE_CPU_CHECK["seed"])
+    cpu = MoETransformerLM(c2, device="cpu").init()
+    card = MoETransformerLM(c2, device=DEVICE)
+    card.params = params_from_numpy(_numpy_tree(cpu.params), DEVICE)
+    toks = torch.from_numpy(np.random.RandomState(SEED + 32).randint(
+        0, c2.vocab_size, (MOE_CPU_CHECK["batch"], CPU_CHECK_T + 1)))
+    x, y = toks[:, :-1], toks[:, 1:]
+    routes = {}
+    for name, m, xx in (("card", card, x.to(DEVICE)), ("cpu", cpu, x)):
+        with _MoERoutes() as r, torch.no_grad():
+            logits = m._logits(m.params, xx).cpu()
+        routes[name] = (r, logits)
+    (rg, lg), (rc, lc) = routes["card"], routes["cpu"]
+    first_equal = all(torch.equal(a[:, 0], b[:, 0])
+                      for a, b in zip(rg.order, rc.order))
+    second_equal = all(torch.equal(a[:, 1], b[:, 1])
+                       for a, b in zip(rg.order, rc.order))
+    margins = [float(min(m[i] for m in rc.margins)) for i in range(2)]
+    logits_err = float((lg - lc).abs().max())
+    got_loss, got_g = card._value_and_grad(x.to(DEVICE), y.to(DEVICE), None)
+    want_loss, want_g = cpu._value_and_grad(x, y, None)
+    grad_rel, worst = _leaf_rel(got_g, want_g)
+    loss_err = abs(float(got_loss) - float(want_loss))
+    rec = {"router_top_k": top_k, "n_layers": c2.n_layers,
+           "batch": MOE_CPU_CHECK["batch"], "T": CPU_CHECK_T,
+           "routing_first_choice_equal": first_equal,
+           "routing_second_choice_equal": second_equal,
+           "min_gate_margin_first_second": margins[0],
+           "min_gate_margin_second_third": margins[1],
+           "logits_max_abs_err": logits_err, "loss_abs_err": loss_err,
+           "grad_max_rel_err": grad_rel, "grad_worst_leaf": worst}
+    need = margins[:top_k]
+    assert min(need) > MOE_MARGIN, ("pick another seed", rec)
+    assert first_equal and (top_k == 1 or second_equal), rec
+    assert logits_err <= CPU_GPU_TOL and loss_err <= TRAIN_LOSS_TOL \
+        and grad_rel <= MOE_CARD_CPU_RTOL, rec
+    return rec
+
+
+def phase_moe(card):
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    rec, lm = moe_full_width(card)
+    rec = {"phase": "moe", **rec, "card": card}
+    rec["generation_refused"] = moe_refusals(lm)
+    conf = lm.conf
+    del lm
+    torch.cuda.empty_cache()
+    seconds = {"full_width": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["archive"] = moe_archive(conf, tmp)
+    seconds["archive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["f32_card_vs_cpu"] = [moe_card_vs_cpu(conf, k) for k in (1, 2)]
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    rec["seconds"] = seconds
+    emit(rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4595,6 +5215,59 @@ def keras_lstm():
     return rec
 
 
+def keras_resnet50_narrow(tmp):
+    """The committed full-depth Keras 1 ResNet-50 topology (filters
+    narrowed 16x, seeded weights): imported on the card against the CPU
+    (KERAS_CARD_CPU_RTOL), then one ``/fit`` through ``KerasRPCServer``
+    on seeded 224x224x3 minibatches, its archive restored on the card."""
+    import json
+    import os
+    import urllib.request
+    import numpy as np
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_model_and_weights as imp
+    from deeplearning4j_tpu_torch.modelimport.keras_server import \
+        KerasRPCServer
+    from deeplearning4j_tpu_torch.utils.model_serializer import restore_model
+    k = KERAS_RESNET50
+    r = np.random.RandomState(SEED + 15)
+    path = _keras_file(k["file"])
+    x = r.rand(k["images"], 224, 224, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    net, rec = _card_cpu(imp, path, x)
+    rec["import_s"] = time.perf_counter() - t0
+    rec["vertices"] = len(net.conf.vertices)
+    assert rec["vertices"] == 176, rec
+    data = os.path.join(tmp, "resnet_batches")
+    os.makedirs(data)
+    eye = np.eye(1000, dtype=np.float32)
+    for i in range(k["fit_batches"]):
+        np.savez(os.path.join(data, f"b{i:03d}.npz"),
+                 features=r.rand(k["fit_batch"], 224, 224, 3).astype(
+                     np.float32),
+                 labels=eye[r.randint(0, 1000, k["fit_batch"])])
+    srv = KerasRPCServer(device=DEVICE).start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/fit", data=json.dumps({
+                "model_path": path, "data_dir": data, "epochs": 1,
+                "save_path": os.path.join(tmp, "resnet.zip")}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            reply = json.loads(resp.read())
+    finally:
+        srv.stop()
+    assert reply["status"] == "ok" and reply["model_type"] == \
+        "ComputationGraph", reply
+    assert math.isfinite(reply["final_score"]), reply
+    tuned = restore_model(os.path.join(tmp, "resnet.zip"), device=DEVICE)
+    out = tuned.output(x)
+    assert np.isfinite(out).all() and out.shape == (k["images"], 1000)
+    rec["fit"] = {key: reply[key] for key in ("batches", "first_score",
+                                              "final_score", "seconds")}
+    return rec
+
+
 def phase_keras(card):
     import tempfile
     t_phase = time.perf_counter()
@@ -4605,7 +5278,9 @@ def phase_keras(card):
         for key, step in (("lenet_k1_tf", lambda: keras_lenet(tmp)),
                           ("residual_k1_th", keras_residual),
                           ("lstm_k2_charrnn", keras_lstm),
-                          ("trained_vgg16_tiny", keras_trained_vgg)):
+                          ("trained_vgg16_tiny", keras_trained_vgg),
+                          ("resnet50_narrow_k1_tf",
+                           lambda: keras_resnet50_narrow(tmp))):
             t0 = time.perf_counter()
             if key == "lstm_k2_charrnn":
                 lstm_before = read_lstm_launches()
@@ -6884,6 +7559,8 @@ def main():
     tf = phase_transfer(card)
     phase_gradcheck(card)
     phase_tsne_kmeans(card)
+    vt = phase_vit(card)
+    mo = phase_moe(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -6913,6 +7590,38 @@ def main():
             rec.update((d256.get(name) or {}).get(dt) or {})
             out[dt] = rec
         return {"shape": kernels[("d256", "float32")]["shape"], **out}
+
+    def vit_shape(name):
+        """The kernel at phase vit's attention (n 768, T 196, d 64,
+        non-causal), bf16 (the phase's) and f32: error, ms, bound, the
+        twin's and the library's ms."""
+        out = {}
+        for dt in ("bfloat16", "float32"):
+            f, b = kernels[("vit", dt)], kernels[("vit", dt, "bwd")]
+            if name == "flash_attn_fwd":
+                out[dt] = {"max_abs_err": f["max_abs_err"],
+                           "ms": f["kernel_ms"], "bound_ms": f["bound_ms"],
+                           "bound_by": f["bound_by"],
+                           "plain_ms": f["plain_ms"],
+                           "library_ms": f["library_ms"]}
+                continue
+            which = "dq" if name == "flash_attn_dq" else "dkv"
+            grads = ("dq",) if which == "dq" else ("dk", "dv")
+            out[dt] = {"max_abs_err": max(b["errors"][g]["max_abs_err"]
+                                          for g in grads),
+                       "ms": b[f"{which}_ms"],
+                       "bound_ms": b[f"{which}_bound_ms"],
+                       "bound_by": b[f"{which}_bound_by"],
+                       "plain_ms": b["plain_bwd_ms"],
+                       "library_ms": b["library_bwd_ms"]}
+        return {"shape": kernels[("vit", "float32")]["shape"], **out}
+
+    def new_callers(name):
+        """Phases vit's and moe's launches (their timed steps) and the
+        kernel at the ViT's shape."""
+        return {"launches_vit": vt["kernel_launches"][name],
+                "launches_moe": mo["kernel_launches"][name],
+                "vit_shape": vit_shape(name)}
     src = "deeplearning4j_tpu_torch/csrc/"
     ref = "deeplearning4j_tpu/ops/pallas_kernels.py:"
     launches = tr["kernel_launches"]
@@ -6927,7 +7636,7 @@ def main():
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
          "design": fwd["design"], "f32_route": "cuda cores",
-         "d256": wide("flash_attn_fwd")},
+         "d256": wide("flash_attn_fwd"), **new_callers("flash_attn_fwd")},
         {"name": "flash_attn_dq", "route": "cuda",
          "source": src + "flash_attn_dq.cu", "replaces": ref + "185",
          "launches": launches["flash_attn_dq"],
@@ -6938,7 +7647,7 @@ def main():
          "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
          "design": bwd["design"], "f32_route": "cuda cores",
-         "d256": wide("flash_attn_dq")},
+         "d256": wide("flash_attn_dq"), **new_callers("flash_attn_dq")},
         {"name": "flash_attn_dkv", "route": "cuda",
          "source": src + "flash_attn_dkv.cu", "replaces": ref + "235",
          "launches": launches["flash_attn_dkv"],
@@ -6950,7 +7659,7 @@ def main():
          "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
          "library_ms": bwd["library_bwd_ms"],
          "design": bwd["design"], "f32_route": "cuda cores",
-         "d256": wide("flash_attn_dkv")},
+         "d256": wide("flash_attn_dkv"), **new_callers("flash_attn_dkv")},
         # the char-RNN's layer window (the sequence kernel) and cell step
         # (the backward); no PyTorch call computes the peephole cell, so
         # library_ms is null and cuDNN's LSTM (another function) is

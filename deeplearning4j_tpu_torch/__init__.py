@@ -7,10 +7,14 @@ or JAX. Entry points run on the card unless the caller passes
 built at first use into ``_build/``.
 """
 
+from deeplearning4j_tpu_torch.models.moe_transformer import (
+    MoETransformerConfig, MoETransformerLM, moe_ffn_dense)
 from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          TransformerLM,
                                                          params_from_numpy)
+from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
 from deeplearning4j_tpu_torch.serving.batcher import InferenceServer
 
-__all__ = ["TransformerConfig", "TransformerLM", "params_from_numpy",
-           "InferenceServer"]
+__all__ = ["MoETransformerConfig", "MoETransformerLM", "TransformerConfig",
+           "TransformerLM", "ViT", "ViTConfig", "moe_ffn_dense",
+           "params_from_numpy", "InferenceServer"]

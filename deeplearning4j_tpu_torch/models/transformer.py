@@ -193,12 +193,14 @@ def _layer_norm(x, g, b, eps=1e-5):
     return (x - m) / torch.sqrt(v + eps) * g + b
 
 
-def _block_apply(c, bp, x, drop=None, keep=None):
+def _block_apply(c, bp, x, drop=None, keep=None, ffn=None):
     """One pre-LN block from its parameter dict (the reference's
     canonical block math). ``drop(a, mask)`` applies residual-branch
     dropout with ``keep``, this block's pair of keep-masks. The masks
     stand for the reference's ``rng``: they are drawn before the block, so
-    a block recomputed under remat applies the same ones."""
+    a block recomputed under remat applies the same ones. ``ffn(bp,
+    hloc)``, when given, takes the place of the dense FFN (the MoE
+    family's expert routing)."""
     B, T, d = x.shape
     hd = d // c.n_heads
     r1, r2 = keep if keep is not None else (None, None)
@@ -223,9 +225,12 @@ def _block_apply(c, bp, x, drop=None, keep=None):
     a = o @ bp["proj"] + bp["proj_b"]
     x = x + (drop(a, r1) if drop else a)
     hloc = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
-    # jax.nn.gelu defaults to the tanh approximation
-    m = F.gelu(hloc @ bp["fc"] + bp["fc_b"], approximate="tanh") \
-        @ bp["out"] + bp["out_b"]
+    if ffn is not None:
+        m = ffn(bp, hloc)
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        m = F.gelu(hloc @ bp["fc"] + bp["fc_b"], approximate="tanh") \
+            @ bp["out"] + bp["out_b"]
     return x + (drop(m, r2) if drop else m)
 
 
@@ -354,7 +359,8 @@ def _parameter_tree(tree):
 def _fresh_opt_state(c, params):
     opt = {"m": _tree_map(torch.zeros_like, params),
            "v": _tree_map(torch.zeros_like, params)}
-    if c.ema_decay is not None:   # Polyak shadow starts at the parameters
+    # the ViT's configuration has no EMA field
+    if getattr(c, "ema_decay", None) is not None:   # Polyak shadow
         opt["ema"] = _tree_map(lambda a: a.detach().clone(), params)
     return opt
 
@@ -876,6 +882,10 @@ class TransformerLM(nn.Module):
             return logits.cpu().numpy()
 
     # ---- generation ----------------------------------------------------
+    def _check_decodable(self):
+        """Raise if this model has no decode programs (the MoE family);
+        the continuous-batching server asks before it takes a model."""
+
     def generate(self, prompt, n_new, *, temperature=1.0, seed=0,
                  top_k=None, top_p=None, repetition_penalty=None):
         """Autoregressive sampling over a preallocated KV cache, greedy at

@@ -413,6 +413,7 @@ class ContinuousLM(ServingFrontEnd):
     def __init__(self, lm, *, slots=None, chunk=None, queue_cap=None,
                  seed=0, kv_ladder=None, prefill_ladder=None,
                  prefix_cache_mb=None, device=None):
+        lm._check_decodable()
         dev = resolve_device(device)
         if lm.device != dev:
             raise ValueError(f"model lives on {lm.device}, the server "

@@ -35,8 +35,12 @@ dropout key under ``rng``, which no torch generator can continue (the
 ROADMAP's RNG rule): the port reads such an archive and starts its
 dropout stream afresh, seeded as ``init`` seeds it, and writes its own
 generator's state under ``torch_rng`` (with ``torch_rng_device``), which
-the reference ignores. ``MoETransformerLM`` and ``ViT`` archives raise
-``NotImplementedError`` naming ROADMAP.md.
+the reference ignores. ``MoETransformerLM`` and ``ViT`` archives are
+the same family: their configuration dataclasses (``MoETransformerConfig``,
+``ViTConfig``) as JSON, their trees in the reference's leaf order (a MoE
+block's ``W1, W1_b, W2, W2_b, gate`` in place of ``fc ... out_b``; the
+ViT's ``b{i}``, ``head``, ``head_b``, ``lnf_*``, ``wpatch``,
+``wpatch_b``, ``wpe``), and ``model_type`` naming the class.
 
 Every write commits through ``atomic_io`` (temporary file, fsync,
 rename); a restore verifies the manifest and raises
@@ -58,10 +62,13 @@ from deeplearning4j_tpu_torch.datasets.normalizers import DataNormalization
 from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
 from deeplearning4j_tpu_torch.models.computation_graph import \
     ComputationGraph
+from deeplearning4j_tpu_torch.models.moe_transformer import (
+    MoETransformerConfig, MoETransformerLM)
 from deeplearning4j_tpu_torch.models.multi_layer_network import \
     MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, TransformerLM, _flatten, _fresh_opt_state, leaf_paths)
+from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
 from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
@@ -70,7 +77,7 @@ from deeplearning4j_tpu_torch.utils import atomic_io, flat_params
 
 __all__ = ["CONFIG_NAME", "COEFFICIENTS_NAME", "META_NAME", "NORMALIZER_NAME",
            "STATE_NAME", "UPDATER_NAME", "add_normalizer_to_model",
-           "load_transformer_lm_", "model_entries", "model_type",
+           "is_pytree_model", "load_transformer_lm_", "model_entries", "model_type",
            "restore_computation_graph", "restore_model",
            "restore_multi_layer_network", "restore_normalizer_from_file",
            "restore_transformer_lm", "write_model"]
@@ -84,14 +91,27 @@ NORMALIZER_NAME = "preprocessor.bin"
 FRAMEWORK = "deeplearning4j_tpu_torch"
 
 
-# the reference's pytree family: a configuration dataclass and parameter
-# and optimizer trees, one zip layout, dispatched by metadata's
-# model_type; None marks a kind this package has not ported
-_PYTREE_FAMILY = {"TransformerLM": (TransformerLM, TransformerConfig),
-                  "MoETransformerLM": None, "ViT": None}
 # the configuration fields that fix the parameter shapes
 _LM_SHAPE_FIELDS = ("vocab_size", "max_len", "d_model", "n_heads",
                     "n_layers", "d_ff", "n_kv_heads", "pos_embed")
+# the reference's pytree family: a configuration dataclass and parameter
+# and optimizer trees, one zip layout, dispatched by metadata's
+# model_type: (class, configuration class, shape fields)
+_PYTREE_FAMILY = {
+    "TransformerLM": (TransformerLM, TransformerConfig, _LM_SHAPE_FIELDS),
+    "MoETransformerLM": (MoETransformerLM, MoETransformerConfig,
+                         _LM_SHAPE_FIELDS + ("n_experts", "moe_every",
+                                             "d_expert")),
+    "ViT": (ViT, ViTConfig, ("image_size", "n_channels", "patch_size",
+                             "n_classes", "d_model", "n_layers", "d_ff")),
+}
+
+
+def is_pytree_model(net):
+    """Whether ``net`` is of the pytree family (a TransformerLM, an
+    MoETransformerLM or a ViT)."""
+    return isinstance(net, tuple(cls for cls, _, _ in
+                                 _PYTREE_FAMILY.values()))
 
 
 def _not_ported(what):
@@ -215,8 +235,6 @@ def _family(kind, path):
         raise ValueError(
             f"checkpoint {path!r} holds a {kind!r} model, not one of the "
             f"pytree family {sorted(_PYTREE_FAMILY)}: use restore_model()")
-    if _PYTREE_FAMILY[kind] is None:
-        raise _not_ported(f"restoring a {kind} archive")
     return _PYTREE_FAMILY[kind]
 
 
@@ -249,12 +267,12 @@ def _adopt_rng(net, meta):
 
 
 def restore_transformer_lm(path, load_updater=True, device=None):
-    """Restore a pytree-family model (a ``TransformerLM``; the class comes
-    from the metadata, the configuration from its dataclass) on
-    ``device`` (the card unless the caller asks for the CPU).
-    ``MoETransformerLM`` and ``ViT`` archives raise."""
+    """Restore a pytree-family model (a ``TransformerLM``, an
+    ``MoETransformerLM`` or a ``ViT``; the class comes from the metadata,
+    the configuration from its dataclass) on ``device`` (the card unless
+    the caller asks for the CPU)."""
     kind, conf, meta, coeff, upd = _read_transformer(path, load_updater)
-    cls, conf_cls = _family(kind, path)
+    cls, conf_cls, _ = _family(kind, path)
     net = cls(conf_cls(**conf), device=device).init()
     _check_tree_vec(net.params, coeff, "coefficients")
     if upd is not None:
@@ -267,24 +285,26 @@ def restore_transformer_lm(path, load_updater=True, device=None):
 
 
 def load_transformer_lm_(net, path, load_updater=True):
-    """Load an LM archive into the existing ``net``, in place: the
-    archive's parameters, optimizer state, iteration and dropout stream
-    go into the tensors ``net`` already holds, so CUDA graphs captured
-    over them (``ContinuousLM``'s programs, ``generate()``'s) answer from
-    the loaded weights without a new capture. The archive's parameter
-    shapes must be ``net``'s; a failure leaves ``net`` as it was. Without
-    an optimizer state in the archive (or with ``load_updater`` False) the
-    LM gets a fresh one, as a restored model does. Returns the archive's
+    """Load a pytree-family archive into the existing ``net`` (an LM, an
+    MoE LM or a ViT of the archive's kind), in place: the archive's
+    parameters, optimizer state, iteration and dropout stream go into the
+    tensors ``net`` already holds, so CUDA graphs captured over them
+    (``ContinuousLM``'s programs, ``generate()``'s) answer from the loaded
+    weights without a new capture. The archive's parameter shapes must be
+    ``net``'s; a failure leaves ``net`` as it was. Without an optimizer
+    state in the archive (or with ``load_updater`` False) the model gets
+    a fresh one, as a restored model does. Returns the archive's
     metadata."""
     kind, conf, meta, coeff, upd = _read_transformer(path, load_updater)
     if kind != type(net).__name__:
         raise ValueError(f"checkpoint {path!r} holds a {kind}, cannot load "
                          f"it into a {type(net).__name__}")
-    mine = {f: getattr(net.conf, f) for f in _LM_SHAPE_FIELDS}
-    theirs = {f: conf.get(f, mine[f]) for f in _LM_SHAPE_FIELDS}
+    fields = _family(kind, path)[2]
+    mine = {f: getattr(net.conf, f) for f in fields}
+    theirs = {f: conf.get(f, mine[f]) for f in fields}
     if mine != theirs:
-        raise ValueError(f"checkpoint {path!r} holds an LM of other shapes: "
-                         f"{theirs} against {mine}")
+        raise ValueError(f"checkpoint {path!r} holds a {kind} of other "
+                         f"shapes: {theirs} against {mine}")
     if net.params is None:
         net.init()
     opt = net.opt_state
@@ -309,11 +329,12 @@ def load_transformer_lm_(net, path, load_updater=True):
 
 def model_entries(net, save_updater=True, normalizer=None):
     """The archive's entries ({name: bytes | str}) for a
-    MultiLayerNetwork, a ComputationGraph or a TransformerLM: the common
-    part of :func:`write_model` and the training checkpoint (which adds
-    its own entry before the commit). ``normalizer`` is a fitted
-    normalizer (or its ``preprocessor.bin`` bytes)."""
-    if isinstance(net, TransformerLM):
+    MultiLayerNetwork, a ComputationGraph or a pytree-family model (a
+    TransformerLM, an MoETransformerLM, a ViT): the common part of
+    :func:`write_model` and the training checkpoint (which adds its own
+    entry before the commit). ``normalizer`` is a fitted normalizer (or
+    its ``preprocessor.bin`` bytes)."""
+    if is_pytree_model(net):
         return _transformer_entries(net, save_updater, normalizer)
     if not isinstance(net, (MultiLayerNetwork, ComputationGraph)):
         raise _not_ported(f"the {type(net).__name__} archive")
@@ -349,8 +370,8 @@ def model_entries(net, save_updater=True, normalizer=None):
 
 def write_model(net, path, save_updater=True, normalizer=None,
                 extra_entries=None):
-    """Save a MultiLayerNetwork, a ComputationGraph or a TransformerLM
-    (ModelSerializer.writeModel) through the atomic commit. ``normalizer``
+    """Save a MultiLayerNetwork, a ComputationGraph or a pytree-family
+    model (ModelSerializer.writeModel) through the atomic commit. ``normalizer``
     goes in as ``preprocessor.bin`` (ModelSerializer.addNormalizerToModel);
     ``extra_entries`` ride in the same commit (the training checkpoint's
     state)."""
@@ -432,7 +453,7 @@ def restore_computation_graph(path, load_updater=True, device=None):
 def restore_model(path, load_updater=True, device=None):
     """Load a model archive of any kind (ModelGuesser's role), dispatched
     by its metadata's ``model_type``: a ComputationGraph, a pytree-family
-    model (``MoETransformerLM`` and ``ViT`` raise), else a
+    model (TransformerLM, MoETransformerLM, ViT), else a
     MultiLayerNetwork."""
     kind = model_type(path)
     if kind == "ComputationGraph":

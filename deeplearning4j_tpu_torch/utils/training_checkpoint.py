@@ -26,10 +26,10 @@ checkpoint an earlier version of this package wrote holds a
 ``torch_rng`` generator state instead: it still loads, its generator
 state is ignored and the counter starts at the checkpoint's iteration.
 
-A ``TransformerLM`` (the reference's pytree branch) keeps its
-parameters, optimizer state, iteration and dropout generator. Applied
-to an existing LM, the checkpoint is copied into the tensors the LM
-already holds (``model_serializer.load_transformer_lm_``), so CUDA
+A ``TransformerLM``, an ``MoETransformerLM`` or a ``ViT`` (the
+reference's pytree branch) keeps its parameters, optimizer state,
+iteration and dropout generator. Applied to an existing model, the
+checkpoint is copied into the tensors the model already holds (``model_serializer.load_transformer_lm_``), so CUDA
 graphs captured over them, such as ``ContinuousLM``'s programs, answer
 from the restored weights without a new capture.
 
@@ -52,7 +52,6 @@ import torch
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.config import env_int
 from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
-from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 from deeplearning4j_tpu_torch.utils import atomic_io, model_serializer
 
 __all__ = ["TRAIN_STATE_NAME", "apply_training_checkpoint",
@@ -73,7 +72,7 @@ _VERSION = 1
 
 def _training_state(net, cursor):
     state = {"version": _VERSION, "cursor": dict(cursor or {})}
-    if isinstance(net, TransformerLM):
+    if model_serializer.is_pytree_model(net):
         if net._rng is not None:
             state["torch_rng"] = net._rng.get_state().tolist()
             state["torch_rng_device"] = net.device.type
@@ -185,12 +184,13 @@ def _apply_lm(net, path):
 
 def apply_training_checkpoint(net, path):
     """Load a TrainingCheckpoint into an existing MultiLayerNetwork,
-    ComputationGraph or TransformerLM in place, on its device, and return
+    ComputationGraph or pytree-family model (TransformerLM,
+    MoETransformerLM, ViT) in place, on its device, and return
     the data cursor ({} for a plain model archive). Parameters, layer and
     updater state, counters, generator and guard state are all replaced,
     so the continuation is bitwise the uninterrupted run. A failure
     leaves ``net`` as it was."""
-    if isinstance(net, TransformerLM):
+    if model_serializer.is_pytree_model(net):
         return _apply_lm(net, path)
     restored = model_serializer.restore_model(path, device=net.device)
     if type(restored).__name__ != type(net).__name__:

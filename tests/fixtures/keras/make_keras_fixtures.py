@@ -32,6 +32,19 @@ import's state copy shows).
 - ``lstm_k2_charrnn.h5``: a Keras 2 Sequential at the char-RNN's width:
   LSTM 200 units over 65 inputs, T 50, ``recurrent_activation`` sigmoid,
   ``return_sequences`` False, then Dense 65 softmax.
+- ``resnet50_narrow_k1_tf.h5``: Keras applications' ``ResNet50`` at full
+  depth as a Keras 1 functional model in 'tf' ordering, its filter
+  widths narrowed 16x (4 ... 128 in place of 64 ... 2048): input
+  224x224x3, ZeroPadding2D 3, Convolution2D 7x7/2, BatchNormalization
+  (mode 0, axis 3), relu, MaxPooling2D 3x3/2; stages of 3, 4, 6 and 3
+  bottleneck blocks (1x1, 3x3 'same', 1x1, each with its
+  BatchNormalization), the first of each with a strided 1x1 projection
+  shortcut (stride 1 in the first stage, 2 after), joined by Merge(sum)
+  and relu; AveragePooling2D 7x7, Flatten, Dense 1000 softmax. Keras's
+  layer names (``conv1``, ``res2a_branch2a``, ``bn2a_branch2a``, ...);
+  Glorot-uniform kernels, zero biases and drawn BatchNormalization
+  moments from ``RandomState(SEED)``; ``make_resnet50_narrow`` writes
+  it alone.
 - ``vgg16_tiny_k1_tf.h5``: a miniature VGG-shaped Keras 1 Sequential,
   'tf' ordering, that ``TrainedModelHelper(VGG16).set_path_to_h5`` loads
   in place of the real VGG16 weights: 8x8x3 input, Convolution2D 2
@@ -56,6 +69,12 @@ LENET_FILE = "lenet_k1_tf.h5"
 RESIDUAL_FILE = "residual_k1_th.h5"
 LSTM_FILE = "lstm_k2_charrnn.h5"
 VGG_FILE = "vgg16_tiny_k1_tf.h5"
+RESNET50_FILE = "resnet50_narrow_k1_tf.h5"
+# Keras applications' ResNet50 stages: (blocks, (f1, f2, f3), first stride),
+# the filters narrowed 16x
+RESNET50_STAGES = ((3, (4, 4, 16), 1), (4, (8, 8, 32), 2),
+                   (6, (16, 16, 64), 2), (3, (32, 32, 128), 2))
+RESNET50_STEM = 4
 HELD_OUT_BAR = 0.90
 LEARN = dict(epochs=40, batch=64, shuffle_seed=5)
 
@@ -303,12 +322,101 @@ def make_vgg_tiny(path):
                 _sgd("categorical_crossentropy"), "1.2.2")
 
 
+def resnet50_narrow_layers(r):
+    """(Keras 1 functional layer configs, {layer: weights}) of the narrow
+    ResNet-50, in Keras's order and names."""
+    layers, weights = [], {}
+    counter = {"activation": 0, "merge": 0}
+
+    def add(cls, name, cfg, inbound, w=()):
+        layers.append({"class_name": cls, "name": name,
+                       "config": dict(cfg, name=name),
+                       "inbound_nodes": [[[n, 0, 0] for n in inbound]]
+                       if inbound else []})
+        weights[name] = list(w)
+        return name
+
+    def conv(name, x, c_in, c_out, k, stride=1, border="valid"):
+        return add("Convolution2D", name, {
+            "nb_filter": c_out, "nb_row": k, "nb_col": k,
+            "subsample": [stride, stride], "border_mode": border,
+            "dim_ordering": "tf", "activation": "linear"}, [x],
+            [(f"{name}_W", glorot_conv(r, k, k, c_in, c_out, "tf")),
+             (f"{name}_b", np.zeros(c_out, np.float32))])
+
+    def bn(name, x, c):
+        return add("BatchNormalization", name, {
+            "epsilon": 1e-3, "mode": 0, "axis": 3, "momentum": 0.99}, [x],
+            [(f"{name}_gamma", (1.0 + 0.1 * r.randn(c)).astype(np.float32)),
+             (f"{name}_beta", (0.1 * r.randn(c)).astype(np.float32)),
+             (f"{name}_running_mean", (0.1 * r.randn(c)).astype(np.float32)),
+             (f"{name}_running_std",
+              (1.0 + 0.5 * r.rand(c)).astype(np.float32))])
+
+    def relu(x):
+        counter["activation"] += 1
+        return add("Activation", f"activation_{counter['activation']}",
+                   {"activation": "relu"}, [x])
+
+    def block(x, c_in, filters, stage, part, stride, project):
+        f1, f2, f3 = filters
+        base = f"{stage}{part}_branch"
+        y = relu(bn(f"bn{base}2a", conv(f"res{base}2a", x, c_in, f1, 1,
+                                         stride), f1))
+        y = relu(bn(f"bn{base}2b", conv(f"res{base}2b", y, f1, f2, 3,
+                                        border="same"), f2))
+        y = bn(f"bn{base}2c", conv(f"res{base}2c", y, f2, f3, 1), f3)
+        short = x
+        if project:
+            short = bn(f"bn{base}1", conv(f"res{base}1", x, c_in, f3, 1,
+                                          stride), f3)
+        counter["merge"] += 1
+        m = add("Merge", f"merge_{counter['merge']}", {"mode": "sum"},
+                [y, short])
+        return relu(m)
+
+    x = add("InputLayer", "input_1",
+            {"batch_input_shape": [None, 224, 224, 3]}, [])
+    x = add("ZeroPadding2D", "zeropadding2d_1",
+            {"padding": [3, 3], "dim_ordering": "tf"}, [x])
+    x = relu(bn("bn_conv1", conv("conv1", x, 3, RESNET50_STEM, 7, 2),
+                RESNET50_STEM))
+    x = add("MaxPooling2D", "maxpooling2d_1", {
+        "pool_size": [3, 3], "strides": [2, 2], "border_mode": "valid",
+        "dim_ordering": "tf"}, [x])
+    c_in = RESNET50_STEM
+    for stage, (n, filters, stride) in enumerate(RESNET50_STAGES, start=2):
+        for j in range(n):
+            x = block(x, c_in, filters, stage, "abcdef"[j],
+                      stride if j == 0 else 1, project=j == 0)
+            c_in = filters[2]
+    x = add("AveragePooling2D", "avg_pool", {
+        "pool_size": [7, 7], "strides": [7, 7], "border_mode": "valid",
+        "dim_ordering": "tf"}, [x])
+    x = add("Flatten", "flatten_1", {}, [x])
+    add("Dense", "fc1000", {"output_dim": 1000, "activation": "softmax"},
+        [x], [("fc1000_W", glorot(r, (c_in, 1000))),
+              ("fc1000_b", np.zeros(1000, np.float32))])
+    return layers, weights
+
+
+def make_resnet50_narrow(path):
+    layers, weights = resnet50_narrow_layers(np.random.RandomState(SEED))
+    config = {"class_name": "Model", "config": {
+        "name": "resnet50", "layers": layers,
+        "input_layers": [["input_1", 0, 0]],
+        "output_layers": [["fc1000", 0, 0]]}}
+    write_keras(path, config, weights, _sgd("categorical_crossentropy"),
+                "1.2.2")
+
+
 def main():
     sys.path.insert(0, str(REPO))
     r = np.random.RandomState(SEED)
     make_residual(HERE / RESIDUAL_FILE, r)
     make_lstm(HERE / LSTM_FILE, r)
     make_vgg_tiny(HERE / VGG_FILE)
+    make_resnet50_narrow(HERE / RESNET50_FILE)
     acc = make_lenet(HERE / LENET_FILE)
     sizes = {p.name: p.stat().st_size for p in sorted(HERE.glob("*.h5"))}
     print(json.dumps({"lenet_held_out_accuracy": acc, "bytes": sizes,

@@ -47,7 +47,12 @@ a key mask the helper declines (no launch, counted) and the result is
 the built-in route's, bit for bit. The committed Keras files
 (``tests/fixtures/keras``) imported on the card give the CPU import's
 outputs within 1e-5 of their scale, the LSTM's through the sequence
-kernel.
+kernel, the narrow ResNet-50 topology's too. A small f32 ViT (T 49, no
+multiple of a tile, non-causal) and MoE LM (flash route, top-2) on the
+card against the same weights on the CPU: logits and one step's
+gradients within 1e-5 (ViT) and 1e-4 (MoE, as the LM's train bars) of
+each tensor's max abs, each layer launching the three kernels once, and
+the MoE's routing equal.
 """
 
 import math
@@ -1501,12 +1506,14 @@ KERAS_DIR = __import__("pathlib").Path(__file__).resolve().parent / \
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["lenet_k1_tf.h5", "residual_k1_th.h5",
-                                  "lstm_k2_charrnn.h5"])
+                                  "lstm_k2_charrnn.h5",
+                                  "resnet50_narrow_k1_tf.h5"])
 def test_keras_fixture_on_card_matches_cpu(cuda_device, name):
     from deeplearning4j_tpu_torch.modelimport import \
         import_keras_model_and_weights
     r = np.random.RandomState(2)
     x = {"lenet_k1_tf.h5": lambda: r.rand(16, 28, 28, 1),
+         "resnet50_narrow_k1_tf.h5": lambda: r.rand(2, 224, 224, 3),
          "residual_k1_th.h5": lambda: r.randn(8, 8, 8, 4),
          "lstm_k2_charrnn.h5": lambda: np.eye(65)[r.randint(0, 65,
                                                             (8, 50))]}[
@@ -1723,3 +1730,75 @@ def test_kmeans_and_tsne_on_card_match_cpu(cuda_device):
     ys = [Tsne(max_iter=30, perplexity=10.0, learning_rate=20.0, seed=3,
                device=d).fit(x) for d in (cuda_device, "cpu")]
     assert np.abs(ys[0] - ys[1]).max() <= 1e-3 * np.abs(ys[1]).max()
+
+
+def _tree_rel(got, want):
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    got, want = _flatten(got), _flatten(want)
+    return max(((got[k].cpu() - w).abs().max()
+                / w.abs().max().clamp(min=1e-30)).item()
+               for k, w in want.items())
+
+
+def _launch_counts():
+    return (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches)
+
+
+@pytest.mark.cuda
+def test_vit_on_card_matches_cpu(cuda_device):
+    from deeplearning4j_tpu_torch.models.transformer import params_from_numpy
+    from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
+    conf = ViTConfig(image_size=28, n_channels=3, patch_size=4, n_classes=7,
+                     d_model=64, n_heads=4, n_layers=2, d_ff=128)
+    cpu = ViT(conf, device="cpu").init()
+    card = ViT(conf, device=cuda_device)
+    card.params = params_from_numpy(
+        {k: {kk: vv.detach().numpy() for kk, vv in v.items()}
+         if hasattr(v, "items") else v.detach().numpy()
+         for k, v in cpu.params.items()}, cuda_device)
+    r = np.random.RandomState(3)
+    x = torch.from_numpy(r.rand(3, 28, 28, 3).astype(np.float32))
+    y = cpu._device_labels(r.randint(0, 7, 3))
+    assert _rel(card.output(x), cpu.output(x)) <= 1e-5
+    before = _launch_counts()
+    loss, grads = card._value_and_grad(x.to(cuda_device), y.to(cuda_device))
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [2, 2, 2]
+    want_loss, want = cpu._value_and_grad(x, y)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5
+    assert _tree_rel(grads, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_on_card_matches_cpu(cuda_device, monkeypatch):
+    from deeplearning4j_tpu_torch.models import moe_transformer as mt
+    from deeplearning4j_tpu_torch.models.transformer import params_from_numpy
+    conf = mt.MoETransformerConfig(vocab_size=64, max_len=40, d_model=32,
+                                   n_heads=4, n_layers=2, d_ff=64,
+                                   block_size=16, n_experts=4, moe_every=1,
+                                   router_top_k=2, seed=1)
+    cpu = mt.MoETransformerLM(conf, device="cpu").init()
+    card = mt.MoETransformerLM(conf, device=cuda_device)
+    card.params = params_from_numpy(
+        {k: {kk: vv.detach().numpy() for kk, vv in v.items()}
+         if hasattr(v, "items") else v.detach().numpy()
+         for k, v in cpu.params.items()}, cuda_device)
+    routes = []
+    real = mt.moe_ffn_dense
+
+    def spy(bp, h, n_experts, top_k=1):
+        routes.append((h @ bp["gate"]).float().argmax(-1).cpu())
+        return real(bp, h, n_experts, top_k)
+    monkeypatch.setattr(mt, "moe_ffn_dense", spy)
+    toks = np.random.RandomState(4).randint(0, 64, (2, 33))
+    got, want = card.output(toks), cpu.output(toks)
+    assert all(torch.equal(a, b) for a, b in zip(routes[:2], routes[2:]))
+    assert _rel(got, want) <= 1e-5
+    t = torch.from_numpy(toks.astype(np.int64))
+    before = _launch_counts()
+    loss, grads = card._value_and_grad(t[:, :-1].to(cuda_device),
+                                       t[:, 1:].to(cuda_device), None)
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [2, 2, 2]
+    want_loss, want_g = cpu._value_and_grad(t[:, :-1], t[:, 1:], None)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5
+    assert _tree_rel(grads, want_g) <= 1e-4

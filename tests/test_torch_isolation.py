@@ -30,7 +30,13 @@
 - k-means, exact t-SNE and the early-stopping file saver's restore
   refuse the CPU without CUDA unless asked for it; the pretrain layers,
   transfer learning, early stopping, the gradient checker, the profiler
-  listener, the reports and the trees are scanned like every module.
+  listener, the reports and the trees are scanned like every module;
+- ViT and MoETransformerLM, and the restores of their archives, refuse
+  the CPU without CUDA unless asked for it; on the CPU their training
+  steps load no kernel and count no launch, and the ViT's attention
+  refuses a tensor on any other device before plain attention sees it;
+  the model modules, the fetchers and the PNG codec are scanned like
+  every module.
 """
 
 import ast
@@ -107,7 +113,8 @@ def _port_sources():
                 "ui/components.py", "eval/evaluation_tools.py",
                 "clustering/__init__.py", "clustering/trees.py",
                 "clustering/kmeans.py", "plot/__init__.py",
-                "plot/tsne.py"):
+                "plot/tsne.py", "models/vit.py",
+                "models/moe_transformer.py", "utils/pngio.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -777,3 +784,64 @@ def test_cpu_glove_and_deepwalk_never_load_a_kernel_or_capture(
     DeepWalk(vector_size=4, walk_length=4, batch_size=8,
              device="cpu").fit(gr)
     assert capture_count() == captured
+
+
+def test_vit_and_moe_without_device_refuse_the_cpu(no_cuda, tmp_path):
+    from deeplearning4j_tpu_torch.models import (MoETransformerConfig,
+                                                 MoETransformerLM, ViT,
+                                                 ViTConfig)
+    from deeplearning4j_tpu_torch.utils import model_serializer
+    vit_conf = ViTConfig(image_size=4, n_channels=1, patch_size=2,
+                         d_model=8, n_heads=2, n_layers=1, d_ff=16)
+    moe_conf = MoETransformerConfig(**SMALL, n_experts=2)
+    paths = []
+    for cls, conf in ((ViT, vit_conf), (MoETransformerLM, moe_conf)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(conf)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(conf, device="cuda")
+        net = cls(conf, device="cpu").init()
+        paths.append(str(tmp_path / f"{cls.__name__}.zip"))
+        model_serializer.write_model(net, paths[-1])
+    for path in paths:
+        for restore in (model_serializer.restore_model,
+                        model_serializer.restore_transformer_lm):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                restore(path)
+            assert restore(path, device="cpu").device.type == "cpu"
+
+
+def test_cpu_vit_and_moe_never_load_a_kernel(monkeypatch):
+    from deeplearning4j_tpu_torch.models import (MoETransformerConfig,
+                                                 MoETransformerLM, ViT,
+                                                 ViTConfig)
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _launches()
+    vit = ViT(ViTConfig(image_size=4, n_channels=1, patch_size=2, d_model=8,
+                        n_heads=2, n_layers=1, d_ff=16), device="cpu").init()
+    x = np.random.RandomState(0).rand(2, 4, 4, 1).astype(np.float32)
+    vit.fit_batch(x, np.array([1, 3]))
+    assert vit.output(x).shape == (2, 10)
+    moe = MoETransformerLM(MoETransformerConfig(**SMALL, n_experts=2),
+                           device="cpu").init()
+    toks = np.random.RandomState(1).randint(0, 32, (2, 9))
+    moe.fit_batch(toks)
+    assert moe.output(toks).shape == (2, 9, 32)
+    assert _launches() == before
+
+
+def test_vit_attention_refuses_device_tensors(monkeypatch):
+    """The ViT's attention: the flash kernels for a CUDA tensor, the dense
+    math for a CPU tensor, and an error for anything else (``meta``
+    stands in for a device that is neither)."""
+    from deeplearning4j_tpu_torch.models import vit
+
+    def no_plain(*args, **kw):
+        raise AssertionError("plain attention reached by a device tensor")
+    monkeypatch.setattr(vit, "dense_attention", no_plain)
+    q = torch.zeros(1, 2, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        vit._attend(q, q, q)

@@ -16,9 +16,12 @@ CPU.
   (the dropout generator's state rides in the archive).
 - A JAX archive with its threefry ``rng`` loads; the port starts its
   dropout stream afresh, as ``init`` seeds it.
-- ``MoETransformerLM`` and ``ViT`` archives raise, naming a ROADMAP
-  item; every not-ported error of the package names an item that
-  ``ROADMAP.md`` queue 1 still has.
+- ``MoETransformerLM`` and ``ViT`` archives cross both ways the same
+  way (parameters and optimizer state bitwise, outputs within 1e-6 of
+  their max abs), and the port's own round trip, by archive and by
+  training checkpoint in place, gives the same output and the same next
+  step, bitwise; every not-ported error of the package names an item
+  that ``ROADMAP.md`` queue 1 still has.
 """
 
 import ast
@@ -29,14 +32,21 @@ import jax
 import numpy as np
 import pytest
 
+from deeplearning4j_tpu.models.moe_transformer import (
+    MoETransformerConfig as JaxMoEConfig, MoETransformerLM as JaxMoE)
 from deeplearning4j_tpu.models.transformer import (
     TransformerConfig as JaxConfig, TransformerLM as JaxLM)
+from deeplearning4j_tpu.models.vit import ViT as JaxViT, ViTConfig as \
+    JaxViTConfig
 from deeplearning4j_tpu.utils import model_serializer as jser
+from deeplearning4j_tpu_torch.models.moe_transformer import (
+    MoETransformerConfig, MoETransformerLM)
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, TransformerLM, _flatten, leaf_paths,
     opt_state_from_numpy, params_from_numpy)
+from deeplearning4j_tpu_torch.models.vit import ViT, ViTConfig
 from deeplearning4j_tpu_torch.serving import ContinuousLM
-from deeplearning4j_tpu_torch.utils import (atomic_io, model_serializer,
+from deeplearning4j_tpu_torch.utils import (model_serializer,
                                             training_checkpoint)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -238,19 +248,88 @@ def test_a_failed_load_leaves_the_model_as_it_was(tmp_path):
     assert lm.iteration == 1
 
 
-@pytest.mark.parametrize("kind", ["MoETransformerLM", "ViT"])
+# the pytree family's other two kinds, at small sizes: (JAX class, JAX
+# config, port class, port config, configuration, input of output(),
+# training batch)
+MOE_KW = dict(SMALL, n_experts=4, router_top_k=2, d_expert=48)
+VIT_KW = dict(image_size=8, n_channels=3, patch_size=2, n_classes=5,
+              d_model=32, n_heads=4, n_layers=2, d_ff=64,
+              learning_rate=1e-3)
+_IMAGES = np.random.RandomState(30).rand(4, 8, 8, 3).astype(np.float32)
+_LABELS = np.random.RandomState(31).randint(0, 5, 4)
+KINDS = {
+    "MoETransformerLM": (JaxMoE, JaxMoEConfig, MoETransformerLM,
+                         MoETransformerConfig, MOE_KW, _tokens(3, t=16),
+                         (_tokens(10),)),
+    "ViT": (JaxViT, JaxViTConfig, ViT, ViTConfig, VIT_KW, _IMAGES,
+            (_IMAGES, _LABELS)),
+}
+
+
+def _port_model(kind, steps=1, **extra):
+    _, _, cls, conf_cls, kw, _, batch = KINDS[kind]
+    net = cls(conf_cls(**dict(kw, **extra)), device="cpu").init()
+    for _ in range(steps):
+        net.fit_batch(*batch)
+    return net
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
 def test_moe_and_vit_archives_raise_naming_the_roadmap(tmp_path, kind):
-    path = str(tmp_path / "lm.zip")
-    model_serializer.write_model(_run(SMALL, 0), path)
-    entries = atomic_io.read_zip_entries(path)
-    import json
-    meta = json.loads(entries["metadata.json"])
-    meta["model_type"] = kind
-    entries["metadata.json"] = json.dumps(meta)
-    atomic_io.write_zip_atomic(path, entries)
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP.md, queue 1, "The rest"'):
-        model_serializer.restore_model(path, device="cpu")
+    """These archives were refused, naming ROADMAP.md, until the two
+    models were ported: now an archive the port writes restores as its
+    kind (``restore_model``) with the same output bits, and a training
+    checkpoint applied in place to a fresh model continues the run: the
+    next step equals the uninterrupted one bitwise (dropout on, so the
+    generator's state rides along)."""
+    full = _port_model(kind, steps=2, dropout=0.1)
+    part = _port_model(kind, steps=1, dropout=0.1)
+    path = str(tmp_path / "m.zip")
+    model_serializer.write_model(part, path)
+    assert model_serializer.model_type(path) == kind
+    back = model_serializer.restore_model(path, device="cpu")
+    assert type(back) is type(part) and back.iteration == 1
+    x, batch = KINDS[kind][5], KINDS[kind][6]
+    np.testing.assert_array_equal(back.output(x), part.output(x))
+    ck = training_checkpoint.save_training_checkpoint(part, str(tmp_path))
+    fresh = _port_model(kind, steps=0, dropout=0.1)
+    before = {k: v.data_ptr() for k, v in _flatten(fresh.params).items()}
+    training_checkpoint.apply_training_checkpoint(fresh, ck)
+    assert {k: v.data_ptr() for k, v in _flatten(fresh.params).items()} \
+        == before
+    for m in (fresh, back):
+        m.fit_batch(*batch)
+        for tree in ("params", "opt_state"):
+            np.testing.assert_array_equal(
+                model_serializer._tree_vec(getattr(m, tree)),
+                model_serializer._tree_vec(getattr(full, tree)))
+    with pytest.raises(ValueError, match="other shapes"):
+        other = _port_model(kind, steps=0, d_ff=32)
+        training_checkpoint.apply_training_checkpoint(other, ck)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_moe_and_vit_archives_cross_both_ways(tmp_path, kind):
+    jcls, jconf, cls, _, kw, x, batch = KINDS[kind]
+    jnet = jcls(jconf(**kw)).init()
+    jnet.fit_batch(*batch)
+    path = str(tmp_path / "jax.zip")
+    jser.write_model(jnet, path)
+    net = model_serializer.restore_model(path, device="cpu")
+    assert type(net) is cls and net.iteration == 1
+    _assert_trees_equal(net.params, jnet.params)
+    _assert_trees_equal(net.opt_state, jnet.opt_state)
+    _assert_out_close(net.output(x), np.asarray(jnet.output(x)))
+
+    net = _port_model(kind)
+    path = str(tmp_path / "port.zip")
+    model_serializer.write_model(net, path)
+    assert jser.model_type(path) == kind
+    back = jser.restore_model(path)
+    assert type(back).__name__ == kind and int(back.iteration) == 1
+    _assert_trees_equal(net.params, back.params)
+    _assert_trees_equal(net.opt_state, back.opt_state)
+    _assert_out_close(net.output(x), np.asarray(back.output(x)))
 
 
 def _queue1_titles():

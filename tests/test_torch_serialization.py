@@ -343,11 +343,12 @@ def test_resume_falls_back_past_a_corrupt_newest_checkpoint(tmp_path,
 
 
 def test_kinds_not_ported_raise_and_name_the_roadmap(tmp_path):
-    """The archive kinds still not ported (MoETransformerLM, ViT), and a
-    model that is no MultiLayerNetwork, ComputationGraph or
-    TransformerLM, raise ``NotImplementedError`` naming ROADMAP.md; a
-    ComputationGraph or TransformerLM archive goes to its restore (these,
-    which have no configuration, fail there as corrupt archives)."""
+    """A model that is no MultiLayerNetwork, ComputationGraph or
+    pytree-family model raises ``NotImplementedError`` naming ROADMAP.md;
+    every archive kind is ported now (MoETransformerLM and ViT too), so
+    a ComputationGraph, TransformerLM, MoETransformerLM or ViT archive
+    goes to its restore (these, which have no configuration, fail there
+    as corrupt archives)."""
     from deeplearning4j_tpu_torch.errors import CheckpointCorruptError
     from deeplearning4j_tpu_torch.utils import atomic_io
     for kind in ("ComputationGraph", "TransformerLM", "MoETransformerLM",
@@ -356,11 +357,8 @@ def test_kinds_not_ported_raise_and_name_the_roadmap(tmp_path):
         atomic_io.write_zip_atomic(path, {"metadata.json": json.dumps(
             {"model_type": kind, "iteration": 0})})
         assert model_serializer.model_type(path) == kind
-        ported = kind in ("ComputationGraph", "TransformerLM")
-        with pytest.raises(CheckpointCorruptError if ported
-                           else NotImplementedError,
-                           match="configuration.json" if ported
-                           else "ROADMAP"):
+        with pytest.raises(CheckpointCorruptError,
+                           match="configuration.json"):
             model_serializer.restore_model(path, device="cpu")
 
     class Unported:
