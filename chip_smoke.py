@@ -405,10 +405,32 @@ Phases, each fatal on failure:
    token's routing equal on the card and the CPU, the smallest gate
    margins beside (they must exceed MOE_MARGIN), logits within
    CPU_GPU_TOL, one step within the train phase's bars;
-27. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+27. dp — data parallelism over ``torch.distributed``. (a) In this
+   process, a world of one rank over NCCL on the card: the slice's LM
+   (batch 32 x 512, bf16) unsharded and after ``shard(level=L)`` for each
+   ZeRO level L, from the same parameters on the same batch, 2 warm-up
+   and 5 timed ``fit_batch`` steps each: 8 launches of each flash kernel
+   a step by the wrappers, ms a step, tokens/s, peak memory and the state
+   bytes beside the unsharded run's, losses and parameters bit for bit
+   the unsharded run's (a plan of width 1 skips every collective, as XLA
+   does on one device); ``ParallelWrapper`` over the full-width char-RNN
+   through ``fit()`` on phase ``charrnn``'s batches: the fused loop, each
+   window a replayed CUDA graph, 8 sequence and 400 backward LSTM
+   launches a batch by ``torch.profiler``, the parameters bit for bit
+   ``net.fit``'s on the same stream. (b) Two rank processes over gloo,
+   both on the card (``chip_smoke.py --dp-rank``, started by the phase),
+   at each level of DP_GLOO_LEVELS: the char-RNN through
+   ``ParallelWrapper`` on 4 global batches of 32 (16 rows a rank), each
+   rank's LSTM launches for its rows, rank 0's parameters within
+   DP_W2_PARAM_RTOL of world 1's on the same batches, the updater
+   state's bytes a rank halved from level 1 and the parameters' at level
+   3, peak memory a rank; and a 2-layer LM at the slice's widths through
+   ``shard``, 2 steps, 2 launches of each flash kernel a step a rank, the
+   ranks' losses equal and within DP_W2_LOSS_RTOL of world 1's;
+28. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
-   ``deepwalk`` and the ten above.
+   ``deepwalk`` and the eleven above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -788,6 +810,44 @@ MOE_ARCHIVE_LAYERS = 2
 MOE_CPU_CHECK = dict(n_layers=2, batch=2, seed=SEED + 4)
 MOE_MARGIN = 1e-3
 MOE_CARD_CPU_RTOL = 1e-4   # the train phase's bars: V 32768 products
+
+# phase dp: data parallelism (parallel/). World 1 (NCCL, this process):
+# the slice's LM unsharded and at each level (DP_LM_WARMUP + DP_LM_STEPS
+# steps), ParallelWrapper over the char-RNN through the fused loop.
+# World 2: two rank processes over gloo on the one card (NCCL refuses two
+# ranks on one device: "Duplicate GPU detected"; PERF.md), at the levels
+# DP_GLOO_LEVELS: a probe on the H100's torch 2.11 found every collective
+# the core calls (all_reduce, broadcast, all_gather_into_tensor,
+# reduce_scatter_tensor) taking CUDA tensors under gloo, so all four run
+# there and none is "CPU tests only" (tests/test_torch_dp_shard.py holds
+# all four at world 4 on the CPU)
+DP_LEVELS = (0, 1, 2, 3)
+DP_GLOO_LEVELS = (0, 1, 2, 3)
+DP_LM_WARMUP = 2
+DP_LM_STEPS = 5
+DP_CHARRNN_BATCHES = 4          # global batch 32: 16 rows a rank
+DP_LM2 = dict(SLICE, n_layers=2)
+DP_LM2_STEPS = 2
+# world 2 against world 1 on the same batches. The gradients are the mean
+# of two 16-row means, summed in another order, and the kernels reduce
+# over 16 rows, not 32: f32 rounding. After one update (a tBPTT window)
+# the char-RNN's parameters agree within DP_W2_STEP_RTOL of their max
+# abs. Early rmsprop steps are near the gradient's sign, and the LSTM
+# carries a difference on from window to window, so such rounding grows:
+# on the CPU, parameters drawn 1e-7 apart (relative) are 2e-6, 5e-5 and
+# 4e-4 apart after 1, 2 and 4 windows and 1.4-2.3% (relative L2) after
+# the 16 updates of 4 batches. So after 4 batches world 2's relative L2
+# distance from world 1 is held to DP_W2_CHAOS times that of a world-1
+# run from the initial parameters perturbed by 1e-7 (seeded), measured
+# in the same run. The LM's losses within DP_W2_LOSS_RTOL (bf16 GEMMs on
+# half the rows may round each logit otherwise, ~2^-8 relative, averaged
+# over 8,176 tokens a rank)
+DP_W2_STEP_RTOL = 1e-5
+DP_W2_CHAOS = 10.0
+DP_W2_PERTURB = 1e-7
+DP_W2_LOSS_RTOL = 1e-3
+DP_WORLD2_TIMEOUT_S = 400
+
 # phase keras, extended: the committed narrow ResNet-50 topology
 KERAS_RESNET50 = dict(file="resnet50_narrow_k1_tf.h5", images=4,
                       fit_batches=2, fit_batch=8)
@@ -7508,6 +7568,473 @@ def phase_tsne_kmeans(card):
 
 
 
+# ---------------------------------------------------------------------------
+# phase dp: data parallelism over torch.distributed. (a) a world of one
+# rank over NCCL in this process: the slice's LM at every ZeRO level
+# against the unsharded LM, and ParallelWrapper over the char-RNN through
+# the fused loop against net.fit; (b) a world of two gloo ranks, two
+# processes sharing the card (NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+def _dp_device_arg():
+    """What the ranks pass as ``device``: None (the card) on the card, the
+    CPU device in a rehearsal."""
+    return None if DEVICE == "cuda" else DEVICE
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _charrnn_conf():
+    from deeplearning4j_tpu_torch.models import zoo
+    return zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                        hidden=CHARRNN["hidden"],
+                        tbptt_length=CHARRNN["tbptt_length"],
+                        learning_rate=CHARRNN["learning_rate"])
+
+
+def _charrnn_data(n):
+    """Phase charrnn's seeded batches (its first ``n``)."""
+    import numpy as np
+    return markov_batches(n, np.random.RandomState(SEED + 3))[0]
+
+
+def _lm_batch(conf):
+    """Phase train's batch of next-token rows."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 1)
+    return torch.from_numpy(rng.randint(0, conf.vocab_size,
+                                        (TRAIN_BATCH, conf.max_len)))
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _peak_bytes(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def _reset_peak(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_world1_lm(dev):
+    """The slice's LM, unsharded and at each level of a world-1 plan, from
+    the same parameters on the same batch: DP_LM_WARMUP + DP_LM_STEPS
+    ``fit_batch`` steps each, the timed steps' launches by the wrappers.
+    A plan of width 1 skips every collective and slice, so each level's
+    losses and parameters must equal the unsharded run's bit for bit."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, _flatten)
+    conf = TransformerConfig(**SLICE)
+    batch = _lm_batch(conf).to(dev)
+    tokens = TRAIN_BATCH * (conf.max_len - 1)
+    runs, want = {}, None
+    for level in (None,) + DP_LEVELS:
+        lm = TransformerLM(conf, device=dev).init()
+        if level is not None:
+            lm.shard(level=level, device=dev)
+            assert lm._shard_plan.n == 1 and lm._shard_plan.level == level
+        losses = [float(lm.fit_batch(batch)) for _ in range(DP_LM_WARMUP)]
+        _reset_peak(dev)
+        reset_launches()                      # the main path starts here
+        t0 = time.perf_counter()
+        scores = [lm.fit_batch(batch) for _ in range(DP_LM_STEPS)]
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()            # ... and ends here
+        peak = _peak_bytes(dev)
+        losses += [float(s) for s in scores]
+        assert all(math.isfinite(x) for x in losses), losses
+        assert launches == (conf.n_layers * DP_LM_STEPS,) * 3, launches
+        params = {k: v.detach() for k, v in _flatten(lm.params).items()}
+        name = "unsharded" if level is None else f"level{level}"
+        rec = {"losses": losses, "step_ms": wall / DP_LM_STEPS * 1e3,
+               "tokens_per_s": tokens * DP_LM_STEPS / wall,
+               "peak_memory_bytes": peak,
+               "param_bytes": _nbytes(lm._plan_leaves("params")),
+               "optimizer_bytes": _nbytes(lm._plan_leaves("opt_state")),
+               "kernel_launches": dict(zip(
+                   ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"),
+                   launches))}
+        if level is None:
+            want = (losses, {k: v.clone() for k, v in params.items()})
+        else:
+            rec["losses_bitwise"] = losses == want[0]
+            rec["params_bitwise"] = all(torch.equal(params[k], v)
+                                        for k, v in want[1].items())
+            assert rec["losses_bitwise"] and rec["params_bitwise"], level
+        runs[name] = rec
+        del lm, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    total = [sum(r["kernel_launches"][k] for n, r in runs.items()
+                 if n != "unsharded") for k in ("flash_attn_fwd",
+                                                "flash_attn_dq",
+                                                "flash_attn_dkv")]
+    return {"config": SLICE, "batch": TRAIN_BATCH, "warmup_steps":
+            DP_LM_WARMUP, "timed_steps": DP_LM_STEPS, "runs": runs,
+            "launches_sharded_runs": total,
+            "collectives": "none: a plan of width 1 skips them (as XLA "
+                           "does on one device); world 2 runs them"}
+
+
+def dp_world1_charrnn(dev, tries=5):
+    """ParallelWrapper over the full-width char-RNN at width 1 through
+    ``fit()``: the fused loop, each tBPTT window a replayed CUDA graph
+    captured in the warm-up, the timed run profiled (a replay calls no
+    wrapper, so the LSTM kernels are counted by name); the parameters
+    against ``net.fit`` on the same stream, bit for bit."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    conf = _charrnn_conf()
+    data = _charrnn_data(CHARRNN_WARMUP + CHARRNN_BATCHES)
+    warm, timed = data[:CHARRNN_WARMUP], data[CHARRNN_WARMUP:]
+    _fit_path(True)
+    ref = MultiLayerNetwork(conf, device=dev).init()
+    ref.fit(ListDataSetIterator(warm))
+    ref.fit(ListDataSetIterator(timed))
+    want = ref.params()
+    del ref
+    for _ in range(tries):
+        net = MultiLayerNetwork(conf, device=dev).init()
+        pw = ParallelWrapper(net, device=dev)
+        pw.fit(ListDataSetIterator(warm))
+        captures_warm = net._fused.captures
+        _reset_peak(dev)
+        reset_launches()                      # the main path starts here
+        before = read_lstm_launches()
+        wall, names, _ = profiled(
+            lambda: pw.fit(ListDataSetIterator(timed)))
+        calls = tuple(a - b for a, b in zip(read_lstm_launches(), before))
+        if names:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no device event in "
+                             f"{tries} runs of the wrapper's fused fit")
+    peak = _peak_bytes(dev)
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    per_batch = (n_layers * windows, n_layers * CHARRNN["seq_len"])
+    launches = lstm_kernels(names)
+    assert launches == tuple(x * CHARRNN_BATCHES for x in per_batch), \
+        launches
+    assert calls == (0, 0), calls             # replays only
+    assert captures_warm == net._fused.captures == 1, net._fused.captures
+    got = net.params()
+    assert (got == want).all(), float(abs(got - want).max())
+    return {"config": CHARRNN, "workers": pw.workers, "path": "fused",
+            "timed_batches": CHARRNN_BATCHES,
+            "ms_per_batch": wall / CHARRNN_BATCHES * 1e3,
+            "chars_per_s": CHARRNN["batch"] * CHARRNN["seq_len"]
+            * CHARRNN_BATCHES / wall,
+            "kernel_launches": {"lstm_cell_fwd": launches[0],
+                                "lstm_cell_bwd": launches[1],
+                                "counted_by": "torch.profiler, the timed "
+                                              "run"},
+            "kernel_launches_per_batch": dict(zip(
+                ("lstm_cell_fwd", "lstm_cell_bwd"), per_batch)),
+            "graphs_captured_in_warmup": captures_warm,
+            "peak_memory_bytes": peak, "params_bitwise_net_fit": True}
+
+
+def _one_window(data):
+    """The first batch cut to one tBPTT window: one update."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    seg = CHARRNN["tbptt_length"]
+    return DataSet(data[0].features[:, :seg].copy(),
+                   data[0].labels[:, :seg].copy())
+
+
+def dp_world1_reference(dev):
+    """World 1's results on what world 2 trains (per batch): the char-RNN's
+    parameters after one window and after the first DP_CHARRNN_BATCHES
+    batches, the latter also from the initial parameters perturbed by
+    DP_W2_PERTURB (relative, seeded: the yardstick of f32 rounding's
+    growth), and the 2-layer LM's DP_LM2_STEPS losses."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    conf, data = _charrnn_conf(), _charrnn_data(DP_CHARRNN_BATCHES)
+    _fit_path(False)
+    try:
+        net = MultiLayerNetwork(conf, device=dev).init()
+        p0 = net.params()
+        net.fit(_one_window(data))
+        step = net.params()
+        net = MultiLayerNetwork(conf, device=dev).init()
+        net.fit(ListDataSetIterator(data))
+        rng = np.random.default_rng(SEED + 17)
+        p1 = (p0 * (1 + DP_W2_PERTURB * rng.standard_normal(p0.size))
+              ).astype(np.float32)
+        other = MultiLayerNetwork(conf, device=dev).init(params=p1)
+        other.fit(ListDataSetIterator(data))
+    finally:
+        _fit_path(True)
+    lconf = TransformerConfig(**DP_LM2)
+    lm = TransformerLM(lconf, device=dev).init()
+    batch = _lm_batch(lconf).to(dev)
+    losses = [float(lm.fit_batch(batch)) for _ in range(DP_LM2_STEPS)]
+    return {"step": step, "params": net.params(),
+            "perturbed": other.params(), "lm_losses": losses}
+
+
+def dp_rank_main(rank, port, out, device):
+    """One rank of phase dp's world 2 (``chip_smoke.py --dp-rank``): gloo,
+    this rank's device (``cuda:(rank % device count)`` on the card, so
+    both ranks share one card). The char-RNN through ParallelWrapper and
+    the 2-layer LM through ``shard``, at each level of DP_GLOO_LEVELS;
+    the launches, state bytes and peak memory of this rank; rank 0 writes
+    the parameters."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models._layered import tensor_leaves
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    dev = multihost.initialize(f"127.0.0.1:{port}", 2, rank,
+                               device=None if device == "cuda" else device,
+                               backend="gloo")
+    res = {"rank": rank, "device": str(dev), "charrnn": {}, "lm": {}}
+    conf = _charrnn_conf()
+    data = _charrnn_data(DP_CHARRNN_BATCHES)
+    for lv in DP_GLOO_LEVELS:
+        net = MultiLayerNetwork(conf, device=dev).init()
+        ParallelWrapper(net, dp_shard=lv, device=dev).fit(_one_window(data))
+        step = net.params()
+        if rank == 0:
+            np.save(f"{out}/charrnn_step_level{lv}.npy", step)
+        net = MultiLayerNetwork(conf, device=dev).init()
+        pw = ParallelWrapper(net, dp_shard=lv, device=dev)
+        _reset_peak(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        pw.fit(ListDataSetIterator(data))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_lstm_launches()
+        params = net.params()                 # whole: every rank gathers
+        res["charrnn"][str(lv)] = {
+            "ms_per_batch": wall / DP_CHARRNN_BATCHES * 1e3,
+            "rows_per_rank": CHARRNN["batch"] // 2,
+            "kernel_launches": dict(zip(("lstm_cell_fwd", "lstm_cell_bwd"),
+                                        launches)),
+            "param_bytes": _nbytes(tensor_leaves(net.params_list)),
+            "updater_bytes": _nbytes(tensor_leaves(net.updater_states)),
+            "peak_memory_bytes": _peak_bytes(dev)}
+        if rank == 0:
+            np.save(f"{out}/charrnn_level{lv}.npy", params)
+        del net, pw
+    lconf = TransformerConfig(**DP_LM2)
+    batch = _lm_batch(lconf)
+    for lv in DP_GLOO_LEVELS:
+        lm = TransformerLM(lconf, device=dev).init().shard(level=lv,
+                                                           device=dev)
+        _reset_peak(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(lm.fit_batch(batch)) for _ in range(DP_LM2_STEPS)]
+        wall = time.perf_counter() - t0
+        res["lm"][str(lv)] = {
+            "losses": losses, "step_ms": wall / DP_LM2_STEPS * 1e3,
+            "kernel_launches": dict(zip(
+                ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"),
+                read_launches())),
+            "param_bytes": _nbytes(lm._plan_leaves("params")),
+            "optimizer_bytes": _nbytes(lm._plan_leaves("opt_state")),
+            "peak_memory_bytes": _peak_bytes(dev)}
+        del lm
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+    return 0
+
+
+def dp_world2(ref):
+    """Phase dp's world 2: two rank processes, both on the card, over gloo
+    (DP_GLOO_LEVELS). Returns (record, failures): rank 0's char-RNN
+    parameters against world 1's after one update (DP_W2_STEP_RTOL of
+    their max abs) and after DP_CHARRNN_BATCHES batches (relative L2
+    within DP_W2_CHAOS times the perturbed world-1 run's), each rank's
+    LSTM launches for its 16 rows, its state bytes against level 0's (the
+    updater state halves from level 1, the parameters at 3); the ranks'
+    LM losses equal and within DP_W2_LOSS_RTOL of world 1's, 2 launches
+    of each flash kernel a step a rank."""
+    import tempfile
+    import numpy as np
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+             str(r), str(port), out, DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        deadline = time.monotonic() + DP_WORLD2_TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"dp rank {r} failed:\n{log[-4000:]}"
+        ranks = [json.load(open(f"{out}/rank{r}.json")) for r in range(2)]
+        params = {lv: (np.load(f"{out}/charrnn_step_level{lv}.npy"),
+                       np.load(f"{out}/charrnn_level{lv}.npy"))
+                  for lv in DP_GLOO_LEVELS}
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    n_layers = 2
+    want_launch = {"lstm_cell_fwd": n_layers * windows * DP_CHARRNN_BATCHES,
+                   "lstm_cell_bwd": n_layers * CHARRNN["seq_len"]
+                   * DP_CHARRNN_BATCHES}
+    yard = rel_l2(ref["perturbed"], ref["params"])
+    step_scale = float(np.abs(ref["step"]).max())
+    charrnn, lm = {}, {}
+    for lv in DP_GLOO_LEVELS:
+        k = str(lv)
+        rows = [rk["charrnn"][k] for rk in ranks]
+        for r, row in enumerate(rows):
+            check(row["kernel_launches"] == want_launch,
+                  f"char-RNN level {lv} rank {r} launches {row}")
+        step, full = params[lv]
+        step_err = float(np.abs(step - ref["step"]).max())
+        dist = rel_l2(full, ref["params"])
+        check(step_err <= DP_W2_STEP_RTOL * step_scale,
+              f"char-RNN level {lv} one update {step_err}")
+        check(dist <= DP_W2_CHAOS * yard,
+              f"char-RNN level {lv} 4 batches {dist} vs yardstick {yard}")
+        base = ranks[0]["charrnn"]["0"]
+        charrnn[k] = {"rank0": rows[0], "rank1": rows[1],
+                      "one_update_max_abs_diff": step_err,
+                      "rel_l2_vs_world1": dist,
+                      "max_abs_diff_vs_world1":
+                          float(np.abs(full - ref["params"]).max()),
+                      "updater_bytes_vs_level0":
+                          rows[0]["updater_bytes"] / base["updater_bytes"],
+                      "param_bytes_vs_level0":
+                          rows[0]["param_bytes"] / base["param_bytes"]}
+        if lv >= 1:
+            check(charrnn[k]["updater_bytes_vs_level0"] <= 0.51,
+                  f"char-RNN level {lv} updater bytes")
+        if lv >= 3:
+            check(charrnn[k]["param_bytes_vs_level0"] <= 0.51,
+                  f"char-RNN level {lv} parameter bytes")
+        lrows = [rk["lm"][k] for rk in ranks]
+        check(lrows[0]["losses"] == lrows[1]["losses"],
+              f"LM level {lv}: the ranks' losses differ")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lrows[0]["losses"],
+                                                      ref["lm_losses"]))
+        check(rel <= DP_W2_LOSS_RTOL, f"LM level {lv} loss {rel}")
+        per = DP_LM2["n_layers"] * DP_LM2_STEPS
+        for r, row in enumerate(lrows):
+            check(all(v == per for v in row["kernel_launches"].values()),
+                  f"LM level {lv} rank {r} launches {row}")
+        lbase = ranks[0]["lm"]["0"]
+        lm[k] = {"rank0": lrows[0], "rank1": lrows[1],
+                 "loss_max_rel_vs_world1": rel,
+                 "optimizer_bytes_vs_level0":
+                     lrows[0]["optimizer_bytes"] / lbase["optimizer_bytes"],
+                 "param_bytes_vs_level0":
+                     lrows[0]["param_bytes"] / lbase["param_bytes"]}
+        if lv >= 1:
+            check(lm[k]["optimizer_bytes_vs_level0"] <= 0.51,
+                  f"LM level {lv} optimizer bytes")
+        if lv >= 3:
+            check(lm[k]["param_bytes_vs_level0"] <= 0.51,
+                  f"LM level {lv} parameter bytes")
+    rec = {"ranks": 2, "backend": "gloo",
+           "devices": [rk["device"] for rk in ranks],
+           "levels": list(DP_GLOO_LEVELS),
+           "levels_cpu_tests_only": [lv for lv in DP_LEVELS
+                                     if lv not in DP_GLOO_LEVELS],
+           "charrnn": {"batches": DP_CHARRNN_BATCHES,
+                       "global_batch": CHARRNN["batch"],
+                       "one_update_rtol": DP_W2_STEP_RTOL,
+                       "yardstick_rel_l2": yard,
+                       "chaos_factor": DP_W2_CHAOS,
+                       "world1_param_max_abs": float(
+                           np.abs(ref["params"]).max()),
+                       "levels": charrnn},
+           "lm": {"config": DP_LM2, "steps": DP_LM2_STEPS,
+                  "world1_losses": ref["lm_losses"],
+                  "loss_rtol_vs_world1": DP_W2_LOSS_RTOL, "levels": lm}}
+    return rec, failures
+
+
+def phase_dp(card):
+    """(a) in this process, a world of one rank over NCCL; (b) two rank
+    processes over gloo sharing the card."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    dev = multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
+                               device=_dp_device_arg())
+    try:
+        backend = dist.get_backend()
+        lm = dp_world1_lm(dev)
+        rnn = dp_world1_charrnn(dev)
+    finally:
+        multihost.shutdown()
+    ref = dp_world1_reference(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    world2, failures = dp_world2(ref)
+    world2["seconds"] = time.perf_counter() - t2
+    result = {"phase": "dp",
+              "world1": {"backend": backend, "lm": lm, "charrnn": rnn},
+              "world2": world2, "failures": failures,
+              "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    assert not failures, failures
+    return result
+
+
 def main():
     try:
         import torch
@@ -7561,6 +8088,7 @@ def main():
     phase_tsne_kmeans(card)
     vt = phase_vit(card)
     mo = phase_moe(card)
+    dp = phase_dp(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -7616,11 +8144,24 @@ def main():
                        "library_ms": b["library_bwd_ms"]}
         return {"shape": kernels[("vit", "float32")]["shape"], **out}
 
+    dp_flash = dict(zip(("flash_attn_fwd", "flash_attn_dq",
+                         "flash_attn_dkv"),
+                        dp["world1"]["lm"]["launches_sharded_runs"]))
+    dp_lstm = dp["world1"]["charrnn"]["kernel_launches"]
+
+    def dp_world2(name):
+        """Rank 0's launches in phase dp's world 2 at level 3."""
+        w = dp["world2"]
+        tree = w["lm"] if name.startswith("flash") else w["charrnn"]
+        return tree["levels"]["3"]["rank0"]["kernel_launches"][name]
+
     def new_callers(name):
-        """Phases vit's and moe's launches (their timed steps) and the
-        kernel at the ViT's shape."""
+        """Phases vit's, moe's and dp's launches (their timed steps) and
+        the kernel at the ViT's shape."""
         return {"launches_vit": vt["kernel_launches"][name],
                 "launches_moe": mo["kernel_launches"][name],
+                "launches_dp": dp_flash[name],
+                "launches_dp_world2_rank0": dp_world2(name),
                 "vit_shape": vit_shape(name)}
     src = "deeplearning4j_tpu_torch/csrc/"
     ref = "deeplearning4j_tpu/ops/pallas_kernels.py:"
@@ -7675,6 +8216,8 @@ def main():
          "launches_keras": ke["kernel_launches"]["lstm_cell_fwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_fwd"],
          "launches_transfer": tf["kernel_launches"]["lstm_cell_fwd"],
+         "launches_dp": dp_lstm["lstm_cell_fwd"],
+         "launches_dp_world2_rank0": dp_world2("lstm_cell_fwd"),
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -7696,6 +8239,8 @@ def main():
          "launches_keras": ke["kernel_launches"]["lstm_cell_bwd"],
          "launches_records": rr["kernel_launches"]["lstm_cell_bwd"],
          "launches_transfer": tf["kernel_launches"]["lstm_cell_bwd"],
+         "launches_dp": dp_lstm["lstm_cell_bwd"],
+         "launches_dp_world2_rank0": dp_world2("lstm_cell_bwd"),
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),
@@ -7714,4 +8259,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # one rank of phase dp's world 2, started by the phase itself
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -59,6 +59,16 @@ _declare("DL4J_TORCH_DATA_DIR", "str", "",
          "Root of the offline dataset files (e.g. <root>/mnist/ with the "
          "idx files), searched before ~/.deeplearning4j_tpu. "
          "Counterpart: DL4J_TPU_DATA_DIR.")
+_declare("DL4J_TORCH_DP_SHARD", "int", None,
+         "ZeRO level of the data-parallel trainers (parallel/"
+         "sharding_core.py): 0 replicated, 1 updater state sharded 1/N, 2 "
+         "+ gradients reduce-scattered, 3 + parameters sharded between "
+         "steps; unset defers to DL4J_TORCH_DP_SHARD_UPDATER. "
+         "Counterpart: DL4J_TPU_DP_SHARD.")
+_declare("DL4J_TORCH_DP_SHARD_UPDATER", "flag", True,
+         "Legacy ZeRO-1 switch, the default of DL4J_TORCH_DP_SHARD while "
+         "that is unset: on is level 1, off level 0. Counterpart: "
+         "DL4J_TPU_DP_SHARD_UPDATER.")
 _declare("DL4J_TORCH_FAULT_SPEC", "str", "",
          "Deterministic fault-injection plan (testing/faults.py), e.g. "
          "'queue-overflow@0,slow-request@1:0.2'; empty disables every "

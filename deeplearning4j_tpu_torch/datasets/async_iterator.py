@@ -16,8 +16,11 @@ every stream's shape) with [K, B] example weights (zero on padded rows
 and steps), which ``fit_fused`` trains in one pass. ``k_resolver`` is
 the fusion autotuner's seam: it gives each bucket its group size.
 
-Not ported yet (ROADMAP.md, queue 1): ``sharding``/``fuse_sharding``
-(data parallelism), which raise ``NotImplementedError``.
+``sharding`` and ``fuse_sharding`` are data parallelism's input side
+(``parallel/sharding_core.py``'s ``data_sharding()`` and
+``stacked_sharding()``): each rank reads the whole global stream and
+copies only its own rows of each batch, or of each stacked group (batch
+axis 1), to its device.
 """
 
 from __future__ import annotations
@@ -74,12 +77,6 @@ _OBS_CONSUMER_WAIT = obs.histogram(
 # the worker is alive: it trades only fault-detection latency, since a
 # live worker's batch is returned the moment it is enqueued
 _LIVENESS_POLL_S = 0.2
-
-def _not_ported(item):
-    """The tail of a not-ported error, naming ROADMAP.md's queue 1 item."""
-    return (f"is not ported to the PyTorch package yet (ROADMAP.md, queue "
-            f"1, \"{item}\")")
-
 
 class _WorkerKilled(Exception):
     """The ``kill-worker`` fault: the worker exits WITHOUT its sentinel,
@@ -147,17 +144,24 @@ class AsyncDataSetIterator(DataSetIterator):
         and touches no device. ``bucket_pad`` row-pads ragged batches in
         the per-batch (``fuse`` 1) path too, with the zero-weight tail as
         ``example_weights``. ``device`` is where staged batches go (None:
-        ``cuda``)."""
-        if sharding is not None or fuse_sharding is not None:
-            raise NotImplementedError(
-                "AsyncDataSetIterator(sharding=...): data parallelism "
-                + _not_ported("Data parallelism"))
+        ``cuda``).
+
+        ``sharding`` (a ``RowSharding``, e.g. a plan's
+        ``data_sharding()``) copies each batch that does not stack, as
+        this rank's rows only (masks and example weights too; ``stage``
+        is 1); ``fuse_sharding`` (``stacked_sharding()``) does the same
+        for stacked groups along their batch axis 1. The batch must
+        divide over the ranks: padding is the caller's."""
         self.base = base
+        self.sharding = sharding
+        self.fuse_sharding = fuse_sharding
         self._k_resolver = k_resolver
         self.device = resolve_device(device)
         self.fuse = max(1, int(fuse))
         self._bucket_pad = bool(bucket_pad)
-        self.stage = max(1, int(stage))
+        # a staged super-batch is sliced per batch after its copy, which
+        # a rank's rows of each batch are not: sharding stages nothing
+        self.stage = 1 if sharding is not None else max(1, int(stage))
         # one staged transfer stays under stage_bytes, and the worker keeps
         # at most ~2 * stage_bytes of batches queued (_worker.emit)
         self.stage_bytes = env_int("DL4J_TORCH_TRANSFER_STAGE_BYTES",
@@ -165,7 +169,7 @@ class AsyncDataSetIterator(DataSetIterator):
         # a whole group is ONE queue item, so the byte budget, not the
         # item count, bounds queued host memory
         self.queue_size = max(queue_size, 2)
-        self._device_stage = self.stage > 1
+        self._device_stage = sharding is not None or self.stage > 1
         self._queue = None
         self._thread = None
         self._stop = None
@@ -195,11 +199,14 @@ class AsyncDataSetIterator(DataSetIterator):
 
     # ---- consumer-side device copy ------------------------------------
 
-    def _put(self, a):
-        """``a`` as a tensor on the iterator's device (float64 arrays
-        become f32, as the models take them)."""
+    def _put(self, a, sharding=None):
+        """``a`` (this rank's rows of it under ``sharding``) as a tensor
+        on the iterator's device (float64 arrays become f32, as the
+        models take them)."""
         if a is None:
             return None
+        if sharding is not None:
+            a = sharding.take(a)
         t = a if isinstance(a, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(a))
         if t.dtype == torch.float64:
@@ -385,18 +392,25 @@ class AsyncDataSetIterator(DataSetIterator):
     def _emit_single(self, ds):
         if not self._device_stage:
             return ds
+        sh = self.sharding
         if _is_multi(ds):
             def put_all(arrs):
-                return None if arrs is None else [self._put(a) for a in arrs]
+                return None if arrs is None else \
+                    [self._put(a, sh) for a in arrs]
             out = MultiDataSet(put_all(ds.features), put_all(ds.labels),
                                put_all(ds.features_masks),
                                put_all(ds.labels_masks))
-        else:
+        elif sh is None:
             out = DataSet(self._put(ds.features), self._put(ds.labels),
                           ds.features_mask, ds.labels_mask)
+        else:
+            out = DataSet(self._put(ds.features, sh),
+                          self._put(ds.labels, sh),
+                          self._put(ds.features_mask, sh),
+                          self._put(ds.labels_mask, sh))
         w = getattr(ds, "example_weights", None)
         if w is not None:   # a row-padded ragged batch's weights ride along
-            out.example_weights = self._put(w)
+            out.example_weights = self._put(w, sh)
         return out
 
     def _stage_group(self, staged):
@@ -406,15 +420,16 @@ class AsyncDataSetIterator(DataSetIterator):
         if staged.single is not None:
             return [self._emit_single(staged.single)]
         kind = staged.concat[0]
+        fs = self.fuse_sharding
         if kind == "fmds":
             _, xs, ys, w, n_real = staged.concat
-            return [StackedMultiDataSet([self._put(x) for x in xs],
-                                        [self._put(y) for y in ys],
-                                        self._put(w), n_real)]
+            return [StackedMultiDataSet([self._put(x, fs) for x in xs],
+                                        [self._put(y, fs) for y in ys],
+                                        self._put(w, fs), n_real)]
         if kind == "fds":
             _, xs, ys, w, n_real = staged.concat
-            return [StackedDataSet(self._put(xs), self._put(ys),
-                                   self._put(w), n_real)]
+            return [StackedDataSet(self._put(xs, fs), self._put(ys, fs),
+                                   self._put(w, fs), n_real)]
         if kind == "mds":
             _, xs, ys, sizes = staged.concat
             dxs, dys = [self._put(x) for x in xs], [self._put(y) for y in ys]

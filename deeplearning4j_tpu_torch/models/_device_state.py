@@ -20,7 +20,11 @@ MultiLayerNetwork and ComputationGraph need.
 - ``fit``'s periodic training checkpoints and their resume
   (``utils/training_checkpoint.py``);
 - the fused loop's gate (:func:`fuse_allowed`), the reference's;
-- mixed precision: ``_compute_dtype``/``_cast_floats``.
+- mixed precision: ``_compute_dtype``/``_cast_floats``;
+- the sharding plan's hook (:class:`PlanStateMixin`): ``_shard_plan``, a
+  ``parallel/sharding_core.ShardingCore`` that ``ParallelWrapper``,
+  ``TransformerLM.shard`` or a caller injects, and the model's trees at
+  their ZeRO placements under it.
 
 The solver plumbing (the reference's ``_solver_run`` and its neighbours)
 lives beside the train step in ``models/_layered.py``.
@@ -28,6 +32,8 @@ lives beside the train step in ``models/_layered.py``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import warnings
 
 import torch
@@ -37,8 +43,8 @@ from deeplearning4j_tpu_torch.config import env_flag, env_int, env_str
 from deeplearning4j_tpu_torch.errors import TrainingDivergedError
 from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization
 
-__all__ = ["DeviceStateMixin", "fuse_allowed", "nanguard_enabled",
-           "step_all_finite", "uses_dropout"]
+__all__ = ["DeviceStateMixin", "PlanStateMixin", "fuse_allowed",
+           "nanguard_enabled", "step_all_finite", "uses_dropout", "whole"]
 
 _OBS_NONFINITE = obs.counter(
     "train.nonfinite_steps_total",
@@ -89,7 +95,116 @@ def fuse_allowed(conf, layers):
     return not any(isinstance(l, BatchNormalization) for l in layers)
 
 
-class DeviceStateMixin:
+def whole(*attrs):
+    """Decorator of a model method that reads its trees: under a plan
+    that shards them at rest (parameters and layer state at level 3;
+    ``attrs`` names more, e.g. the updater state) they are gathered whole
+    for the call. That is a collective: every rank of the plan calls the
+    method."""
+    attrs = attrs or ("params_list", "states_list")
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            with self._whole(attrs):
+                return fn(self, *args, **kwargs)
+        return wrapper
+    return deco
+
+
+class PlanStateMixin:
+    """A model's side of a sharding plan. ``_plan_trees`` names the
+    model's state trees, each with the plan's spec of its rest placement
+    (parameters and layer state shard at level 3, updater state from
+    1); a subclass gives ``_plan_leaves(attr)`` (the tree's tensors in a
+    fixed order) and ``_set_plan_leaves(attr, leaves)``.
+
+    :meth:`_enter_plan` records each leaf's shard axis under the plan's
+    per-leaf rule (``_dp_axes``) and at rest (``_dp_rest``) and keeps
+    this rank's shards of the trees the level shards; :meth:`_leave_plan`
+    gathers them whole again; :meth:`_whole` gathers them for the length
+    of a ``with`` (reads of a level-3 model: inference, the flat
+    parameters, a save). Each of the three is a collective: every rank
+    of the plan calls it. A plan of width 1 shards nothing and the steps
+    skip it (``_dp``)."""
+
+    _shard_plan = None   # parallel/sharding_core.ShardingCore, or None
+    _dp_axes = None      # attr -> each leaf's axis under the leaf rule
+    _dp_rest = None      # attr -> each leaf's axis at rest (None: whole)
+    _dp_whole = False    # inside _whole(): the trees are whole now
+    _plan_trees = (("params_list", "param_spec"),
+                   ("states_list", "state_spec"),
+                   ("updater_states", "updater_spec"))
+
+    def _plan_leaves(self, attr):
+        raise NotImplementedError
+
+    def _set_plan_leaves(self, attr, leaves):
+        raise NotImplementedError
+
+    def _dp(self):
+        """The plan when it spans more than one rank, else None."""
+        plan = self._shard_plan
+        return plan if plan is not None and plan.n > 1 else None
+
+    def _enter_plan(self, core):
+        """Adopt ``core`` (leaving any plan held before): the trees go to
+        their rest placements."""
+        self._leave_plan()
+        self._shard_plan = core
+        if core.n == 1:
+            return
+        self._dp_axes, self._dp_rest = {}, {}
+        for attr, spec in self._plan_trees:
+            if getattr(self, attr) is None:
+                continue
+            leaves = self._plan_leaves(attr)
+            self._dp_axes[attr] = core.axes(leaves, core.leaf_spec)
+            self._dp_rest[attr] = core.axes(leaves, getattr(core, spec))
+            self._set_plan_leaves(attr, core.place(leaves,
+                                                   self._dp_rest[attr]))
+
+    def _gathered(self, attr):
+        """``attr``'s leaves whole (a collective under a plan that shards
+        them at rest)."""
+        leaves = self._plan_leaves(attr)
+        plan = self._dp()
+        if plan is None or self._dp_whole or attr not in self._dp_rest:
+            return leaves
+        return plan.gather_params(leaves, self._dp_rest[attr])
+
+    def _leave_plan(self):
+        """Drop the plan, with every tree whole again."""
+        if self._dp() is not None:
+            for attr in list(self._dp_rest):
+                self._set_plan_leaves(attr, self._gathered(attr))
+        self._shard_plan = None
+        self._dp_axes = self._dp_rest = None
+
+    @contextlib.contextmanager
+    def _whole(self, attrs=("params_list", "states_list")):
+        """Within: ``attrs`` hold whole tensors (gathered copies where the
+        plan shards them at rest; the shards come back after)."""
+        plan = self._dp()
+        swap = [] if plan is None or self._dp_whole else \
+            [a for a in attrs if a in self._dp_rest
+             and any(x is not None for x in self._dp_rest[a])]
+        if not swap:
+            yield
+            return
+        saved = {a: self._plan_leaves(a) for a in swap}
+        for a in swap:
+            self._set_plan_leaves(a, self._gathered(a))
+        self._dp_whole = True
+        try:
+            yield
+        finally:
+            self._dp_whole = False
+            for a in swap:
+                self._set_plan_leaves(a, saved[a])
+
+
+class DeviceStateMixin(PlanStateMixin):
     """Lazy device-resident ``score_``, the device iteration counter and
     the guard's host side."""
 

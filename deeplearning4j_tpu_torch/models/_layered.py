@@ -29,7 +29,17 @@ holds one copy of:
 - the flat parameter API (``params()``, ``set_params()``);
 - ``fit(iterator)``'s loop: the prefetch wrap, the resume cursor, the
   periodic checkpoints and the guard's flush at the end. What a batch
-  does is each model's own (``_fit_item``).
+  does is each model's own (``_fit_item``);
+- the per-batch step under a sharding plan that spans ranks
+  (``_shard_plan``, ``parallel/sharding_core.py``): at ZeRO level 3 the
+  parameters and layer state gathered whole for the forward; the loss
+  over the global batch (:func:`global_denominator`; BatchNormalization
+  takes the global moments); the gradients and the loss reduced over
+  the ranks, reduce-scattered to shards at levels 2-3; the guard's
+  finite check and the gradient norms over the reduced, whole leaves;
+  each layer's updater rule on this rank's shard of its leaves; the
+  updated shards gathered back onto whole parameters at levels 1-2. The
+  fused loop runs without a plan or at width 1 only.
 
 Dropout draws no generator: each layer's mask is a pure function of
 ``conf.seed``, the model's device int64 draw counter, the layer's index
@@ -43,6 +53,7 @@ device on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -55,17 +66,19 @@ from deeplearning4j_tpu_torch.datasets.async_iterator import (
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSetIterator,
                                                        MultiDataSetIterator)
 from deeplearning4j_tpu_torch.models._device_state import (
-    DeviceStateMixin, nanguard_enabled, step_all_finite, uses_dropout)
+    DeviceStateMixin, nanguard_enabled, step_all_finite, uses_dropout, whole)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 from deeplearning4j_tpu_torch.ops.random import DropoutKey
+from deeplearning4j_tpu_torch.parallel.sharding_core import (
+    current_batch_plan, global_batch)
 from deeplearning4j_tpu_torch.testing import faults
 from deeplearning4j_tpu_torch.tuning import autotuner
 from deeplearning4j_tpu_torch.utils import flat_params
 
-__all__ = ["LayeredModel", "clone_tree", "host", "is_carry_layer", "leaves",
-           "tensor_leaves"]
+__all__ = ["LayeredModel", "clone_tree", "global_denominator", "host",
+           "is_carry_layer", "leaves", "tensor_leaves", "whole"]
 
 _OBS_GROUP_SECONDS = obs.histogram(
     "train.dispatch_group_seconds",
@@ -108,6 +121,24 @@ def tensor_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tensor_leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def global_denominator(rows, ew):
+    """(denominator, scale) of a layer model's loss: the loss is the sum
+    of the per-example losses times ``scale`` over ``denominator``, plus
+    the l1/l2 term over ``denominator``. Alone that is the batch's rows
+    (or the real examples' weight, ``ew``'s sum) and 1. In a train step
+    under a plan of N ranks (``current_batch_plan``) it is the global
+    batch's: N times the rows (every rank holds as many), or the weights
+    summed over the ranks with the data term scaled by N, so that the
+    mean of the ranks' losses is the global batch's loss and counts the
+    l1/l2 term once."""
+    plan = current_batch_plan()
+    n = 1 if plan is None else plan.n
+    if ew is None:
+        return rows * n, 1
+    wsum = ew.sum() if plan is None else plan.all_reduce_sum(ew.sum())
+    return torch.clamp(wsum, min=1.0), n
 
 
 def _captures_graphs(t):
@@ -267,6 +298,13 @@ class LayeredModel(DeviceStateMixin):
     _pretrain_gen = None       # torch.Generator of the pretrain layers
     _pretrained = False        # fit() has pretrained this model
 
+    # ---- the sharding plan's trees ---------------------------------------
+    def _plan_leaves(self, attr):
+        return tensor_leaves(getattr(self, attr))
+
+    def _set_plan_leaves(self, attr, leaves):
+        setattr(self, attr, _rebuild(getattr(self, attr), iter(leaves)))
+
     # ---- parameters ---------------------------------------------------
     def reset_updater_state(self):
         self.updater_states = [
@@ -280,7 +318,7 @@ class LayeredModel(DeviceStateMixin):
 
     def params(self):
         """The flattened parameter vector (reference params()), as numpy."""
-        with torch.no_grad():
+        with torch.no_grad(), self._whole():
             return host(flat_params.params_to_vector(self.layers,
                                                      self.params_list))
 
@@ -354,18 +392,22 @@ class LayeredModel(DeviceStateMixin):
                                              use_reentrant=False)
 
     # ---- the train step -----------------------------------------------
-    def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew):
+    def _value_and_grad(self, x, y, fmask, lmask, rngs, train, carries, ew,
+                        params_list=None, states_list=None):
         """(score, (new_states, new_carries), grads as a list of dicts) at
-        the current parameters."""
-        named = [(i, k, v) for i, p in enumerate(self.params_list)
+        the current parameters (or at ``params_list``/``states_list``)."""
+        params_list = self.params_list if params_list is None \
+            else params_list
+        states_list = self.states_list if states_list is None \
+            else states_list
+        named = [(i, k, v) for i, p in enumerate(params_list)
                  for k, v in p.items()]
         with torch.enable_grad():
-            score, aux = self._loss_fn(self.params_list, self.states_list, x,
-                                       y, fmask, lmask, rngs, train, carries,
-                                       ew)
+            score, aux = self._loss_fn(params_list, states_list, x, y, fmask,
+                                       lmask, rngs, train, carries, ew)
             flat = torch.autograd.grad(score, [v for _, _, v in named],
                                        allow_unused=True)
-        grads = [{} for _ in self.params_list]
+        grads = [{} for _ in params_list]
         for (i, k, v), g in zip(named, flat):
             grads[i][k] = torch.zeros_like(v) if g is None else g
         return score.detach(), aux, grads
@@ -373,9 +415,28 @@ class LayeredModel(DeviceStateMixin):
     def _train_step(self, x, y, fmask, lmask, ew, carries):
         """One update, eagerly: the body of the reference's
         ``_build_train_step``; tBPTT ``carries`` are updated in place to
-        the ones the next window starts from. Returns (score, grads)."""
-        score, (new_states, new_carries), grads = self._value_and_grad(
-            x, y, fmask, lmask, self._dropout_keys(), True, carries, ew)
+        the ones the next window starts from. Returns (score, grads).
+        Under a plan that spans ranks the batch is this rank's share of
+        the global batch, and the score returned is the global one."""
+        plan = self._dp()
+        params_list = states_list = None
+        if plan is not None and plan.level >= 3:
+            # just-in-time gather of the shards, outside autograd: the
+            # explicit reduce-scatter below places the gradients
+            params_list = _rebuild(self.params_list, iter(
+                [t.requires_grad_(True)
+                 for t in self._gathered("params_list")]))
+            states_list = _rebuild(self.states_list,
+                                   iter(self._gathered("states_list")))
+        with global_batch(plan):
+            score, (new_states, new_carries), grads = self._value_and_grad(
+                x, y, fmask, lmask, self._dropout_keys(), True, carries, ew,
+                params_list, states_list)
+        if plan is not None:
+            flat, (score,) = plan.constrain_grads(
+                tensor_leaves(grads), self._dp_axes["params_list"],
+                scalars=(score,))
+            grads = _rebuild(grads, iter(flat))
         guard = nanguard_enabled()
         self._apply_update(score, grads, new_states, new_carries, carries,
                            guard)
@@ -396,10 +457,15 @@ class LayeredModel(DeviceStateMixin):
         real, non-finite step bumps the skipped counter. No host read."""
         it = self._device_iteration()
         draws = self._draw_counter_arg()
+        plan = self._dp()
         with torch.no_grad():
             keep = real
             if guard:
                 ok = step_all_finite(score, grads)
+                if plan is not None and plan.level >= 2:
+                    # each rank holds shards: finite everywhere or nowhere
+                    bad = plan.all_reduce_sum((~ok).to(torch.float32))
+                    ok = bad == 0
                 keep = ok if real is None else real & ok
                 self._nan_skipped_arg().add_(
                     (~ok if real is None else real & ~ok).to(torch.int32))
@@ -407,19 +473,37 @@ class LayeredModel(DeviceStateMixin):
             def put(old, new):
                 old.copy_(new if keep is None
                           else torch.where(keep, new, old))
-            for layer, p, g, s in zip(self.layers, self.params_list, grads,
-                                      self.updater_states):
+            confs = [l.updater_config(self.conf.max_iterations)
+                     for l in self.layers]
+            if plan is None:
+                views, shard_grads = self.params_list, grads
+            else:
+                views, shard_grads, confs = self._shard_update_inputs(
+                    plan, grads, confs)
+            for conf_u, p, g, s in zip(confs, views, shard_grads,
+                                       self.updater_states):
                 if not p:
                     continue
-                upd, s2 = updaters_mod.compute_updates(
-                    layer.updater_config(self.conf.max_iterations), g, s, it,
-                    params=p)
+                upd, s2 = updaters_mod.compute_updates(conf_u, g, s, it,
+                                                       params=p)
                 for k in p:
                     put(p[k], p[k] - upd[k])
                 for new, old in zip(tensor_leaves(s2), tensor_leaves(s)):
                     put(old, new)
-            for new, old in zip(tensor_leaves(new_states),
-                                tensor_leaves(self.states_list)):
+            if plan is not None and plan.level in (1, 2):
+                # the updated shards back onto the whole parameters
+                axes = self._dp_axes["params_list"]
+                whole = plan.gather_params(tensor_leaves(views), axes)
+                for p, w, a in zip(tensor_leaves(self.params_list), whole,
+                                   axes):
+                    if a is not None:
+                        p.copy_(w)
+            new_leaves = tensor_leaves(new_states)
+            if plan is not None and plan.level >= 3:
+                # layer state computed whole; this rank keeps its shards
+                new_leaves = [plan.shard(t, a) for t, a in zip(
+                    new_leaves, self._dp_rest["states_list"])]
+            for new, old in zip(new_leaves, tensor_leaves(self.states_list)):
                 put(old, new)
             if carries is not None:
                 # truncation: the next window starts from these values
@@ -429,9 +513,48 @@ class LayeredModel(DeviceStateMixin):
             put(it, it + 1)
             put(draws, draws + 1)
 
+    def _shard_update_inputs(self, plan, grads, confs):
+        """Under a plan: (parameter views, gradients, updater configs) the
+        update loop runs on, each layer's leaves cut to this rank's shard
+        where the per-leaf rule shards them (the updater state is held so
+        from level 1). Gradient normalization runs first, over whole
+        leaves (at levels 2-3 the shards' squared sums are all-reduced),
+        and the configs handed on carry none."""
+        if plan.level >= 1 and any(c.rule.lower() == "optax:lamb"
+                                   for c in confs):
+            raise ValueError(
+                "optax:lamb's trust ratio takes norms of whole parameter "
+                "and update leaves; under a sharding plan it trains at "
+                "level 0 (dp_shard=0)")
+        axes = iter(self._dp_axes["params_list"])
+        layer_axes = [{k: next(axes) for k in sorted(p)}
+                      for p in self.params_list]
+        if plan.level >= 2:
+            sq = updaters_mod.whole_sq_sums(confs, grads, layer_axes, plan)
+            grads = [updaters_mod.normalize_gradients(c, g, sq=q)
+                     for c, g, q in zip(confs, grads, sq)]
+        else:
+            grads = [updaters_mod.normalize_gradients(c, g)
+                     for c, g in zip(confs, grads)]
+        confs = [dataclasses.replace(c, gradient_normalization=None)
+                 for c in confs]
+        views, shard_grads = [], []
+        for p, g, ax in zip(self.params_list, grads, layer_axes):
+            if plan.level >= 3:   # the parameters are the shards already
+                views.append(p)
+            else:
+                views.append({k: plan.shard(v, ax[k]) if plan.level >= 1
+                              else v for k, v in p.items()})
+            shard_grads.append({k: plan.shard(v, ax[k]) if plan.level == 1
+                                else v for k, v in g.items()})
+        return views, shard_grads, confs
+
     def _after_update(self, score, grads, batch):
         self.score_ = score   # device scalar; read lazily
-        self._last_gradients = grads
+        plan = self._dp()
+        # at levels 2-3 this rank holds gradient shards only
+        self._last_gradients = None if plan is not None and \
+            plan.level >= 2 else grads
         self._last_batch_size = int(batch)
         self.iteration += 1
         self._iter_dev_py = self.iteration
@@ -464,6 +587,7 @@ class LayeredModel(DeviceStateMixin):
                 "be silently ignored. Pretrain with "
                 "'stochastic_gradient_descent', then fine-tune with the "
                 "line-search solver.")
+        self._refuse_plan("layer-wise pretraining")
         layer = self.layers[i]
         if not layer.is_pretrain_layer():
             return self
@@ -489,6 +613,15 @@ class LayeredModel(DeviceStateMixin):
                 self.iteration += 1
                 self._iter_dev_py = self.iteration
         return self
+
+    def _refuse_plan(self, what):
+        """``what`` runs on one rank's data only: refuse it under a plan
+        that spans ranks."""
+        if self._dp() is not None:
+            raise NotImplementedError(
+                f"{what} under a sharding plan of more than one rank is "
+                "not ported to the PyTorch package yet (ROADMAP.md, queue "
+                "1, \"Data parallelism\")")
 
     # ---- the line-search solvers --------------------------------------
     def _uses_solver(self):
@@ -557,6 +690,7 @@ class LayeredModel(DeviceStateMixin):
         the Armijo probes meaningful) and is refreshed by one forward at
         the final parameters; the dropout masks are those of one counter
         value for the whole call, which then advances the counter once."""
+        self._refuse_plan("the line-search solvers")
         keys = self._dropout_keys()
         args = (x, y, fmask, lmask, keys)
         x0 = flat_params.params_to_vector(self.layers,
@@ -632,6 +766,11 @@ class LayeredModel(DeviceStateMixin):
         are re-chunked to the decided K (``tuning/autotuner.py``)."""
         if self.params_list is None:
             self.init()
+        if self._dp() is not None:
+            raise ValueError(
+                "the fused loop runs unsharded or at width 1; under a plan "
+                "of more than one rank train per batch (ParallelWrapper "
+                "takes K = 1 there)")
         xs, ys, ews = self._fused_streams(stacked)
         spec = faults.fire("nan-step")
         step = None if spec is None else spec.param_int(0)

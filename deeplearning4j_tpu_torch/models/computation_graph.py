@@ -37,8 +37,10 @@ plumbing too. The graph runs on the card unless the caller passes
 
 Layer-wise pretraining (``pretrain``, ``pretrain_vertex``; with
 ``conf.pretrain``, ``fit``'s first call) shares the MultiLayerNetwork's
-step. Not ported yet (ROADMAP.md, queue 1): sharding plans (``shard``
-raises ``NotImplementedError``).
+step. Data parallelism is the reference's: a sharding plan injected as
+``_shard_plan`` (``parallel/sharding_core.py``; ``_enter_plan`` places
+the trees) applies in the per-batch step, as ``ParallelWrapper`` applies
+it to a MultiLayerNetwork (``models/_layered.py``).
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ from deeplearning4j_tpu_torch.datasets.dataset import (DataSet, MultiDataSet,
                                                        StackedDataSet,
                                                        StackedMultiDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models._layered import (LayeredModel,
-                                                      clone_tree, host,
-                                                      is_carry_layer, leaves)
+from deeplearning4j_tpu_torch.models._layered import (
+    LayeredModel, clone_tree, global_denominator, host, is_carry_layer,
+    leaves, whole)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     params_from_numpy as _mln_params_from_numpy,
     states_from_numpy as _mln_states_from_numpy,
@@ -70,12 +72,6 @@ from deeplearning4j_tpu_torch.utils import flat_params
 
 __all__ = ["ComputationGraph", "params_from_numpy", "states_from_numpy",
            "updater_state_from_numpy"]
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"ComputationGraph {what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, queue 1, \"{item}\")")
 
 
 def _as_multi(data) -> MultiDataSet:
@@ -188,6 +184,7 @@ class ComputationGraph(LayeredModel):
     def updater_states_map(self, mapping):
         self.updater_states = self._from_names(mapping)
 
+    @whole()
     def get_layer_params(self, name):
         """Copies of a layer vertex's parameters."""
         return {k: v.detach().clone()
@@ -304,12 +301,10 @@ class ComputationGraph(LayeredModel):
             fmasks=fmasks, carries=carries)
         if cd is not None:
             preouts = {k: v.to(torch.float32) for k, v in preouts.items()}
-        if ew is None:
-            denom = inputs[0].shape[0]
-        else:
-            # row-padded batch: zero-weight rows leave every output's loss;
-            # average over the real examples
-            denom = torch.clamp(ew.sum(), min=1.0)
+        # row-padded batch: zero-weight rows leave every output's loss;
+        # average over the real examples (over the global batch in a
+        # train step under a plan)
+        denom, scale = global_denominator(inputs[0].shape[0], ew)
         score = 0.0
         for i, name in enumerate(self.conf.network_outputs):
             layer = self._output_layer(name)
@@ -318,8 +313,9 @@ class ComputationGraph(LayeredModel):
                 score = score + layer.compute_score(
                     labels[i], preouts[name], mask=lm, average=True)
             else:
-                score = score + layer.compute_score(
+                term = layer.compute_score(
                     labels[i], preouts[name], mask=ew, average=False) / denom
+                score = score + (term * scale if scale != 1 else term)
         for layer, p in zip(self.layers, master_params):
             if p:
                 score = score + updaters_mod.l1_l2_score(
@@ -569,15 +565,13 @@ class ComputationGraph(LayeredModel):
         return self._pretrain_loop(self._index[name], data, epochs,
                                    layer_input)
 
-    def shard(self, *args, **kwargs):
-        raise _not_ported("shard (sharding plans)", "Data parallelism")
-
     # ------------------------------------------------------------------
     # stateful RNN inference (ComputationGraph.rnnTimeStep:770)
     # ------------------------------------------------------------------
     def rnn_clear_previous_state(self):
         self._rnn_carries = None
 
+    @whole()
     def rnn_time_step(self, *inputs):
         """Stateful stepping inference: [B, F] single steps or [B, T, F]
         chunks, one per network input; the LSTM carries persist between
@@ -601,6 +595,7 @@ class ComputationGraph(LayeredModel):
     # ------------------------------------------------------------------
     # inference / scoring
     # ------------------------------------------------------------------
+    @whole()
     def output(self, *inputs, fmasks=None):
         """The network outputs for the given inputs, as host numpy: one
         array for one output, else a list."""
@@ -612,6 +607,7 @@ class ComputationGraph(LayeredModel):
             outs = [host(acts[n]) for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
+    @whole()
     def feed_forward(self, *inputs, train=False):
         """Every vertex's activation by name, the inputs included, as host
         numpy (feedForward)."""
@@ -628,6 +624,7 @@ class ComputationGraph(LayeredModel):
                 self._tensors(mds.features_masks),
                 self._tensors(mds.labels_masks))
 
+    @whole()
     def score(self, data, train=False):
         """The loss on a (Multi)DataSet without updating anything."""
         with torch.no_grad():
@@ -636,6 +633,7 @@ class ComputationGraph(LayeredModel):
                                  train=train)
         return float(s)
 
+    @whole()
     def compute_gradient_and_score(self, data):
         """Per-vertex gradients and the score without updating anything
         (computeGradientAndScore)."""
@@ -656,6 +654,7 @@ class ComputationGraph(LayeredModel):
         return host(flat_params.params_to_vector(self.layers,
                                                  self._last_gradients))
 
+    @whole()
     def evaluate(self, iterator):
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         if len(self.conf.network_outputs) != 1:
@@ -669,6 +668,7 @@ class ComputationGraph(LayeredModel):
                     mask=None if lm is None else host(lm))
         return ev
 
+    @whole("params_list", "states_list", "updater_states")
     def clone(self):
         """An independent copy: parameters, layer and updater state,
         iteration and dropout draw counter."""

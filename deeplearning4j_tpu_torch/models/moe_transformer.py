@@ -32,7 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, TransformerLM, _block_apply, _forward_tokens,
-    _fresh_opt_state, _parameter_tree, _tree_map)
+    _fresh_opt_state, _parameter_tree, _tree_map, mask_denominator)
+from deeplearning4j_tpu_torch.parallel.sharding_core import \
+    current_batch_plan
 
 __all__ = ["MoETransformerConfig", "MoETransformerLM", "moe_ffn_dense"]
 
@@ -95,6 +97,11 @@ def moe_ffn_dense(bp, h, n_experts, top_k=1):
     # load balance over first choices: E * sum_e f_e * P_e over the batch
     f = onehot.reshape(-1, n_experts).mean(dim=0)
     p = probs.reshape(-1, n_experts).mean(dim=0)
+    plan = current_batch_plan()
+    if plan is not None:
+        # the global batch's means: every rank holds as many tokens
+        f = plan.all_reduce_sum(f) / plan.n
+        p = plan.all_reduce_sum(p) / plan.n
     return y, n_experts * torch.sum(f * p)
 
 
@@ -185,7 +192,7 @@ class MoETransformerLM(TransformerLM):
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         m = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-        ce = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        ce = (nll * m).sum() / mask_denominator(m)
         return ce + self.conf.aux_weight * aux
 
     def eval_loss(self, tokens):

@@ -51,9 +51,9 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, StackedDataSet
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.models._layered import (LayeredModel,
-                                                      clone_tree, host,
-                                                      is_carry_layer, leaves)
+from deeplearning4j_tpu_torch.models._layered import (
+    LayeredModel, clone_tree, global_denominator, host, is_carry_layer,
+    leaves, whole)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import (BaseOutputLayer,
@@ -159,6 +159,7 @@ class MultiLayerNetwork(LayeredModel):
             self.set_params(params)
         return self
 
+    @whole()
     def get_layer_params(self, i):
         """Copies of layer ``i``'s parameters."""
         return {k: v.detach().clone() for k, v in self.params_list[i].items()}
@@ -235,16 +236,17 @@ class MultiLayerNetwork(LayeredModel):
         if cd is not None:
             preout = preout.to(torch.float32)
         out_layer = self._output_layer()
+        denom, scale = global_denominator(x.shape[0], ew)
         if ew is None:
             score = out_layer.compute_score(y, preout, mask=lmask,
                                             average=True)
-            denom = x.shape[0]
         else:
             # row-padded batch: ``ew`` [batch] zeroes the padding out of
             # the loss; average over the real examples
-            denom = torch.clamp(ew.sum(), min=1.0)
             score = out_layer.compute_score(y, preout, mask=ew,
                                             average=False) / denom
+            if scale != 1:
+                score = score * scale
         for layer, p in zip(self.layers, master_params):
             if p:
                 score = score + updaters_mod.l1_l2_score(
@@ -442,6 +444,7 @@ class MultiLayerNetwork(LayeredModel):
     # ------------------------------------------------------------------
     # inference / scoring
     # ------------------------------------------------------------------
+    @whole()
     def output(self, x, train=False, fmask=None):
         """Inference output (MultiLayerNetwork.output) as host numpy."""
         x, fmask = self._tensor(x), self._tensor(fmask)
@@ -451,6 +454,7 @@ class MultiLayerNetwork(LayeredModel):
                 rngs=None, fmask=fmask)
             return host(acts[-1])
 
+    @whole()
     def feed_forward(self, x, train=False):
         """All layer activations, input first, as host numpy."""
         x = self._tensor(x)
@@ -461,6 +465,7 @@ class MultiLayerNetwork(LayeredModel):
                 rngs=rngs, fmask=None)
         return [host(a) for a in acts]
 
+    @whole()
     def score(self, dataset: DataSet, train=False):
         """Loss on a dataset without updating params."""
         with torch.no_grad():
@@ -471,6 +476,7 @@ class MultiLayerNetwork(LayeredModel):
                 self._tensor(dataset.labels_mask), None, train=False)
         return float(score)
 
+    @whole()
     def compute_gradient_and_score(self, x, y, fmask=None, lmask=None):
         """Per-layer gradients and score without updating params
         (computeGradientAndScore)."""
@@ -497,6 +503,7 @@ class MultiLayerNetwork(LayeredModel):
     def rnn_clear_previous_state(self):
         self._rnn_carries = None
 
+    @whole()
     def rnn_time_step(self, x):
         """Stateful stepping inference (rnnTimeStep): [B, F] for one step
         or [B, T, F]; the LSTM carries persist between calls."""
@@ -518,6 +525,7 @@ class MultiLayerNetwork(LayeredModel):
     # ------------------------------------------------------------------
     # evaluation / misc
     # ------------------------------------------------------------------
+    @whole()
     def evaluate(self, iterator):
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         ev = Evaluation()
@@ -528,6 +536,7 @@ class MultiLayerNetwork(LayeredModel):
                     else host(ds.labels_mask))
         return ev
 
+    @whole("params_list", "states_list", "updater_states")
     def clone(self):
         """An independent copy: parameters, layer and updater state,
         iteration and dropout draw counter."""

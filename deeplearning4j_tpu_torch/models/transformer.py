@@ -14,7 +14,13 @@ per signature on the card, in a cache bounded by
 ``DL4J_TORCH_SERVE_GEN_CACHE``), and the programs the continuous-
 batching server (``serving/decode.py``) drives: the decode chunk over a
 paged window of the slot pool, the slot admit, and chunked prefill.
-Sharding comes with a later slice.
+Data parallelism is the reference's: :meth:`TransformerLM.shard` puts the
+model under a sharding plan over a process group
+(``parallel/sharding_core.py``: each rank its rows of the global batch,
+the loss over the global batch's mask count, the gradients reduced over
+the ranks before the global-norm clip, AdamW on this rank's shards at
+ZeRO levels 1-3); :meth:`TransformerLM.fsdp_trainer` hands the loss to
+``parallel/fsdp.py``'s FSDPTrainer.
 
 Layouts are the reference's: dense weights are ``[in, out]`` applied as
 ``x @ W``; q/k/v are ``[B, H, T, hd]``; parameters form the same tree of
@@ -54,8 +60,13 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.config import env_int, env_str
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models._cuda_graph import StaticGraph
+from deeplearning4j_tpu_torch.models._device_state import (PlanStateMixin,
+                                                           whole)
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.random import M32, mix32, mul32
+from deeplearning4j_tpu_torch.parallel import multihost
+from deeplearning4j_tpu_torch.parallel.sharding_core import (
+    ShardingCore, as_mesh, current_batch_plan, global_batch)
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     blockwise_attention, dense_attention)
 
@@ -175,6 +186,17 @@ class TransformerConfig:
     @property
     def kv_group(self):
         return self.n_heads // self.kv_heads
+
+
+def mask_denominator(m):
+    """The masked-mean denominator: the mask's sum (at least 1). In a
+    train step under a plan of N ranks, the global batch's sum over N:
+    the mean over the ranks of each rank's masked sum over it is then
+    the global batch's masked mean, whatever count each rank holds."""
+    plan = current_batch_plan()
+    if plan is None:
+        return torch.clamp(m.sum(), min=1.0)
+    return torch.clamp(plan.all_reduce_sum(m.sum()), min=1.0) / plan.n
 
 
 def _decay_mask(params):
@@ -592,7 +614,7 @@ def prefill_record(slot, toks, start, nvalid, final, W):
     rec[_PREFILL_FIELDS:_PREFILL_FIELDS + len(toks)] = toks
     return rec
 
-class TransformerLM(nn.Module):
+class TransformerLM(PlanStateMixin, nn.Module):
     """Pre-LN decoder-only LM with tied input/output embeddings.
 
     ``device=None`` means the card; pass ``device="cpu"`` to run on the
@@ -753,7 +775,7 @@ class TransformerLM(nn.Module):
             a = c.label_smoothing
             nll = (1.0 - a) * nll - a * logp.mean(-1)
         m = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-        denom = torch.clamp(m.sum(), min=1.0)
+        denom = mask_denominator(m)
         loss = (nll * m).sum() / denom
         if c.z_loss > 0.0:
             # PaLM z-loss: pulls log Z toward 0, stabilizing bf16 logits
@@ -802,8 +824,129 @@ class TransformerLM(nn.Module):
                 self._rng = torch.Generator(device=self.device).manual_seed(
                     c.seed + 1)
             rng = self._rng
+        plan = self._dp()
+        if plan is not None:
+            return self._sharded_step(plan, tokens, targets, mask, rng)
         loss, grads = self._value_and_grad(tokens, targets, mask, rng)
         self._apply_update(grads)
+        return loss
+
+    # ---- data parallelism ------------------------------------------------
+    _plan_trees = (("params", "param_spec"), ("opt_state", "updater_spec"))
+
+    def _plan_leaves(self, attr):
+        return list(_flatten(getattr(self, attr)).values())
+
+    def _set_plan_leaves(self, attr, leaves):
+        tree = _unflatten(dict(zip(_flatten(getattr(self, attr)), leaves)))
+        setattr(self, attr, _parameter_tree(tree) if attr == "params"
+                else tree)
+
+    def _rank_device(self, device):
+        """This rank's device (``multihost.rank_device``), which must be
+        the model's."""
+        dev = multihost.rank_device(device)
+        if dev != self.device:
+            raise ValueError(f"the model lives on {self.device}, this rank "
+                             f"trains on {dev}")
+        return dev
+
+    def shard(self, mesh=None, axis="data", level=None, *, device=None):
+        """Data parallelism over ``mesh`` (a ``DataMesh``, a process group,
+        or None for the whole default group): each rank trains on its rows
+        of every global batch, with the parameters and the AdamW state at
+        the ZeRO level's placements (``level``, else
+        ``DL4J_TORCH_DP_SHARD``): 0 whole, 1 the moments (and the EMA)
+        1/N, 2 the gradients reduce-scattered too, 3 the parameters 1/N
+        between steps, gathered for the forward. ``device`` is this
+        rank's device (``multihost.rank_device``), where the model must
+        live. Every rank calls it, and then each ``fit_batch``, in step."""
+        self._rank_device(device)
+        if self.params is None:
+            self.init()
+        if self.opt_state is None:
+            self.opt_state = _fresh_opt_state(self.conf, self.params)
+        self._enter_plan(ShardingCore(as_mesh(mesh, axis), level=level,
+                                      batch_axis=axis))
+        return self
+
+    def fsdp_trainer(self, mesh=None, *, device=None):
+        """ZeRO-3 training of this LM's loss with parameters, gradients
+        and Adam moments 1/N at rest (``parallel/fsdp.FSDPTrainer``);
+        feed it (tokens, targets) global batches and read the whole
+        parameters back with ``trainer.gathered_params()``."""
+        from deeplearning4j_tpu_torch.parallel.fsdp import FSDPTrainer
+        dev = self._rank_device(device)
+        if self.params is None:
+            self.init()
+        c = self.conf
+
+        def loss_fn(params, tokens, targets):
+            return self._loss(params, tokens, targets, None)
+
+        return FSDPTrainer(mesh, self.params, loss_fn, lr=c.learning_rate,
+                           beta1=c.beta1, beta2=c.beta2, eps=c.eps,
+                           weight_decay=c.weight_decay,
+                           weight_decay_mask=_decay_mask(self.params),
+                           device=dev)
+
+    def _sharded_step(self, plan, tokens, targets, mask, rng):
+        """The step under a plan of N ranks (``tokens``: this rank's rows):
+        level 3 gathers the parameters whole for the forward; the loss
+        takes the global batch's mask count; the gradients and the loss
+        are reduced over the ranks (reduce-scattered to shards at levels
+        2-3) before the global-norm clip, whose norm spans the whole
+        leaves; AdamW and the EMA run on this rank's shards, and levels
+        1-2 gather the updated shards back onto the whole parameters."""
+        c = self.conf
+        names = list(_flatten(self.params))
+        axes = self._dp_axes["params"]
+        leaves = self._plan_leaves("params")
+        whole = [t.requires_grad_(True) for t in self._gathered("params")]
+        params = _unflatten(dict(zip(names, whole))) if plan.level >= 3 \
+            else self.params
+        with global_batch(plan):
+            loss = self._loss(params, tokens, targets, mask, rng)
+        grads = torch.autograd.grad(loss, whole)
+        grads, (loss,) = plan.constrain_grads(list(grads), axes,
+                                           scalars=(loss.detach(),))
+        if c.grad_clip_norm is not None:
+            sq = [torch.sum(torch.square(g)) for g in grads]
+            split = [q for q, a in zip(sq, axes) if a is not None] \
+                if plan.level >= 2 else []
+            total = sum(q for q, a in zip(sq, axes)
+                        if a is None or plan.level < 2)
+            if split:
+                total = total + plan.all_reduce_sum(torch.stack(split).sum())
+            scale = torch.clamp(
+                c.grad_clip_norm / torch.clamp(torch.sqrt(total), min=1e-12),
+                max=1.0)
+            torch._foreach_mul_(grads, scale)
+        if plan.level >= 3:
+            views = leaves
+        elif plan.level >= 1:
+            views = [plan.shard(p, a) for p, a in zip(leaves, axes)]
+        else:
+            views = leaves
+        if plan.level == 1:
+            grads = [plan.shard(g, a) for g, a in zip(grads, axes)]
+        t = self.iteration + 1
+        tree = _unflatten(dict(zip(names, views)))
+        _adamw_apply(c, tree, _unflatten(dict(zip(names, grads))),
+                     self.opt_state, t, _lr_at(c, t))
+        with torch.no_grad():
+            if plan.level in (1, 2):
+                for p, w, a in zip(leaves, plan.gather_params(views, axes), axes):
+                    if a is not None:
+                        p.copy_(w)
+            if c.ema_decay is not None:
+                d = c.ema_decay
+                fe = _flatten(self.opt_state["ema"])
+                e = [fe[n] for n in names]
+                ema_views = views if plan.level >= 1 else leaves
+                torch._foreach_mul_(e, d)
+                torch._foreach_add_(e, ema_views, alpha=1.0 - d)
+        self.iteration = t
         return loss
 
     def _device_tokens(self, tokens):
@@ -828,6 +971,11 @@ class TransformerLM(nn.Module):
             targets = self._device_tokens(targets)
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask), device=self.device)
+        plan = self._dp()
+        if plan is not None:   # this rank's rows of the global batch
+            tokens, targets, mask = (
+                multihost.take_rows(a, plan.rank, plan.n)
+                for a in (tokens, targets, mask))
         self.score_ = self._train_step(tokens, targets, mask)
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration)
@@ -853,6 +1001,7 @@ class TransformerLM(nn.Module):
                 self.fit_batch(batch)
         return self
 
+    @whole("params")
     def eval_loss(self, tokens):
         """Mean next-token NLL on held-out tokens (no update)."""
         toks = self._device_tokens(tokens)
@@ -863,6 +1012,7 @@ class TransformerLM(nn.Module):
     def perplexity(self, tokens):
         return float(np.exp(self.eval_loss(tokens)))
 
+    @whole("params")
     def output(self, tokens):
         """Logits [B, T, V] as host numpy: one host-to-device copy of the
         tokens and one fetch of the logits per call, timed into
@@ -886,6 +1036,7 @@ class TransformerLM(nn.Module):
         """Raise if this model has no decode programs (the MoE family);
         the continuous-batching server asks before it takes a model."""
 
+    @whole("params")
     def generate(self, prompt, n_new, *, temperature=1.0, seed=0,
                  top_k=None, top_p=None, repetition_penalty=None):
         """Autoregressive sampling over a preallocated KV cache, greedy at
@@ -1414,6 +1565,7 @@ class TransformerLM(nn.Module):
         return prog
 
     # ---- beam search ---------------------------------------------------
+    @whole("params")
     def beam_search(self, prompt, n_new, *, beams=4):
         """Fixed-horizon beam decoding: the ``beams`` highest joint
         log-probability continuations of length ``n_new``, returning the

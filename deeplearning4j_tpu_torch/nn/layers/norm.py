@@ -7,7 +7,9 @@ first row per channel (raw E[x²] - E[x]² cancels when the mean is large
 against the spread), statistics in at least float32, and the running
 variance updated with the biased batch variance (``F.batch_norm`` uses
 the unbiased one). The running mean and variance are the layer state
-``{"mean", "var"}``, the keys a model archive's ``state.npz`` uses.
+``{"mean", "var"}``, the keys a model archive's ``state.npz`` uses. In a
+train step under a sharding plan of N ranks the moments are those of the
+global batch, as in the reference's global-batch step.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import (Convolutional,
                                                          FeedForward,
                                                          Recurrent)
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayer, register_layer
+from deeplearning4j_tpu_torch.parallel.sharding_core import current_batch_plan
 
 __all__ = ["BatchNormalization", "LocalResponseNormalization"]
 
@@ -77,25 +80,50 @@ class BatchNormalization(BaseLayer):
     def forward(self, params, x, state, *, train=False, rng=None, mask=None):
         dims = tuple(range(x.ndim - 1))   # all but the channel axis
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train:
+        plan = current_batch_plan() if train else None
+        if plan is not None:
+            dmean, shift, var = self._global_moments(plan, xf, dims)
+            mean = shift + dmean
+        elif train:
             shift = xf.reshape(-1, xf.shape[-1])[0].detach()
             d = xf - shift
             dmean = d.mean(dim=dims)
             mean = shift + dmean
             var = torch.clamp((d * d).mean(dim=dims) - dmean * dmean,
                               min=0.0)
+        if not train:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        else:
             new_state = {
                 "mean": self.decay * state["mean"] + (1 - self.decay) * mean,
                 "var": self.decay * state["var"] + (1 - self.decay) * var}
-        else:
-            mean, var = state["mean"], state["var"]
-            new_state = state
         xhat = ((xf - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
         if self.lock_gamma_beta:
             out = self.gamma_init * xhat + self.beta_init
         else:
             out = params["gamma"] * xhat + params["beta"]
         return out, new_state
+
+    @staticmethod
+    def _global_moments(plan, xf, dims):
+        """(shifted mean, shift, biased variance) of the global batch
+        across ``plan``'s ranks: the shift is the global batch's first
+        row (rank 0's, broadcast); the shifted sums, sums of squares and
+        row counts are summed over the ranks (differentiably: every
+        rank's loss depends on every row)."""
+        shift = xf.reshape(-1, xf.shape[-1])[0].detach().clone()
+        plan.broadcast(shift, 0)
+        d = xf - shift
+        rows = torch.full((1,), d.numel() // d.shape[-1], dtype=d.dtype,
+                          device=d.device)
+        sums = plan.all_reduce_sum(torch.cat(
+            [d.sum(dim=dims), (d * d).sum(dim=dims), rows]))
+        c = d.shape[-1]
+        count = sums[2 * c].detach()
+        dmean = sums[:c] / count
+        var = torch.clamp(sums[c:2 * c] / count - dmean * dmean, min=0.0)
+        return dmean, shift, var
 
 
 @register_layer

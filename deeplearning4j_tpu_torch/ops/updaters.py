@@ -18,7 +18,7 @@ import torch
 from deeplearning4j_tpu_torch.ops.schedules import learning_rate
 
 __all__ = ["UpdaterConfig", "compute_updates", "init_state",
-           "l1_l2_score", "normalize_gradients"]
+           "l1_l2_score", "normalize_gradients", "whole_sq_sums"]
 
 _BIAS_NAMES = ("b", "gb", "vb", "beta")
 
@@ -76,35 +76,70 @@ def init_state(conf: UpdaterConfig, params, device=None):
     raise ValueError(f"Unknown updater rule {conf.rule!r}")
 
 
-def _global_norm(grads):
+def _global_norm(grads, sq=None):
+    if sq is not None:
+        return torch.sqrt(sum(sq[k] for k in grads) + 1e-12)
     return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-12)
 
 
-def normalize_gradients(conf: UpdaterConfig, grads):
+# the normalizations that take a gradient norm
+_NORM_RULES = frozenset(("renormalizel2perlayer", "renormalizel2perparamtype",
+                         "clipl2perlayer", "clipl2perparamtype"))
+
+
+def normalize_gradients(conf: UpdaterConfig, grads, sq=None):
     """Gradient normalization/clipping per layer
-    (LayerUpdater.java:184-224)."""
+    (LayerUpdater.java:184-224). ``sq`` (name -> the whole leaf's
+    squared sum) supplies the norms when ``grads`` holds shards of the
+    leaves (a sharding plan's levels 2-3)."""
     gn = (conf.gradient_normalization or "none").lower()
     if gn in ("none", ""):
         return grads
     thr = conf.gradient_normalization_threshold
+
+    def leaf_norm(k, g):
+        if sq is not None:
+            return torch.sqrt(sq[k])
+        return torch.linalg.norm(g.reshape(-1))
     if gn == "renormalizel2perlayer":
-        norm = _global_norm(grads)
+        norm = _global_norm(grads, sq)
         return {k: g / norm for k, g in grads.items()}
     if gn == "renormalizel2perparamtype":
-        return {k: g / (torch.linalg.norm(g.reshape(-1)) + 1e-12)
-                for k, g in grads.items()}
+        return {k: g / (leaf_norm(k, g) + 1e-12) for k, g in grads.items()}
     if gn == "clipelementwiseabsolutevalue":
         return {k: torch.clamp(g, -thr, thr) for k, g in grads.items()}
     if gn == "clipl2perlayer":
-        scale = torch.clamp(thr / _global_norm(grads), max=1.0)
+        scale = torch.clamp(thr / _global_norm(grads, sq), max=1.0)
         return {k: g * scale for k, g in grads.items()}
     if gn == "clipl2perparamtype":
-        def clip_one(g):
-            norm = torch.linalg.norm(g.reshape(-1)) + 1e-12
+        def clip_one(k, g):
+            norm = leaf_norm(k, g) + 1e-12
             return g * torch.clamp(thr / norm, max=1.0)
-        return {k: clip_one(g) for k, g in grads.items()}
+        return {k: clip_one(k, g) for k, g in grads.items()}
     raise ValueError(f"Unknown gradient normalization "
                      f"{conf.gradient_normalization!r}")
+
+
+def whole_sq_sums(confs, grads, axes, plan):
+    """Per layer, the squared sums of its whole gradient leaves (name ->
+    0-dim tensor) where its normalization takes a norm, else None.
+    ``grads[i][k]`` is a shard where ``axes[i][k]`` is not None: those
+    shards' sums are all-reduced over ``plan``'s ranks, in one call."""
+    out, sharded = [], []
+    for conf, g, ax in zip(confs, grads, axes):
+        if (conf.gradient_normalization or "none").lower() not in \
+                _NORM_RULES:
+            out.append(None)
+            continue
+        q = {k: torch.sum(v * v) for k, v in g.items()}
+        sharded += [(q, k) for k in q if ax[k] is not None]
+        out.append(q)
+    if sharded:
+        total = torch.stack([q[k] for q, k in sharded])
+        total = plan.all_reduce_sum(total)
+        for j, (q, k) in enumerate(sharded):
+            q[k] = total[j]
+    return out
 
 
 def compute_updates(conf: UpdaterConfig, grads, state, iteration,

@@ -368,17 +368,37 @@ def model_entries(net, save_updater=True, normalizer=None):
     return entries
 
 
+def writer_plan(net):
+    """The sharding plan of more than one rank ``net`` trains under, or
+    None. Under one, a save is a collective: every rank gathers the
+    host view, rank 0 alone writes."""
+    dp = getattr(net, "_dp", None)
+    return None if dp is None else dp()
+
+
 def write_model(net, path, save_updater=True, normalizer=None,
                 extra_entries=None):
     """Save a MultiLayerNetwork, a ComputationGraph or a pytree-family
     model (ModelSerializer.writeModel) through the atomic commit. ``normalizer``
     goes in as ``preprocessor.bin`` (ModelSerializer.addNormalizerToModel);
     ``extra_entries`` ride in the same commit (the training checkpoint's
-    state)."""
-    entries = model_entries(net, save_updater, normalizer)
+    state). Under a sharding plan of more than one rank every rank calls
+    it: the archive holds the whole trees (gathered, so it does not
+    depend on the level or the width) and rank 0 writes it."""
+    plan = writer_plan(net)
+    if plan is None:
+        entries = model_entries(net, save_updater, normalizer)
+    else:
+        with net._whole(tuple(attr for attr, _ in net._plan_trees)):
+            entries = model_entries(net, save_updater, normalizer)
     if extra_entries:
         entries.update(extra_entries)
-    return atomic_io.write_zip_atomic(path, entries)
+    if plan is None:
+        return atomic_io.write_zip_atomic(path, entries)
+    out = atomic_io.write_zip_atomic(path, entries) if plan.rank == 0 \
+        else path
+    plan.barrier()
+    return out
 
 
 def add_normalizer_to_model(path, normalizer):

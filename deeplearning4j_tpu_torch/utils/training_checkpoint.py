@@ -97,6 +97,9 @@ def save_training_checkpoint(net, directory, *, cursor=None, keep=None):
         path = os.path.join(directory, f"{_PREFIX}{int(net.iteration)}.zip")
         extra = {TRAIN_STATE_NAME: json.dumps(_training_state(net, cursor))}
         model_serializer.write_model(net, path, extra_entries=extra)
+        plan = model_serializer.writer_plan(net)
+        if plan is not None and plan.rank != 0:
+            return path   # rank 0 wrote the archive and keeps the directory
         keep = env_int("DL4J_TORCH_CKPT_KEEP", minimum=1) if keep is None \
             else keep
         stale = [name for _, name in checkpoint_files(directory)[:-keep]]
@@ -189,7 +192,20 @@ def apply_training_checkpoint(net, path):
     the data cursor ({} for a plain model archive). Parameters, layer and
     updater state, counters, generator and guard state are all replaced,
     so the continuation is bitwise the uninterrupted run. A failure
-    leaves ``net`` as it was."""
+    leaves ``net`` as it was. A model under a sharding plan takes the
+    whole state and is placed under its plan again: the re-shard (a
+    collective: every rank of the plan restores)."""
+    plan = getattr(net, "_shard_plan", None)
+    if plan is None:
+        return _apply(net, path)
+    net._leave_plan()
+    try:
+        return _apply(net, path)
+    finally:
+        net._enter_plan(plan)
+
+
+def _apply(net, path):
     if model_serializer.is_pytree_model(net):
         return _apply_lm(net, path)
     restored = model_serializer.restore_model(path, device=net.device)

@@ -231,14 +231,23 @@ def test_worker_thread_makes_no_torch_call(monkeypatch):
 
 
 def test_not_ported_options_raise_and_name_the_roadmap():
-    """Sharding still raises, naming ROADMAP.md; ``k_resolver`` and the
-    stacking of MultiDataSet batches are ported: the resolver sets each
-    bucket's group size, and MultiDataSet batches stack into a
-    ``StackedMultiDataSet``."""
-    base = ListDataSetIterator(_make([(8, 4)], DataSet))
-    for kw in (dict(sharding=object()), dict(fuse_sharding=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AsyncDataSetIterator(base, device="cpu", **kw)
+    """Every option is ported: ``sharding`` and ``fuse_sharding`` copy a
+    rank's rows (of a batch, of a stacked group's batch axis),
+    ``k_resolver`` sets each bucket's group size, and MultiDataSet batches
+    stack into a ``StackedMultiDataSet``."""
+    from deeplearning4j_tpu_torch.parallel.sharding_core import RowSharding
+    batches = _make([(8, 4)] * 2, DataSet)
+    (one, _) = list(AsyncDataSetIterator(
+        ListDataSetIterator(batches), sharding=RowSharding(1, 2, 0),
+        device="cpu"))
+    np.testing.assert_array_equal(one.features.numpy(),
+                                  batches[0].features[4:])
+    (st,) = list(AsyncDataSetIterator(
+        ListDataSetIterator(batches), fuse=2,
+        fuse_sharding=RowSharding(1, 2, 1), device="cpu"))
+    assert tuple(st.features.shape) == (2, 4, 4)
+    np.testing.assert_array_equal(st.features[1].numpy(),
+                                  batches[1].features[4:])
     seen = []
 
     def resolver(key):

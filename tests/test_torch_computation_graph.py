@@ -249,11 +249,15 @@ def test_cycles_and_unknown_inputs_are_rejected():
 
 
 def test_not_ported_paths_raise_and_name_the_roadmap():
-    """Sharding still raises, naming ROADMAP.md; pretraining runs (a graph
-    without pretrain layers is left as it was, and a vertex that is no
-    pretrain layer is skipped, as the reference's), and the fused loop
+    """Pretraining under a sharding plan of more than one rank raises,
+    naming ROADMAP.md; the graph has no ``shard`` (as the reference's: a
+    plan is injected instead); pretraining runs (a graph without
+    pretrain layers is left as it was, and a vertex that is no pretrain
+    layer is skipped, as the reference's), and the fused loop
     (``fit_fused``) and the line-search solvers are ported: a graph under
     ``lbfgs`` trains its batch and lowers its score."""
+    from deeplearning4j_tpu_torch.parallel.sharding_core import (
+        DataMesh, ShardingCore)
     conf = zoo.resnet50(n_classes=3, height=16, width=16, stages=(1,))
     net = ComputationGraph(conf, device="cpu").init()
     start = net.params()
@@ -261,8 +265,11 @@ def test_not_ported_paths_raise_and_name_the_roadmap():
     assert net.pretrain_vertex("fc", []) is net
     np.testing.assert_array_equal(net.params(), start)
     assert net.iteration == 0
+    assert not hasattr(net, "shard")
+    net._enter_plan(ShardingCore(DataMesh(None, 2, 0), level=0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.shard()
+        net.pretrain_vertex("fc", [])
+    net._leave_plan()
     x, y = _images(0, 2, 16, 3)
     st = StackedMultiDataSet([x[None]], [y[None]],
                              np.ones((1, 2), np.float32), 1)

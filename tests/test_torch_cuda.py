@@ -52,7 +52,10 @@ multiple of a tile, non-causal) and MoE LM (flash route, top-2) on the
 card against the same weights on the CPU: logits and one step's
 gradients within 1e-5 (ViT) and 1e-4 (MoE, as the LM's train bars) of
 each tensor's max abs, each layer launching the three kernels once, and
-the MoE's routing equal.
+the MoE's routing equal. Data parallelism: a world of one rank over NCCL
+trains a narrow LM at every ZeRO level bit for bit as unsharded; two
+gloo ranks sharing cuda:0 train an MLP through ParallelWrapper to one
+process's parameters within 1e-5 of their max abs.
 """
 
 import math
@@ -1802,3 +1805,118 @@ def test_moe_on_card_matches_cpu(cuda_device, monkeypatch):
     want_loss, want_g = cpu._value_and_grad(t[:, :-1], t[:, 1:], None)
     assert abs(float(loss) - float(want_loss)) <= 1e-5
     assert _tree_rel(grads, want_g) <= 1e-4
+
+
+# ---- data parallelism on the card ---------------------------------------
+def _dp_mlp(device):
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    conf = (NeuralNetConfiguration.Builder().seed(12).learning_rate(0.05)
+            .updater("adam").list()
+            .layer(DenseLayer(n_in=16, n_out=32, activation="tanh"))
+            .layer(OutputLayer(n_out=8, activation="softmax", loss="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _dp_stream():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 16)).astype(np.float32)
+    return X, np.eye(8, dtype=np.float32)[rng.integers(0, 8, 64)]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_rank(rank, port, out):
+    """One of two gloo ranks on cuda:0: the MLP through ParallelWrapper at
+    each level; rank 0 writes the parameters."""
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    X, Y = _dp_stream()
+    got = {}
+    for lv in (0, 1, 2, 3):
+        net = _dp_mlp(dev)
+        ParallelWrapper(net, dp_shard=lv, device=dev).fit(
+            ArrayDataSetIterator(X, Y, batch_size=16), epochs=2)
+        got[f"level{lv}"] = net.params()
+    if rank == 0:
+        np.savez(out, **got)
+    multihost.shutdown()
+
+
+@pytest.mark.cuda
+def test_world1_nccl_levels_equal_unsharded_on_card(cuda_device):
+    """A world of one rank over NCCL on the card: every level's steps are
+    the unsharded steps (a width-1 plan skips every collective and
+    slice), losses and parameters bit for bit, for a narrow LM."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, _flatten)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    conf = TransformerConfig(vocab_size=64, d_model=32, n_heads=2, d_ff=64,
+                             n_layers=2, max_len=32, block_size=16, seed=3)
+    toks = np.random.RandomState(5).randint(0, 64, (8, 33))
+    ref = TransformerLM(conf, device=cuda_device).init()
+    want = [float(ref.fit_batch(toks)) for _ in range(2)]
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
+                         device=cuda_device)
+    try:
+        import torch.distributed as dist
+        assert dist.get_backend() == "nccl"
+        for lv in (0, 1, 2, 3):
+            lm = TransformerLM(conf, device=cuda_device).init().shard(
+                level=lv, device=cuda_device)
+            assert [float(lm.fit_batch(toks)) for _ in range(2)] == want
+            for k, v in _flatten(ref.params).items():
+                assert torch.equal(_flatten(lm.params)[k], v), (lv, k)
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_equal_world1(cuda_device, tmp_path):
+    """Two processes over gloo, both on cuda:0, train the MLP through
+    ParallelWrapper at each level; rank 0's parameters equal one process's
+    unsharded run within 1e-5 of the parameters' max abs (the reduction
+    tree differs), and levels 1 and 2 agree bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    X, Y = _dp_stream()
+    ref = _dp_mlp(cuda_device)
+    ref.fit(ArrayDataSetIterator(X, Y, batch_size=16), epochs=2)
+    want = ref.params()
+    port, out = _free_port(), str(tmp_path / "dp.npz")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               str(r), str(port), out], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    got = np.load(out)
+    np.testing.assert_array_equal(got["level1"], got["level2"])
+    tol = 1e-5 * float(np.abs(want).max())
+    for lv in (0, 1, 2, 3):
+        np.testing.assert_allclose(got[f"level{lv}"], want, rtol=0, atol=tol)
+
+
+if __name__ == "__main__":
+    import sys
+    _dp_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -36,7 +36,10 @@
   steps load no kernel and count no launch, and the ViT's attention
   refuses a tensor on any other device before plain attention sees it;
   the model modules, the fetchers and the PNG codec are scanned like
-  every module.
+  every module;
+- joining a process group, ParallelWrapper, ``TransformerLM.shard`` and
+  ``fsdp_trainer`` refuse the CPU without CUDA unless asked for it; the
+  data-parallel modules (``parallel/``) are scanned like every module.
 """
 
 import ast
@@ -845,3 +848,30 @@ def test_vit_attention_refuses_device_tensors(monkeypatch):
     q = torch.zeros(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         vit._attend(q, q, q)
+
+
+def test_data_parallelism_without_device_refuses_the_cpu(no_cuda):
+    """Joining a process group, ParallelWrapper, TransformerLM.shard and
+    fsdp_trainer take the card unless ``device="cpu"`` is asked for: no
+    group is created and no plan placed on the CPU behind the caller."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.initialize("127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.initialize("127.0.0.1:1", 1, 0, backend="gloo")
+    assert not dist.is_initialized()
+    net = MultiLayerNetwork(zoo.char_rnn(vocab_size=5, hidden=4),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ParallelWrapper(net)
+    assert ParallelWrapper(net, device="cpu").workers == 1
+    lm = TransformerLM(TransformerConfig(**SMALL), device="cpu").init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.shard()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.fsdp_trainer()
+    assert lm._shard_plan is None
+    assert lm.shard(device="cpu")._shard_plan.n == 1
