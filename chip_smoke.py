@@ -10,7 +10,8 @@ toolkit::
 Phases, each fatal on failure:
 
 1. build — compile every kernel of ``deeplearning4j_tpu_torch/csrc`` with
-   nvcc (one process per source, started together) and report the time;
+   nvcc (one process per source, started together) and the native
+   library (``native/src``) with g++ beside them, and report the time;
 2. kernels — each kernel on the card against its plain PyTorch twin on
    the same inputs, at the serving and training paths' shapes and a few
    edge shapes (T 1, T 65, d 36, a q view with a storage offset, d
@@ -427,10 +428,36 @@ Phases, each fatal on failure:
    3, peak memory a rank; and a 2-layer LM at the slice's widths through
    ``shard``, 2 steps, 2 launches of each flash kernel a step a rank, the
    ranks' losses equal and within DP_W2_LOSS_RTOL of world 1's;
-28. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+28. scaleout — the scaleout stack on phase ``charrnn``'s net at full
+   width and its batches of 32, the coordinator the native one
+   (``nativelib.py``, built in phase ``build``): (a)
+   ``ParameterAveragingTrainingMaster`` with one thread worker averaging
+   every batch, 4 batches: parameters bit for bit plain ``fit_batch``'s,
+   the updater vector within SCALEOUT_UPDATER_TOL; (b) two thread
+   workers averaging every 5 batches over 20 (2 splits; the main path):
+   parameters and updater vector against a yardstick written out here
+   (two replicas fitting their batches from the broadcast state, their
+   float32 sums halved), bitwise or within SCALEOUT_YARDSTICK_RTOL; a
+   second run the same bits, its 160 + 8,000 LSTM launches by the
+   wrappers (the ``kernels`` line's ``launches_scaleout``), ms a split,
+   characters/s, the master's ``broadcast``/``aggregate`` seconds; a
+   third run profiled for the card's busy share; (c) the same splits
+   through two ``parallel/worker.py`` processes on the card in Export
+   mode: parameters within SCALEOUT_PROCESS_TOL of (b)'s, each worker's
+   own launch counts (``launches_scaleout_process``), the seconds with
+   and without the spawn; (d) ``ParameterServerParallelWrapper``: one
+   trainer pulling every step within SCALEOUT_PS_TOL of ``fit_batch``
+   after one batch and, over 4, bit for bit the sequential fit through
+   the server's float32 arithmetic; two trainers over 16 batches lower
+   the held-out loss; (e) ``DistributedWord2Vec`` at phase
+   ``word2vec``'s configuration: one worker bit for bit ``Word2Vec``'s
+   tables, two worker threads (each capturing its graphs) bit for bit
+   their replicas fitted in turn and averaged, words/s; the reference
+   test's topic check on the card;
+29. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
-   ``deepwalk`` and the eleven above.
+   ``deepwalk`` and the twelve above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -848,6 +875,22 @@ DP_W2_PERTURB = 1e-7
 DP_W2_LOSS_RTOL = 1e-3
 DP_WORLD2_TIMEOUT_S = 400
 
+# the scaleout phase: the training master, the parameter server and
+# distributed Word2Vec on phase charrnn's net at full width and on its
+# seeded batches of 32 (the shape of the kernel rows 4-5); dl4j-examples'
+# SparkLSTMCharacterExample averages every 5 batches
+SCALEOUT = dict(batch=32, parity_batches=4, workers=2, averaging_frequency=5,
+                batches=20, ps_equal_batches=4, ps_batches=16, ps_workers=2)
+SCALEOUT_UPDATER_TOL = 1e-6      # the parity gate's updater vector
+SCALEOUT_YARDSTICK_RTOL = 1e-7   # thread mode against its yardstick
+SCALEOUT_PROCESS_TOL = 1e-6      # process mode against thread mode
+SCALEOUT_PS_TOL = 1e-5           # one trainer against sequential fit_batch
+SCALEOUT_TIMEOUT_S = 300         # the process mode's join
+# the topic corpus of tests/test_nlp_distributed.py:81-99 and its fit
+SCALEOUT_TOPICS = dict(sentences=150, seed=3, epochs=3, layer_size=24,
+                       window=4, negative=5, min_word_frequency=1, seed_fit=7,
+                       batch_size=128)
+
 # phase keras, extended: the committed narrow ResNet-50 topology
 KERAS_RESNET50 = dict(file="resnet50_narrow_k1_tf.h5", images=4,
                       fit_batches=2, fit_batch=8)
@@ -1090,10 +1133,19 @@ def d256_usage(logs):
 
 
 def phase_build(card):
+    """nvcc for every kernel and g++ for the native library
+    (``nativelib.py``: the coordinator, the CSV and idx readers), all
+    started together; the phase fails if the library does not load."""
+    from deeplearning4j_tpu_torch import nativelib
     from deeplearning4j_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(nativelib.ensure_built)
+        logs = _build.build_all()
+        native_ok = native.result()
     seconds = time.perf_counter() - t0
+    assert native_ok, f"the native library did not build: " \
+        f"{nativelib.build_error()}"
     for name, log in logs.items():
         usage = [ln.strip() for ln in log.splitlines()
                  if "entry function" in ln or "registers" in ln
@@ -1102,7 +1154,8 @@ def phase_build(card):
               "routes": kernel_routes(name, log)})
     d256 = d256_usage(logs)
     emit({"phase": "build", "seconds": seconds, "d256_instances": d256,
-          "card": card})
+          "native_library": str(nativelib.LIB_PATH.relative_to(
+              Path(__file__).resolve().parent)), "card": card})
     return d256
 
 
@@ -4299,7 +4352,8 @@ def phase_order_check(card):
                                                 "graph_fused", "solvers",
                                                 "pretrain", "transfer",
                                                 "gradcheck", "tsne_kmeans",
-                                                "vit", "moe"],
+                                                "vit", "moe", "dp",
+                                                "scaleout"],
               "resnet_narrow_f32": cnn_graph_card_vs_cpu(
                   "resnet50", RESNET_NARROW, 8, SEED + 3),
               "card": card}
@@ -8035,6 +8089,454 @@ def phase_dp(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase scaleout: the training master (threads and processes), the
+# parameter server, the collective coordinator and distributed Word2Vec
+# ---------------------------------------------------------------------------
+def _bits_or_values(a, b):
+    """'bitwise', 'equal' (the same values, a zero's sign aside) or None."""
+    import numpy as np
+    if a.dtype == b.dtype and np.array_equal(a.view(np.uint32),
+                                             b.view(np.uint32)):
+        return "bitwise"
+    return "equal" if np.array_equal(a, b) else None
+
+
+def _max_rel(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def scaleout_parity(conf, data):
+    """(a) One thread worker averaging every batch against plain
+    ``fit_batch`` over the same batches: parameters bit for bit, the
+    updater vector within SCALEOUT_UPDATER_TOL."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.parallel.training_master import (
+        DistributedMultiLayerNetwork, ParameterAveragingTrainingMaster,
+        _updater_vec)
+    n = SCALEOUT["parity_batches"]
+    local = MultiLayerNetwork(conf, device=DEVICE).init()
+    for ds in data[:n]:
+        local.fit_batch(ds.features, ds.labels)
+    tm = ParameterAveragingTrainingMaster(
+        n_workers=1, batch_size_per_worker=SCALEOUT["batch"],
+        averaging_frequency=1)
+    dist = DistributedMultiLayerNetwork(
+        MultiLayerNetwork(conf, device=DEVICE).init(), tm)
+    dist.fit(data[:n])
+    got, want = dist.network.params(), local.params()
+    upd = float(np.abs(_updater_vec(dist.network)
+                       - _updater_vec(local)).max())
+    out = {"batches": n, "coordinator": tm.coordinator_kind,
+           "params_bitwise": _bits_or_values(got, want) == "bitwise",
+           "params_max_abs_diff": float(np.abs(got - want).max()),
+           "updater_max_abs_diff": upd,
+           "updater_tolerance": SCALEOUT_UPDATER_TOL,
+           # the master counts batches (the reference's), fit_batch
+           # tBPTT windows; rmsprop at a fixed rate reads neither
+           "iteration": dist.network.iteration,
+           "fit_batch_iteration": local.iteration}
+    assert out["params_bitwise"] and upd <= SCALEOUT_UPDATER_TOL, out
+    assert tm.coordinator_kind == "native", out
+    return out
+
+
+def tm_yardstick(conf, batches, n_workers, freq):
+    """The training master's arithmetic written out in this process: per
+    split, each replica fits its round-robin batches from the broadcast
+    state, and the float32 sums of parameters and updater vectors are
+    divided by the workers that trained."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.parallel.training_master import (
+        _set_updater_vec, _updater_vec)
+    master = MultiLayerNetwork(conf, device=DEVICE).init()
+    p, u, it = master.params(), _updater_vec(master), 0
+    reps = [MultiLayerNetwork(conf, device=DEVICE).init()
+            for _ in range(n_workers)]
+    per_split = n_workers * freq
+    for s in range(0, len(batches), per_split):
+        split = batches[s:s + per_split]
+        ps, us = [], []
+        for w, rep in enumerate(reps):
+            mine = split[w::n_workers]
+            if not mine:
+                continue
+            rep.set_params(p)
+            _set_updater_vec(rep, u)
+            rep.iteration = it
+            for ds in mine:
+                rep.fit_batch(ds.features, ds.labels)
+            ps.append(rep.params())
+            us.append(_updater_vec(rep))
+        p = np.sum(np.stack(ps), axis=0, dtype=np.float32) / len(ps)
+        u = np.sum(np.stack(us), axis=0, dtype=np.float32) / len(us)
+        it += freq
+    return p, u
+
+
+def _tm_run(conf, batches, **kw):
+    """One fit through ParameterAveragingTrainingMaster on a fresh net on
+    the card: (the net, the master, wall seconds)."""
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.parallel.training_master import (
+        DistributedMultiLayerNetwork, ParameterAveragingTrainingMaster)
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    tm = ParameterAveragingTrainingMaster(
+        n_workers=SCALEOUT["workers"], batch_size_per_worker=SCALEOUT["batch"],
+        averaging_frequency=SCALEOUT["averaging_frequency"],
+        collect_training_stats=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    DistributedMultiLayerNetwork(net, tm).fit(batches)
+    torch.cuda.synchronize()
+    return net, tm, time.perf_counter() - t0
+
+
+def _phase_seconds(tm):
+    out = {}
+    for phase, sec in tm.stats:
+        out.setdefault(phase, []).append(sec)
+    return out
+
+
+def scaleout_threads(conf, data):
+    """(b) Two thread workers averaging every 5 batches over 20 batches
+    (2 splits): the first run against the yardstick, the second timed,
+    with the LSTM launches by the wrappers counted over it (the main
+    path), and the same bits as the first; a third under
+    ``torch.profiler`` for the card's busy share."""
+    from deeplearning4j_tpu_torch.parallel.training_master import _updater_vec
+    c = SCALEOUT
+    batches = data[:c["batches"]]
+    net1, tm1, wall1 = _tm_run(conf, batches)
+    want_p, want_u = tm_yardstick(conf, batches, c["workers"],
+                                  c["averaging_frequency"])
+    got_p, got_u = net1.params(), _updater_vec(net1)
+    reset_launches()                  # the main path starts here
+    net2, tm2, wall = _tm_run(conf, batches)
+    fwd, bwd = read_lstm_launches()
+    flash = read_launches()           # ... and ends here
+    # a third run under the profiler: the card's busy share of the run
+    # (both workers' kernels on the one default stream)
+    wall_p, names, ops = profiled(lambda: _tm_run(conf, batches))
+    share = device_share(names, ops, c["batches"],
+                         wall * 1e3 / c["batches"])
+    splits = c["batches"] // (c["workers"] * c["averaging_frequency"])
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    want_launches = (n_layers * windows * c["batches"],
+                     n_layers * CHARRNN["seq_len"] * c["batches"])
+    chars = c["batches"] * c["batch"] * CHARRNN["seq_len"]
+    stats = _phase_seconds(tm2)
+    out = {"workers": c["workers"],
+           "averaging_frequency": c["averaging_frequency"],
+           "batches": c["batches"], "splits": splits,
+           "coordinator": tm2.coordinator_kind,
+           "params_vs_yardstick": _bits_or_values(got_p, want_p),
+           "params_max_rel_vs_yardstick": _max_rel(got_p, want_p),
+           "updater_vs_yardstick": _bits_or_values(got_u, want_u),
+           "updater_max_rel_vs_yardstick": _max_rel(got_u, want_u),
+           "yardstick_rtol": SCALEOUT_YARDSTICK_RTOL,
+           "second_run_bitwise": _bits_or_values(net2.params(),
+                                                 got_p) == "bitwise",
+           "wall_s": wall, "first_run_wall_s": wall1,
+           "ms_per_split": wall / splits * 1e3,
+           "chars_per_s": chars / wall,
+           "broadcast_s": stats.get("broadcast"),
+           "aggregate_s": stats.get("aggregate"),
+           "lstm_launches": {"lstm_cell_fwd": fwd, "lstm_cell_bwd": bwd},
+           "lstm_launches_expected": list(want_launches),
+           "flash_launches": list(flash),
+           "profiled_wall_s": wall_p, "device_share": share,
+           "iteration": net2.iteration,
+           "score": net2.score_}
+    assert out["params_vs_yardstick"] or \
+        out["params_max_rel_vs_yardstick"] <= SCALEOUT_YARDSTICK_RTOL, out
+    assert out["updater_vs_yardstick"] or \
+        out["updater_max_rel_vs_yardstick"] <= SCALEOUT_YARDSTICK_RTOL, out
+    assert out["second_run_bitwise"], out
+    # a CPU rehearsal (DEVICE "cpu") launches no kernel
+    assert (fwd, bwd) == (want_launches if DEVICE == "cuda" else (0, 0)) \
+        and flash == (0, 0, 0), out
+    assert net2.iteration == c["batches"] // c["workers"], out
+    assert math.isfinite(out["score"]) and tm2.coordinator_kind == "native"
+    out["params"] = got_p
+    return out
+
+
+def scaleout_processes(conf, data, thread_params, tmp):
+    """(c) The same splits through two worker processes on the card in
+    Export mode: parameters within SCALEOUT_PROCESS_TOL of (b)'s; the
+    workers' own launch counts; seconds with and without the spawn."""
+    import numpy as np
+    c = SCALEOUT
+    export = Path(tmp) / "export"
+    net, tm, wall = _tm_run(conf, data[:c["batches"]], mode="process",
+                            export_dir=str(export))
+    counts = [json.loads((export / f"worker_{w}" /
+                          "kernel_launches.json").read_text())
+              for w in range(c["workers"])]
+    stats = _phase_seconds(tm)
+    agg = stats["aggregate"]
+    # the first split's aggregate waits for the workers to start (import,
+    # CUDA context, replica): its excess over the second's is the spawn
+    spawn = max(agg[0] - agg[1], 0.0)
+    diff = float(np.abs(net.params() - thread_params).max())
+    out = {"workers": c["workers"], "coordinator": tm.coordinator_kind,
+           "params_max_abs_vs_threads": diff,
+           "tolerance": SCALEOUT_PROCESS_TOL,
+           "params_vs_threads": _bits_or_values(net.params(), thread_params),
+           "wall_s": wall, "export_s": stats["export"][0],
+           "aggregate_s": agg, "broadcast_s": stats["broadcast"],
+           "spawn_s_estimate": spawn,
+           "wall_s_without_spawn_estimate": wall - spawn,
+           "worker_kernel_launches": counts}
+    n_layers = sum(hasattr(l, "initial_carry") for l in conf.layers)
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    per_worker = c["batches"] // c["workers"] if DEVICE == "cuda" else 0
+    for w in counts:
+        assert w["lstm_cell_fwd"] == n_layers * windows * per_worker, out
+        assert w["lstm_cell_bwd"] == n_layers * CHARRNN["seq_len"] \
+            * per_worker, out
+    assert diff <= SCALEOUT_PROCESS_TOL and tm.coordinator_kind == "native", \
+        out
+    return out
+
+
+def ps_yardstick(conf, batches):
+    """One trainer through the parameter server's arithmetic, written out
+    in this process: after each ``fit_batch`` the delta goes onto the
+    server's float32 copy, and the trainer pulls it back."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    server = net.params()
+    for ds in batches:
+        before = net.params()
+        net.fit_batch(ds.features, ds.labels)
+        server = server + (net.params() - before)
+        net.set_params(server)
+    return np.asarray(server)
+
+
+def scaleout_param_server(conf, data):
+    """(d) One trainer pulling every step: after one batch within
+    SCALEOUT_PS_TOL of sequential ``fit_batch`` (the reference's bar);
+    over SCALEOUT["ps_equal_batches"] batches bit for bit the sequential
+    fit through the server's float32 arithmetic (``ps_yardstick``), and
+    its distance from plain sequential ``fit_batch`` reported (each pull
+    rounds the parameters, and training grows that rounding, as phase
+    ``dp`` measured). Two trainers over 16 batches lower the held-out
+    loss."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.parallel.param_server_wrapper import (
+        ParameterServerParallelWrapper)
+    c = SCALEOUT
+    n = c["ps_equal_batches"]
+
+    def sequential(k):
+        net = MultiLayerNetwork(conf, device=DEVICE).init()
+        for ds in data[:k]:
+            net.fit_batch(ds.features, ds.labels)
+        return net.params()
+
+    def one_trainer(k):
+        net = MultiLayerNetwork(conf, device=DEVICE).init()
+        w = ParameterServerParallelWrapper(net, workers=1, pull_frequency=1)
+        w.fit(iter(data[:k]))
+        return net.params(), w.coordinator_kind
+    first, kind1 = one_trainer(1)
+    diff1 = float(np.abs(first - sequential(1)).max())
+    got, _ = one_trainer(n)
+    want = ps_yardstick(conf, data[:n])
+    plain = float(np.abs(got - sequential(n)).max())
+    held = data[-1]
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    before = float(net.score(held))
+    w2 = ParameterServerParallelWrapper(net, workers=c["ps_workers"],
+                                        pull_frequency=1)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w2.fit(iter(data[:c["ps_batches"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = read_lstm_launches()
+    after = float(net.score(held))
+    chars = c["ps_batches"] * c["batch"] * CHARRNN["seq_len"]
+    out = {"one_trainer": {
+               "after_1_batch_max_abs_vs_sequential": diff1,
+               "tolerance": SCALEOUT_PS_TOL, "batches": n,
+               "vs_server_arithmetic": _bits_or_values(got, want),
+               "max_abs_vs_server_arithmetic":
+                   float(np.abs(got - want).max()),
+               "max_abs_vs_plain_sequential": plain,
+               "coordinator": kind1},
+           "two_trainers": {"batches": c["ps_batches"],
+                            "held_out_loss_before": before,
+                            "held_out_loss_after": after,
+                            "wall_s": wall, "chars_per_s": chars / wall,
+                            "lstm_launches": [fwd, bwd],
+                            "coordinator": w2.coordinator_kind}}
+    assert diff1 <= SCALEOUT_PS_TOL, out
+    assert out["one_trainer"]["vs_server_arithmetic"], out
+    assert after < before and math.isfinite(after), out
+    assert kind1 == w2.coordinator_kind == "native", out
+    return out
+
+
+def _topic_corpus(n, seed):
+    """tests/test_nlp_distributed.py's corpus: three topics of five words,
+    8 words a sentence."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    topics = [t.split() for t in ("cat dog bird fish horse",
+                                  "bread milk cheese apple rice",
+                                  "code chip data model tensor")]
+    return [" ".join(rng.choice(topics[i % 3], 8)) for i in range(n)]
+
+
+def scaleout_word2vec():
+    """(e) Distributed Word2Vec at phase word2vec's configuration: one
+    worker against ``Word2Vec.fit`` bit for bit; two worker threads
+    (each capturing its own graphs) against the same two replicas fitted
+    one after the other and averaged, and their words/s; then the
+    reference test's topic check on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.nlp.word2vec import (Word2Vec,
+                                                       _tokenize_to_sequences)
+    c = W2V
+    kw = dict(layer_size=c["layer_size"], window=c["window"],
+              negative=c["negative"], use_hierarchic_softmax=False,
+              min_word_frequency=c["min_word_frequency"],
+              sampling=c["sampling"], seed=c["seed"],
+              batch_size=c["batch_size"], device=DEVICE)
+    sents = w2v_corpus(c["vocab"], c["total"], c["sent_len"],
+                       c["corpus_seed"])
+    single = Word2Vec(epochs=1, **kw)
+    t0 = time.perf_counter()
+    single.fit_corpus(sents)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    one = DistributedWord2Vec(n_workers=1, epochs=1, **kw)
+    one.fit_corpus(sents)
+    tables = ("syn0", "syn1neg")
+    one_bits = {t: bool(torch.equal(getattr(one.lookup_table, t),
+                                    getattr(single.lookup_table, t)))
+                for t in tables}
+    two = DistributedWord2Vec(n_workers=2, epochs=1, **kw)
+    t0 = time.perf_counter()
+    two.fit_corpus(sents)
+    torch.cuda.synchronize()
+    two_s = time.perf_counter() - t0
+    # the yardstick: the two workers' replicas one after the other, in
+    # this thread, averaged as the coordinator averages
+    seqs = list(_tokenize_to_sequences(sents, two.tokenizer_factory))
+    total = max(two.vocab.total_word_count, 1.0)
+    reps = []
+    for w in range(2):
+        sv = two._make_worker(w)
+        sv._fit_epoch(seqs[w::2], np.random.RandomState(sv.seed), 0.0,
+                      total / 2)
+        reps.append({t: getattr(sv.lookup_table, t).float().cpu().numpy()
+                     for t in tables})
+    two_vs = {}
+    for t in tables:
+        want = (reps[0][t] + reps[1][t]) / 2
+        got = getattr(two.lookup_table, t).float().cpu().numpy()
+        two_vs[t] = _bits_or_values(got, want) or _max_rel(got, want)
+    finite = all(bool(torch.isfinite(getattr(two.lookup_table, t)).all())
+                 for t in tables)
+    tc = SCALEOUT_TOPICS
+    topic = DistributedWord2Vec(
+        n_workers=2, epochs=tc["epochs"], layer_size=tc["layer_size"],
+        window=tc["window"], negative=tc["negative"],
+        use_hierarchic_softmax=False,
+        min_word_frequency=tc["min_word_frequency"], seed=tc["seed_fit"],
+        batch_size=tc["batch_size"], device=DEVICE)
+    topic.fit_corpus(_topic_corpus(tc["sentences"], tc["seed"]))
+
+    def sim(a, b):
+        va, vb = topic.word_vector(a), topic.word_vector(b)
+        return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
+    same = float(np.mean([sim("cat", "dog"), sim("bread", "milk"),
+                          sim("code", "chip")]))
+    cross = float(np.mean([sim("cat", "bread"), sim("milk", "chip"),
+                           sim("code", "fish")]))
+    nearest = topic.words_nearest("cat", 8)
+    out = {"config": "W2V (phase word2vec's, uncut)",
+           "coordinator": [one.coordinator_kind, two.coordinator_kind],
+           "single_fit_s": single_s,
+           "single_words_per_s": c["total"] / single_s,
+           "one_worker_bitwise": one_bits,
+           "two_workers_s": two_s,
+           "two_workers_words_per_s": c["total"] / two_s,
+           "two_workers_vs_yardstick": two_vs, "two_workers_finite": finite,
+           "topics": {"same_topic_sim": same, "cross_topic_sim": cross,
+                      "nearest_to_cat": nearest,
+                      "coordinator": topic.coordinator_kind}}
+    assert all(one_bits.values()), out
+    assert all(v in ("bitwise", "equal") for v in two_vs.values()), out
+    assert finite and same > cross and "dog" in nearest, out
+    assert {one.coordinator_kind, two.coordinator_kind,
+            topic.coordinator_kind} == {"native"}, out
+    return out
+
+
+def phase_scaleout(card):
+    """The scaleout stack on phase charrnn's net at full width: (a) the
+    parity gate, (b) thread workers (the main path: its launches feed the
+    kernels line), (c) process workers, (d) the parameter server, (e)
+    distributed Word2Vec. The coordinator must be the native one."""
+    import tempfile
+    import torch
+    seconds = {}
+    t_phase = time.perf_counter()
+    conf = _charrnn_conf()
+    data = _charrnn_data(SCALEOUT["batches"] + 1)
+    result = {"phase": "scaleout", "config": CHARRNN, "scaleout": SCALEOUT,
+              "card": card}
+    for key, fn in (("parity", lambda: scaleout_parity(conf, data)),
+                    ("threads", lambda: scaleout_threads(conf, data))):
+        t0 = time.perf_counter()
+        result[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+    thread_params = result["threads"].pop("params")
+    emit({"phase": "scaleout", "part": "parity, threads",
+          "parity": result["parity"], "threads": result["threads"]})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="scaleout_") as tmp:
+        t0 = time.perf_counter()
+        result["processes"] = scaleout_processes(conf, data, thread_params,
+                                                 tmp)
+        seconds["processes"] = time.perf_counter() - t0
+    emit({"phase": "scaleout", "part": "processes",
+          "processes": result["processes"]})
+    for key, fn in (("param_server",
+                     lambda: scaleout_param_server(conf, data)),
+                    ("word2vec", scaleout_word2vec)):
+        t0 = time.perf_counter()
+        result[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    emit(result)
+    return result
+
+
 def main():
     try:
         import torch
@@ -8089,6 +8591,7 @@ def main():
     vt = phase_vit(card)
     mo = phase_moe(card)
     dp = phase_dp(card)
+    so = phase_scaleout(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -8163,6 +8666,12 @@ def main():
                 "launches_dp": dp_flash[name],
                 "launches_dp_world2_rank0": dp_world2(name),
                 "vit_shape": vit_shape(name)}
+    def scaleout_launches(name):
+        """Phase scaleout's launches: the thread workers' timed run by
+        the wrappers, and the process workers' own counts, summed."""
+        return {"launches_scaleout": so["threads"]["lstm_launches"][name],
+                "launches_scaleout_process": sum(
+                    w[name] for w in so["processes"]["worker_kernel_launches"])}
     src = "deeplearning4j_tpu_torch/csrc/"
     ref = "deeplearning4j_tpu/ops/pallas_kernels.py:"
     launches = tr["kernel_launches"]
@@ -8218,6 +8727,7 @@ def main():
          "launches_transfer": tf["kernel_launches"]["lstm_cell_fwd"],
          "launches_dp": dp_lstm["lstm_cell_fwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_fwd"),
+         **scaleout_launches("lstm_cell_fwd"),
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -8241,6 +8751,7 @@ def main():
          "launches_transfer": tf["kernel_launches"]["lstm_cell_bwd"],
          "launches_dp": dp_lstm["lstm_cell_bwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_bwd"),
+         **scaleout_launches("lstm_cell_bwd"),
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),

@@ -4,7 +4,8 @@ Module paths and names follow the JAX package (``deeplearning4j_tpu``),
 which stays in the repository as the reference; nothing here imports it
 or JAX. Entry points run on the card unless the caller passes
 ``device="cpu"``. Hand-written CUDA kernels live in ``csrc/`` and are
-built at first use into ``_build/``.
+built at first use into ``_build/``, as is the native host library of
+``nativelib.py`` (from the repository's ``native/src``).
 """
 
 from deeplearning4j_tpu_torch.models.moe_transformer import (

@@ -55,6 +55,19 @@ _declare("DL4J_TORCH_CKPT_VERIFY", "flag", True,
          "a checkpoint is restored; 0 skips that pass (a structurally "
          "damaged archive still raises CheckpointCorruptError). "
          "Counterpart: DL4J_TPU_CKPT_VERIFY.")
+_declare("DL4J_TORCH_COLLECTIVE_TIMEOUT", "float", 300.0,
+         "Per-round deadline (seconds) of the coordinator's collectives "
+         "(parallel/coordinator.py): a round not completed within it "
+         "fails on every waiter with CollectiveTimeoutError instead of "
+         "hanging. Counterpart: DL4J_TPU_COLLECTIVE_TIMEOUT.")
+_declare("DL4J_TORCH_CONNECT_RETRIES", "int", 3,
+         "Extra connection attempts (exponential backoff) a collective "
+         "client makes before giving up on the coordinator. Counterpart: "
+         "DL4J_TPU_CONNECT_RETRIES.")
+_declare("DL4J_TORCH_CONNECT_TIMEOUT", "float", 10.0,
+         "Per-attempt TCP connect timeout (seconds) of a collective "
+         "client; retried DL4J_TORCH_CONNECT_RETRIES times. Counterpart: "
+         "DL4J_TPU_CONNECT_TIMEOUT.")
 _declare("DL4J_TORCH_DATA_DIR", "str", "",
          "Root of the offline dataset files (e.g. <root>/mnist/ with the "
          "idx files), searched before ~/.deeplearning4j_tpu. "
@@ -69,6 +82,18 @@ _declare("DL4J_TORCH_DP_SHARD_UPDATER", "flag", True,
          "Legacy ZeRO-1 switch, the default of DL4J_TORCH_DP_SHARD while "
          "that is unset: on is level 1, off level 0. Counterpart: "
          "DL4J_TPU_DP_SHARD_UPDATER.")
+_declare("DL4J_TORCH_ELASTIC", "flag", False,
+         "Elastic membership: the coordinator accepts re-form waves "
+         "(OP_REFORM) and expels a straggler that misses a round's "
+         "deadline, and the parameter-server wrapper hands a dead "
+         "trainer's queued batches to the survivors instead of failing "
+         "the fit. Counterpart: DL4J_TPU_ELASTIC.")
+_declare("DL4J_TORCH_ELASTIC_MIN_WORKERS", "int", 1,
+         "Least world size an elastic re-form wave may commit at: a wave "
+         "that cannot gather this many participants within "
+         "DL4J_TORCH_REFORM_TIMEOUT fails every arrival with "
+         "CollectiveTimeoutError. Counterpart: "
+         "DL4J_TPU_ELASTIC_MIN_WORKERS.")
 _declare("DL4J_TORCH_FAULT_SPEC", "str", "",
          "Deterministic fault-injection plan (testing/faults.py), e.g. "
          "'queue-overflow@0,slow-request@1:0.2'; empty disables every "
@@ -147,6 +172,12 @@ _declare("DL4J_TORCH_NANGUARD_PATIENCE", "int", 3,
          "reverted non-finite step that the guard tolerates before it "
          "writes the model and raises TrainingDivergedError. Counterpart: "
          "DL4J_TPU_NANGUARD_PATIENCE.")
+_declare("DL4J_TORCH_REFORM_TIMEOUT", "float", 30.0,
+         "Deadline (seconds) of one elastic re-form wave: each OP_REFORM "
+         "arrival waits at most this long; at expiry the wave commits "
+         "with whoever arrived (if at least DL4J_TORCH_ELASTIC_MIN_WORKERS, "
+         "a driver among them) or fails every arrival with "
+         "CollectiveTimeoutError. Counterpart: DL4J_TPU_REFORM_TIMEOUT.")
 _declare("DL4J_TORCH_ROUTER_HEARTBEAT_S", "float", 0.25,
          "Heartbeat interval (seconds) of ReplicaRouter: each beat checks "
          "every replica's health, sets router.replicas_healthy and the "

@@ -1,7 +1,12 @@
 """The canned datasets from local files: the port of the offline path of
 ``deeplearning4j_tpu/datasets/fetchers.py`` (MnistDataFetcher.java,
 MnistManager.java and the MNIST, Iris, CIFAR-10, LFW and Curves
-DataSetIterators), numpy only.
+DataSetIterators): numpy, and the native idx decoder
+(``nativelib.idx_load``) for MNIST's files where the reference decodes
+natively. The reference's ``nativelib.mnist_assemble`` also scales the
+pixels in C, by a product that differs from ``u8 / 255`` in the last bit
+of some pixels; the port keeps ``u8 / 255`` in numpy, the arithmetic its
+MNIST test holds bit for bit.
 
 Files are looked for under ``$DL4J_TORCH_DATA_DIR/<name>/`` and
 ``~/.deeplearning4j_tpu/<name>/`` (``mnist``, ``iris``,
@@ -91,6 +96,16 @@ def read_idx(path):
         return data.reshape(dims)
 
 
+def _read_u8(path):
+    """A u8 idx file (plain or ``.gz``) through the native decoder
+    (``nativelib.idx_load``, ``native/src/idx.cpp``: MnistManager.java's
+    part), or :func:`read_idx` where the library is unavailable or
+    declines the file; the same array either way."""
+    from deeplearning4j_tpu_torch import nativelib
+    arr = nativelib.idx_load(path if os.path.exists(path) else path + ".gz")
+    return read_idx(path) if arr is None else arr
+
+
 def _synthetic_images(n, h, w, c, n_classes, seed, proto_seed=1234):
     """Seeded per-class prototypes plus noise: learnable, fixed shapes.
     The prototypes come from ``proto_seed``, so the train and test splits
@@ -149,9 +164,9 @@ class MnistDataSetIterator(_InMemoryIterator):
         else:
             d = _find("mnist", names)
         if d is not None:
-            imgs = read_idx(os.path.join(d, names[0])).astype(
+            imgs = _read_u8(os.path.join(d, names[0])).astype(
                 np.float32) / 255.0
-            labels = read_idx(os.path.join(d, names[1])).astype(np.int64)
+            labels = _read_u8(os.path.join(d, names[1])).astype(np.int64)
             imgs = imgs[..., None]   # NHWC
             self.synthetic = False
         else:

@@ -12,11 +12,10 @@ and ``RecordReaderMultiDataSetIterator.java`` (named readers with
 
 Readers give plain Python records on the host and batches are numpy, as
 in the reference; a staging iterator (``datasets/async_iterator.py``)
-moves them to the card. The reference's ``CSVRecordReader`` parses an
-all-numeric file with its native C++ parser (``nativelib.csv_parse``);
-that library is not ported yet (ROADMAP.md, queue 1,
-"Data parallelism"), so the port keeps ``use_native`` in the signature
-and parses every file with the ``csv`` module. For an all-numeric file both
+moves them to the card. As in the reference, ``CSVRecordReader`` parses
+an all-numeric file on disk with the native C++ parser
+(``nativelib.csv_parse``, ``native/src/csv.cpp``) and any other file, or
+any file when the library is unavailable, with the ``csv`` module; both
 give the same records (float64 values).
 """
 
@@ -113,12 +112,13 @@ class CSVRecordReader(RecordReader):
     CSVRecordReader).
 
     ``skip_lines`` is DL4J's skipNumLines; a value parses to a float when
-    it can, else stays a string. ``use_native`` is kept for the
-    reference's signature: the native parser is not ported, so every file
-    goes through the ``csv`` module (the same records for an all-numeric
-    file). Once exhausted, the reader stays exhausted until ``reset``, as
-    the reference's native path does (its ``csv`` path would read the
-    closed file and raise).
+    it can, else stays a string. With ``use_native`` an all-numeric file
+    on disk takes the native parser (``_native_rows`` then holds its
+    matrix; False means the file was declined); mixed content falls back
+    to the ``csv`` module. Each ``reset`` parses the file again, so a file
+    rewritten on disk is read anew. Once exhausted, the reader stays
+    exhausted until ``reset``, as the reference's native path does (its
+    ``csv`` path would read the closed file and raise).
     """
 
     def __init__(self, path=None, text=None, skip_lines=0, delimiter=",",
@@ -132,6 +132,7 @@ class CSVRecordReader(RecordReader):
         self.use_native = use_native
         self._it = None
         self._fh = None
+        self._native_rows = None
 
     @staticmethod
     def _parse(v):
@@ -142,6 +143,14 @@ class CSVRecordReader(RecordReader):
 
     def reset(self):
         self.close()
+        if self.path is not None and self.use_native:
+            from deeplearning4j_tpu_torch import nativelib
+            mat = nativelib.csv_parse(self.path, self.delimiter,
+                                      self.skip_lines)
+            self._native_rows = False if mat is None else mat
+            if mat is not None:
+                self._it = iter(mat.tolist())
+                return
         if self.path is not None:
             self._fh = open(self.path, "r", newline="")
             src = self._fh

@@ -1,19 +1,24 @@
-"""Typed failures of the port: the serving tier's, the prefetch
-iterator's, the guarded train loop's and the checkpoint reader's.
+"""Typed failures of the port: the collective coordinator's, the serving
+tier's, the prefetch iterator's, the guarded train loop's and the
+checkpoint reader's.
 
 All of them subclass ``RuntimeError``, so ``except RuntimeError`` call
-sites keep working. Each concrete serving class declares its wire semantics as
-class attributes: ``http_status`` (the status an HTTP front end answers
-with) and ``retryable`` (whether the caller may resubmit the same
-request).
+sites keep working; the collective pair also subclasses the matching
+stdlib category (``TimeoutError``, ``ConnectionError``), so generic
+socket-level handlers see them too. Each concrete serving class declares
+its wire semantics as class attributes: ``http_status`` (the status an
+HTTP front end answers with) and ``retryable`` (whether the caller may
+resubmit the same request).
 """
 
 from __future__ import annotations
 
-__all__ = ["CheckpointCorruptError", "PrefetchWorkerDiedError",
-           "ServingError", "ServeQueueFullError", "ServeStoppedError",
-           "ServeDeadlineError", "ServeReplicaDeadError",
-           "TrainingDivergedError"]
+__all__ = ["CheckpointCorruptError", "CollectiveError",
+           "CollectiveTimeoutError", "PeerDeadError",
+           "PrefetchWorkerDiedError", "ServingError",
+           "ServeQueueFullError", "ServeStoppedError", "ServeDeadlineError",
+           "ServeReplicaDeadError",
+           "TrainingDivergedError", "WorldChangedError"]
 
 
 class TrainingDivergedError(RuntimeError):
@@ -23,6 +28,33 @@ class TrainingDivergedError(RuntimeError):
     cannot make progress. The model (its last good parameters: reverted
     steps never touched them) is written to ``DL4J_TORCH_NANGUARD_CKPT``
     before this raises; the message names the path."""
+
+
+class CollectiveError(RuntimeError):
+    """Base class of the collective rounds' failures (the coordinator
+    protocol of ``parallel/coordinator.py``)."""
+
+
+class CollectiveTimeoutError(CollectiveError, TimeoutError):
+    """A collective round missed its deadline: not every worker arrived
+    within ``DL4J_TORCH_COLLECTIVE_TIMEOUT`` seconds, or the coordinator
+    stopped answering. Every waiter of the round receives this; nobody
+    is left blocked."""
+
+
+class PeerDeadError(CollectiveError, ConnectionError):
+    """A participant's connection died while a round could still
+    complete: the coordinator fails the round for every survivor at once
+    instead of letting them wait out the deadline."""
+
+
+class WorldChangedError(CollectiveError):
+    """The collective world's membership moved on without this
+    participant: the coordinator opened or committed a re-form wave at a
+    newer membership epoch than the one this connection joined under, so
+    no round of the old wave can complete. A caller that sees it tears
+    its connection down and re-joins (``OP_REFORM`` on a fresh
+    connection) before it retries."""
 
 
 class CheckpointCorruptError(RuntimeError):

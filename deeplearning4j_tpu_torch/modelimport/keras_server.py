@@ -28,38 +28,13 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.modelimport.keras import (
     KerasImportError, import_keras_model_and_weights,
     import_keras_sequential_model_and_weights)
+# the export format's reader, exported from here too
+from deeplearning4j_tpu_torch.parallel.training_master import load_dataset
 from deeplearning4j_tpu_torch.utils.h5 import H5File
 from deeplearning4j_tpu_torch.utils.http_base import (BackgroundHTTPServer,
                                                       QuietJSONHandler)
 
 __all__ = ["KerasRPCServer", "load_dataset"]
-
-
-def load_dataset(path):
-    """A minibatch file of the reference's export format (a copy of
-    ``deeplearning4j_tpu/parallel/training_master.py:load_dataset``): a
-    DataSet, or a MultiDataSet where the file says ``mds``."""
-    with np.load(path) as z:
-        if "mds" in z.files:
-            nf = len([k for k in z.files
-                      if k.startswith("f") and k[1:].isdigit()])
-            nl = len([k for k in z.files
-                      if k.startswith("l") and k[1:].isdigit()])
-            feats = [z[f"f{i}"] for i in range(nf)]
-            labs = [z[f"l{i}"] for i in range(nl)]
-            fms = [z[f"fm{i}"] if f"fm{i}" in z.files else None
-                   for i in range(nf)]
-            lms = [z[f"lm{i}"] if f"lm{i}" in z.files else None
-                   for i in range(nl)]
-            return MultiDataSet(
-                feats, labs,
-                fms if any(m is not None for m in fms) else None,
-                lms if any(m is not None for m in lms) else None)
-        return DataSet(
-            z["features"],
-            z["labels"] if "labels" in z.files else None,
-            z["features_mask"] if "features_mask" in z.files else None,
-            z["labels_mask"] if "labels_mask" in z.files else None)
 
 
 def _load_batches(data_dir):

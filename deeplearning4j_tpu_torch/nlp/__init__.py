@@ -1,4 +1,5 @@
-"""NLP: Word2Vec, ParagraphVectors and GloVe over SequenceVectors, the
+"""NLP: Word2Vec, ParagraphVectors and GloVe over SequenceVectors (and
+distributed SequenceVectors and Word2Vec, ``nlp/distributed.py``), the
 vocabulary and its Huffman coding, the tokenizer and sentence-iterator
 pipeline, and WordVectorSerializer (the reference's ``nlp/`` package; the
 vectorizers, the parsers and the other tokenizers are not ported yet:

@@ -214,15 +214,23 @@ class SequenceVectors:
     # vocab + table construction
     # ------------------------------------------------------------------
     def build_vocab(self, sequences: Iterable[Sequence]) -> None:
-        self.vocab = VocabConstructor(
+        self.install_vocab(VocabConstructor(
             self.min_word_frequency).build_joint_vocabulary(
-                sequences, build_huffman=self.use_hs)
+                sequences, build_huffman=self.use_hs))
+
+    def install_vocab(self, vocab: AbstractCache,
+                      table_seed: Optional[int] = None) -> None:
+        """Take ``vocab`` (built here or elsewhere, e.g. by the map-reduce
+        of ``nlp/distributed.py``) and fresh tables for it, syn0 drawn
+        from ``table_seed`` (default: this trainer's seed)."""
+        self.vocab = vocab
         n = self.vocab.num_words()
         if n == 0:
             raise ValueError("empty vocabulary — corpus too small or "
                              "minWordFrequency too high")
         table = InMemoryLookupTable(
-            n, self.layer_size, seed=self.seed,
+            n, self.layer_size,
+            seed=self.seed if table_seed is None else table_seed,
             use_hs=self.use_hs, negative=self.negative, device=self.device)
         if self.negative > 0:
             freqs = np.array([e.element_frequency

@@ -50,6 +50,7 @@ count the launches of the three kernels.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -62,6 +63,8 @@ __all__ = ["flash_attention", "flash_attention_bwd_plain",
            "flash_attention_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the launch counts are bumped under it: threads launch concurrently
+_COUNT_LOCK = threading.Lock()
 # The largest head dim the kernels are built for (csrc/flash_common.cuh:
 # MAX_HEAD_DIM). The reference takes any; the twins do too, but a CUDA
 # tensor with a larger head dim is refused, never sent to a twin.
@@ -269,7 +272,8 @@ def _kernel_forward(q, k, v, *, causal, window, kv_group, with_lse=True):
                 _DTYPE_CODES[q.dtype], _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    with _COUNT_LOCK:
+        flash_attention.launches += 1
     return out, lse
 
 
@@ -287,7 +291,8 @@ def _kernel_dq(q, k, v, do, lse, delta, *, causal, window, kv_group):
                 _bwd_scale(d), _DTYPE_CODES[q.dtype], _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attn_dq launch failed: CUDA error {rc}")
-    flash_attention.dq_launches += 1
+    with _COUNT_LOCK:
+        flash_attention.dq_launches += 1
     return dq
 
 
@@ -307,7 +312,8 @@ def _kernel_dkv(q, k, v, do, lse, delta, *, causal, window, kv_group):
                 _DTYPE_CODES[q.dtype], _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attn_dkv launch failed: CUDA error {rc}")
-    flash_attention.dkv_launches += 1
+    with _COUNT_LOCK:
+        flash_attention.dkv_launches += 1
     return dk, dv
 
 

@@ -36,6 +36,7 @@ fallback between the two: a CUDA call launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -45,6 +46,8 @@ __all__ = ["lstm_cell", "lstm_cell_bwd_plain", "lstm_cell_plain",
            "lstm_cell_supported", "lstm_sequence", "lstm_sequence_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the launch counts are bumped under it: threads launch concurrently
+_COUNT_LOCK = threading.Lock()
 
 # An f32 window's out, h and c against the twin's: F32_WINDOW_TOL abs up to
 # H 200 (a single step: 1e-6). Each step's rounding feeds the next: over
@@ -244,7 +247,8 @@ def _kernel_sequence(zx_t, h0, c0, rw, peep, keep, reverse):
             _DTYPE_CODES[zx_t.dtype], _stream(zx_t.device))
     if rc != 0:
         raise RuntimeError(f"lstm_cell_fwd launch failed: CUDA error {rc}")
-    lstm_sequence.launches += 1
+    with _COUNT_LOCK:
+        lstm_sequence.launches += 1
     return out, h_all, c_all
 
 
@@ -270,7 +274,8 @@ def _launch_backward(lib, zx, h_prev, c_prev, rw, peep, dh, dc, dzx, dz32,
         _DTYPE_CODES[zx.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"lstm_cell_bwd launch failed: CUDA error {rc}")
-    lstm_cell.bwd_launches += 1
+    with _COUNT_LOCK:
+        lstm_cell.bwd_launches += 1
     return dhp, dcp
 
 

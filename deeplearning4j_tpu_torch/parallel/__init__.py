@@ -1,1 +1,43 @@
-"""Attention building blocks in plain PyTorch."""
+"""Parallelism and distribution: the port of
+``deeplearning4j_tpu/parallel/``.
+
+- ``ParallelWrapper`` (``data_parallel_mesh``): synchronous data
+  parallelism over a ``torch.distributed`` group, with the ZeRO 0-3
+  sharding core (``sharding_core.py``) and ``fsdp.py``;
+- ``ParameterServerParallelWrapper``: asynchronous data parallelism
+  through the embedded parameter server (the Aeron wrapper's part);
+- ``ParameterAveragingTrainingMaster`` (``TrainingMaster``) with
+  ``DistributedMultiLayerNetwork`` / ``DistributedComputationGraph``:
+  cluster-style synchronous parameter averaging with thread or OS-process
+  workers (the Spark TrainingMaster's part);
+- ``start_coordinator`` / ``connect``: the host-side collective and
+  parameter-server transport (the native C++ TCP server or its Python
+  twin; the Aeron media driver's and Spark driver's part).
+
+Names resolve on first use: the modules that the models import from
+here (``sharding_core``, ``sequence_parallel``, ``multihost``) must not
+pull the trainers in with them.
+"""
+
+_EXPORTS = {
+    "ParallelWrapper": "parallel_wrapper",
+    "data_parallel_mesh": "parallel_wrapper",
+    "ParameterServerParallelWrapper": "param_server_wrapper",
+    "TrainingMaster": "training_master",
+    "ParameterAveragingTrainingMaster": "training_master",
+    "DistributedMultiLayerNetwork": "training_master",
+    "DistributedComputationGraph": "training_master",
+    "TrainingHook": "training_master",
+    "connect": "coordinator",
+    "start_coordinator": "coordinator",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(name)
+    import importlib
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

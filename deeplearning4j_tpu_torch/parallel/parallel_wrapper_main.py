@@ -32,20 +32,6 @@ import os
 import numpy as np
 
 
-def _load_export(path):
-    """One ``batch_*.npz`` export file as a DataSet, or None for a
-    MultiDataSet export."""
-    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-    with np.load(path) as z:
-        if "mds" in z.files:
-            return None
-
-        def get(k):
-            return z[k] if k in z.files else None
-        return DataSet(z["features"], get("labels"), get("features_mask"),
-                       get("labels_mask"))
-
-
 def _data_iterator(spec, batch_size, num_examples):
     if spec == "mnist":
         from deeplearning4j_tpu_torch.datasets.fetchers import \
@@ -57,13 +43,15 @@ def _data_iterator(spec, batch_size, num_examples):
             IrisDataSetIterator
         return IrisDataSetIterator(batch_size)
     if os.path.isdir(spec):
-        from deeplearning4j_tpu_torch.datasets.dataset import \
-            ListDataSetIterator
+        from deeplearning4j_tpu_torch.datasets.dataset import (
+            ListDataSetIterator, MultiDataSet)
+        from deeplearning4j_tpu_torch.parallel.training_master import \
+            load_dataset
         paths = sorted(glob.glob(os.path.join(spec, "batch_*.npz")))
         if not paths:
             raise SystemExit(f"no batch_*.npz files under {spec}")
-        batches = [_load_export(p) for p in paths]
-        if any(b is None for b in batches):
+        batches = [load_dataset(p) for p in paths]
+        if any(isinstance(b, MultiDataSet) for b in batches):
             raise SystemExit(
                 f"--dataset {spec!r} contains MultiDataSet batches "
                 "(multi-input graphs); this CLI trains MultiLayerNetwork on "

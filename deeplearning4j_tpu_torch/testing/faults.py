@@ -17,7 +17,8 @@ Spec grammar (``DL4J_TORCH_FAULT_SPEC`` or :func:`install`/:func:`inject`)::
     param    := site-specific argument (e.g. a sleep duration)
 
 Wired sites (``serving/``, ``datasets/async_iterator.py``,
-``models/multi_layer_network.py`` and ``utils/atomic_io.py``):
+``models/multi_layer_network.py``, ``utils/atomic_io.py`` and
+``parallel/coordinator.py``):
 
 =====================  =====================================================
 ``queue-overflow``     submit N sees a full request queue and fails fast
@@ -55,6 +56,10 @@ Wired sites (``serving/``, ``datasets/async_iterator.py``,
                        qualifier ``truncate`` cuts it in half, ``bitflip``
                        flips one bit at byte ``param`` (default: the
                        middle)
+``drop-conn``          the Python collective client closes its socket and
+                       raises ``ConnectionError`` before wire request N
+                       (request 0 is its JOIN): a worker dying mid-run;
+                       qualifier is the worker id
 =====================  =====================================================
 
 Tests prefer the :func:`inject` context manager, which arms a plan and

@@ -55,7 +55,10 @@ each tensor's max abs, each layer launching the three kernels once, and
 the MoE's routing equal. Data parallelism: a world of one rank over NCCL
 trains a narrow LM at every ZeRO level bit for bit as unsharded; two
 gloo ranks sharing cuda:0 train an MLP through ParallelWrapper to one
-process's parameters within 1e-5 of their max abs.
+process's parameters within 1e-5 of their max abs. The parameter-averaging
+training master with two thread workers on the card repeats bit for bit
+and matches the same run on the CPU within 1e-5 of the parameters' max
+abs.
 """
 
 import math
@@ -1915,6 +1918,34 @@ def test_two_gloo_ranks_on_one_card_equal_world1(cuda_device, tmp_path):
     tol = 1e-5 * float(np.abs(want).max())
     for lv in (0, 1, 2, 3):
         np.testing.assert_allclose(got[f"level{lv}"], want, rtol=0, atol=tol)
+
+
+
+@pytest.mark.cuda
+def test_two_thread_workers_on_card_match_cpu(cuda_device):
+    """ParameterAveragingTrainingMaster with two thread workers sharing
+    the card (torch's default stream), averaging every 2 batches: the
+    master's parameters equal the same run on the CPU from the same
+    parameters within 1e-5 of their max abs, and the run repeats bit for
+    bit on the card."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel.training_master import (
+        DistributedMultiLayerNetwork, ParameterAveragingTrainingMaster)
+    X, Y = _dp_stream()
+    batches = [DataSet(X[i:i + 8], Y[i:i + 8]) for i in range(0, 64, 8)]
+    start = _dp_mlp("cpu").params()
+    got = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        net = _dp_mlp(dev)
+        net.set_params(start)
+        master = ParameterAveragingTrainingMaster(
+            n_workers=2, batch_size_per_worker=8, averaging_frequency=2)
+        DistributedMultiLayerNetwork(net, master).fit(batches)
+        assert net.iteration == 4
+        got.append(net.params())
+    np.testing.assert_array_equal(got[0], got[1])
+    tol = 1e-5 * float(np.abs(got[2]).max())
+    np.testing.assert_allclose(got[0], got[2], rtol=0, atol=tol)
 
 
 if __name__ == "__main__":

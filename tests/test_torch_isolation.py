@@ -39,7 +39,13 @@
   every module;
 - joining a process group, ParallelWrapper, ``TransformerLM.shard`` and
   ``fsdp_trainer`` refuse the CPU without CUDA unless asked for it; the
-  data-parallel modules (``parallel/``) are scanned like every module.
+  data-parallel modules (``parallel/``) are scanned like every module;
+- the scaleout stack (``nativelib.py``, the coordinator and its CLI, the
+  training master, the parameter-server wrapper, the worker process and
+  ``nlp/distributed.py``) is scanned like every module; without CUDA a
+  worker process started without ``--device``, a distributed network
+  built from a configuration and distributed Word2Vec refuse the CPU
+  unless asked for it.
 """
 
 import ast
@@ -117,7 +123,11 @@ def _port_sources():
                 "clustering/__init__.py", "clustering/trees.py",
                 "clustering/kmeans.py", "plot/__init__.py",
                 "plot/tsne.py", "models/vit.py",
-                "models/moe_transformer.py", "utils/pngio.py"):
+                "models/moe_transformer.py", "utils/pngio.py",
+                "nativelib.py", "parallel/coordinator.py",
+                "parallel/coordinator_main.py",
+                "parallel/training_master.py", "parallel/worker.py",
+                "parallel/param_server_wrapper.py", "nlp/distributed.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -875,3 +885,23 @@ def test_data_parallelism_without_device_refuses_the_cpu(no_cuda):
         lm.fsdp_trainer()
     assert lm._shard_plan is None
     assert lm.shard(device="cpu")._shard_plan.n == 1
+
+
+def test_scaleout_entry_points_without_device_refuse_the_cpu(no_cuda,
+                                                            tmp_path):
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.parallel import worker
+    from deeplearning4j_tpu_torch.parallel.training_master import (
+        DistributedMultiLayerNetwork, ParameterAveragingTrainingMaster)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.main(["--host", "127.0.0.1", "--port", "1", "--worker-id",
+                     "0", "--data-dir", str(tmp_path)])
+    tm = ParameterAveragingTrainingMaster(n_workers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistributedMultiLayerNetwork(zoo.mlp_mnist(hidden=8), tm)
+    assert DistributedMultiLayerNetwork(zoo.mlp_mnist(hidden=8), tm,
+                                        device="cpu").network.device.type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistributedWord2Vec(n_workers=1)
+    DistributedWord2Vec(n_workers=1, device="cpu")

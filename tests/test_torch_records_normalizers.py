@@ -9,8 +9,9 @@ same float64 numpy) and the same normalised arrays. Then what only the
 port has: a batch held as a tensor is fitted and normalised as a tensor
 (float64 on its device, never through numpy; moments within 1e-12 of
 the host's, normalised values bitwise), ``preprocessor.bin`` read in
-both directions, the ``csv`` path against the reference's native parser
-on an all-numeric file, and MagicQueue's order and device affinity.
+both directions, the native parser and the ``csv`` path against the
+reference's native parser on an all-numeric file, and MagicQueue's order
+and device affinity.
 """
 
 import threading
@@ -88,8 +89,9 @@ class TestRecordReaders:
             == want == [[1.0, 2.0, 0.0], [3.0, 4.0, 1.0]]
 
     def test_csv_module_path_equals_the_native_parser(self, tmp_path):
-        """The reference parses an all-numeric file natively (when its
-        library is built); the port's ``csv`` path gives the same
+        """An all-numeric file: the port's native parser
+        (``use_native=True``, the default) and its ``csv`` path
+        (``use_native=False``) give the reference's natively parsed
         records, floats included."""
         from deeplearning4j_tpu import nativelib
         r = np.random.RandomState(3)
@@ -98,14 +100,37 @@ class TestRecordReaders:
         p = tmp_path / "num.csv"
         p.write_text("a,b,c,d,e,label\n" + "\n".join(
             ",".join(repr(float(v)) for v in row) for row in rows) + "\n")
-        got = list(prec.CSVRecordReader(path=str(p), skip_lines=1,
-                                        use_native=True))
+        native_rr = prec.CSVRecordReader(path=str(p), skip_lines=1,
+                                         use_native=True)
+        got = list(native_rr)
+        assert isinstance(native_rr._native_rows, np.ndarray)
+        plain_rr = prec.CSVRecordReader(path=str(p), skip_lines=1,
+                                        use_native=False)
+        plain = list(plain_rr)
+        assert plain_rr._native_rows is None
         want = list(jrec.CSVRecordReader(path=str(p), skip_lines=1,
                                          use_native=True))
-        assert got == want == rows.tolist()
-        native = nativelib.csv_parse(str(p), ",", 1)
-        if native is not None:     # the reference's library is built
-            assert native.tolist() == got
+        assert got == plain == want == rows.tolist()
+        assert nativelib.csv_parse(str(p), ",", 1).tolist() == got
+
+    def test_native_path_falls_back_and_rereads(self, tmp_path):
+        """Mixed content falls back to the ``csv`` module (``_native_rows``
+        False), as the reference's reader does; each reset parses the
+        file again, so a rewritten file is read anew."""
+        p = tmp_path / "d.csv"
+        p.write_text("1,2,0\n3,4,1\n")
+        rr = prec.CSVRecordReader(path=str(p))
+        assert list(rr) == [[1.0, 2.0, 0.0], [3.0, 4.0, 1.0]]
+        assert isinstance(rr._native_rows, np.ndarray)
+        p.write_text("5,6,1\n")
+        rr.reset()
+        assert list(rr) == [[5.0, 6.0, 1.0]]
+        m = tmp_path / "m.csv"
+        m.write_text("1,hello\n")
+        for rec in (prec, jrec):
+            mixed = rec.CSVRecordReader(path=str(m))
+            assert list(mixed) == [[1.0, "hello"]]
+            assert mixed._native_rows is False
 
     def test_csv_file_iterator_with_a_partial_last_batch(self, tmp_path):
         """A file whose records do not fill the last batch: the port gives
