@@ -470,6 +470,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -762,6 +763,10 @@ SOLVER_F64_RTOL = 1e-9
 OPTAX_LR = {"adam": 1e-3, "adamw": 1e-3, "lion": 1e-4, "lamb": 1e-3,
             "sgd": 1e-2, "rmsprop": 1e-3}
 OPTAX_CARD_CPU_RTOL = 1e-3
+# rmsprop's bar is derived instead: DP_W2_CHAOS times the relative drift
+# of a CPU run from parameters perturbed by DP_W2_PERTURB, measured in
+# the same run, so that it holds on any input
+OPTAX_DERIVED_BAR = ("rmsprop",)
 # phase pretrain: dl4j-examples 0.7's VariationalAutoEncoderExample (784 ->
 # encoder 256, 256 -> latent 2 -> decoder 256, 256 -> Bernoulli over 784,
 # leaky ReLU, rmsprop 1e-3, l2 1e-4, xavier, batch 128, 20 epochs) and
@@ -874,6 +879,77 @@ DP_W2_CHAOS = 10.0
 DP_W2_PERTURB = 1e-7
 DP_W2_LOSS_RTOL = 1e-3
 DP_WORLD2_TIMEOUT_S = 400
+# phase dp, extended: phase solvers' LeNet under lbfgs through
+# ParallelWrapper at ZeRO level 3 (the first DP_SOLVER["batches"] global
+# batches of the fixture's digits) and phase pretrain's VAE pretrained
+# under an injected level-3 plan, each rank on its rows, both at world 2
+# against world 1 on the global batches; each bar DP_W2_CHAOS times the
+# relative L2 drift of a world-1 run from parameters perturbed by
+# DP_W2_PERTURB
+DP_SOLVER = dict(batch=128, batches=2, iterations=10, level=3)
+DP_VAE = dict(batch=64, batches=5, epochs=2, level=3)
+
+# phase elastic: parallel/elastic.py on phase charrnn's net and batches,
+# uncut (H 200, tBPTT 50, batch 32, rmsprop), ZeRO level 3, the per-batch
+# loop; a checkpoint every batch (4 updates: 200 steps over tBPTT 50).
+# The round deadline (ELASTIC["timeout"]) also bounds every collective of
+# the trainers' process groups; a wave settles in 1/20 of ELASTIC
+# ["reform"]
+ELASTIC = dict(batches=8, level=3, every=4, timeout=30.0, reform=6.0)
+ELASTIC_KILL_AT = 3          # trainer 1's heartbeat: after batch 4
+# the slow case: one trainer and a member, width 1, so the trainer's
+# group is NCCL's world of one (multihost.choose_backend); that group
+# starts in 0.59-0.71 s, so its round deadline is 2 s, and the member
+# sleeps 3 s past it
+ELASTIC_SLOW = dict(timeout=2.0, sleep=5.0, at=3)
+ELASTIC_TIMEOUT_S = 300
+
+# phase shard_ckpt: the slice's LM (SLICE: d 512, L 8, vocab 32768, bf16)
+# at world 2, ZeRO level 3, trained 2 steps at phase train's batch, then
+# saved as per-rank shards and restored at world 2 level 1 and at width 1
+SHARD_CKPT = dict(steps=2, n_layers=SLICE["n_layers"])
+SHARD_CKPT_TIMEOUT_S = 400
+
+# phase tp: TPTransformerLM at SLICE's widths with block_size=None (the
+# reference refuses the flash route there), TP 2 over two ranks sharing
+# the card over gloo, 3 steps at phase train's batch, bf16. It rounds each
+# row-parallel partial product to bf16 before the all-reduce, one
+# rounding more a block than the single-device LM; its yardstick is the
+# single-device run from every parameter moved by TP_PERTURB (relative,
+# half a bf16 ulp, one such rounding). The distance is taken on the
+# update (the parameters' change over the steps): |d_tp - d_single| /
+# |d_single| within TP_CHAOS times the perturbed run's |d_pert -
+# d_single| / |d_single|, and that bar must reject an unchanged state
+# (whose distance is 1). The losses at phase dp's bf16 loss bar
+# (DP_W2_LOSS_RTOL: a loss over 16,352 tokens of bf16 logits; the
+# perturbed run's loss difference is printed beside it, but a mean over
+# so many tokens moves too little, and too erratically, to gate on it:
+# 3e-5 to 1.2e-4 on the CPU rehearsal at 2^-9 to 2^-7). The
+# TensorParallelMLP at
+# TP 2 (784-1024-10, plain SGD) against its single-rank run, at phase
+# dp's f32 bar (DP_W2_CHAOS x a DP_W2_PERTURB run). The same TP steps in
+# f32 on TP_F32["rows"] rows at the same widths, against the
+# single-device LM: the gathered logits before the steps (the forward)
+# and each step's loss within TP_F32["rel"] of their max abs, the CPU
+# test's bar (tests/test_torch_tensor_parallel.py); the logits after the
+# steps within TP_CHAOS times the drift of the single-device run from
+# parameters perturbed by TP_F32["perturb"] (relative; the CPU test's
+# parameter yardstick), because AdamW turns a gradient element that
+# rounding moves across zero into a learning-rate-sized step: at these
+# widths 1e-5 of the max abs does not hold after the steps (7.29e-5
+# against a bar of 2.88e-5 on the H100). Both bars must reject an
+# unchanged state (the single-device LM's logits before its steps) and
+# the same TP run with the backward all-reduce of copy_to_model
+# (Megatron's f) dropped
+TP = dict(steps=3, n_layers=SLICE["n_layers"])
+TP_F32 = dict(rows=2, rel=1e-5, perturb=1e-7)
+TP_PERTURB = 2.0 ** -9
+TP_CHAOS = 10.0
+TP_MLP = dict(dims=(784, 1024, 10), batch=256, lr=0.1, steps=10)
+TP_TIMEOUT_S = 400
+# the process groups of phases shard_ckpt and tp bound every collective
+# (and their rendezvous) by this, so a rank whose peer died raises
+WORLD2_GROUP_TIMEOUT_S = 300
 
 # the scaleout phase: the training master, the parameter server and
 # distributed Word2Vec on phase charrnn's net at full width and on its
@@ -6870,14 +6946,35 @@ def optax_rule(rule, feats, labels):
     assert card[3]._fused.captures == 1
     diff = np.abs(card[0] - cpu[0])
     rel = float(diff.max() / np.abs(cpu[0]).max())
+    bar = OPTAX_CARD_CPU_RTOL
+    yard = None
+    if rule in OPTAX_DERIVED_BAR:
+        # rmsprop divides each gradient element by its own running scale,
+        # so rounding grows step by step; its bar is DP_W2_CHAOS times the
+        # drift of a CPU run from parameters perturbed by DP_W2_PERTURB
+        rng = np.random.default_rng(SEED + 25)
+        moved = (start * (1 + DP_W2_PERTURB * rng.standard_normal(
+            start.size))).astype(np.float32)
+        os.environ["DL4J_TORCH_FUSE_STEPS"] = "8"
+        try:
+            net = MultiLayerNetwork(conf, device="cpu").init()
+            net.set_params(moved)
+            net.fit(_lenet_batches(feats, labels, 16))
+        finally:
+            _fit_path(True)
+        yard = float(np.abs(net.params() - cpu[0]).max()
+                     / np.abs(cpu[0]).max())
+        bar = DP_W2_CHAOS * yard
     if rule == "lion":
         assert float(diff.max()) <= 2 * lr * 16 + 1e-6, float(diff.max())
     else:
-        assert rel <= OPTAX_CARD_CPU_RTOL, (rule, rel)
+        assert rel <= bar, (rule, rel, bar)
     return {"lr": lr, "loss_first_4": float(np.mean(card[1][:4])),
             "loss_last_4": float(np.mean(card[1][-4:])),
             "params_card_vs_cpu_rel": rel,
             "params_card_vs_cpu_max_abs": float(diff.max()),
+            "bar": None if rule == "lion" else bar,
+            "perturbed_cpu_drift_rel": yard,
             "card_fit_s": card[2], "cpu_fit_s": cpu[2]}
 
 
@@ -7821,6 +7918,75 @@ def _one_window(data):
                    data[0].labels[:, :seg].copy())
 
 
+def _dp_lbfgs_conf():
+    """Phase solvers' LeNet under lbfgs (DP_SOLVER["iterations"] solver
+    iterations a batch)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    conf = zoo.lenet_mnist()
+    conf.optimization_algo = "lbfgs"
+    conf.iterations = DP_SOLVER["iterations"]
+    return conf
+
+
+def _dp_lbfgs_data():
+    """The first DP_SOLVER["batches"] global batches of the fixture's
+    digits."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    _, _, feats, labels = lenet_images()
+    b = DP_SOLVER["batch"]
+    return [DataSet(feats[i:i + b], labels[i:i + b])
+            for i in range(0, b * DP_SOLVER["batches"], b)]
+
+
+def _dp_vae_conf():
+    """Phase pretrain's VAE (784 -> 256, 256 -> 2 -> 256, 256 ->
+    Bernoulli)."""
+    return (_vae_builder().list().layer(vae_layer()).pretrain(True)
+            .backprop(False).build())
+
+
+def _dp_vae_data():
+    """The first DP_VAE["batches"] global batches of the digits, [B, 784]."""
+    x, _ = mnist_flat()
+    b = DP_VAE["batch"]
+    return [x[i:i + b] for i in range(0, b * DP_VAE["batches"], b)]
+
+
+def _dp_lbfgs_vae_world1(dev):
+    """World 1 on the global batches: the LeNet under lbfgs through
+    ParallelWrapper (one solver call a batch, as at world 2) and the VAE
+    pretrained, each also from its initial parameters perturbed by
+    DP_W2_PERTURB (seeded)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    out = {}
+    for name, conf in (("lbfgs", _dp_lbfgs_conf()),
+                       ("vae", _dp_vae_conf())):
+        runs = []
+        for scale in (0.0, DP_W2_PERTURB):
+            net = MultiLayerNetwork(conf, device=dev).init()
+            if scale:
+                p0 = net.params()
+                rng = np.random.default_rng(SEED + 18)
+                net.set_params((p0 * (1 + scale * rng.standard_normal(
+                    p0.size))).astype(np.float32))
+            if name == "lbfgs":
+                ParallelWrapper(net, device=dev).fit(
+                    ListDataSetIterator(_dp_lbfgs_data()))
+            else:
+                net.pretrain([DataSet(x, None) for x in _dp_vae_data()],
+                             epochs=DP_VAE["epochs"])
+            runs.append((net.params(), float(net.score_)))
+        out[name] = {"params": runs[0][0], "score": runs[0][1],
+                     "perturbed": runs[1][0]}
+    return out
+
+
 def dp_world1_reference(dev):
     """World 1's results on what world 2 trains (per batch): the char-RNN's
     parameters after one window and after the first DP_CHARRNN_BATCHES
@@ -7854,7 +8020,8 @@ def dp_world1_reference(dev):
     batch = _lm_batch(lconf).to(dev)
     losses = [float(lm.fit_batch(batch)) for _ in range(DP_LM2_STEPS)]
     return {"step": step, "params": net.params(),
-            "perturbed": other.params(), "lm_losses": losses}
+            "perturbed": other.params(), "lm_losses": losses,
+            **_dp_lbfgs_vae_world1(dev)}
 
 
 def dp_rank_main(rank, port, out, device):
@@ -7930,10 +8097,57 @@ def dp_rank_main(rank, port, out, device):
             "optimizer_bytes": _nbytes(lm._plan_leaves("opt_state")),
             "peak_memory_bytes": _peak_bytes(dev)}
         del lm
+    res.update(_dp_rank_lbfgs_vae(rank, dev, out))
     with open(f"{out}/rank{rank}.json", "w") as f:
         json.dump(res, f)
     multihost.shutdown()
     return 0
+
+
+def _dp_rank_lbfgs_vae(rank, dev, out):
+    """This rank's LeNet under lbfgs through ParallelWrapper (level
+    DP_SOLVER["level"]) and the VAE pretrained under an injected plan
+    (level DP_VAE["level"]) on its rows; rank 0 writes the parameters."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding_core import (
+        ShardingCore, build_mesh)
+    res = {}
+    net = MultiLayerNetwork(_dp_lbfgs_conf(), device=dev).init()
+    data = _dp_lbfgs_data()
+    _sync(dev)
+    t0 = time.perf_counter()
+    ParallelWrapper(net, dp_shard=DP_SOLVER["level"], device=dev).fit(
+        ListDataSetIterator(data))
+    _sync(dev)
+    res["lbfgs"] = {"ms_per_batch": (time.perf_counter() - t0)
+                    / len(data) * 1e3, "score": float(net.score_)}
+    params = net.params()                     # whole: every rank gathers
+    if rank == 0:
+        np.save(f"{out}/lbfgs.npy", params)
+    core = ShardingCore(build_mesh(), level=DP_VAE["level"])
+    vae = MultiLayerNetwork(_dp_vae_conf(), device=dev).init()
+    vae._enter_plan(core)
+    rows = core.data_sharding()
+    batches = [DataSet(rows.take(x), None) for x in _dp_vae_data()]
+    _sync(dev)
+    t0 = time.perf_counter()
+    vae.pretrain(batches, epochs=DP_VAE["epochs"])
+    _sync(dev)
+    res["vae"] = {"ms_per_batch": (time.perf_counter() - t0)
+                  / (len(batches) * DP_VAE["epochs"]) * 1e3,
+                  "score": float(vae.score_),
+                  "rows_per_rank": DP_VAE["batch"] // 2,
+                  "plan_kept": vae._shard_plan is core}
+    params = vae.params()
+    if rank == 0:
+        np.save(f"{out}/vae.npy", params)
+    return res
 
 
 def dp_world2(ref):
@@ -7972,6 +8186,7 @@ def dp_world2(ref):
         params = {lv: (np.load(f"{out}/charrnn_step_level{lv}.npy"),
                        np.load(f"{out}/charrnn_level{lv}.npy"))
                   for lv in DP_GLOO_LEVELS}
+        extra = {k: np.load(f"{out}/{k}.npy") for k in ("lbfgs", "vae")}
     failures = []
 
     def check(ok, what):
@@ -8040,8 +8255,25 @@ def dp_world2(ref):
         if lv >= 3:
             check(lm[k]["param_bytes_vs_level0"] <= 0.51,
                   f"LM level {lv} parameter bytes")
+    under_plan = {}
+    for k in ("lbfgs", "vae"):
+        dist = rel_l2(extra[k], ref[k]["params"])
+        yard_k = rel_l2(ref[k]["perturbed"], ref[k]["params"])
+        check(dist <= DP_W2_CHAOS * yard_k,
+              f"{k} at world 2 {dist} vs yardstick {yard_k}")
+        check(ranks[0][k]["score"] == ranks[1][k]["score"],
+              f"{k}: the ranks' scores differ")
+        under_plan[k] = {"rank0": ranks[0][k], "rank1": ranks[1][k],
+                         "world1_score": ref[k]["score"],
+                         "rel_l2_vs_world1": dist,
+                         "yardstick_rel_l2": yard_k,
+                         "max_abs_diff_vs_world1": float(np.abs(
+                             extra[k] - ref[k]["params"]).max())}
+    check(ranks[0]["vae"]["plan_kept"], "the VAE left its plan")
     rec = {"ranks": 2, "backend": "gloo",
            "devices": [rk["device"] for rk in ranks],
+           "lbfgs_lenet": dict(under_plan["lbfgs"], config=DP_SOLVER),
+           "vae_pretrain": dict(under_plan["vae"], config=DP_VAE),
            "levels": list(DP_GLOO_LEVELS),
            "levels_cpu_tests_only": [lv for lv in DP_LEVELS
                                      if lv not in DP_GLOO_LEVELS],
@@ -8537,6 +8769,874 @@ def phase_scaleout(card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase elastic: elastic data parallelism (parallel/elastic.py) on phase
+# charrnn's net and batches, uncut; trainers are processes that share the
+# card, members threads of this process, the coordinator the Python one
+# ---------------------------------------------------------------------------
+def _ready_wait(out, names, timeout=ELASTIC_TIMEOUT_S):
+    """Wait until each ``<out>/<name>`` file exists."""
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(os.path.join(out, n)) for n in names):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {names} in {timeout} s")
+        time.sleep(0.01)
+
+
+def _touch(out, name):
+    with open(os.path.join(out, name), "w") as f:
+        f.write("1")
+
+
+def _wave_ms_per_batch(entry):
+    """A wave's host ms a dispatch (one batch: the per-batch loop), from
+    the differences of its heartbeat times; None under two beats."""
+    beats = entry.get("beats") or []
+    if len(beats) < 2:
+        return None
+    return (beats[-1] - beats[0]) / (len(beats) - 1) * 1e3
+
+
+def _copy_checkpoint(src, dst):
+    """A directory holding only the checkpoint ``src``: a resume from it
+    takes exactly that state."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(src, dst)
+    return dst
+
+
+def elastic_rank_main(case, wid, port, out, device):
+    """One trainer process of phase elastic (``chip_smoke.py
+    --elastic-rank``): warm the process, wait for the phase's go, run the
+    ElasticTrainer over the char-RNN's batches (the per-batch loop, ZeRO
+    level ELASTIC["level"]), count its LSTM launches, and hold its end
+    state against a ParallelWrapper run resumed from the checkpoint the
+    last wave resumed from, in that wave's group. ``case``: "kill"
+    (trainer 1 dies at heartbeat ELASTIC_KILL_AT), "scale" (trainer 1
+    joins once a checkpoint past the start has landed), "slow" (one
+    trainer beside a slow member)."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DL4J_TORCH_FUSE_STEPS"] = "1"
+    os.environ["DL4J_TORCH_CKPT_KEEP"] = "100"
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticTrainer
+    from deeplearning4j_tpu_torch.testing import faults
+    from deeplearning4j_tpu_torch.utils import training_checkpoint as tck
+    dev = torch.device("cuda", 0) if device == "cuda" \
+        else torch.device(device)
+    conf = _charrnn_conf()
+    data = _charrnn_data(ELASTIC["batches"])
+    # the CUDA context, cuBLAS and the LSTM kernels' libraries loaded
+    # before the first wave's deadlines run
+    MultiLayerNetwork(conf, device=dev).init().fit(_one_window(data))
+    _sync(dev)
+    ck = os.path.join(out, f"ck_{case}")
+    _touch(out, f"ready_{case}_{wid}")
+    _ready_wait(out, [f"go_{case}"])
+    if case == "kill" and wid == 1:
+        faults.install(f"kill-peer[1]@{ELASTIC_KILL_AT}")
+    joiner = case == "scale" and wid == 1
+    if joiner:
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while not [i for i, _ in tck.checkpoint_files(ck) if i > 0]:
+            assert time.monotonic() < deadline, "no checkpoint to join"
+            time.sleep(0.005)
+    net = MultiLayerNetwork(conf, device=dev).init()
+    slow = case == "slow"
+    tr = ElasticTrainer(
+        net, "127.0.0.1", port, worker_id=None if joiner else wid,
+        dp_shard=ELASTIC["level"], device=dev,
+        timeout=ELASTIC_SLOW["timeout"] if slow else ELASTIC["timeout"],
+        reform_timeout=ELASTIC["reform"])
+    reset_launches()                          # the main path starts here
+    _sync(dev)
+    t0 = time.perf_counter()
+    tr.fit(lambda: ListDataSetIterator(data), epochs=1, checkpoint_dir=ck,
+           checkpoint_every=ELASTIC["every"],
+           max_reforms=2 if joiner else None)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_lstm_launches()
+    rec = {"case": case, "worker_id": wid, "device": str(dev),
+           "wall_s": wall, "group_rank": tr.group_rank,
+           "log": tr.reform_log,
+           "ms_per_batch_by_wave": [_wave_ms_per_batch(e)
+                                    for e in tr.reform_log],
+           "kernel_launches": dict(zip(("lstm_cell_fwd", "lstm_cell_bwd"),
+                                       launches)),
+           "batches_trained": len([b for e in tr.reform_log
+                                   for b in e["beats"]])}
+    got = net.params()
+    if case in ("kill", "scale") and tr.group_rank is not None:
+        rec.update(_elastic_oracle(case, tr, conf, data, got, out, dev))
+    tr.close()
+    with open(os.path.join(out, f"{case}_{wid}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _elastic_oracle(case, tr, conf, data, got, out, dev):
+    """The end state against a ParallelWrapper resumed, in the last wave's
+    group, from a copy of the checkpoint that wave resumed from; on a
+    scale-up also the yardstick of a run resumed from it with parameters
+    perturbed by DP_W2_PERTURB."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.parallel_wrapper import \
+        ParallelWrapper
+    from deeplearning4j_tpu_torch.utils import training_checkpoint as tck
+    src = tr.reform_log[-1]["checkpoint"]
+    width = tr.reform_log[-1]["width"]
+    d = os.path.join(out, f"oracle_{case}")
+    dp = os.path.join(out, f"oracle_{case}_perturbed")
+    if tr.group_rank == 0:
+        _copy_checkpoint(src, d)
+        if case == "scale":
+            # the same state, every parameter moved by DP_W2_PERTURB
+            moved = MultiLayerNetwork(conf, device=dev).init()
+            cursor = tck.apply_training_checkpoint(moved, src)
+            p = moved.params()
+            rng = np.random.default_rng(SEED + 19)
+            moved.set_params((p * (1 + DP_W2_PERTURB * rng.standard_normal(
+                p.size))).astype(np.float32))
+            tck.save_training_checkpoint(moved, dp, cursor=cursor)
+    if width > 1:
+        torch.distributed.barrier()
+
+    def resumed(path):
+        other = MultiLayerNetwork(conf, device=dev).init()
+        ParallelWrapper(other, dp_shard=ELASTIC["level"], device=dev).fit(
+            ListDataSetIterator(data), resume_from=path)
+        return other.params()
+    want = resumed(d)
+    rec = {"oracle_width": width,
+           "oracle_checkpoint": os.path.basename(src),
+           "bitwise_vs_oracle": bool(np.array_equal(got.view(np.uint32),
+                                                    want.view(np.uint32))),
+           "max_abs_diff_vs_oracle": float(np.abs(got - want).max()),
+           "rel_l2_vs_oracle": float(np.linalg.norm(got - want)
+                                     / np.linalg.norm(want))}
+    if case == "scale":
+        pert = resumed(dp)
+        rec["yardstick_rel_l2"] = float(np.linalg.norm(pert - want)
+                                        / np.linalg.norm(want))
+    return rec
+
+
+def _elastic_case(case, members, trainers, timeout):
+    """Run one case: an elastic Python coordinator in this process, the
+    ``members`` (initial worker ids) as ElasticMember threads here, the
+    ``trainers`` (worker ids) as processes; returns (the trainers'
+    records by id, their exit codes, the members, the coordinator's
+    elastic metrics)."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.parallel.coordinator import PyCoordinator
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticMember
+    _release_card()
+    leaves0 = obs.metrics.value("elastic.events_total.leave")
+    joins0 = obs.metrics.value("elastic.events_total.join")
+    coord = PyCoordinator(len(members) + len(trainers), elastic=True,
+                          min_workers=1, timeout=timeout,
+                          reform_timeout=ELASTIC["reform"])
+    out = tempfile.mkdtemp(prefix="elastic_")
+    procs, mem, logs = [], [], []
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--elastic-rank",
+             case, str(w), str(coord.port), out, DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for w in trainers]
+        _ready_wait(out, [f"ready_{case}_{w}" for w in trainers])
+        mem = [ElasticMember("127.0.0.1", coord.port, m, timeout=timeout,
+                             reform_timeout=ELASTIC["reform"]).start()
+               for m in members]
+        _touch(out, f"go_{case}")
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+        for m in mem:
+            m.join(timeout=30)
+    finally:
+        for m in mem:
+            m.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        coord.stop()
+    recs = {}
+    for w, p, log in zip(trainers, procs, logs):
+        path = os.path.join(out, f"{case}_{w}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                recs[w] = json.load(f)
+        recs.setdefault(w, {})["log_tail"] = log[-1500:]
+    shutil.rmtree(out, ignore_errors=True)
+    metrics = {"leave_events": obs.metrics.value("elastic.events_total.leave")
+               - leaves0,
+               "join_events": obs.metrics.value("elastic.events_total.join")
+               - joins0,
+               "world_size": obs.metrics.value("elastic.world_size")}
+    return recs, [p.returncode for p in procs], mem, metrics
+
+
+def _wave_rows(log):
+    """The printed figures of each wave: epoch, world, width, the wave's
+    join seconds, the group's start seconds, its backend and ms a
+    batch."""
+    return [{"epoch": e["epoch"], "world": e["world"], "width": e["width"],
+             "trainers": e["trainers"], "wave_s": e["seconds"],
+             "group_start_s": e["group_seconds"], "backend": e["backend"],
+             "ms_per_batch": _wave_ms_per_batch(e),
+             "batches": len(e["beats"]),
+             "checkpoint": None if e["checkpoint"] is None
+             else os.path.basename(e["checkpoint"])} for e in log]
+
+
+def phase_elastic(card):
+    """(a) kill: two trainers and a member at world 3, width 2; trainer 1
+    dies at its heartbeat ELASTIC_KILL_AT; the survivors re-form at world
+    2, width 1, and end bitwise a width-1 ParallelWrapper run resumed
+    from the same checkpoint. (b) scale-up: one trainer at world 1, a
+    second joins after the first checkpoint: width 2, held against a
+    width-2 run resumed from the re-form checkpoint within DP_W2_CHAOS
+    times a perturbed run's drift. (c) a member that sleeps
+    ELASTIC_SLOW["sleep"] s past a ELASTIC_SLOW["timeout"] s round
+    deadline is expelled, and the run finishes. (d) each wave's seconds,
+    the groups' start seconds, ms a batch before and after each re-form,
+    and the trainers' LSTM launches."""
+    from deeplearning4j_tpu_torch.parallel.elastic import KILLED_EXIT
+    from deeplearning4j_tpu_torch.testing import faults
+    t_phase = time.perf_counter()
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    per_batch = {"lstm_cell_fwd": 2 * windows,
+                 "lstm_cell_bwd": 2 * CHARRNN["seq_len"]}
+    n = ELASTIC["batches"]
+
+    # (a) kill
+    t0 = time.perf_counter()
+    recs, codes, mem, metrics = _elastic_case(
+        "kill", [2], [0, 1], ELASTIC["timeout"])
+    kill = {"exit_codes": codes, "metrics": metrics,
+            "member": {"error": repr(mem[0].error), "killed": mem[0].killed,
+                       "expelled": mem[0].expelled is not None}}
+    r0 = recs[0]
+    check(codes == [0, KILLED_EXIT], f"kill exit codes {codes}: "
+          f"{recs[0].get('log_tail')} {recs[1].get('log_tail')}")
+    if codes[0] == 0:
+        log = r0["log"]
+        check([e["world"] for e in log] == [3, 2], f"kill worlds {log}")
+        check([e["width"] for e in log] == [2, 1], f"kill widths {log}")
+        check(r0["bitwise_vs_oracle"],
+              f"kill not bitwise its oracle: {r0['max_abs_diff_vs_oracle']}")
+        check(mem[0].error is None and not mem[0].killed,
+              f"kill member {kill['member']}")
+        # trainer 0 trained every batch: its rows at width 2, all at 1
+        check(r0["kernel_launches"] == {k: v * n
+                                        for k, v in per_batch.items()},
+              f"kill launches {r0['kernel_launches']}")
+        kill.update({"waves": _wave_rows(log),
+                     "kernel_launches_trainer0": r0["kernel_launches"],
+                     "bitwise_vs_width1_oracle": r0["bitwise_vs_oracle"],
+                     "oracle_checkpoint": r0["oracle_checkpoint"],
+                     "wall_s": r0["wall_s"]})
+    kill["seconds"] = time.perf_counter() - t0
+
+    # (b) scale-up
+    t0 = time.perf_counter()
+    recs, codes, _, metrics = _elastic_case("scale", [], [0, 1],
+                                            ELASTIC["timeout"])
+    scale = {"exit_codes": codes, "metrics": metrics}
+    check(codes == [0, 0], f"scale exit codes {codes}: "
+          f"{recs[0].get('log_tail')} {recs[1].get('log_tail')}")
+    if codes == [0, 0]:
+        log, r1 = recs[0]["log"], recs[1]
+        check([e["width"] for e in log] == [1, 2], f"scale widths {log}")
+        check([e["width"] for e in r1["log"]] == [2],
+              f"joiner widths {r1['log']}")
+        r0 = recs[0]
+        dist, yard = r0["rel_l2_vs_oracle"], r0["yardstick_rel_l2"]
+        check(r0["bitwise_vs_oracle"] or dist <= DP_W2_CHAOS * yard,
+              f"scale {dist} vs yardstick {yard}")
+        check(r1["bitwise_vs_oracle"] == r0["bitwise_vs_oracle"],
+              "the scale-up's ranks disagree")
+        scale.update({"waves": _wave_rows(log),
+                      "joiner_waves": _wave_rows(r1["log"]),
+                      "kernel_launches_trainer0": r0["kernel_launches"],
+                      "kernel_launches_joiner": r1["kernel_launches"],
+                      "rel_l2_vs_oracle": dist, "yardstick_rel_l2": yard,
+                      "chaos_factor": DP_W2_CHAOS,
+                      "bitwise_vs_width2_oracle": r0["bitwise_vs_oracle"],
+                      "oracle_checkpoint": r0["oracle_checkpoint"],
+                      "wall_s": r0["wall_s"]})
+    scale["seconds"] = time.perf_counter() - t0
+
+    # (c) a slow member, expelled
+    t0 = time.perf_counter()
+    faults.install(f"slow-peer[1]@{ELASTIC_SLOW['at']}:"
+                   f"{ELASTIC_SLOW['sleep']}")
+    try:
+        recs, codes, mem, metrics = _elastic_case(
+            "slow", [1], [0], ELASTIC_SLOW["timeout"])
+    finally:
+        faults.clear()
+    slow = {"exit_codes": codes, "metrics": metrics,
+            "member": {"error": repr(mem[0].error),
+                       "expelled": mem[0].expelled is not None}}
+    check(codes == [0], f"slow exit code {codes}: {recs[0].get('log_tail')}")
+    check(mem[0].expelled is not None and mem[0].error is None,
+          f"slow member {slow['member']}")
+    if codes == [0]:
+        log = recs[0]["log"]
+        check(log[0]["world"] == 2 and log[-1]["world"] == 1,
+              f"slow worlds {log}")
+        slow.update({"waves": _wave_rows(log), "wall_s": recs[0]["wall_s"],
+                     "batches_trained": recs[0]["batches_trained"]})
+    slow["seconds"] = time.perf_counter() - t0
+
+    result = {"phase": "elastic",
+              "config": dict(ELASTIC, charrnn=CHARRNN,
+                             kill_at_heartbeat=ELASTIC_KILL_AT,
+                             slow=ELASTIC_SLOW),
+              "kill": kill, "scale_up": scale, "slow_peer": slow,
+              "kernel_launches_per_batch_whole_rows": per_batch,
+              "failures": failures,
+              "seconds": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    assert not failures, failures
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase shard_ckpt: per-rank shard checkpoints (utils/orbax_io.py) of the
+# slice's LM at full width, world 2, ZeRO level 3
+# ---------------------------------------------------------------------------
+def _gathered_state(lm):
+    """The LM's parameters and AdamW state, whole, on its device (a
+    collective under a plan)."""
+    return [t.detach().clone() for attr in ("params", "opt_state")
+            for t in lm._gathered(attr)]
+
+
+def _bits_equal(a, b):
+    import torch
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(torch.uint8),
+                        y.contiguous().view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def shard_rank_main(rank, out, device):
+    """One rank of phase shard_ckpt (``chip_smoke.py --shard-rank``):
+    the slice's LM at level 3 over gloo (both ranks on the card), trained
+    SHARD_CKPT["steps"] steps, saved as shards; restored at world 2 level
+    1 and, on rank 0 alone, at width 1; each restore's parameters and
+    AdamW state held bitwise against the saved ones, gathered."""
+    import glob
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.utils import orbax_io
+    dev, backend = multihost.reform(
+        os.path.join(out, "store"), 2, rank,
+        device=None if device == "cuda" else device,
+        timeout=WORLD2_GROUP_TIMEOUT_S)
+    conf = TransformerConfig(**dict(SLICE, n_layers=SHARD_CKPT["n_layers"]))
+    lm = TransformerLM(conf, device=dev).init().shard(level=3, device=dev)
+    batch = _lm_batch(conf)
+    reset_launches()
+    for _ in range(SHARD_CKPT["steps"]):
+        lm.fit_batch(batch)
+    launches = read_launches()
+    saved = _gathered_state(lm)
+    ck = os.path.join(out, "shards")
+    torch.distributed.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    path = orbax_io.save_checkpoint(lm, ck, step=SHARD_CKPT["steps"])
+    write_s = time.perf_counter() - t0
+    mine = sum(os.path.getsize(p) for p in glob.glob(
+        os.path.join(path, f"*.rank{rank}.bin")))
+    whole = sum(os.path.getsize(p) for p in glob.glob(
+        os.path.join(path, "*.whole.bin"))) if rank == 0 else 0
+    rec = {"rank": rank, "device": str(dev), "backend": backend,
+           "write_s": write_s,
+           "shard_bytes_written": mine, "whole_bytes_written": whole,
+           "flash_launches": dict(zip(("flash_attn_fwd", "flash_attn_dq",
+                                       "flash_attn_dkv"), launches)),
+           "param_bytes_at_rest": _nbytes(lm._plan_leaves("params")),
+           "optimizer_bytes_at_rest": _nbytes(lm._plan_leaves("opt_state"))}
+    del lm
+    back = TransformerLM(TransformerConfig(
+        **dict(SLICE, n_layers=SHARD_CKPT["n_layers"], seed=SEED + 1)),
+        device=dev).init().shard(level=1, device=dev)
+    torch.distributed.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    orbax_io.restore_checkpoint(back, ck, step=SHARD_CKPT["steps"])
+    _sync(dev)
+    rec["restore_world2_level1_s"] = time.perf_counter() - t0
+    rec["world2_level1_bitwise"] = _bits_equal(_gathered_state(back), saved)
+    rec["world2_level1_iteration"] = back.iteration
+    del back
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        alone = TransformerLM(TransformerConfig(
+            **dict(SLICE, n_layers=SHARD_CKPT["n_layers"], seed=SEED + 2)),
+            device=dev).init()
+        _sync(dev)
+        t0 = time.perf_counter()
+        orbax_io.restore_checkpoint(alone, ck, step=SHARD_CKPT["steps"])
+        _sync(dev)
+        rec["restore_width1_s"] = time.perf_counter() - t0
+        rec["width1_bitwise"] = _bits_equal(_gathered_state(alone), saved)
+        rec["width1_iteration"] = alone.iteration
+        del alone
+    torch.distributed.barrier()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    multihost.shutdown()
+    return 0
+
+
+def _release_card():
+    """Give the card's cached blocks of this process back before rank
+    processes start (they share the card); returns what this process
+    still reserves, in bytes (None on the CPU)."""
+    import torch
+    if DEVICE != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _world2(flag, out, timeout):
+    """Run this script's ``flag`` rank mode as two processes that meet
+    over a ``FileStore`` in ``out``; returns their JSON records
+    (``<out>/rank<r>.json``). A rank that
+    exits with an error ends the other at once (a rank left waiting for a
+    dead peer in the rendezvous would wait out torch's default timeout),
+    and the error carries both ranks' logs."""
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                 out, DEVICE], stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs
+                   if p.returncode not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        tails = []
+        for r, path in enumerate(logs):
+            with open(path, errors="replace") as f:
+                tails.append(f"--- {flag} rank {r} (exit {codes[r]}):\n"
+                             + f.read()[-4000:])
+        raise AssertionError("\n".join(tails))
+    return [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(2)]
+
+
+def phase_shard_ckpt(card):
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    reserved = _release_card()
+    with tempfile.TemporaryDirectory() as out:
+        free = shutil.disk_usage(out).free
+        ranks = _world2("--shard-rank", out, SHARD_CKPT_TIMEOUT_S)
+    r0, r1 = ranks
+    failures = [what for ok, what in (
+        (r0["world2_level1_bitwise"] and r1["world2_level1_bitwise"],
+         "world 2 level 1 restore not bitwise"),
+        (r0["width1_bitwise"], "width 1 restore not bitwise"),
+        (r0["world2_level1_iteration"] == SHARD_CKPT["steps"] ==
+         r0["width1_iteration"], "restored iteration"),
+        (all(v == SHARD_CKPT["n_layers"] * SHARD_CKPT["steps"]
+             for v in r0["flash_launches"].values()),
+         f"flash launches {r0['flash_launches']}")) if not ok]
+    result = {"phase": "shard_ckpt",
+              "config": dict(SHARD_CKPT, model=dict(
+                  SLICE, n_layers=SHARD_CKPT["n_layers"]), level=3,
+                  world=2, backend=r0["backend"]),
+              "ranks": ranks,
+              "bytes_written_per_rank": [r0["shard_bytes_written"]
+                                         + r0["whole_bytes_written"],
+                                         r1["shard_bytes_written"]],
+              "write_s": max(r0["write_s"], r1["write_s"]),
+              "restore_world2_level1_s": max(r0["restore_world2_level1_s"],
+                                             r1["restore_world2_level1_s"]),
+              "restore_width1_s": r0["restore_width1_s"],
+              "parent_reserved_bytes": reserved,
+              "disk_free_bytes_before": free,
+              "failures": failures,
+              "seconds": time.perf_counter() - t0, "card": card}
+    emit(result)
+    assert not failures, failures
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase tp: Megatron tensor parallelism (parallel/tensor_parallel.py,
+# parallel/tp_transformer.py) at the slice's widths, TP 2 over two ranks
+# that share the card over gloo
+# ---------------------------------------------------------------------------
+def _tp_conf(**kw):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**dict(SLICE, n_layers=TP["n_layers"],
+                                    block_size=None, **kw))
+
+
+def _tp_f32():
+    """The f32 check's configuration (SLICE's widths, f32 compute) and
+    its rows of phase train's batch."""
+    conf = _tp_conf(compute_dtype=None)
+    return conf, _lm_batch(conf)[:TP_F32["rows"]]
+
+
+def _tp_mlp_data():
+    import numpy as np
+    rng = np.random.RandomState(SEED + 21)
+    n_in, _, n_out = TP_MLP["dims"]
+    x = rng.normal(size=(TP_MLP["batch"], n_in)).astype(np.float32)
+    w = rng.normal(size=(n_in, n_out)).astype(np.float32)
+    return x, np.eye(n_out, dtype=np.float32)[np.argmax(x @ w, 1)]
+
+
+def _tp_mlp_init():
+    import numpy as np
+    rng = np.random.RandomState(SEED + 22)
+    n_in, h, n_out = TP_MLP["dims"]
+    return {"W1": (rng.normal(size=(n_in, h))
+                   * (2.0 / (n_in + h)) ** 0.5).astype(np.float32),
+            "b1": np.zeros(h, np.float32),
+            "W2": (rng.normal(size=(h, n_out))
+                   * (2.0 / (h + n_out)) ** 0.5).astype(np.float32),
+            "b2": np.zeros(n_out, np.float32)}
+
+
+def _flat_tree(tree):
+    import numpy as np
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _flat_tree(v) if isinstance(v, dict) else \
+            [np.asarray(v, np.float32).ravel()]
+    return out
+
+
+def tp_rank_main(rank, out, device):
+    """One rank of phase tp (``chip_smoke.py --tp-rank``): the slice's
+    TPTransformerLM at TP 2 from the slice LM's initial parameters, TP
+    ["steps"] steps at phase train's batch (each step's ms and its share
+    in the all-reduces); the f32 check's run and its negative control
+    (copy_to_model's backward all-reduce dropped); then the
+    TensorParallelMLP at TP 2 from TP_MLP's parameters; rank 0 writes the
+    whole parameters and the f32 runs' logits."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.parallel import multihost, tp_transformer
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        TensorParallelMLP, tp_mesh)
+    from deeplearning4j_tpu_torch.parallel.tp_transformer import \
+        TPTransformerLM
+    dev, backend = multihost.reform(
+        os.path.join(out, "store"), 2, rank,
+        device=None if device == "cuda" else device,
+        timeout=WORLD2_GROUP_TIMEOUT_S)
+    conf = _tp_conf()
+    mesh = tp_mesh(1, 2)
+    tp = TPTransformerLM(mesh, conf, device=dev)
+    batch = _lm_batch(conf)
+    losses, step_ms, coll_ms = [], [], []
+    for _ in range(TP["steps"]):
+        c0 = mesh.collective_seconds
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(float(tp.fit_batch(batch)))
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append((mesh.collective_seconds - c0) * 1e3)
+    mine, whole = tp.param_bytes()
+    rec = {"rank": rank, "device": str(dev), "backend": backend,
+           "losses": losses,
+           "step_ms": step_ms, "allreduce_ms": coll_ms,
+           "param_bytes_rank": mine, "param_bytes_whole": whole,
+           "shard_fraction": tp.shard_fraction(),
+           "peak_memory_bytes": _peak_bytes(dev)}
+    params = np.concatenate(_flat_tree(tp.gathered_params()))
+    del tp
+    f32, toks = _tp_f32()
+    keep = tp_transformer.copy_to_model
+    for name in ("f32", "f32_no_backward_allreduce"):
+        if name != "f32":
+            # the negative control: Megatron's f without its backward
+            # all-reduce, so each rank's gradient below a column-parallel
+            # region holds only its own heads' share
+            tp_transformer.copy_to_model = lambda x, mesh: x
+        try:
+            m = TPTransformerLM(mesh, f32, device=dev)
+            before = m.gathered_logits(toks[:, :-1])
+            rec[f"{name}_losses"] = [float(m.fit_batch(toks))
+                                     for _ in range(TP["steps"])]
+            logits = m.gathered_logits(toks[:, :-1])
+        finally:
+            tp_transformer.copy_to_model = keep
+        if rank == 0:
+            np.save(os.path.join(out, f"{name}_logits_before.npy"), before)
+            np.save(os.path.join(out, f"{name}_logits.npy"), logits)
+        del m, before, logits
+    x, y = _tp_mlp_data()
+    mlp = TensorParallelMLP(mesh, *TP_MLP["dims"], lr=TP_MLP["lr"],
+                            params=_tp_mlp_init(), device=dev)
+    rec["mlp_losses"] = [float(mlp.fit_batch(x, y))
+                         for _ in range(TP_MLP["steps"])]
+    mlp_params = np.concatenate(_flat_tree(mlp.gathered_params()))
+    if rank == 0:
+        np.save(os.path.join(out, "lm_params.npy"), params)
+        np.save(os.path.join(out, "mlp_params.npy"), mlp_params)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    multihost.shutdown()
+    return 0
+
+
+def tp_single_device(dev):
+    """The port's single-device TransformerLM (dense attention) from the
+    same initial parameters on the same batch, TP["steps"] steps, and the
+    same run from parameters perturbed by TP_PERTURB (the yardstick),
+    each with its parameters before the steps; the f32 check's run and
+    its run from parameters perturbed by TP_F32["perturb"] (losses, and
+    logits before and after the steps); the
+    TensorParallelMLP on one rank from TP_MLP's parameters, and its run
+    perturbed by DP_W2_PERTURB."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerLM, _flatten, _tree_map)
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        TPMesh, TensorParallelMLP)
+    conf = _tp_conf()
+    batch = _lm_batch(conf).to(dev)
+    out = {}
+    for name, scale in (("single", 0.0), ("perturbed", TP_PERTURB)):
+        lm = TransformerLM(conf, device=dev).init()
+        if scale:
+            g = torch.Generator(device=dev).manual_seed(SEED + 23)
+            with torch.no_grad():
+                for p in _flatten(lm.params).values():
+                    p.mul_(1 + scale * torch.randn(
+                        p.shape, generator=g, device=dev))
+        start = np.concatenate(_flat_tree(_tree_map(
+            lambda a: a.detach().cpu().numpy(), lm.params)))
+        losses, step_ms = [], []
+        for _ in range(TP["steps"]):
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(lm.fit_batch(batch)))
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        params = np.concatenate(_flat_tree(_tree_map(
+            lambda a: a.detach().cpu().numpy(), lm.params)))
+        out[name] = {"losses": losses, "params": params, "start": start,
+                     "step_ms": step_ms}
+        del lm
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    f32, toks = _tp_f32()   # host tokens: output() copies them over
+    for name, scale in (("f32", 0.0), ("f32_perturbed", TP_F32["perturb"])):
+        lm = TransformerLM(f32, device=dev).init()
+        if scale:
+            g = torch.Generator(device=dev).manual_seed(SEED + 25)
+            with torch.no_grad():
+                for p in _flatten(lm.params).values():
+                    p.mul_(1 + scale * torch.randn(
+                        p.shape, generator=g, device=dev))
+        before = lm.output(toks[:, :-1])
+        losses = [float(lm.fit_batch(toks.to(dev)))
+                  for _ in range(TP["steps"])]
+        out[name] = {"losses": losses, "logits_before": before,
+                     "logits": lm.output(toks[:, :-1])}
+        del lm
+    x, y = _tp_mlp_data()
+    for name, scale in (("mlp", 0.0), ("mlp_perturbed", DP_W2_PERTURB)):
+        init = _tp_mlp_init()
+        if scale:
+            rng = np.random.default_rng(SEED + 24)
+            init = {k: (v * (1 + scale * rng.standard_normal(v.shape)))
+                    .astype(np.float32) for k, v in init.items()}
+        mlp = TensorParallelMLP(TPMesh(1, 1, 0, 0), *TP_MLP["dims"],
+                                lr=TP_MLP["lr"], params=init, device=dev)
+        losses = [float(mlp.fit_batch(x, y)) for _ in range(TP_MLP["steps"])]
+        out[name] = {"losses": losses, "params": np.concatenate(
+            _flat_tree(mlp.gathered_params()))}
+    return out
+
+
+def phase_tp(card):
+    """TPTransformerLM at TP 2 (two ranks on the card, gloo) against the
+    single-device LM from the same parameters: in bf16, the update's
+    relative L2 distance within TP_CHAOS times that of the single-device
+    run from parameters perturbed by TP_PERTURB (a bar that must reject
+    an unchanged state), each step's loss within DP_W2_LOSS_RTOL; in f32
+    on TP_F32["rows"] rows, the forward's logits and the losses within
+    TP_F32["rel"] of their max abs and the logits after the steps within
+    TP_CHAOS times a TP_F32["perturb"] run's drift, bars that must reject
+    an unchanged state and a run without copy_to_model's backward
+    all-reduce; ms a step, tokens/s,
+    parameter bytes a rank against the whole and the all-reduces' share
+    of the step. The TensorParallelMLP at TP 2 against its single-rank
+    run (DP_W2_CHAOS times a run perturbed by DP_W2_PERTURB)."""
+    import tempfile
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE if DEVICE != "cuda" else "cuda:0")
+    single = tp_single_device(dev)
+    reserved = _release_card()
+    with tempfile.TemporaryDirectory() as out:
+        ranks = _world2("--tp-rank", out, TP_TIMEOUT_S)
+        lm_params = np.load(os.path.join(out, "lm_params.npy"))
+        mlp_params = np.load(os.path.join(out, "mlp_params.npy"))
+        f32_logits = {(name, when): np.load(os.path.join(
+            out, f"{name}_logits{when}.npy"))
+            for name in ("f32", "f32_no_backward_allreduce")
+            for when in ("_before", "")}
+    r0, r1 = ranks
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    s, p = single["single"], single["perturbed"]
+    # on the update: an unchanged state is at distance 1
+    d_single = s["params"] - s["start"]
+    dist = rel_l2(lm_params - s["start"], d_single)
+    yard = rel_l2(p["params"] - p["start"], d_single)
+    f, fp = single["f32"], single["f32_perturbed"]
+
+    def max_abs(a):
+        return float(np.max(np.abs(np.asarray(a))))
+    f32_bar = {"logits_before": TP_F32["rel"] * max_abs(f["logits_before"]),
+               "losses": TP_F32["rel"] * max_abs(f["losses"]),
+               "logits": TP_CHAOS * max_abs(fp["logits"] - f["logits"])}
+
+    def f32_diff(name):
+        return {"logits_before": max_abs(f32_logits[name, "_before"]
+                                         - f["logits_before"]),
+                "losses": max_abs(np.asarray(r0[f"{name}_losses"])
+                                  - f["losses"]),
+                "logits": max_abs(f32_logits[name, ""] - f["logits"])}
+
+    def f32_within(diff):
+        return all(diff[k] <= f32_bar[k] for k in f32_bar)
+    f32 = f32_diff("f32")
+    no_ar = f32_diff("f32_no_backward_allreduce")
+    unchanged = {"logits": max_abs(f["logits_before"] - f["logits"])}
+    loss_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(r0["losses"], s["losses"]))
+    loss_yard = max(abs(a - b) / abs(b)
+                    for a, b in zip(p["losses"], s["losses"]))
+    mlp_dist = rel_l2(mlp_params, single["mlp"]["params"])
+    mlp_yard = rel_l2(single["mlp_perturbed"]["params"],
+                      single["mlp"]["params"])
+    timed = r0["step_ms"][1:]
+    step_ms = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * (SLICE["max_len"] - 1)
+    failures = [what for ok, what in (
+        (r0["losses"] == r1["losses"], "the ranks' losses differ"),
+        (dist <= TP_CHAOS * yard, f"LM update {dist} vs yardstick {yard}"),
+        (TP_CHAOS * yard < 1.0, f"the LM update bar {TP_CHAOS * yard} "
+         "does not reject an unchanged state"),
+        (f32_within(f32), f"f32 TP {f32} vs bar {f32_bar}"),
+        (unchanged["logits"] > f32_bar["logits"],
+         f"the f32 bar does not reject an unchanged state: {unchanged}"),
+        (not f32_within(no_ar), "the f32 bar does not reject a run "
+         f"without the backward all-reduce: {no_ar} vs {f32_bar}"),
+        (loss_diff <= DP_W2_LOSS_RTOL, f"LM loss {loss_diff}"),
+        (mlp_dist <= DP_W2_CHAOS * mlp_yard,
+         f"MLP params {mlp_dist} vs yardstick {mlp_yard}"),
+        (r0["mlp_losses"][-1] < r0["mlp_losses"][0], "MLP loss did not fall"),
+        (r0["shard_fraction"] < 0.8, "parameters not sharded")) if not ok]
+    result = {"phase": "tp",
+              "config": dict(TP, model=dict(SLICE, n_layers=TP["n_layers"],
+                                            block_size=None),
+                             batch=TRAIN_BATCH, tp=2, backend=r0["backend"],
+                             perturb=TP_PERTURB, chaos=TP_CHAOS, mlp=TP_MLP),
+              "losses": r0["losses"], "single_device_losses": s["losses"],
+              "step_ms_by_step": r0["step_ms"], "ms_per_step": step_ms,
+              "tokens_per_s": tokens / step_ms * 1e3,
+              # the first step of each run (cuBLAS's and the
+              # allocator's first use) is left out of both means
+              "single_device_ms_per_step": sum(s["step_ms"][1:])
+              / len(s["step_ms"][1:]),
+              "single_device_step_ms_by_step": s["step_ms"],
+              "allreduce_share_of_step": sum(r0["allreduce_ms"][1:])
+              / sum(timed),
+              "param_bytes_rank": r0["param_bytes_rank"],
+              "param_bytes_whole": r0["param_bytes_whole"],
+              "param_fraction_rank": r0["shard_fraction"],
+              "peak_memory_bytes_rank0": r0["peak_memory_bytes"],
+              "update_rel_l2_vs_single": dist,
+              "yardstick_update_rel_l2": yard,
+              "f32": {"rows": TP_F32["rows"], "rel": TP_F32["rel"],
+                      "perturb": TP_F32["perturb"], "chaos": TP_CHAOS,
+                      "bar": f32_bar, "max_abs_diff_vs_single": f32,
+                      "losses": r0["f32_losses"],
+                      "single_device_losses": f["losses"],
+                      "unchanged_state_max_abs_diff": unchanged,
+                      "no_backward_allreduce_max_abs_diff": no_ar},
+              "loss_max_rel_diff_vs_single": loss_diff,
+              "loss_rtol": DP_W2_LOSS_RTOL,
+              "perturbed_loss_max_rel_diff": loss_yard,
+              "mlp": {"losses": r0["mlp_losses"],
+                      "single_rank_losses": single["mlp"]["losses"],
+                      "params_rel_l2_vs_single_rank": mlp_dist,
+                      "yardstick_rel_l2": mlp_yard},
+              "parent_reserved_bytes": reserved,
+              "ranks": ranks, "failures": failures,
+              "seconds": time.perf_counter() - t0, "card": card}
+    emit(result)
+    assert not failures, failures
+    return result
+
+
 def main():
     try:
         import torch
@@ -8592,6 +9692,9 @@ def main():
     mo = phase_moe(card)
     dp = phase_dp(card)
     so = phase_scaleout(card)
+    el = phase_elastic(card)
+    phase_shard_ckpt(card)
+    phase_tp(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -8672,6 +9775,16 @@ def main():
         return {"launches_scaleout": so["threads"]["lstm_launches"][name],
                 "launches_scaleout_process": sum(
                     w[name] for w in so["processes"]["worker_kernel_launches"])}
+    def elastic_launches(name):
+        """Phase elastic's launches by the wrappers in its trainer
+        processes: the kill case's survivor (every batch, at width 2 then
+        1) and the scale-up's two trainers."""
+        sc = el["scale_up"]
+        return {"launches_elastic_kill_trainer0":
+                el["kill"]["kernel_launches_trainer0"][name],
+                "launches_elastic_scale_up":
+                sc["kernel_launches_trainer0"][name]
+                + sc["kernel_launches_joiner"][name]}
     src = "deeplearning4j_tpu_torch/csrc/"
     ref = "deeplearning4j_tpu/ops/pallas_kernels.py:"
     launches = tr["kernel_launches"]
@@ -8728,6 +9841,7 @@ def main():
          "launches_dp": dp_lstm["lstm_cell_fwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_fwd"),
          **scaleout_launches("lstm_cell_fwd"),
+         **elastic_launches("lstm_cell_fwd"),
          "max_abs_err": max(lstm["main"]["errors"][g]["max_abs_err"]
                             for g in ("out", "h", "c")),
          "ms": lstm["main"]["fwd_ms"], "steps": lstm["main"]["shape"]["T"],
@@ -8752,6 +9866,7 @@ def main():
          "launches_dp": dp_lstm["lstm_cell_bwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_bwd"),
          **scaleout_launches("lstm_cell_bwd"),
+         **elastic_launches("lstm_cell_bwd"),
          "max_abs_err": max(e["max_abs_err"] for g, e in
                             lstm["main"]["errors"].items()
                             if g not in ("h", "c")),
@@ -8770,9 +9885,19 @@ def main():
 
 
 if __name__ == "__main__":
+    # one rank of a phase's world, started by the phase itself
     if sys.argv[1:2] == ["--dp-rank"]:
-        # one rank of phase dp's world 2, started by the phase itself
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4], sys.argv[5]))
+    RANK_MODES = {"--shard-rank": shard_rank_main, "--tp-rank": tp_rank_main}
+    if sys.argv[1:2] and sys.argv[1] in RANK_MODES:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(RANK_MODES[sys.argv[1]](int(sys.argv[2]), sys.argv[3],
+                                         sys.argv[4]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(elastic_rank_main(sys.argv[2], int(sys.argv[3]),
+                                   int(sys.argv[4]), sys.argv[5],
+                                   sys.argv[6]))
     sys.exit(main())

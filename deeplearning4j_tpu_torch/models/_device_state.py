@@ -181,6 +181,14 @@ class PlanStateMixin:
         self._shard_plan = None
         self._dp_axes = self._dp_rest = None
 
+    def _drop_plan(self):
+        """Forget the plan without a collective: its process group is
+        gone (a peer died, an elastic wave re-formed it). Trees that the
+        plan shards at rest hold this rank's shards until a restore
+        replaces them."""
+        self._shard_plan = None
+        self._dp_axes = self._dp_rest = None
+
     @contextlib.contextmanager
     def _whole(self, attrs=("params_list", "states_list")):
         """Within: ``attrs`` hold whole tensors (gathered copies where the

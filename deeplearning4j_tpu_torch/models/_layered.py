@@ -39,7 +39,9 @@ holds one copy of:
   finite check and the gradient norms over the reduced, whole leaves;
   each layer's updater rule on this rank's shard of its leaves; the
   updated shards gathered back onto whole parameters at levels 1-2. The
-  fused loop runs without a plan or at width 1 only.
+  line-search solvers and layer-wise pretraining run on whole trees under
+  a plan, their losses and gradients the mean over the ranks. The fused
+  loop runs without a plan or at width 1 only.
 
 Dropout draws no generator: each layer's mask is a pure function of
 ``conf.seed``, the model's device int64 draw counter, the layer's index
@@ -67,6 +69,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import (DataSetIterator,
                                                        MultiDataSetIterator)
 from deeplearning4j_tpu_torch.models._device_state import (
     DeviceStateMixin, nanguard_enabled, step_all_finite, uses_dropout, whole)
+from deeplearning4j_tpu_torch.nn.layers.pretrain import RowShare
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
@@ -295,6 +298,7 @@ class LayeredModel(DeviceStateMixin):
     _fuse_autotune = False     # set by fit() while the tuner is armed
     _draw_counter = None       # device int64: the dropout stream
     _solver_runs = None        # solver signature -> run function
+    _solver_plan = None        # the plan a solver call reduces over
     _pretrain_gen = None       # torch.Generator of the pretrain layers
     _pretrained = False        # fit() has pretrained this model
 
@@ -587,18 +591,45 @@ class LayeredModel(DeviceStateMixin):
                 "be silently ignored. Pretrain with "
                 "'stochastic_gradient_descent', then fine-tune with the "
                 "line-search solver.")
-        self._refuse_plan("layer-wise pretraining")
         layer = self.layers[i]
         if not layer.is_pretrain_layer():
             return self
+        plan = self._dp()
+        if plan is None:
+            return self._pretrain_batches(i, layer, data, epochs,
+                                          layer_input, None)
+        # under a plan: the trees whole for the pretraining, placed again
+        # after it (each a collective every rank of the plan makes)
+        self._leave_plan()
+        try:
+            return self._pretrain_batches(i, layer, data, epochs,
+                                          layer_input, plan)
+        finally:
+            self._enter_plan(plan)
+
+    def _pretrain_batches(self, i, layer, data, epochs, layer_input, plan):
+        """The pretraining loop on whole trees. Under ``plan`` each batch
+        is this rank's equal share of a global batch: the draws are its
+        rows of the global batch's (``RowShare``), and the gradients and
+        the score are the mean over the ranks before the rule applies, so
+        every rank takes the update one process takes on the global
+        batch."""
         conf_u = layer.updater_config(self.conf.max_iterations)
         gen = self._pretrain_generator()
+        if plan is not None:
+            gen = RowShare(gen, plan.rank, plan.n)
         p, state = self.params_list[i], self.updater_states[i]
+        names = sorted(p)
         for _ in range(epochs):
             for ds in data:
                 with torch.no_grad():
                     h = layer_input(ds)
                 grads, score = layer.pretrain_grads(p, h, gen)
+                if plan is not None:
+                    flat, (score,) = plan.constrain_grads(
+                        [grads[k] for k in names], [None] * len(names),
+                        scalars=(score,))
+                    grads = dict(zip(names, flat))
                 it = self._device_iteration()
                 with torch.no_grad():
                     upd, new_state = updaters_mod.compute_updates(
@@ -613,15 +644,6 @@ class LayeredModel(DeviceStateMixin):
                 self.iteration += 1
                 self._iter_dev_py = self.iteration
         return self
-
-    def _refuse_plan(self, what):
-        """``what`` runs on one rank's data only: refuse it under a plan
-        that spans ranks."""
-        if self._dp() is not None:
-            raise NotImplementedError(
-                f"{what} under a sharding plan of more than one rank is "
-                "not ported to the PyTorch package yet (ROADMAP.md, queue "
-                "1, \"Data parallelism\")")
 
     # ---- the line-search solvers --------------------------------------
     def _uses_solver(self):
@@ -670,17 +692,28 @@ class LayeredModel(DeviceStateMixin):
 
     def _solver_value_and_grad(self, vec, *args):
         """(loss, flat gradient) at the flat parameter vector ``vec``,
-        the layer state held fixed."""
+        the layer state held fixed; under a plan, the global batch's (the
+        mean over the ranks)."""
         v = vec.detach().requires_grad_(True)
         with torch.enable_grad():
             score = self._solver_loss(v, *args)
             (g,) = torch.autograd.grad(score, [v], allow_unused=True)
-        return score.detach(), (torch.zeros_like(v) if g is None else g)
+        score, g = score.detach(), (torch.zeros_like(v) if g is None else g)
+        plan = self._solver_plan
+        if plan is not None:
+            (g,), (score,) = plan.constrain_grads([g], [None],
+                                                  scalars=(score,))
+        return score, g
 
     def _solver_value(self, vec, *args):
-        """The loss alone: one forward evaluation (a line-search probe)."""
+        """The loss alone: one forward evaluation (a line-search probe);
+        under a plan, the global batch's."""
         with torch.no_grad():
-            return self._solver_loss(vec, *args)
+            score = self._solver_loss(vec, *args)
+        plan = self._solver_plan
+        if plan is not None:
+            _, (score,) = plan.constrain_grads([], [], scalars=(score,))
+        return score
 
     def _fit_batch_solver(self, x, y, fmask, lmask):
         """The line-search path (Solver.java:48 → ConjugateGradient, LBFGS,
@@ -689,8 +722,27 @@ class LayeredModel(DeviceStateMixin):
         fixed during the line searches (a consistent loss is what makes
         the Armijo probes meaningful) and is refreshed by one forward at
         the final parameters; the dropout masks are those of one counter
-        value for the whole call, which then advances the counter once."""
-        self._refuse_plan("the line-search solvers")
+        value for the whole call, which then advances the counter once.
+
+        Under a plan of N ranks the batch is this rank's share: the trees
+        are whole for the call (placed again after it), and every loss
+        and gradient is the global batch's, the mean over the ranks
+        (BatchNormalization takes the global moments), so every line
+        search reads the same values on every rank and all ranks take the
+        same steps. At N = 1 nothing changes."""
+        plan = self._dp()
+        if plan is None:
+            return self._solver_batch(x, y, fmask, lmask)
+        self._leave_plan()
+        self._solver_plan = plan
+        try:
+            with global_batch(plan):
+                return self._solver_batch(x, y, fmask, lmask)
+        finally:
+            self._solver_plan = None
+            self._enter_plan(plan)
+
+    def _solver_batch(self, x, y, fmask, lmask):
         keys = self._dropout_keys()
         args = (x, y, fmask, lmask, keys)
         x0 = flat_params.params_to_vector(self.layers,

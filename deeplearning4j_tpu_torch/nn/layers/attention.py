@@ -119,7 +119,7 @@ class SelfAttentionLayer(BaseLayer):
             raise NotImplementedError(
                 "SelfAttentionLayer(sequence_axis=...): ring attention is "
                 "not ported to the PyTorch package yet (ROADMAP.md, queue "
-                "1, \"The rest.\")")
+                "1, \"Model parallelism\")")
         x = self.apply_dropout(x, train=train, rng=rng)
         q = self._split_heads(x @ params["Wq"])
         k = self._split_heads(x @ params["Wk"])

@@ -18,7 +18,10 @@ a pretrain step comes from the ``torch.Generator`` passed in, through
 the VAE's ``eps``). Torch's Philox and JAX's threefry do not agree, so
 these two functions are the seam where tests inject the reference's
 draws. With ``generator=None`` nothing is drawn: the AutoEncoder is not
-corrupted and the VAE takes ``z`` at the mean.
+corrupted and the VAE takes ``z`` at the mean. Under a sharding plan of
+N ranks the generator comes wrapped in a :class:`RowShare`: each draw is
+this rank's rows of the draw the global batch would take, so N ranks
+draw what one process draws for their rows together.
 """
 
 from __future__ import annotations
@@ -35,20 +38,42 @@ from deeplearning4j_tpu_torch.nn.layers.base import (FeedForwardLayer,
 from deeplearning4j_tpu_torch.ops import activations as act_mod
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 
-__all__ = ["AutoEncoder", "BasePretrainLayer", "RBM",
+__all__ = ["AutoEncoder", "BasePretrainLayer", "RBM", "RowShare",
            "VariationalAutoencoder"]
 
 _LOG_2PI = math.log(2 * math.pi)
 
 
+class RowShare:
+    """A generator for rank ``rank`` of ``n`` ranks that each hold an
+    equal share of a global batch: every draw (batch first) is taken for
+    the global batch, ``n`` times the rows, from ``generator``, and this
+    rank keeps its rows. Every rank seeds the same generator, so the
+    ranks' draws together are one process's draws on the global batch."""
+
+    def __init__(self, generator, rank, n):
+        self.generator = generator
+        self.rank = int(rank)
+        self.n = int(n)
+
+    def rows(self, draw, shape, like):
+        b = shape[0]
+        full = draw(self.generator, (b * self.n, *shape[1:]), like)
+        return full[self.rank * b:(self.rank + 1) * b]
+
+
 def _uniform(generator, shape, like):
     """U[0, 1) draws shaped ``shape``, in ``like``'s dtype and device."""
+    if isinstance(generator, RowShare):
+        return generator.rows(_uniform, shape, like)
     return torch.rand(shape, generator=generator, dtype=like.dtype,
                       device=like.device)
 
 
 def _normal(generator, shape, like):
     """N(0, 1) draws shaped ``shape``, in ``like``'s dtype and device."""
+    if isinstance(generator, RowShare):
+        return generator.rows(_normal, shape, like)
     return torch.randn(shape, generator=generator, dtype=like.dtype,
                        device=like.device)
 

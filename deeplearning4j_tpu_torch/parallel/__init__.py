@@ -13,6 +13,11 @@
 - ``start_coordinator`` / ``connect``: the host-side collective and
   parameter-server transport (the native C++ TCP server or its Python
   twin; the Aeron media driver's and Spark driver's part).
+- ``ElasticTrainer`` / ``ElasticMember``: elastic data parallelism, a
+  world that loses or gains trainer processes re-forming its process
+  group and continuing from the last committed checkpoint;
+- ``TensorParallelMLP`` / ``TPTransformerLM`` over ``tp_mesh``: Megatron
+  tensor parallelism on a (data, model) grid of ranks.
 
 Names resolve on first use: the modules that the models import from
 here (``sharding_core``, ``sequence_parallel``, ``multihost``) must not
@@ -30,6 +35,11 @@ _EXPORTS = {
     "TrainingHook": "training_master",
     "connect": "coordinator",
     "start_coordinator": "coordinator",
+    "ElasticTrainer": "elastic",
+    "ElasticMember": "elastic",
+    "TensorParallelMLP": "tensor_parallel",
+    "tp_mesh": "tensor_parallel",
+    "TPTransformerLM": "tp_transformer",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -10,10 +10,19 @@ card a rank trains on, ``cuda:(local_rank % device_count)``, so ranks
 may share one card (gloo only: NCCL refuses two ranks on one device).
 :func:`take_rows` is ``global_put``'s role: every rank reads the whole
 global batch and keeps its own rows.
+
+:func:`reform` is what elastic training (``parallel/elastic.py``) does
+where the reference re-plans a mesh inside one process: it destroys the
+process group this process holds and starts a new one among the ranks a
+committed re-form wave assigned, over a rendezvous store of that wave's
+own (:func:`choose_backend` picks and names the backend).
+:func:`is_peer_error` tells a collective that failed because a peer is
+gone from any other failure.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -21,8 +30,18 @@ import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.device import resolve_device
 
-__all__ = ["initialize", "is_multiprocess", "local_rank", "process_count",
-           "process_index", "rank_device", "shutdown", "take_rows"]
+__all__ = ["choose_backend", "initialize", "is_multiprocess",
+           "is_peer_error", "local_rank", "process_count", "process_index",
+           "rank_device", "reform", "shutdown", "take_rows"]
+
+# gloo raises a dead peer or a collective past the group's timeout as a
+# plain RuntimeError from its TCP transport: the source path, then one of
+# these (e.g. "[.../gloo/transport/tcp/pair.cc:553] Connection closed by
+# peer [127.0.0.1]:45224", "[.../gloo/transport/tcp/unbound_buffer.cc:78]
+# Timed out waiting 3000ms for recv operation to complete")
+_GLOO_TRANSPORT = "gloo/transport/"
+_GLOO_PEER_PHRASES = ("connection closed by peer", "connection reset by peer",
+                      "broken pipe", "timed out waiting")
 
 
 def local_rank(default=None):
@@ -76,6 +95,65 @@ def shutdown():
     """Leave the process group (no-op when none was joined)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def choose_backend(device, world_size):
+    """(backend, reason) for a group of ``world_size`` ranks on this
+    host, each on ``device``: gloo for the CPU; gloo when the ranks
+    outnumber this host's cards, so two of them share one (NCCL refuses
+    that); NCCL otherwise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "gloo", f"device {device}"
+    cards = torch.cuda.device_count()
+    if int(world_size) > cards:
+        return "gloo", (f"{world_size} ranks share {cards} card(s); NCCL "
+                        "takes one rank a device")
+    return "nccl", f"{world_size} rank(s) on {cards} card(s)"
+
+
+def reform(store_path, world_size, rank, *, device=None, timeout=None):
+    """Leave the process group this process holds (if any) and join a
+    new one of ``world_size`` ranks as ``rank``, meeting over a
+    ``FileStore`` at ``store_path``. The path must be the new membership's
+    own (one per re-form wave): a rank never meets a store of an earlier
+    wave. ``device`` as :func:`rank_device` takes it (None: the card).
+    The backend is :func:`choose_backend`'s pick, and the choice is
+    printed. ``timeout`` (seconds) bounds every collective of
+    the group, so a dead peer raises instead of hanging. Returns
+    ``(device, backend)``."""
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend, reason = choose_backend(dev, world_size)
+    shutdown()
+    print(f"process group: rank {rank} of {world_size} on {dev} over "
+          f"{backend} ({reason})", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(store_path)), exist_ok=True)
+    store = dist.FileStore(store_path, int(world_size))
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout))
+        store.set_timeout(kw["timeout"])
+    dist.init_process_group(backend, store=store,
+                            world_size=int(world_size), rank=int(rank), **kw)
+    return dev, backend
+
+
+def is_peer_error(exc):
+    """Whether ``exc`` is a collective failing because a peer is gone:
+    one of ``torch.distributed``'s own errors (NCCL's and the stores'),
+    or gloo's transport saying that a peer closed its connection or that
+    a wait ran past the group's timeout. Any other error, a CUDA launch
+    that timed out included, is not."""
+    dist_error = getattr(dist, "DistError", None)
+    if dist_error is not None and isinstance(exc, dist_error):
+        return True
+    if not isinstance(exc, RuntimeError):
+        return False
+    text = str(exc)
+    return _GLOO_TRANSPORT in text and any(
+        p in text.lower() for p in _GLOO_PEER_PHRASES)
 
 
 def process_index():

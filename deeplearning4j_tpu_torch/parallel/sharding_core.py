@@ -97,9 +97,15 @@ def resolve_level(level=None):
 
 def elastic_width(n_live, n_devices=None):
     """The data-parallel width a world of ``n_live`` participants trains
-    at: the largest power of two <= min(n_live, n_devices) (the ranks of
-    the process group when ``n_devices`` is None), so every width halves
-    or doubles into another without an uneven split."""
+    at: the largest power of two <= min(n_live, n_devices), so every
+    width halves or doubles into another without an uneven split.
+
+    In the port a width is a process group, so the "devices" are the
+    live trainer processes of the wave (``parallel/elastic.py`` passes
+    their count), not the devices of one process's mesh as in the
+    reference, and not ``process_count()`` of a group that has just
+    lost a member. With ``n_devices=None`` it is the current group's
+    size."""
     if n_devices is None:
         n_devices = multihost.process_count()
     n = min(int(n_live), int(n_devices))

@@ -17,8 +17,8 @@ Spec grammar (``DL4J_TORCH_FAULT_SPEC`` or :func:`install`/:func:`inject`)::
     param    := site-specific argument (e.g. a sleep duration)
 
 Wired sites (``serving/``, ``datasets/async_iterator.py``,
-``models/multi_layer_network.py``, ``utils/atomic_io.py`` and
-``parallel/coordinator.py``):
+``models/multi_layer_network.py``, ``utils/atomic_io.py``,
+``parallel/coordinator.py`` and ``parallel/elastic.py``):
 
 =====================  =====================================================
 ``queue-overflow``     submit N sees a full request queue and fails fast
@@ -60,6 +60,18 @@ Wired sites (``serving/``, ``datasets/async_iterator.py``,
                        raises ``ConnectionError`` before wire request N
                        (request 0 is its JOIN): a worker dying mid-run;
                        qualifier is the worker id
+``kill-peer``          an elastic participant dies mid-fit before heartbeat
+                       N (between heartbeats, never inside a collective): an
+                       ``ElasticMember`` closes its connection and leaves
+                       without re-forming; an ``ElasticTrainer`` process
+                       exits at once (``os._exit``), its sockets and its
+                       process-group pairs closed by the OS; qualifier is
+                       the participant's initial worker id
+``slow-peer``          an elastic participant sleeps ``param`` seconds
+                       (default 1.0) before heartbeat N: a straggler past
+                       the round deadline, which the coordinator must
+                       expel (departed and re-formed around), never wait
+                       for forever; qualifier is its initial worker id
 =====================  =====================================================
 
 Tests prefer the :func:`inject` context manager, which arms a plan and

@@ -14,7 +14,10 @@ data stream. A TrainingCheckpoint is the same archive plus one entry,
              "seen": n,          # its last value read on the host
              "bad_consec": n},   # consecutive dispatches with a bad step
      "cursor": {"epoch": e,      # epochs completed within this fit
-                "batch": b}}     # real batches consumed in this epoch
+                "batch": b},     # real batches consumed in this epoch
+     "world": {"size": n,        # elastic runs only: the world size,
+               "epoch": e,       # the membership epoch and the width
+               "width": w}}      # this state was committed under
 
 The cursor counts real batches, which also fixes the fused-group offset:
 groups form again in the same way from any batch index that starts a
@@ -86,6 +89,11 @@ def _training_state(net, cursor):
         "seen": int(getattr(net, "_nan_seen", 0)),
         "bad_consec": int(getattr(net, "_nan_bad_consec", 0)),
     }
+    # elastic runs (parallel/elastic.py) stamp the world the state was
+    # committed under; a restore sets it again and never acts on it
+    world = getattr(net, "_world_info", None)
+    if world:
+        state["world"] = dict(world)
     return state
 
 
@@ -182,7 +190,13 @@ def _apply_lm(net, path):
     if "torch_rng" in state and state.get(
             "torch_rng_device", net.device.type) == net.device.type:
         net.set_rng_state(state["torch_rng"])
+    _apply_world(net, state)
     return state.get("cursor", {})
+
+
+def _apply_world(net, state):
+    if "world" in state:
+        net._world_info = dict(state["world"])
 
 
 def apply_training_checkpoint(net, path):
@@ -228,6 +242,7 @@ def _apply(net, path):
         net._nan_pending = None
         net._nan_seen = int(nan.get("seen", 0))
         net._nan_bad_consec = int(nan.get("bad_consec", 0))
+    _apply_world(net, state)
     # the device mirrors refresh from the restored counters
     net._iter_dev = None
     net._iter_dev_py = None

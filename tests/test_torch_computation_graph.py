@@ -248,16 +248,89 @@ def test_cycles_and_unknown_inputs_are_rejected():
          .set_outputs("a").build())
 
 
+_VAE_RANK = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[4])
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.models.computation_graph import \
+    ComputationGraph
+from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+    ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.parallel import multihost
+from deeplearning4j_tpu_torch.parallel.sharding_core import (ShardingCore,
+                                                             build_mesh)
+torch.set_num_threads(1)
+rank, port, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cpu")
+with open(d + "/conf.json") as fh:
+    conf = ComputationGraphConfiguration.from_json(fh.read())
+z = np.load(d + "/in.npz")
+g = ComputationGraph(conf, device="cpu").init(params=z["params"])
+core = ShardingCore(build_mesh(), level=3)
+g._enter_plan(core)
+rows = core.data_sharding()
+g.pretrain_vertex("vae", [DataSet(rows.take(z["x"][i:i + 8]), None)
+                          for i in range(0, 32, 8)])
+np.save(d + f"/out{rank}.npy", g.params())
+multihost.shutdown()
+"""
+
+
+def _two_rank_vertex_pretraining():
+    """(each of two ranks' parameters after pretraining a VAE vertex
+    under a 2-rank level-3 plan, (the initial parameters, the same
+    vertex pretrained by one process on the whole batches))."""
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    conf = (NeuralNetConfiguration.Builder().seed(6).learning_rate(0.05)
+            .updater("rmsprop").graph_builder().add_inputs("in")
+            .add_layer("vae", players.VariationalAutoencoder(
+                n_in=6, n_out=2, encoder_layer_sizes=(5,),
+                decoder_layer_sizes=(5,), activation="leakyrelu"), "in")
+            .add_layer("out", OutputLayer(n_in=2, n_out=3,
+                                          activation="softmax"), "vae")
+            .set_outputs("out").build())
+    one = ComputationGraph(conf, device="cpu").init()
+    start = one.params()
+    x = np.random.RandomState(3).rand(32, 6).astype(np.float32)
+    one.pretrain_vertex("vae", [DataSet(x[i:i + 8], None)
+                                for i in range(0, 32, 8)])
+    repo = str(Path(__file__).resolve().parent.parent)
+    with tempfile.TemporaryDirectory() as d, socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+        s.close()
+        with open(d + "/conf.json", "w") as fh:
+            fh.write(conf.to_json())
+        np.savez(d + "/in.npz", params=start, x=x)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _VAE_RANK, str(r), port, d, repo],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+        assert all(p.returncode == 0 for p in procs), logs
+        got = [np.load(d + f"/out{r}.npy") for r in range(2)]
+    return got, (start, one.params())
+
+
 def test_not_ported_paths_raise_and_name_the_roadmap():
-    """Pretraining under a sharding plan of more than one rank raises,
-    naming ROADMAP.md; the graph has no ``shard`` (as the reference's: a
-    plan is injected instead); pretraining runs (a graph without
-    pretrain layers is left as it was, and a vertex that is no pretrain
-    layer is skipped, as the reference's), and the fused loop
+    """Pretraining under a sharding plan of more than one rank is the
+    pretraining of one process on the global batch: a VAE vertex
+    pretrained by two gloo ranks, each on its rows of every batch, ends
+    within 1e-5 of the max abs of the same vertex pretrained alone on the
+    whole batches (the ranks draw their rows of the global batch's
+    draws, and average the gradients). The graph has no ``shard`` (as the
+    reference's: a plan is injected instead); pretraining runs (a graph
+    without pretrain layers is left as it was, and a vertex that is no
+    pretrain layer is skipped, as the reference's), and the fused loop
     (``fit_fused``) and the line-search solvers are ported: a graph under
     ``lbfgs`` trains its batch and lowers its score."""
-    from deeplearning4j_tpu_torch.parallel.sharding_core import (
-        DataMesh, ShardingCore)
     conf = zoo.resnet50(n_classes=3, height=16, width=16, stages=(1,))
     net = ComputationGraph(conf, device="cpu").init()
     start = net.params()
@@ -266,10 +339,11 @@ def test_not_ported_paths_raise_and_name_the_roadmap():
     np.testing.assert_array_equal(net.params(), start)
     assert net.iteration == 0
     assert not hasattr(net, "shard")
-    net._enter_plan(ShardingCore(DataMesh(None, 2, 0), level=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.pretrain_vertex("fc", [])
-    net._leave_plan()
+    got, want = _two_rank_vertex_pretraining()
+    assert not np.array_equal(want[0], want[1])   # the vertex trained
+    np.testing.assert_array_equal(got[0], got[1])   # the ranks agree
+    np.testing.assert_allclose(got[0], want[1], rtol=0, atol=1e-5 * float(
+        np.max(np.abs(want[1]))))
     x, y = _images(0, 2, 16, 3)
     st = StackedMultiDataSet([x[None]], [y[None]],
                              np.ones((1, 2), np.float32), 1)

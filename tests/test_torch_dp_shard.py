@@ -19,8 +19,14 @@ batch), resume bitwise at the same level and width and within
 tolerance across levels and widths 4 -> 2 and 2 -> 4 (a width-2 group
 of ranks 0-1 inside the same world), ``TransformerLM.shard(level=3)``
 and ``fsdp_trainer`` on a 2-layer narrow LM (dense attention on both
-sides), ``FSDPMLP``, and a ComputationGraph with an injected level-3
-plan.
+sides), ``FSDPMLP``, a ComputationGraph with an injected level-3
+plan, the line-search solvers under the plan (``lbfgs`` and
+``conjugate_gradient`` at levels 0 and 3, against the reference's
+ParallelWrapper, which runs them over its mesh), and layer-wise
+pretraining under an injected plan (an AutoEncoder with corruption, an
+RBM and a VAE in one net, and a graph's VAE vertex, against the port at
+world 1 on the global batch: the reference pretrains under no plan, and
+the ranks draw their rows of the global batch's draws).
 
 Run as a script, this file is one rank of that world:
 ``python tests/test_torch_dp_shard.py <rank> <world> <port> <dir>``.
@@ -72,6 +78,53 @@ def _conf(pkg, bn=False, seed=12):
         b = b.layer(L.BatchNormalization(n_out=8))
     return b.layer(L.OutputLayer(n_out=8, activation="softmax",
                                  loss="mcxent")).build()
+
+
+def _solver_conf(pkg, algo):
+    nnc = pkg.nn.conf.multi_layer.NeuralNetConfiguration
+    L = pkg.nn.layers
+    return (nnc.Builder().seed(12).learning_rate(0.05)
+            .optimization_algo(algo).iterations(3).list()
+            .layer(L.DenseLayer(n_in=16, n_out=8, activation="tanh"))
+            .layer(L.OutputLayer(n_out=8, activation="softmax",
+                                 loss="mcxent")).build())
+
+
+def _pretrain_conf(pkg):
+    nnc = pkg.nn.conf.multi_layer.NeuralNetConfiguration
+    L = pkg.nn.layers
+    return (nnc.Builder().seed(5).learning_rate(0.05).updater("adam")
+            .list()
+            .layer(L.AutoEncoder(n_in=16, n_out=12, corruption_level=0.3,
+                                 activation="sigmoid"))
+            .layer(L.RBM(n_in=12, n_out=10, k=2))
+            .layer(L.VariationalAutoencoder(
+                n_in=10, n_out=4, encoder_layer_sizes=(8,),
+                decoder_layer_sizes=(8,), activation="leakyrelu"))
+            .layer(L.OutputLayer(n_out=8, activation="softmax",
+                                 loss="mcxent")).build())
+
+
+def _pretrain_graph_conf(pkg):
+    nnc = pkg.nn.conf.multi_layer.NeuralNetConfiguration
+    L = pkg.nn.layers
+    return (nnc.Builder().seed(6).learning_rate(0.05).updater("rmsprop")
+            .graph_builder().add_inputs("in")
+            .add_layer("vae", L.VariationalAutoencoder(
+                n_in=16, n_out=4, encoder_layer_sizes=(8,),
+                decoder_layer_sizes=(8,), activation="leakyrelu"), "in")
+            .add_layer("out", L.OutputLayer(n_in=4, n_out=8,
+                                            activation="softmax",
+                                            loss="mcxent"), "vae")
+            .set_outputs("out").build())
+
+
+SOLVERS = ("lbfgs", "conjugate_gradient")
+
+
+def _pretrain_batches(X, take=lambda a: a):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(take(X[i:i + 16]), None) for i in range(0, 64, 16)]
 
 
 def _graph_conf(pkg):
@@ -241,6 +294,33 @@ def _scenarios(rank, world, port, out):
                                   [rows.take(Y[i:i + 16])]))
     save("graph", params=cg.params(),
          frac=frac(cg.params_list, n_p))
+
+    # the line-search solvers under the plan: the global batch's loss and
+    # gradient in every probe, so every rank takes the same steps
+    for algo in SOLVERS:
+        for lv in (0, 3):
+            net = MultiLayerNetwork(_solver_conf(pkg, algo),
+                                    device="cpu").init(params=init["mln"])
+            fit(lv, epochs=1, net=net)
+            save(f"solver_{algo}_{lv}", params=net.params(),
+                 score=float(net.score_))
+
+    # layer-wise pretraining under an injected plan, this rank's rows
+    for lv in (0, 3):
+        core = ShardingCore(build_mesh(), level=lv)
+        net = MultiLayerNetwork(_pretrain_conf(pkg), device="cpu").init(
+            params=init["pretrain"])
+        net._enter_plan(core)
+        net.pretrain(_pretrain_batches(X, core.data_sharding().take))
+        assert net._shard_plan is core
+        np.savez(os.path.join(out, f"pretrain{lv}_r{rank}.npz"),
+                 params=net.params(), score=float(net.score_))
+    core = ShardingCore(build_mesh(), level=3)
+    cg = ComputationGraph(_pretrain_graph_conf(pkg), device="cpu").init(
+        params=init["pretrain_cg"])
+    cg._enter_plan(core)
+    cg.pretrain_vertex("vae", _pretrain_batches(X, core.data_sharding().take))
+    save("pretrain_cg", params=cg.params())
     multihost.shutdown()
 
 
@@ -346,7 +426,10 @@ def world(ref, tmp_path_factory):
                 .items()},
              mln=np.asarray(ref["mln"]().params()),
              bn=np.asarray(ref["mln"](bn=True).params()),
-             cg=np.asarray(ref["graph"]().params()), **ref["lm_params"])
+             cg=np.asarray(ref["graph"]().params()),
+             pretrain=_port_pretrain_net().params(),
+             pretrain_cg=_port_pretrain_graph().params(),
+             **ref["lm_params"])
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +
                os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
@@ -372,7 +455,28 @@ def world(ref, tmp_path_factory):
     def load(name):
         with np.load(os.path.join(out, f"{name}.npz")) as z:
             return {k: z[k] for k in z.files}
+    load.dir = out
+    with np.load(os.path.join(out, "init.npz")) as z:
+        load.init = {k: z[k] for k in z.files}
     return load
+
+
+def _port_pretrain_net(params=None):
+    import deeplearning4j_tpu_torch as pkg
+    import deeplearning4j_tpu_torch.nn.conf.multi_layer  # noqa: F401
+    from deeplearning4j_tpu_torch.models.multi_layer_network import \
+        MultiLayerNetwork
+    return MultiLayerNetwork(_pretrain_conf(pkg), device="cpu").init(
+        params=params)
+
+
+def _port_pretrain_graph(params=None):
+    import deeplearning4j_tpu_torch as pkg
+    import deeplearning4j_tpu_torch.nn.conf.multi_layer  # noqa: F401
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
+    return ComputationGraph(_pretrain_graph_conf(pkg), device="cpu").init(
+        params=params)
 
 
 # ---- the matrix --------------------------------------------------------------
@@ -546,6 +650,52 @@ class TestModels:
         got = world("graph")
         _close(got["params"], np.asarray(cg.params()))
         assert float(got["frac"]) == pytest.approx(0.25)
+
+
+class TestSolversAndPretrainUnderAPlan:
+    @pytest.mark.parametrize("level", [0, 3])
+    @pytest.mark.parametrize("algo", SOLVERS)
+    def test_line_search_solvers(self, ref, world, algo, level):
+        """Each solver at 4 ranks against the reference's ParallelWrapper
+        at ``workers=4`` over its mesh (one epoch of 16-row batches, 3
+        solver iterations a batch): the parameters within 1e-5 of their
+        max abs, the score at rtol 1e-5."""
+        from deeplearning4j_tpu.models.multi_layer_network import \
+            MultiLayerNetwork
+        net = MultiLayerNetwork(_solver_conf(ref["jpkg"], algo)).init(
+            params=np.asarray(ref["mln"]().params()))
+        _ref_pw(level, epochs=1, net=net)
+        got = world(f"solver_{algo}_{level}")
+        _close(got["params"], np.asarray(net.params()), f"{algo} {level}")
+        assert float(got["score"]) == pytest.approx(float(net.score_),
+                                                    rel=1e-5)
+
+    @pytest.mark.parametrize("level", [0, 3])
+    def test_layerwise_pretraining(self, world, level):
+        """An AutoEncoder with corruption, an RBM (CD-2) and a VAE
+        pretrained at 4 ranks, each on its rows: the net of one process
+        pretrained on the global batches, within 1e-5 of the max abs;
+        every rank alike."""
+        got = {r: np.load(os.path.join(world.dir, f"pretrain{level}_r{r}"
+                                       ".npz")) for r in range(WORLD)}
+        start = got[0]
+        X, _ = _stream()
+        one = _port_pretrain_net(params=world.init["pretrain"])
+        one.pretrain(_pretrain_batches(X))
+        want = one.params()
+        assert not np.array_equal(want, world.init["pretrain"])
+        _close(start["params"], want, f"level {level}")
+        assert float(start["score"]) == pytest.approx(float(one.score_),
+                                                      rel=1e-4)
+        for r in range(1, WORLD):
+            np.testing.assert_array_equal(got[r]["params"],
+                                          start["params"])
+
+    def test_graph_vertex_pretraining(self, world):
+        X, _ = _stream()
+        one = _port_pretrain_graph(params=world.init["pretrain_cg"])
+        one.pretrain_vertex("vae", _pretrain_batches(X))
+        _close(world("pretrain_cg")["params"], one.params())
 
 
 if __name__ == "__main__":

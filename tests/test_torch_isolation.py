@@ -45,7 +45,13 @@
   ``nlp/distributed.py``) is scanned like every module; without CUDA a
   worker process started without ``--device``, a distributed network
   built from a configuration and distributed Word2Vec refuse the CPU
-  unless asked for it.
+  unless asked for it;
+- elastic training, the shard checkpoints and tensor parallelism
+  (``parallel/elastic.py``, ``utils/orbax_io.py``,
+  ``parallel/tensor_parallel.py``, ``parallel/tp_transformer.py``) are
+  scanned like every module; without CUDA a re-formed process group,
+  the tensor-parallel trainers and an elastic trainer over a model on
+  the card refuse the CPU unless asked for it.
 """
 
 import ast
@@ -127,7 +133,10 @@ def _port_sources():
                 "nativelib.py", "parallel/coordinator.py",
                 "parallel/coordinator_main.py",
                 "parallel/training_master.py", "parallel/worker.py",
-                "parallel/param_server_wrapper.py", "nlp/distributed.py"):
+                "parallel/param_server_wrapper.py", "nlp/distributed.py",
+                "parallel/elastic.py", "utils/orbax_io.py",
+                "parallel/tensor_parallel.py",
+                "parallel/tp_transformer.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -905,3 +914,32 @@ def test_scaleout_entry_points_without_device_refuse_the_cpu(no_cuda,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DistributedWord2Vec(n_workers=1)
     DistributedWord2Vec(n_workers=1, device="cpu")
+
+
+def test_elastic_and_tensor_parallel_without_device_refuse_the_cpu(
+        no_cuda, tmp_path):
+    """``multihost.reform``, the tensor-parallel trainers and an elastic
+    trainer take the card unless ``device="cpu"`` is asked for: no group
+    is formed and no trainer placed on the CPU behind the caller."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticTrainer
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        TPMesh, TensorParallelMLP)
+    from deeplearning4j_tpu_torch.parallel.tp_transformer import \
+        TPTransformerLM
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.reform(str(tmp_path / "store"), 1, 0)
+    assert not dist.is_initialized()
+    conf = TransformerConfig(**dict(SMALL, block_size=None))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TPTransformerLM(TPMesh(1, 1, 0, 0), conf)
+    assert TPTransformerLM(TPMesh(1, 1, 0, 0), conf,
+                           device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TensorParallelMLP(TPMesh(1, 1, 0, 0), 4, 8, 2)
+    net = MultiLayerNetwork(zoo.char_rnn(vocab_size=5, hidden=4),
+                            device="cpu")
+    assert ElasticTrainer(net, "127.0.0.1", 1).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticTrainer(object(), "127.0.0.1", 1)
