@@ -475,7 +475,9 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from pathlib import Path
+from unittest import mock
 
 SEED = 0
 DEVICE = "cuda"
@@ -947,9 +949,73 @@ TP_PERTURB = 2.0 ** -9
 TP_CHAOS = 10.0
 TP_MLP = dict(dims=(784, 1024, 10), batch=256, lr=0.1, steps=10)
 TP_TIMEOUT_S = 400
-# the process groups of phases shard_ckpt and tp bound every collective
-# (and their rendezvous) by this, so a rank whose peer died raises
+# the process groups of phases shard_ckpt, tp, pp, sp and ep bound every
+# collective (and their rendezvous) by this, so a rank whose peer died
+# raises
 WORLD2_GROUP_TIMEOUT_S = 300
+
+# phases pp, sp and ep: the model-parallel trainers, each on ranks sharing
+# the card over gloo (NCCL refuses two ranks on one device; gloo's send
+# and recv take host memory only, so the point-to-point transfers go
+# through pinned host buffers, multihost.exchange, and are counted),
+# MP["steps"] steps each, held against the single-device model from the
+# same parameters on phase tp's bars: the bf16 update within TP_CHAOS x a
+# TP_PERTURB run's, which must reject an unchanged state (and the run
+# with the strategy's collective removed is measured against it), the
+# losses at DP_W2_LOSS_RTOL; an f32 copy on a few rows, the forward's
+# logits and the losses within TP_F32["rel"] of their max abs and the
+# logits after the steps within TP_CHAOS x a TP_F32["perturb"] run's
+# drift, bars that must reject an unchanged state and the run with the
+# collective removed.
+# pp: PPTransformerLM at the slice's widths and depth on its flash route
+# (block_size 128: kernels 1-3 in every stage, forward and backward),
+# S 2 x M 4, phase train's batch (32 x 511); the control drops the
+# backward's sends (a stage's output gradient zero); the f32 copy on
+# TP_F32["rows"] rows as 2 microbatches of 1. PipelineParallelNet at
+# TP_MLP's widths (784-1024-10, batch 256), 2 stages x 4 microbatches,
+# against its unpipelined math on one device (DP_W2_CHAOS x a
+# DP_W2_PERTURB run)
+MP = dict(steps=3)
+MP_TIMEOUT_S = 400
+FLASH = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+PP = dict(stages=2, micro=4)
+PP_SHARD_FRACTION = 29649920 / 42259456   # (replicated + L/2 blocks) / all
+# sp: SPTransformerLM at the slice's widths and depth with block_size None
+# (the reference refuses flash under the ring), N 2, 32 rows of T 512
+# (max_len); the control replaces the ring's rotation by the identity
+# (each rank attends its own K/V block at every step). Then ring
+# (sequence_parallel_attention) and Ulysses attention at one layer's
+# shape SP_ATTN ([B, H, T, hd], f32, causal) against dense_attention
+# within TP_F32["rel"] of its max abs
+SP = dict(ranks=2, t=512)
+SP_ATTN = (32, 8, 512, 64)
+# ep: EPTransformerLM at phase moe's configuration (MOE: top-1, aux 0.01)
+# with block_size None (the reference refuses flash there), E 4 over four
+# ranks, phase train's batch, lossless capacity (8 rows x 511 tokens a
+# rank); its aux term is the reference's local approximation (each rank's
+# tokens' f.P, averaged), not the dense model's global one. The f32 copy
+# at aux 0 (exact) on EP_F32_ROWS rows (B % E: one a rank); the control
+# replaces the all_to_all by the identity (each rank's tokens to its own
+# expert). ExpertParallelMoE (d 512, hidden 2048, 10 classes, batch 256)
+# at world 4: its sharded forward within 1e-5 of its dense oracle, 10 SGD
+# steps against its dense math on one device (DP_W2_CHAOS x a
+# DP_W2_PERTURB run)
+# The update bar is not gated in ep: top-1 routing under Adam is chaotic
+# at any rounding-level difference. A perturbation of the dense MoE LM's
+# parameters moves a few tokens between experts at the first step, and
+# Adam's first steps are about lr times the gradient's sign, so the
+# update lands about 0.2-0.3 (relative L2) from the unperturbed run's at
+# TP_PERTURB and at EP_FLOOR_PERTURB (far below one bf16 rounding)
+# alike, most of it in the experts' leaves: ten times that cannot reject
+# an unchanged state. The phase prints the update's distance beside both
+# yardsticks and gates the bf16 run on its losses (DP_W2_LOSS_RTOL, which
+# both controls fail: an unchanged state's losses are the first step's,
+# and the identity control routes every token to its rank's expert) and
+# on the f32 copy (exact at aux 0)
+EP = dict(ranks=4)
+EP_F32_ROWS = 4
+EP_FLOOR_PERTURB = 2.0 ** -18
+EP_MOE = dict(d=512, hidden=2048, n_out=10, batch=256, lr=0.1, steps=10)
 
 # the scaleout phase: the training master, the parameter server and
 # distributed Word2Vec on phase charrnn's net at full width and on its
@@ -9233,16 +9299,16 @@ def _release_card():
     return torch.cuda.memory_reserved()
 
 
-def _world2(flag, out, timeout):
-    """Run this script's ``flag`` rank mode as two processes that meet
+def _world(n, flag, out, timeout):
+    """Run this script's ``flag`` rank mode as ``n`` processes that meet
     over a ``FileStore`` in ``out``; returns their JSON records
     (``<out>/rank<r>.json``). A rank that
-    exits with an error ends the other at once (a rank left waiting for a
-    dead peer in the rendezvous would wait out torch's default timeout),
-    and the error carries both ranks' logs."""
-    logs = [os.path.join(out, f"rank{r}.log") for r in range(2)]
+    exits with an error ends the others at once (a rank left waiting for
+    a dead peer in the rendezvous would wait out torch's default
+    timeout), and the error carries every rank's log."""
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(n)]
     procs = []
-    for r in range(2):
+    for r in range(n):
         with open(logs[r], "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), flag, str(r),
@@ -9261,7 +9327,7 @@ def _world2(flag, out, timeout):
                 p.kill()
                 p.wait()
     codes = [p.returncode for p in procs]
-    if codes != [0, 0]:
+    if codes != [0] * n:
         tails = []
         for r, path in enumerate(logs):
             with open(path, errors="replace") as f:
@@ -9269,7 +9335,7 @@ def _world2(flag, out, timeout):
                              + f.read()[-4000:])
         raise AssertionError("\n".join(tails))
     return [json.load(open(os.path.join(out, f"rank{r}.json")))
-            for r in range(2)]
+            for r in range(n)]
 
 
 def phase_shard_ckpt(card):
@@ -9279,7 +9345,7 @@ def phase_shard_ckpt(card):
     reserved = _release_card()
     with tempfile.TemporaryDirectory() as out:
         free = shutil.disk_usage(out).free
-        ranks = _world2("--shard-rank", out, SHARD_CKPT_TIMEOUT_S)
+        ranks = _world(2, "--shard-rank", out, SHARD_CKPT_TIMEOUT_S)
     r0, r1 = ranks
     failures = [what for ok, what in (
         (r0["world2_level1_bitwise"] and r1["world2_level1_bitwise"],
@@ -9533,7 +9599,7 @@ def phase_tp(card):
     single = tp_single_device(dev)
     reserved = _release_card()
     with tempfile.TemporaryDirectory() as out:
-        ranks = _world2("--tp-rank", out, TP_TIMEOUT_S)
+        ranks = _world(2, "--tp-rank", out, TP_TIMEOUT_S)
         lm_params = np.load(os.path.join(out, "lm_params.npy"))
         mlp_params = np.load(os.path.join(out, "mlp_params.npy"))
         f32_logits = {(name, when): np.load(os.path.join(
@@ -9637,6 +9703,700 @@ def phase_tp(card):
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# phases pp, sp and ep: pipeline, sequence and expert parallelism
+# (parallel/pipeline_parallel.py, pp_transformer.py, sp_transformer.py,
+# sequence_parallel.py, expert_parallel.py, ep_transformer.py), each on
+# ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+def _perturb(params, scale, seed, dev):
+    """Every leaf of ``params`` moved by ``scale`` relative (a seeded
+    normal draw an element), in place."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in _flatten(params).values():
+            p.mul_(1 + scale * torch.randn(p.shape, generator=g, device=dev))
+
+
+def _flat_params(tree):
+    """The leaves of a tree of tensors or arrays as one f32 vector
+    (``_flat_tree``'s order)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.transformer import _tree_map
+    return np.concatenate(_flat_tree(_tree_map(
+        lambda a: a.detach().cpu().numpy() if hasattr(a, "detach")
+        else np.asarray(a), tree)))
+
+
+def _timed_steps(fit, batch, steps, dev, mesh=None):
+    """``steps`` calls of ``fit(batch)``: losses and each step's ms, and
+    with a grid its all-reduce (and all-to-all) and point-to-point ms."""
+    rec = {"losses": [], "step_ms": [], "allreduce_ms": [], "p2p_ms": []}
+    for _ in range(steps):
+        c0 = mesh.collective_seconds if mesh else 0.0
+        q0 = mesh.p2p_seconds if mesh else 0.0
+        _sync(dev)
+        t0 = time.perf_counter()
+        rec["losses"].append(float(fit(batch)))
+        _sync(dev)
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if mesh:
+            rec["allreduce_ms"].append((mesh.collective_seconds - c0) * 1e3)
+            rec["p2p_ms"].append((mesh.p2p_seconds - q0) * 1e3)
+    return rec
+
+
+def _single_device_runs(make, conf, f32, batch, rows, dev, floor=False):
+    """The single-device model (``make(conf)``, initialised on ``dev``)
+    from the phase's parameters, MP["steps"] steps at ``batch``, and the
+    same from parameters perturbed by TP_PERTURB (the update's
+    yardstick) and, with ``floor``, by EP_FLOOR_PERTURB, each with its
+    parameters before and after; then the f32 copy on ``rows`` (losses,
+    logits before and after) and its run from parameters perturbed by
+    TP_F32["perturb"]."""
+    import torch
+    out = {}
+    runs = [("single", conf, batch, 0.0, 0),
+            ("perturbed", conf, batch, TP_PERTURB, SEED + 23),
+            ("f32", f32, rows, 0.0, 0),
+            ("f32_perturbed", f32, rows, TP_F32["perturb"], SEED + 25)]
+    if floor:
+        runs.append(("perturbed_floor", conf, batch, EP_FLOOR_PERTURB,
+                     SEED + 23))
+    for name, c, toks, scale, seed in runs:
+        lm = make(c)
+        if scale:
+            _perturb(lm.params, scale, seed, dev)
+        f32_run = name.startswith("f32")
+        rec = ({"logits_before": lm.output(toks[:, :-1])} if f32_run
+               else {"start": _flat_params(lm.params)})
+        rec.update(_timed_steps(lm.fit_batch, toks.to(dev), MP["steps"],
+                                dev))
+        if f32_run:
+            rec["logits"] = lm.output(toks[:, :-1])
+        else:
+            rec["params"] = _flat_params(lm.params)
+        out[name] = rec
+        del lm
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mp_rank_runs(make, conf, f32, batch, rows, control, dev, mesh, out,
+                  rank):
+    """One rank's runs of a model-parallel trainer (``make(conf)``):
+    MP["steps"] timed steps at ``batch`` with the flash launch counts set
+    to 0 just before and read just after, the staged transfers, the
+    parameters (rank 0 writes them); the same steps with the strategy's
+    collective removed (``control(trainer)``, a context); the f32 copy on
+    ``rows`` and its control (losses, logits before and after). Returns
+    the rank's record."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.parallel import multihost
+    tr = make(conf)
+    staged = dict(multihost.staging)
+    reset_launches()
+    rec = _timed_steps(tr.fit_batch, batch, MP["steps"], dev, mesh)
+    rec["flash_launches"] = dict(zip(FLASH, read_launches()))
+    rec["staged"] = {k: multihost.staging[k] - staged[k] for k in staged}
+    rec["peak_memory_bytes"] = _peak_bytes(dev)
+    if hasattr(tr, "shard_fraction"):
+        rec["shard_fraction"] = tr.shard_fraction()
+    if hasattr(tr, "routed"):
+        rec["tokens_per_expert"] = tr.routed.cpu().numpy().tolist()
+    arrays = {"params": _flat_params(tr.gathered_params())}
+    del tr
+    tr = make(conf)
+    with control(tr):
+        rec["control_losses"] = [float(tr.fit_batch(batch))
+                                 for _ in range(MP["steps"])]
+    arrays["control_params"] = _flat_params(tr.gathered_params())
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for name in ("f32", "f32_control"):
+        tr = make(f32)
+        arrays[f"{name}_logits_before"] = tr.gathered_logits(rows[:, :-1])
+        with (control(tr) if name == "f32_control" else nullcontext()):
+            rec[f"{name}_losses"] = [float(tr.fit_batch(rows))
+                                     for _ in range(MP["steps"])]
+        arrays[f"{name}_logits"] = tr.gathered_logits(rows[:, :-1])
+        del tr
+    if rank == 0:
+        for k, v in arrays.items():
+            np.save(os.path.join(out, f"{k}.npy"), v)
+    return rec
+
+
+def _mp_bars(single, ranks, out, update_bar=True):
+    """Phase tp's bars on a model-parallel run against the single-device
+    model's: the bf16 update's relative L2 distance within TP_CHAOS times
+    the perturbed run's (with ``update_bar``: a bar that must reject an
+    unchanged state, whose distance is 1; without, the distances are
+    reported only), each step's loss within DP_W2_LOSS_RTOL, and an
+    unchanged state (its losses the first step's) and the run with the
+    collective removed each outside a gated bf16 bar; in f32 the
+    forward's logits and the losses within TP_F32["rel"] of their max
+    abs, the logits after the steps within TP_CHAOS times the
+    TP_F32["perturb"] run's drift, a bar that must reject an unchanged
+    state and the run with the collective removed. Returns (record,
+    failures)."""
+    import numpy as np
+    arr = {k[:-4]: np.load(os.path.join(out, k)) for k in os.listdir(out)
+           if k.endswith(".npy")}
+    r0 = ranks[0]
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def max_abs(a):
+        return float(np.max(np.abs(np.asarray(a))))
+    s, p = single["single"], single["perturbed"]
+    d_single = s["params"] - s["start"]
+    dist = rel_l2(arr["params"] - s["start"], d_single)
+    control = rel_l2(arr["control_params"] - s["start"], d_single)
+    yard = rel_l2(p["params"] - p["start"], d_single)
+    f, fp = single["f32"], single["f32_perturbed"]
+    f32_bar = {"logits_before": TP_F32["rel"] * max_abs(f["logits_before"]),
+               "losses": TP_F32["rel"] * max_abs(f["losses"]),
+               "logits": TP_CHAOS * max_abs(fp["logits"] - f["logits"])}
+
+    def f32_diff(name):
+        return {"logits_before": max_abs(arr[f"{name}_logits_before"]
+                                         - f["logits_before"]),
+                "losses": max_abs(np.asarray(r0[f"{name}_losses"])
+                                  - f["losses"]),
+                "logits": max_abs(arr[f"{name}_logits"] - f["logits"])}
+
+    def within(diff):
+        return all(diff[k] <= f32_bar[k] for k in f32_bar)
+    f32, f32_control = f32_diff("f32"), f32_diff("f32_control")
+    unchanged = max_abs(f["logits_before"] - f["logits"])
+    def loss_diff(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, s["losses"]))
+    bar = TP_CHAOS * yard if update_bar else math.inf
+    control_loss = loss_diff(r0["control_losses"])
+    unchanged_loss = loss_diff([s["losses"][0]] * len(s["losses"]))
+    failures = [what for ok, what in (
+        (all(r["losses"] == r0["losses"] for r in ranks),
+         "the ranks' losses differ"),
+        (dist <= bar, f"update {dist} vs yardstick {yard}"),
+        (bar < 1.0 or unchanged_loss > DP_W2_LOSS_RTOL,
+         f"the bf16 bars do not reject an unchanged state: update bar "
+         f"{bar}, its losses {unchanged_loss} off"),
+        (loss_diff(r0["losses"]) <= DP_W2_LOSS_RTOL,
+         f"loss {loss_diff(r0['losses'])}"),
+        (control > bar or control_loss > DP_W2_LOSS_RTOL,
+         f"the bf16 bars do not reject the run without the collective: "
+         f"update {control}, loss {control_loss}"),
+        (within(f32), f"f32 {f32} vs bar {f32_bar}"),
+        (unchanged > f32_bar["logits"],
+         f"the f32 bar does not reject an unchanged state: {unchanged}"),
+        (not within(f32_control), "the f32 bar does not reject the run "
+         f"without the collective: {f32_control}")) if not ok]
+    timed = r0["step_ms"][1:]
+    rec = {"losses": r0["losses"], "single_device_losses": s["losses"],
+           "step_ms_by_step": r0["step_ms"],
+           "ms_per_step": sum(timed) / len(timed),
+           "single_device_ms_per_step": sum(s["step_ms"][1:])
+           / len(s["step_ms"][1:]),
+           "allreduce_share_of_step": sum(r0["allreduce_ms"][1:])
+           / sum(timed),
+           "p2p_share_of_step": sum(r0["p2p_ms"][1:]) / sum(timed),
+           "update_rel_l2_vs_single": dist,
+           "yardstick_update_rel_l2": yard,
+           "update_bar": bar if update_bar else None,
+           "yardstick_floor_update_rel_l2": rel_l2(
+               single["perturbed_floor"]["params"]
+               - single["perturbed_floor"]["start"], d_single)
+           if "perturbed_floor" in single else None,
+           "unchanged_state_loss_max_rel_diff": unchanged_loss,
+           "control_update_rel_l2": control,
+           "control_rejected_by_update_bar": control > bar,
+           "control_losses": r0["control_losses"],
+           "control_loss_max_rel_diff": control_loss,
+           "loss_max_rel_diff_vs_single": loss_diff(r0["losses"]),
+           "loss_rtol": DP_W2_LOSS_RTOL,
+           "f32": {"bar": f32_bar, "max_abs_diff_vs_single": f32,
+                   "losses": r0["f32_losses"],
+                   "single_device_losses": f["losses"],
+                   "unchanged_state_max_abs_diff": unchanged,
+                   "control_max_abs_diff": f32_control}}
+    return rec, failures
+
+
+def _mp_phase(name, n_ranks, flag, single, extra_checks, card, t0,
+              config, update_bar=True):
+    """Start the phase's ranks, hold the runs against ``single`` on
+    _mp_bars, add the phase's own checks (``extra_checks(ranks, out)``:
+    (record, failures)), print the record and fail on any failure."""
+    import tempfile
+    reserved = _release_card()
+    with tempfile.TemporaryDirectory() as out:
+        ranks = _world(n_ranks, flag, out, MP_TIMEOUT_S)
+        rec, failures = _mp_bars(single, ranks, out, update_bar)
+        more, more_failures = extra_checks(ranks, out)
+    r0 = ranks[0]
+    result = {"phase": name, "config": dict(config, backend=r0["backend"],
+                                            ranks=n_ranks,
+                                            perturb=TP_PERTURB,
+                                            chaos=TP_CHAOS, f32=TP_F32),
+              **rec, **more,
+              "flash_launches_by_rank": [r["flash_launches"] for r in ranks],
+              "staged_by_rank": [r["staged"] for r in ranks],
+              "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                            for r in ranks],
+              "parent_reserved_bytes": reserved, "ranks": ranks,
+              "failures": failures + more_failures,
+              "seconds": time.perf_counter() - t0, "card": card}
+    emit(result)
+    assert not result["failures"], result["failures"]
+    return result
+
+
+def _mp_rank_start(rank, out, device, n):
+    """A phase rank's process group (gloo: the ranks share the card) and
+    device; TF32 off, as the parent's parity phases."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.parallel import multihost
+    return multihost.reform(os.path.join(out, "store"), n, rank,
+                            device=None if device == "cuda" else device,
+                            timeout=WORLD2_GROUP_TIMEOUT_S)
+
+
+def _rank_done(rank, out, rec):
+    from deeplearning4j_tpu_torch.parallel import multihost
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    multihost.shutdown()
+    return 0
+
+
+def _lm_conf(**kw):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**dict(SLICE, **kw))
+
+
+def _lm_init(dev):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    return lambda c: TransformerLM(c, device=dev).init()
+
+
+# ---- phase pp ---------------------------------------------------------------
+def _pp_net_init():
+    import numpy as np
+    rng = np.random.RandomState(SEED + 26)
+    n_in, d, n_out = TP_MLP["dims"]
+    S = PP["stages"]
+    return {"W": (rng.normal(size=(S, d, d)) * (2.0 / (2 * d)) ** 0.5)
+            .astype(np.float32),
+            "b": np.zeros((S, d), np.float32),
+            "Win": (rng.normal(size=(n_in, d)) * (2.0 / (n_in + d)) ** 0.5)
+            .astype(np.float32),
+            "Wout": (rng.normal(size=(d, n_out)) * (2.0 / (d + n_out))
+                     ** 0.5).astype(np.float32)}
+
+
+def _pp_net_single(init, dev):
+    """PipelineParallelNet's math unpipelined on one device (every stage
+    in turn, one loss over the batch, SGD): TP_MLP["steps"] steps'
+    losses and the parameters after."""
+    import torch
+    x, y = (torch.tensor(a, device=dev) for a in _tp_mlp_data())
+    p = {k: torch.tensor(v, device=dev, requires_grad=True)
+         for k, v in init.items()}
+    losses = []
+    for _ in range(TP_MLP["steps"]):
+        h = torch.tanh(x @ p["Win"])
+        for s in range(PP["stages"]):
+            h = h + torch.tanh(h @ p["W"][s] + p["b"][s])
+        loss = -(y * torch.log_softmax(h @ p["Wout"], -1)).sum() / x.shape[0]
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            for v, g in zip(p.values(), grads):
+                v.sub_(TP_MLP["lr"] * g)
+        losses.append(float(loss.detach()))
+    return {"losses": losses, "params": _flat_params(p)}
+
+
+def _pp_backward_without_sends(pp):
+    """The control: PPTransformerLM's backward with its point-to-point
+    sends removed (a stage's output gradient zero where the next stage's
+    would arrive)."""
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import _flatten
+
+    def backward(ins, outs):
+        leaves = list(_flatten(pp.params).values())
+        for m in reversed(range(len(outs))):
+            grad = None if pp.stage == pp.S - 1 \
+                else torch.zeros_like(outs[m])
+            torch.autograd.backward(outs[m], grad, inputs=leaves)
+    return mock.patch.object(pp, "_backward", backward)
+
+
+def pp_rank_main(rank, out, device):
+    """One rank of phase pp (``chip_smoke.py --pp-rank``): the slice's
+    PPTransformerLM at S PP["stages"] x M PP["micro"] from the slice
+    LM's initial parameters, its control and its f32 copy
+    (``_mp_rank_runs``), then PipelineParallelNet at TP_MLP's widths."""
+    import numpy as np
+    dev, backend = _mp_rank_start(rank, out, device, PP["stages"])
+    from deeplearning4j_tpu_torch.parallel.pipeline_parallel import (
+        PipelineParallelNet, pp_mesh)
+    from deeplearning4j_tpu_torch.parallel.pp_transformer import \
+        PPTransformerLM
+    mesh = pp_mesh(1, PP["stages"])
+    conf = _lm_conf()
+
+    def make(c):
+        # the f32 copy's 2 rows are 2 microbatches of 1
+        micro = PP["micro"] if c.compute_dtype else TP_F32["rows"]
+        return PPTransformerLM(mesh, c, micro, device=dev)
+    rec = _mp_rank_runs(make, conf, _lm_conf(compute_dtype=None),
+                        _lm_batch(conf), _lm_batch(conf)[:TP_F32["rows"]],
+                        _pp_backward_without_sends, dev, mesh, out, rank)
+    rec.update(rank=rank, device=str(dev), backend=backend)
+    x, y = _tp_mlp_data()
+    net = PipelineParallelNet(mesh, *TP_MLP["dims"], PP["micro"],
+                              lr=TP_MLP["lr"], params=_pp_net_init(),
+                              device=dev)
+    rec["net_first_unpipelined_loss"] = net.reference_loss(x, y)
+    rec["net_losses"] = [float(net.fit_batch(x, y))
+                         for _ in range(TP_MLP["steps"])]
+    params = _flat_params(net.gathered_params())
+    if rank == 0:
+        np.save(os.path.join(out, "net_params.npy"), params)
+    return _rank_done(rank, out, rec)
+
+
+def phase_pp(card):
+    """PPTransformerLM (GPipe, S 2 x M 4, the flash route) at the slice's
+    widths and depth over two ranks sharing the card, against the
+    single-device LM from the same parameters on phase tp's bars (see
+    PP); ms a step, tokens/s, the parameter share a rank (expected
+    PP_SHARD_FRACTION), the point-to-point and all-reduce shares of a
+    step, each rank's flash launches (each of the three kernels once a
+    layer of its stage a microbatch a step); PipelineParallelNet at
+    TP_MLP's widths against its unpipelined math on one rank."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE if DEVICE != "cuda" else "cuda:0")
+    conf = _lm_conf()
+    single = _single_device_runs(
+        _lm_init(dev), conf, _lm_conf(compute_dtype=None), _lm_batch(conf),
+        _lm_batch(conf)[:TP_F32["rows"]], dev)
+    init = _pp_net_init()
+    net = _pp_net_single(init, dev)
+    rng = np.random.default_rng(SEED + 27)
+    net_yard = _pp_net_single(
+        {k: (v * (1 + DP_W2_PERTURB * rng.standard_normal(v.shape)))
+         .astype(np.float32) for k, v in init.items()}, dev)
+    per_rank = conf.n_layers // PP["stages"] * PP["micro"] * MP["steps"]
+
+    def checks(ranks, out):
+        got = np.load(os.path.join(out, "net_params.npy"))
+        dist = float(np.linalg.norm(got - net["params"])
+                     / np.linalg.norm(net["params"]))
+        yard = float(np.linalg.norm(net_yard["params"] - net["params"])
+                     / np.linalg.norm(net["params"]))
+        r0 = ranks[0]
+        failures = [what for ok, what in (
+            (all(r["flash_launches"] == dict.fromkeys(FLASH, per_rank)
+                 for r in ranks),
+             f"flash launches {[r['flash_launches'] for r in ranks]}, "
+             f"want {per_rank} of each a rank"),
+            (abs(r0["shard_fraction"] - PP_SHARD_FRACTION) < 1e-9,
+             f"parameter share {r0['shard_fraction']}"),
+            (dist <= DP_W2_CHAOS * yard,
+             f"PipelineParallelNet {dist} vs yardstick {yard}"),
+            (abs(r0["net_losses"][0] - r0["net_first_unpipelined_loss"])
+             <= 1e-5 * abs(r0["net_first_unpipelined_loss"]),
+             "the pipelined loss is not the unpipelined one"),
+            (r0["net_losses"][-1] < r0["net_losses"][0],
+             "PipelineParallelNet's loss did not fall")) if not ok]
+        return {"tokens_per_s": TRAIN_BATCH * (SLICE["max_len"] - 1)
+                / (sum(r0["step_ms"][1:]) / len(r0["step_ms"][1:])) * 1e3,
+                "shard_fraction": r0["shard_fraction"],
+                "expected_flash_launches_per_rank": per_rank,
+                "net": {"losses": r0["net_losses"],
+                        "single_rank_losses": net["losses"],
+                        "first_unpipelined_loss":
+                            r0["net_first_unpipelined_loss"],
+                        "params_rel_l2_vs_single_rank": dist,
+                        "yardstick_rel_l2": yard}}, failures
+    return _mp_phase("pp", PP["stages"], "--pp-rank", single, checks, card,
+                     t0, dict(PP, model=SLICE, batch=TRAIN_BATCH,
+                              net=dict(TP_MLP, micro=PP["micro"])))
+
+
+# ---- phase sp ---------------------------------------------------------------
+def _sp_batch(conf, rows=TRAIN_BATCH):
+    """Rows of SP["t"] + 1 tokens (next-token setup: T = max_len)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 28)
+    return torch.from_numpy(rng.randint(0, conf.vocab_size,
+                                        (rows, SP["t"] + 1)))
+
+
+class _NoRotate:
+    """The control: the ring's rotation replaced by the identity (each
+    rank attends its own K/V block at every step)."""
+
+    @staticmethod
+    def apply(x, mesh, axis):
+        return x
+
+
+def _attention_case(mesh, dev):
+    """ring (``sequence_parallel_attention``) and Ulysses attention at
+    one layer's shape (SP_ATTN, f32, causal) on the card against
+    ``dense_attention``: the largest difference, and each one's ms."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+        dense_attention, sequence_parallel_attention, ulysses_attention)
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    q, k, v = (torch.randn(SP_ATTN, generator=g, device=dev)
+               for _ in range(3))
+    heads = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
+    rec = {}
+    for name, fn in (
+            ("dense", lambda: dense_attention(q, k, v, causal=True)),
+            ("ring", lambda: sequence_parallel_attention(q, k, v, mesh,
+                                                         causal=True)),
+            ("ulysses", lambda: ulysses_attention(
+                *heads, mesh, causal=True).transpose(1, 2))):
+        o = fn()     # a first call, then the timed one
+        _sync(dev)
+        t0 = time.perf_counter()
+        o = fn()
+        _sync(dev)
+        rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        if name == "dense":
+            dense = o
+        else:
+            rec[f"{name}_max_abs_diff"] = float((o - dense).abs().max())
+    rec["bar"] = TP_F32["rel"] * float(dense.abs().max())
+    return rec
+
+
+def sp_rank_main(rank, out, device):
+    """One rank of phase sp (``chip_smoke.py --sp-rank``): the slice's
+    SPTransformerLM at N SP["ranks"], its control and its f32 copy
+    (``_mp_rank_runs``), then ring and Ulysses attention at a layer's
+    shape."""
+    dev, backend = _mp_rank_start(rank, out, device, SP["ranks"])
+    from deeplearning4j_tpu_torch.parallel import sequence_parallel
+    from deeplearning4j_tpu_torch.parallel.sp_transformer import \
+        SPTransformerLM
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import tp_mesh
+    mesh = tp_mesh(1, SP["ranks"], ("data", "seq"))
+    conf = _sp_conf()
+    rec = _mp_rank_runs(
+        lambda c: SPTransformerLM(mesh, c, device=dev), conf,
+        _sp_conf(compute_dtype=None), _sp_batch(conf),
+        _sp_batch(conf, TP_F32["rows"]),
+        lambda tr: mock.patch.object(sequence_parallel, "_Rotate", _NoRotate),
+        dev, mesh, out, rank)
+    rec.update(rank=rank, device=str(dev), backend=backend,
+               attention=_attention_case(mesh, dev))
+    return _rank_done(rank, out, rec)
+
+
+def _sp_conf(**kw):
+    return _lm_conf(**dict(dict(block_size=None), **kw))
+
+
+def phase_sp(card):
+    """SPTransformerLM (ring attention, N 2, T 512) at the slice's widths
+    and depth over two ranks sharing the card against the single-device
+    dense LM from the same parameters on phase tp's bars (see SP); ms a
+    step, tokens/s, the rotations' and the all-reduce's shares of a
+    step; ring and Ulysses attention at a layer's shape against dense
+    attention."""
+    import torch
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE if DEVICE != "cuda" else "cuda:0")
+    conf = _sp_conf()
+    single = _single_device_runs(
+        _lm_init(dev), conf, _sp_conf(compute_dtype=None), _sp_batch(conf),
+        _sp_batch(conf, TP_F32["rows"]), dev)
+
+    def checks(ranks, out):
+        r0 = ranks[0]
+        att = [r["attention"] for r in ranks]
+        failures = [what for ok, what in (
+            (all(a[f"{k}_max_abs_diff"] <= a["bar"] for a in att
+                 for k in ("ring", "ulysses")),
+             f"ring or Ulysses attention against dense: {att}"),
+            (all(v == 0 for r in ranks for v in r["flash_launches"].values()),
+             "a flash kernel launched on the ring's path")) if not ok]
+        return {"tokens_per_s": TRAIN_BATCH * SP["t"]
+                / (sum(r0["step_ms"][1:]) / len(r0["step_ms"][1:])) * 1e3,
+                "attention": att}, failures
+    return _mp_phase("sp", SP["ranks"], "--sp-rank", single, checks, card,
+                     t0, dict(SP, model=dict(SLICE, block_size=None),
+                              batch=TRAIN_BATCH, attention_shape=SP_ATTN))
+
+
+# ---- phase ep ---------------------------------------------------------------
+def _ep_conf(**kw):
+    from deeplearning4j_tpu_torch.models.moe_transformer import \
+        MoETransformerConfig
+    return MoETransformerConfig(**dict(MOE, block_size=None, **kw))
+
+
+def _ep_moe_data():
+    import numpy as np
+    rng = np.random.RandomState(SEED + 30)
+    d, n_out = EP_MOE["d"], EP_MOE["n_out"]
+    x = rng.normal(size=(EP_MOE["batch"], d)).astype(np.float32)
+    w = rng.normal(size=(d, n_out)).astype(np.float32)
+    return x, np.eye(n_out, dtype=np.float32)[np.argmax(x @ w, 1)]
+
+
+def _ep_moe_init():
+    """ExpertParallelMoE's parameters at the reference's scales, from a
+    numpy seed."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 31)
+    d, h, n, E = EP_MOE["d"], EP_MOE["hidden"], EP_MOE["n_out"], EP["ranks"]
+    return {"gate": (0.1 * rng.normal(size=(d, E))).astype(np.float32),
+            "W1": (rng.normal(size=(E, d, h)) * (2.0 / (d + h)) ** 0.5)
+            .astype(np.float32),
+            "W2": (rng.normal(size=(E, h, d)) * (2.0 / (h + d)) ** 0.5)
+            .astype(np.float32),
+            "head": (rng.normal(size=(d, n)) * (2.0 / (d + n)) ** 0.5)
+            .astype(np.float32)}
+
+
+def _ep_moe_single(init, dev):
+    """ExpertParallelMoE's math on one device, every expert on every
+    token and the routed one selected (top-1, the gate probability as
+    its weight), SGD: EP_MOE["steps"] steps' losses and the parameters
+    after."""
+    import torch
+    x, y = (torch.tensor(a, device=dev) for a in _ep_moe_data())
+    p = {k: torch.tensor(v, device=dev, requires_grad=True)
+         for k, v in init.items()}
+    losses = []
+    rows = torch.arange(x.shape[0], device=dev)
+    for _ in range(EP_MOE["steps"]):
+        prob, e = torch.softmax(x @ p["gate"], -1).max(-1)
+        hid = torch.relu(torch.einsum("nd,edh->neh", x, p["W1"]))
+        moe = torch.einsum("neh,ehd->ned", hid, p["W2"])[rows, e]
+        logits = (x + prob[:, None] * moe) @ p["head"]
+        loss = -(y * torch.log_softmax(logits, -1)).sum() / x.shape[0]
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            for v, g in zip(p.values(), grads):
+                v.sub_(EP_MOE["lr"] * g)
+        losses.append(float(loss.detach()))
+    return {"losses": losses, "params": _flat_params(p)}
+
+
+def ep_rank_main(rank, out, device):
+    """One rank of phase ep (``chip_smoke.py --ep-rank``): the MoE LM's
+    EPTransformerLM at E EP["ranks"], its control and its f32 copy
+    (``_mp_rank_runs``; the f32 copy at aux 0, where the math is exact),
+    then ExpertParallelMoE at world 4."""
+    import numpy as np
+    dev, backend = _mp_rank_start(rank, out, device, EP["ranks"])
+    from deeplearning4j_tpu_torch.parallel import expert_parallel
+    from deeplearning4j_tpu_torch.parallel.ep_transformer import \
+        EPTransformerLM
+    from deeplearning4j_tpu_torch.parallel.expert_parallel import (
+        ExpertParallelMoE, ep_mesh)
+    mesh = ep_mesh(EP["ranks"])
+    conf = _ep_conf()
+    rec = _mp_rank_runs(
+        lambda c: EPTransformerLM(mesh, c, device=dev), conf,
+        _ep_conf(compute_dtype=None, aux_weight=0.0), _lm_batch(conf),
+        _lm_batch(conf)[:EP_F32_ROWS],
+        lambda tr: mock.patch.object(expert_parallel, "all_to_all",
+                            lambda x, *a: x),
+        dev, mesh, out, rank)
+    rec.update(rank=rank, device=str(dev), backend=backend)
+    x, y = _ep_moe_data()
+    moe = ExpertParallelMoE(mesh, EP_MOE["d"], EP_MOE["hidden"],
+                            EP_MOE["n_out"], lr=EP_MOE["lr"],
+                            params=_ep_moe_init(), device=dev)
+    rec["moe_forward_max_abs_diff"] = float(np.abs(
+        moe.predict(x) - moe.reference_forward(x)).max())
+    rec["moe_losses"] = [float(moe.fit_batch(x, y))
+                         for _ in range(EP_MOE["steps"])]
+    params = _flat_params(moe.gathered_params())
+    if rank == 0:
+        np.save(os.path.join(out, "moe_params.npy"), params)
+    return _rank_done(rank, out, rec)
+
+
+def phase_ep(card):
+    """EPTransformerLM (all-to-all Switch dispatch, E 4 over four ranks
+    sharing the card) at phase moe's configuration against the dense
+    MoETransformerLM from the same parameters on phase tp's bars (see
+    EP); ms a step, tokens/s, the all-to-alls' and all-reduce's share of
+    a step, tokens a expert; ExpertParallelMoE at world 4 against its
+    dense oracle and its dense math on one rank."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.moe_transformer import \
+        MoETransformerLM
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE if DEVICE != "cuda" else "cuda:0")
+    conf = _ep_conf()
+    single = _single_device_runs(
+        lambda c: MoETransformerLM(c, device=dev).init(), conf,
+        _ep_conf(compute_dtype=None, aux_weight=0.0), _lm_batch(conf),
+        _lm_batch(conf)[:EP_F32_ROWS], dev, floor=True)
+    init = _ep_moe_init()
+    moe = _ep_moe_single(init, dev)
+    rng = np.random.default_rng(SEED + 32)
+    moe_yard = _ep_moe_single(
+        {k: (v * (1 + DP_W2_PERTURB * rng.standard_normal(v.shape)))
+         .astype(np.float32) for k, v in init.items()}, dev)
+
+    def checks(ranks, out):
+        got = np.load(os.path.join(out, "moe_params.npy"))
+        dist = float(np.linalg.norm(got - moe["params"])
+                     / np.linalg.norm(moe["params"]))
+        yard = float(np.linalg.norm(moe_yard["params"] - moe["params"])
+                     / np.linalg.norm(moe["params"]))
+        r0 = ranks[0]
+        routed = np.asarray(r0["tokens_per_expert"])
+        fwd = max(r["moe_forward_max_abs_diff"] for r in ranks)
+        failures = [what for ok, what in (
+            (np.all(routed.sum(1) == TRAIN_BATCH * (SLICE["max_len"] - 1)),
+             f"tokens a expert {routed.tolist()}"),
+            (fwd <= 1e-5, f"ExpertParallelMoE forward {fwd} from its oracle"),
+            (dist <= DP_W2_CHAOS * yard,
+             f"ExpertParallelMoE {dist} vs yardstick {yard}"),
+            (r0["moe_losses"][-1] < r0["moe_losses"][0],
+             "ExpertParallelMoE's loss did not fall")) if not ok]
+        return {"tokens_per_s": TRAIN_BATCH * (SLICE["max_len"] - 1)
+                / (sum(r0["step_ms"][1:]) / len(r0["step_ms"][1:])) * 1e3,
+                "tokens_per_expert_by_moe_layer": routed.tolist(),
+                "moe": {"forward_max_abs_diff_vs_oracle": fwd,
+                        "losses": r0["moe_losses"],
+                        "single_rank_losses": moe["losses"],
+                        "params_rel_l2_vs_single_rank": dist,
+                        "yardstick_rel_l2": yard}}, failures
+    return _mp_phase("ep", EP["ranks"], "--ep-rank", single, checks, card,
+                     t0, dict(EP, model=dict(MOE, block_size=None),
+                              batch=TRAIN_BATCH, f32_rows=EP_F32_ROWS,
+                              moe=EP_MOE, floor_perturb=EP_FLOOR_PERTURB),
+                     update_bar=False)
+
+
 def main():
     try:
         import torch
@@ -9695,6 +10455,9 @@ def main():
     el = phase_elastic(card)
     phase_shard_ckpt(card)
     phase_tp(card)
+    pp = phase_pp(card)
+    phase_sp(card)
+    phase_ep(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -9762,12 +10525,14 @@ def main():
         return tree["levels"]["3"]["rank0"]["kernel_launches"][name]
 
     def new_callers(name):
-        """Phases vit's, moe's and dp's launches (their timed steps) and
-        the kernel at the ViT's shape."""
+        """Phases vit's, moe's, dp's and pp's launches (their timed steps;
+        pp's a rank, a stage each) and the kernel at the ViT's shape."""
         return {"launches_vit": vt["kernel_launches"][name],
                 "launches_moe": mo["kernel_launches"][name],
                 "launches_dp": dp_flash[name],
                 "launches_dp_world2_rank0": dp_world2(name),
+                "launches_pp_by_rank": [r[name] for r in
+                                        pp["flash_launches_by_rank"]],
                 "vit_shape": vit_shape(name)}
     def scaleout_launches(name):
         """Phase scaleout's launches: the thread workers' timed run by
@@ -9890,7 +10655,9 @@ if __name__ == "__main__":
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4], sys.argv[5]))
-    RANK_MODES = {"--shard-rank": shard_rank_main, "--tp-rank": tp_rank_main}
+    RANK_MODES = {"--shard-rank": shard_rank_main, "--tp-rank": tp_rank_main,
+                  "--pp-rank": pp_rank_main, "--sp-rank": sp_rank_main,
+                  "--ep-rank": ep_rank_main}
     if sys.argv[1:2] and sys.argv[1] in RANK_MODES:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(RANK_MODES[sys.argv[1]](int(sys.argv[2]), sys.argv[3],

@@ -215,14 +215,15 @@ def _layer_norm(x, g, b, eps=1e-5):
     return (x - m) / torch.sqrt(v + eps) * g + b
 
 
-def _block_apply(c, bp, x, drop=None, keep=None, ffn=None):
+def _block_apply(c, bp, x, drop=None, keep=None, ffn=None, attend=None):
     """One pre-LN block from its parameter dict (the reference's
     canonical block math). ``drop(a, mask)`` applies residual-branch
     dropout with ``keep``, this block's pair of keep-masks. The masks
     stand for the reference's ``rng``: they are drawn before the block, so
     a block recomputed under remat applies the same ones. ``ffn(bp,
     hloc)``, when given, takes the place of the dense FFN (the MoE
-    family's expert routing)."""
+    family's expert routing); ``attend(q, k, v)`` takes the place of the
+    attention (the sequence-parallel ring), on full heads."""
     B, T, d = x.shape
     hd = d // c.n_heads
     r1, r2 = keep if keep is not None else (None, None)
@@ -238,7 +239,10 @@ def _block_apply(c, bp, x, drop=None, keep=None, ffn=None):
     if c.pos_embed == "rope":
         cos, sin = _rope_cos_sin(c, hd, torch.arange(T, device=x.device))
         q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
-    if c.block_size:
+    if attend is not None:
+        k, v = _full_heads(c, k, v)   # custom attends (the ring) assume MHA
+        o = attend(q, k, v)
+    elif c.block_size:
         o = _blockwise_route(c, q, k, v)
     else:
         k, v = _full_heads(c, k, v)
@@ -339,17 +343,19 @@ def _lr_at(c, t):
     return lr
 
 
-def _adamw_apply(c, params, grads, opt, t, lr_t):
+def _adamw_apply(c, params, grads, opt, t, lr_t, mask=None):
     """One bias-corrected AdamW update with the GPT-2 decay mask, in
     place on ``params`` and ``opt["m"]``/``opt["v"]``, by the reference's
     formula ``p - lr (m̂ / (√v̂ + eps) + wd mask p)`` (written out here:
     ``torch.optim.AdamW`` decays in another order and takes the mask only
-    as parameter groups). Each step of the formula runs as one
-    multi-tensor op over all leaves."""
+    as parameter groups). ``mask`` (a tree of 0.0/1.0 like ``params``)
+    overrides the ndim-keyed :func:`_decay_mask`, as stacked layouts need.
+    Each step of the formula runs as one multi-tensor op over all
+    leaves."""
     b1, b2 = c.beta1, c.beta2
     fp = _flatten(params)
     fg, fm, fv = _flatten(grads), _flatten(opt["m"]), _flatten(opt["v"])
-    fmask = _flatten(_decay_mask(params))
+    fmask = _flatten(mask if mask is not None else _decay_mask(params))
     names = list(fp)
     p, g, m, v = ([f[n] for n in names] for f in (fp, fg, fm, fv))
     decayed = [i for i, n in enumerate(names) if fmask[n]]

@@ -16,8 +16,11 @@ Routes (``_attend``), as the reference's:
   ``blockwise_attention`` when ``block_size`` is set, ``dense_attention``
   when not, both with the key mask.
 
-``sequence_axis`` (ring attention over a sequence-parallel mesh axis)
-is not ported: it raises.
+With ``sequence_axis`` set the layer is sequence-parallel, as the
+reference's under ``shard_map``: its input and mask are this rank's
+shard of the sequence, and the attention is
+``sequence_parallel.ring_attention`` over the grid axis of that name
+(call inside ``with mesh:``), the mask rotating with K and V.
 """
 
 from __future__ import annotations
@@ -115,16 +118,17 @@ class SelfAttentionLayer(BaseLayer):
         if self.n_out % self.n_heads != 0:
             raise ValueError(f"n_out={self.n_out} not divisible by "
                              f"n_heads={self.n_heads}")
-        if self.sequence_axis is not None:
-            raise NotImplementedError(
-                "SelfAttentionLayer(sequence_axis=...): ring attention is "
-                "not ported to the PyTorch package yet (ROADMAP.md, queue "
-                "1, \"Model parallelism\")")
         x = self.apply_dropout(x, train=train, rng=rng)
         q = self._split_heads(x @ params["Wq"])
         k = self._split_heads(x @ params["Wk"])
         v = self._split_heads(x @ params["Wv"])
-        out = self._attend(q, k, v, mask)
+        if self.sequence_axis is not None:
+            # x and the mask are this rank's sequence shard; the mask
+            # rotates around the ring together with K/V
+            out = sp.ring_attention(q, k, v, axis_name=self.sequence_axis,
+                                    causal=self.causal, mask=mask)
+        else:
+            out = self._attend(q, k, v, mask)
         out = self._merge_heads(out) @ params["Wo"] + params["b"]
         out = self.activation_fn()(out)
         if self.residual:

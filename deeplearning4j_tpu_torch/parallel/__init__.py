@@ -17,7 +17,12 @@
   world that loses or gains trainer processes re-forming its process
   group and continuing from the last committed checkpoint;
 - ``TensorParallelMLP`` / ``TPTransformerLM`` over ``tp_mesh``: Megatron
-  tensor parallelism on a (data, model) grid of ranks.
+  tensor parallelism on a (data, model) grid of ranks;
+- ``PipelineParallelNet`` / ``PPTransformerLM`` over ``pp_mesh``: GPipe
+  pipelines, stages on a (data, pipe) grid; ``SPTransformerLM``: ring
+  sequence parallelism (``sequence_parallel.ring_attention``,
+  ``ulysses_attention``); ``ExpertParallelMoE`` / ``EPTransformerLM``
+  over ``ep_mesh``: all-to-all expert parallelism.
 
 Names resolve on first use: the modules that the models import from
 here (``sharding_core``, ``sequence_parallel``, ``multihost``) must not
@@ -40,6 +45,13 @@ _EXPORTS = {
     "TensorParallelMLP": "tensor_parallel",
     "tp_mesh": "tensor_parallel",
     "TPTransformerLM": "tp_transformer",
+    "pp_mesh": "pipeline_parallel",
+    "PipelineParallelNet": "pipeline_parallel",
+    "PPTransformerLM": "pp_transformer",
+    "SPTransformerLM": "sp_transformer",
+    "ep_mesh": "expert_parallel",
+    "ExpertParallelMoE": "expert_parallel",
+    "EPTransformerLM": "ep_transformer",
 }
 
 __all__ = sorted(_EXPORTS)

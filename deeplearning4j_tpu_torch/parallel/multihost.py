@@ -18,21 +18,35 @@ committed re-form wave assigned, over a rendezvous store of that wave's
 own (:func:`choose_backend` picks and names the backend).
 :func:`is_peer_error` tells a collective that failed because a peer is
 gone from any other failure.
+
+:func:`exchange` is the point-to-point transfer the model-parallel
+strategies use where the reference uses ``ppermute`` (the pipeline's
+activations and gradients, the ring's K/V blocks). Gloo's ``send`` and
+``recv`` hand the tensor's raw pointer to its TCP transport, so a CUDA
+tensor under gloo (ranks sharing one card) goes through a pinned host
+buffer there, and only there: bytes only, the compute stays on the card.
+:data:`staging` counts those staged transfers and their host seconds.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
 
 import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.device import resolve_device
 
-__all__ = ["choose_backend", "initialize", "is_multiprocess",
+__all__ = ["choose_backend", "exchange", "initialize", "is_multiprocess",
            "is_peer_error", "local_rank", "process_count", "process_index",
-           "rank_device", "reform", "shutdown", "take_rows"]
+           "rank_device", "reform", "shutdown", "staging", "take_rows"]
+
+# what :func:`exchange` staged through host memory: transfers (sends and
+# receives), their bytes, and the host seconds of the exchanges that
+# staged (copies and the wait together)
+staging = {"transfers": 0, "bytes": 0, "seconds": 0.0}
 
 # gloo raises a dead peer or a collective past the group's timeout as a
 # plain RuntimeError from its TCP transport: the source path, then one of
@@ -138,6 +152,46 @@ def reform(store_path, world_size, rank, *, device=None, timeout=None):
     dist.init_process_group(backend, store=store,
                             world_size=int(world_size), rank=int(rank), **kw)
     return dev, backend
+
+
+def exchange(sends=(), recvs=(), group=None):
+    """Post every ``(tensor, global rank)`` of ``sends`` and ``recvs``
+    at once (``isend``/``irecv``, so a ring of ranks that each send and
+    receive does not block) and wait for all of them; a received tensor
+    is written in place. Under gloo a CUDA tensor travels through a
+    pinned host copy (:data:`staging`); any other tensor, and every
+    tensor under NCCL, is handed over as it is."""
+    sends, recvs = list(sends), list(recvs)
+    if not sends and not recvs:
+        return
+    staged = dist.get_backend(group) == "gloo" and any(
+        t.is_cuda for t, _ in sends + recvs)
+    t0 = time.perf_counter()
+
+    def host(t):
+        if not (staged and t.is_cuda):
+            return t
+        staging["transfers"] += 1
+        staging["bytes"] += t.numel() * t.element_size()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out = []
+    reqs = []
+    for t, src in recvs:
+        h = host(t)
+        out.append((t, h))
+        reqs.append(dist.irecv(h, src, group=group))
+    for t, dst in sends:
+        h = host(t)
+        if h is not t:
+            h.copy_(t)
+        reqs.append(dist.isend(h.contiguous(), dst, group=group))
+    for r in reqs:
+        r.wait()
+    for t, h in out:
+        if h is not t:
+            t.copy_(h)
+    if staged:
+        staging["seconds"] += time.perf_counter() - t0
 
 
 def is_peer_error(exc):

@@ -29,6 +29,14 @@ The Megatron column/row pair:
 
 ``TensorParallelMLP`` is the reference's trainable column -> row MLP with
 a replicated softmax head.
+
+The grid is the port's mesh for every model-parallel strategy: an axis
+is named by ``axis_names`` (``tp_mesh(1, N, ("data", "seq"))`` is the
+sequence-parallel ring, ``pipeline_parallel.pp_mesh`` and
+``expert_parallel.ep_mesh`` name theirs ``pipe`` and ``expert``).
+Where the reference names an axis inside ``shard_map`` (``ring_attention
+(..., axis_name="seq")``), the port resolves the name through the grids
+entered with ``with mesh:`` (:func:`active_axis`).
 """
 
 from __future__ import annotations
@@ -42,8 +50,12 @@ import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.parallel import multihost
 
-__all__ = ["TPMesh", "TensorParallelMLP", "copy_to_model", "tp_mesh",
-           "reduce_from_model"]
+__all__ = ["TPMesh", "TensorParallelMLP", "active_axis", "all_to_all",
+           "copy_to_model",
+           "tp_mesh", "reduce_from_model"]
+
+# the grids entered with ``with mesh:``, innermost last
+_ACTIVE = []
 
 
 @dataclass
@@ -51,9 +63,12 @@ class TPMesh:
     """A grid of ``n_data`` x ``n_model`` ranks. ``model_group`` is this
     rank's row (the ranks of its data shard), ``data_group`` its column
     (the ranks of its model shard); an axis of size 1 has no group and
-    no collective. ``collective_seconds`` adds up the host time of every
-    all-reduce made on the grid (gloo's collectives are synchronous on
-    the host), for the share of a step they take."""
+    no collective. An axis is named by ``axis_names`` (the second is the
+    row's, the first the column's) or by its role, ``"model"`` or
+    ``"data"``. ``collective_seconds`` adds up the host time of every
+    all-reduce and all-to-all made on the grid (gloo's collectives are
+    synchronous on the host), ``p2p_seconds`` that of its point-to-point
+    exchanges, for the share of a step they take."""
     n_data: int
     n_model: int
     data_index: int
@@ -62,6 +77,72 @@ class TPMesh:
     data_group: object = None
     axis_names: tuple = ("data", "model")
     collective_seconds: float = field(default=0.0)
+    p2p_seconds: float = field(default=0.0)
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE.pop()   # ``with`` blocks nest: the innermost is last
+
+    def _axis(self, axis):
+        """(size, group, this rank's index) along ``axis``."""
+        if axis in (self.axis_names[1], "model"):
+            return self.n_model, self.model_group, self.model_index
+        if axis in (self.axis_names[0], "data"):
+            return self.n_data, self.data_group, self.data_index
+        raise ValueError(f"the grid has no axis {axis!r} (axes: "
+                         f"{self.axis_names})")
+
+    def axis_size(self, axis):
+        return self._axis(axis)[0]
+
+    def axis_index(self, axis):
+        return self._axis(axis)[2]
+
+    def peer(self, axis, index):
+        """The global rank of the rank at ``index`` along ``axis`` in
+        this rank's line of the grid."""
+        n, _, _ = self._axis(axis)
+        if axis in (self.axis_names[1], "model"):
+            return self.data_index * self.n_model + index % n
+        return (index % n) * self.n_model + self.model_index
+
+    def exchange(self, axis, sends=(), recvs=()):
+        """Point-to-point along ``axis``: ``sends`` and ``recvs`` are
+        ``(tensor, index along the axis)`` pairs, posted together and
+        waited for (``multihost.exchange``)."""
+        group = self._axis(axis)[1]
+        t0 = time.perf_counter()
+        multihost.exchange([(t, self.peer(axis, i)) for t, i in sends],
+                           [(t, self.peer(axis, i)) for t, i in recvs],
+                           group)
+        self.p2p_seconds += time.perf_counter() - t0
+
+    def all_to_all_single(self, t, axis):
+        """``t``'s leading dim split over ``axis``: chunk ``p`` goes to
+        the rank at index ``p`` and the chunk from that rank lands in its
+        place (``dist.all_to_all_single``)."""
+        n, group, _ = self._axis(axis)
+        if n == 1:
+            return t
+        t0 = time.perf_counter()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        self.collective_seconds += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, t, axis, dim=0):
+        """The ranks' ``t`` along ``axis``, joined along ``dim``."""
+        n, group, _ = self._axis(axis)
+        if n == 1:
+            return t
+        t0 = time.perf_counter()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        self.collective_seconds += time.perf_counter() - t0
+        return torch.cat(parts, dim=dim)
 
     @property
     def shape(self):
@@ -73,10 +154,9 @@ class TPMesh:
         return self.n_data * self.n_model
 
     def all_reduce(self, t, axis):
-        """Sum ``t`` over the grid's ``axis`` ("model" or "data"), in
-        place (bf16 is summed in f32 and rounded once)."""
-        n, group = (self.n_model, self.model_group) if axis == "model" \
-            else (self.n_data, self.data_group)
+        """Sum ``t`` over the grid's ``axis``, in place (bf16 is summed
+        in f32 and rounded once)."""
+        n, group, _ = self._axis(axis)
         if n == 1:
             return t
         t0 = time.perf_counter()
@@ -92,11 +172,20 @@ class TPMesh:
     def gather_model(self, t, axis):
         """The whole leaf from this row's ``model`` shards of ``t``, cut
         along ``axis``."""
-        if self.n_model == 1:
-            return t
-        parts = [torch.empty_like(t) for _ in range(self.n_model)]
-        dist.all_gather(parts, t.contiguous(), group=self.model_group)
-        return torch.cat(parts, dim=axis)
+        return self.all_gather(t, "model", axis)
+
+
+def active_axis(name):
+    """The innermost grid entered with ``with mesh:`` that has an axis
+    called ``name``: how a function called inside a model-parallel step
+    (``ring_attention(..., axis_name="seq")``) finds its process group."""
+    for mesh in reversed(_ACTIVE):
+        if name in mesh.axis_names:
+            return mesh
+    raise ValueError(
+        f"no grid with an axis {name!r} is active: build one with "
+        f"tp_mesh(..., axis_names=(..., {name!r})) and call inside "
+        "'with mesh:'")
 
 
 def tp_mesh(n_data, n_model, axis_names=("data", "model")):
@@ -162,12 +251,51 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _all_to_all(x, mesh, axis, split, concat):
+    n = mesh.axis_size(axis)
+    send = x.unflatten(split, (n, x.shape[split] // n)).movedim(split, 0)
+    recv = mesh.all_to_all_single(send.contiguous(), axis)
+    return recv.movedim(0, concat).flatten(concat, concat + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The reference's tiled ``lax.all_to_all``: its backward is the
+    inverse exchange (split and concat swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split, concat):
+        ctx.args = (mesh, axis, concat, split)
+        return _all_to_all(x.detach(), mesh, axis, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x, mesh, axis, split_dim, concat_dim):
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``
+    over the grid's ``axis`` of N ranks: ``x``'s ``split_dim`` is cut in
+    N chunks, chunk p goes to the rank at index p, and the N chunks this
+    rank receives are joined along ``concat_dim`` in rank order.
+    Differentiable."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
 def copy_to_model(x, mesh):
     return x if mesh.n_model == 1 else _CopyToModel.apply(x, mesh)
 
 
 def reduce_from_model(x, mesh):
     return x if mesh.n_model == 1 else _ReduceFromModel.apply(x, mesh)
+
+
+def host_f32(a):
+    """A float32 host copy of a numpy array or tensor: weights handed in
+    (the reference's, carried across) are never trained in place."""
+    return a.detach().cpu().float().clone() if isinstance(a, torch.Tensor) \
+        else torch.tensor(np.asarray(a, np.float32))
 
 
 class TensorParallelMLP:
@@ -196,9 +324,7 @@ class TensorParallelMLP:
                       "b1": torch.zeros(hidden),
                       "W2": s2 * torch.randn(hidden, n_out, generator=g),
                       "b2": torch.zeros(n_out)}
-        whole = {k: torch.as_tensor(np.asarray(v, np.float32)
-                                    if not isinstance(v, torch.Tensor)
-                                    else v).float() for k, v in params.items()}
+        whole = {k: host_f32(v) for k, v in params.items()}
         c = hidden // n_model
         lo = mesh.model_index * c
         local = {"W1": whole["W1"][:, lo:lo + c],   # column-parallel

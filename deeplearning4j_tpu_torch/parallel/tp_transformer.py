@@ -49,6 +49,36 @@ _COL = ("wq", "wk", "wv", "bq", "bk", "bv", "fc", "fc_b")
 _ROW = ("proj", "out")
 
 
+def _whole_params(config, params, device, model=TransformerLM):
+    """The whole parameter tree of a ``model`` (``TransformerLM`` or a
+    subclass) on ``device``: ``params`` (numpy or tensors, the
+    reference's carried across) copied over, else the port's
+    ``init()``."""
+    if params is None:
+        return model(config, device=device).init().params
+    return params_from_numpy(_tree_map(
+        lambda a: a.detach().cpu().numpy()
+        if isinstance(a, torch.Tensor) else np.asarray(a), params),
+        device=device)
+
+
+def _cast(tree, cd):
+    """The tree in the compute dtype (bf16 compute against f32
+    masters); the identity without one."""
+    if not cd:
+        return tree
+    dt = getattr(torch, cd)
+    return _tree_map(lambda a: a.to(dt) if a.is_floating_point() else a,
+                     tree)
+
+
+def _tokens(a, device):
+    """Host or device token ids as int64 on ``device``."""
+    t = torch.as_tensor(np.asarray(a), dtype=torch.long) \
+        if not isinstance(a, torch.Tensor) else a.long()
+    return t.to(device)
+
+
 class TPTransformerLM:
     """Megatron-partitioned trainer for the TransformerLM family."""
 
@@ -95,14 +125,8 @@ class TPTransformerLM:
             raise ValueError(
                 f"d_ff {config.d_ff} must divide the model axis ({self.N})")
         self.device = multihost.rank_device(device)
-        if params is None:
-            full = TransformerLM(config, device=self.device).init().params
-        else:
-            full = params_from_numpy(_tree_map(
-                lambda a: a.detach().cpu().numpy()
-                if isinstance(a, torch.Tensor) else np.asarray(a), params),
-                device=self.device)
-        self.params = self._shard_params(full)
+        self.params = self._shard_params(
+            _whole_params(config, params, self.device))
         self.opt_state = {
             "m": _tree_map(torch.zeros_like, self.params),
             "v": _tree_map(torch.zeros_like, self.params),
@@ -175,10 +199,8 @@ class TPTransformerLM:
         T = tokens.shape[1]
         x = params["wte"][tokens] + params["wpe"][:T]
         if c.compute_dtype:   # bf16 compute against f32 masters
-            cd = getattr(torch, c.compute_dtype)
-            x = x.to(cd)
-            params = _tree_map(lambda a: a.to(cd) if a.is_floating_point()
-                               else a, params)
+            x = x.to(getattr(torch, c.compute_dtype))
+            params = _cast(params, c.compute_dtype)
         for i in range(c.n_layers):
             x = self._block_local(params[f"b{i}"], x)
         x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
@@ -192,9 +214,7 @@ class TPTransformerLM:
 
     # ---- training ------------------------------------------------------
     def _tokens(self, a):
-        t = torch.as_tensor(np.asarray(a), dtype=torch.long) \
-            if not isinstance(a, torch.Tensor) else a.long()
-        return t.to(self.device)
+        return _tokens(a, self.device)
 
     def fit_batch(self, tokens, targets=None):
         """One AdamW step on the global batch; this rank takes its data

@@ -232,8 +232,20 @@ def test_net_output_and_fit_steps_match_jax(jax_builtin, masked):
 
 
 def test_sequence_axis_raises_naming_the_roadmap():
+    """The ring branch is ported (tests/test_torch_sequence_parallel.py
+    holds it on ranks): outside a grid with the layer's axis it raises,
+    naming how to make one; on a one-rank grid it is the dense branch."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import TPMesh
     layer = SelfAttentionLayer(n_in=4, n_out=4, sequence_axis="sp") \
         .apply_global_defaults({})
-    params = {k: torch.zeros(s) for k, s in layer.param_shapes().items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.forward(params, torch.zeros(1, 4, 4), {})
+    dense = SelfAttentionLayer(n_in=4, n_out=4).apply_global_defaults({})
+    g = torch.Generator().manual_seed(0)
+    params = {k: torch.randn(s, generator=g)
+              for k, s in layer.param_shapes().items()}
+    x = torch.randn(1, 4, 4, generator=g)
+    with pytest.raises(ValueError, match="tp_mesh"):
+        layer.forward(params, x, {})
+    with TPMesh(1, 1, 0, 0, axis_names=("data", "sp")):
+        out, _ = layer.forward(params, x, {})
+    torch.testing.assert_close(out, dense.forward(params, x, {})[0],
+                               rtol=0, atol=1e-6)

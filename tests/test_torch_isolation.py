@@ -51,7 +51,14 @@
   ``parallel/tensor_parallel.py``, ``parallel/tp_transformer.py``) are
   scanned like every module; without CUDA a re-formed process group,
   the tensor-parallel trainers and an elastic trainer over a model on
-  the card refuse the CPU unless asked for it.
+  the card refuse the CPU unless asked for it;
+- pipeline, sequence and expert parallelism (``parallel/
+  pipeline_parallel.py``, ``pp_transformer.py``, ``sp_transformer.py``,
+  ``expert_parallel.py``, ``ep_transformer.py``) are scanned like every
+  module; without CUDA their trainers refuse the CPU unless asked for
+  it, their grids form no process group there, and a PP step on the CPU
+  (flash attention's route, one stage) loads no kernel and counts no
+  launch.
 """
 
 import ast
@@ -136,7 +143,11 @@ def _port_sources():
                 "parallel/param_server_wrapper.py", "nlp/distributed.py",
                 "parallel/elastic.py", "utils/orbax_io.py",
                 "parallel/tensor_parallel.py",
-                "parallel/tp_transformer.py"):
+                "parallel/tp_transformer.py",
+                "parallel/pipeline_parallel.py",
+                "parallel/pp_transformer.py", "parallel/sp_transformer.py",
+                "parallel/expert_parallel.py",
+                "parallel/ep_transformer.py"):
         assert PKG / mod in files, mod
     return files
 
@@ -943,3 +954,59 @@ def test_elastic_and_tensor_parallel_without_device_refuse_the_cpu(
     assert ElasticTrainer(net, "127.0.0.1", 1).device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ElasticTrainer(object(), "127.0.0.1", 1)
+
+
+def _grid(*names):
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import TPMesh
+    return TPMesh(1, 1, 0, 0, axis_names=names)
+
+
+def test_model_parallel_trainers_without_device_refuse_the_cpu(no_cuda):
+    """PipelineParallelNet, PPTransformerLM, SPTransformerLM,
+    ExpertParallelMoE and EPTransformerLM take the card unless
+    ``device="cpu"`` is asked for; the grid factories form no process
+    group in a process that joined none."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.models.moe_transformer import \
+        MoETransformerConfig
+    from deeplearning4j_tpu_torch.parallel import (
+        EPTransformerLM, ExpertParallelMoE, PipelineParallelNet,
+        PPTransformerLM, SPTransformerLM, ep_mesh, pp_mesh)
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import TPMesh
+    conf = TransformerConfig(**dict(SMALL, block_size=None))
+    moe = MoETransformerConfig(**dict(SMALL, block_size=None, n_experts=2,
+                                      moe_every=1))
+    assert pp_mesh(1, 1).shape == {"data": 1, "pipe": 1}
+    assert ep_mesh(1).shape == {"data": 1, "expert": 1}
+    assert not dist.is_initialized()
+    pipe, seq, expert = (_grid("data", "pipe"), _grid("data", "seq"),
+                         _grid("data", "expert"))
+    for make in (lambda **kw: PipelineParallelNet(pipe, 4, 8, 2, 1, **kw),
+                 lambda **kw: PPTransformerLM(pipe, conf, 1, **kw),
+                 lambda **kw: SPTransformerLM(seq, conf, **kw),
+                 lambda **kw: ExpertParallelMoE(expert, 4, 8, 2, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    # two experts need a row of two: a view of one, with no group
+    row = TPMesh(1, 2, 0, 0, axis_names=("data", "expert"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EPTransformerLM(row, moe)
+    assert EPTransformerLM(row, moe, device="cpu").device.type == "cpu"
+
+
+def test_cpu_pipeline_step_never_loads_a_kernel(monkeypatch):
+    """A PP step on the CPU over the flash route (block_size set: the
+    kernel on the card) takes the plain twin: no kernel library loaded,
+    no launch counted."""
+    from deeplearning4j_tpu_torch.parallel.pp_transformer import \
+        PPTransformerLM
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = _launches()
+    pp = PPTransformerLM(_grid("data", "pipe"),
+                         TransformerConfig(**SMALL), 2, device="cpu")
+    loss = float(pp.fit_batch(np.ones((2, 17), np.int32)))
+    assert np.isfinite(loss) and _launches() == before

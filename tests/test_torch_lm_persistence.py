@@ -373,9 +373,11 @@ def test_not_ported_messages_name_roadmap_items():
             assert any(" ".join(t.split()).startswith(item)
                        for t in titles), \
                 (str(path.relative_to(REPO)), item, titles)
-    # data parallelism is ported whole: its title left the queue, and no
-    # message names it; model parallelism comes first now
-    assert {"The rest", "Model parallelism"} <= named
+    # data and model parallelism are ported whole: their titles left the
+    # queue, and no message names them
+    assert "The rest" in named
+    assert "Model parallelism" not in named and \
+        "Model parallelism" not in titles
     assert "Data parallelism" not in named and \
         "Data parallelism" not in titles
     assert "Pretraining" not in named and "Pretraining" not in titles
