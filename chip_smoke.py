@@ -454,10 +454,48 @@ Phases, each fatal on failure:
    tables, two worker threads (each capturing its graphs) bit for bit
    their replicas fitted in turn and averaged, words/s; the reference
    test's topic check on the card;
-29. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+29. ui — the training UI (after phases ``elastic``, ``shard_ckpt``,
+   ``tp``, ``pp``, ``sp`` and ``ep``): phase ``charrnn``'s char-RNN at
+   full width through the fused loop (a warm-up of 2 batches captures
+   the window graph, then runs of 8 batches, the counts set to 0 just
+   before each) without a listener and with a ``StatsListener`` at
+   frequency 1 writing through one router into a ``FileStatsStorage``
+   and, by ``RemoteUIStatsStorageRouter``, into a ``UIServer`` on
+   127.0.0.1: the LSTM kernels by ``torch.profiler`` the same in both
+   runs (8 sequence and 400 backward launches a batch; the wrappers 0,
+   every window a replay), the last report's parameter and gradient
+   summaries equal to ``_summary`` of the model's own tensors and last
+   gradients fetched after the group, ``device0_bytes_in_use`` above 0
+   and at most ``device0_bytes_limit``, the server's records equal to
+   the file's; ms a batch without the listener and at frequencies 1 and
+   10; ``zoo.lenet_mnist`` on the fixture's digits with a
+   ``ConvolutionalIterationListener``: the PNG that
+   ``/train/activations`` serves within 1 grey level of the CPU port's
+   grid from the same parameters; every GET endpoint answers 200;
+30. streaming — a ``MessageBroker`` on 127.0.0.1 and a ``DL4JServeRoute``
+   over the slice's LM (bf16, the flash route): 16 messages of one row
+   of 128 tokens, each prediction the bits of a direct ``output()`` of
+   its row, 8 forward flash launches a message, then a poison message:
+   ``errors`` 1 and ``last_error`` its own; messages/s and latency
+   p50/p99; ``InferenceHTTPServer``: ``/predict`` on phase ``ui``'s
+   LeNet the bits of its ``output()``, ``/generate`` at temperature 0
+   the tokens of a direct ``generate()``, a garbage body a 400;
+31. nlp_text — ``BpeTokenizer.train`` at vocab 512 over ``SURVEY.md``
+   (seconds); its ids feed the slice's LM at the BPE vocabulary: a
+   warm-up and 3 timed ``fit_batch`` steps at batch 32 x 512 on the flash
+   route, the losses finite and falling, 8 launches of each flash kernel
+   a step, tokens/s, and a 2-layer f32 copy on 2 rows of the ids card
+   against CPU within phase ``train``'s bars; ``TfidfVectorizer`` over
+   the treebank fixture's sentences into a dense classifier trained on
+   the card and on the CPU from the same parameters, outputs within
+   NLP_TFIDF_TOL; Word2Vec on the card over the Japanese and the Korean
+   tokenizers' streams, each vocabulary the tokenizer's own tokens;
+   ``TreeVectorizer`` with the Japanese Word2Vec as its lookup, each
+   leaf's vector the bits of the table's row;
+32. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
-   ``deepwalk`` and the twelve above.
+   ``deepwalk`` and those above.
 
 Every line before the last is a JSON object or the card's name and
 power limit; the last line is
@@ -1989,10 +2027,12 @@ def train_breakdown(lm, batch):
     return out, dict(zip(leaves, grads))
 
 
-def train_card_vs_cpu(conf, rng):
+def train_card_vs_cpu(conf, rng, toks=None):
     """One f32 step's loss and gradients of a 2-layer copy of the model
     at full width, T ``CPU_CHECK_T``, batch 2: on the card (the kernels)
-    and on the CPU (their twins), from the same weights."""
+    and on the CPU (their twins), from the same weights; on ``toks``
+    ([2, CPU_CHECK_T + 1] int64 on the CPU) or on rows drawn from
+    ``rng``."""
     import dataclasses
     import torch
     from deeplearning4j_tpu_torch.models.transformer import (
@@ -2002,8 +2042,9 @@ def train_card_vs_cpu(conf, rng):
     card = TransformerLM(c2, device=DEVICE).init()
     cpu = TransformerLM(c2, device="cpu")
     cpu.params = params_from_numpy(_numpy_tree(card.params), "cpu")
-    toks = torch.from_numpy(rng.randint(0, c2.vocab_size,
-                                        (2, CPU_CHECK_T + 1)))
+    if toks is None:
+        toks = torch.from_numpy(rng.randint(0, c2.vocab_size,
+                                            (2, CPU_CHECK_T + 1)))
     before = read_launches()
     got_loss, got = card._value_and_grad(toks[:, :-1].to(DEVICE),
                                          toks[:, 1:].to(DEVICE), None)
@@ -10397,6 +10438,530 @@ def phase_ep(card):
                      update_bar=False)
 
 
+# ---------------------------------------------------------------------------
+# ui, streaming, nlp_text: the training UI, the streaming routes and the
+# text modules on the card
+# ---------------------------------------------------------------------------
+UI = dict(batches=8, warmup=2, frequencies=(1, 10), lenet_batches=4,
+          lenet_batch=64)
+STREAMING = dict(messages=16, row=128, prompt=16, n_new=8)
+NLP_TEXT = dict(bpe_vocab=512, steps=3, batch=TRAIN_BATCH,
+                tfidf_epochs=20, tfidf_hidden=64, w2v_epochs=3,
+                w2v_layer_size=32, w2v_copies=20)
+NLP_TFIDF_TOL = 1e-5      # the classifier's output, card against the CPU
+JA_TEXTS = ["私は日本語です", "カタカナとABC123", "東京 大阪", "機械学習",
+            "今日は日本です", "私は東京で機械学習を勉強しています。",
+            "ひらがなカタカナ漢字ABCdef123、テスト"]
+KO_TEXTS = ["사람은", "나는", "나은", "학교에서 공부", "TPU는 빠르다123",
+            "저는 학교에 갑니다", "책을 읽었다 그리고 친구가 왔다"]
+
+
+class _Tee:
+    """A stats router that hands every report to each of ``routers``
+    (one listener, so one host copy a report, into two storages)."""
+
+    def __init__(self, *routers):
+        self.routers = routers
+
+    def put_static_info(self, p):
+        for r in self.routers:
+            r.put_static_info(p)
+
+    def put_update(self, p):
+        for r in self.routers:
+            r.put_update(p)
+
+
+def _http(port, path, data=None, timeout=60):
+    """(status, content type, body) of one loopback request."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _stored_records(st):
+    """Every record of a stats storage, encoded, in query order."""
+    out = []
+    for s in st.list_session_ids():
+        for t in st.list_type_ids(s):
+            for w in st.list_worker_ids(s, t):
+                info = st.get_static_info(s, t, w)
+                out.append(None if info is None else info.encode())
+                out.extend(p.encode()
+                           for p in st.get_all_updates_after(s, t, w, -1))
+    return out
+
+
+def _summaries_now(named, cfg):
+    """``_summary`` of each tensor of a ``[(name, {key: tensor})]`` tree,
+    each fetched on its own in float64."""
+    from deeplearning4j_tpu_torch.ui import stats
+    return {name: {k: stats._summary(v.detach().double().cpu().numpy(), cfg)
+                   for k, v in d.items()} for name, d in named if d}
+
+
+def ui_charrnn(tmp, server, tries=5):
+    """The full-width char-RNN through the fused loop with and without a
+    StatsListener. Returns the phase's char-RNN record."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.ui import codec, stats, storage
+    from deeplearning4j_tpu_torch.ui.server import RemoteUIStatsStorageRouter
+
+    conf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                        hidden=CHARRNN["hidden"],
+                        tbptt_length=CHARRNN["tbptt_length"],
+                        learning_rate=CHARRNN["learning_rate"])
+    data, _ = markov_batches(UI["warmup"] + UI["batches"],
+                             np.random.RandomState(SEED + 40))
+    warm, timed = data[:UI["warmup"]], data[UI["warmup"]:]
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.fit(ListDataSetIterator(warm))           # captures the window graph
+    torch.cuda.synchronize()
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+
+    def turn(listener, profile):
+        """One run of UI["batches"] batches with the counts set to 0 just
+        before it and read just after: (ms a batch, the profile's LSTM
+        kernels or None, the wrappers' counts)."""
+        net.set_listeners([listener] if listener else [])
+        try:
+            for _ in range(tries):
+                reset_launches()              # this path starts here
+                if profile:
+                    wall, names, _ = profiled(
+                        lambda: net.fit(ListDataSetIterator(timed)))
+                else:
+                    t0 = time.perf_counter()
+                    net.fit(ListDataSetIterator(timed))
+                    torch.cuda.synchronize()
+                    wall, names = time.perf_counter() - t0, None
+                calls = read_lstm_launches()  # ... and ends here
+                if names is None or names:
+                    break
+            else:
+                raise AssertionError("torch.profiler recorded no device "
+                                     f"event in {tries} runs")
+        finally:
+            net.set_listeners([])
+        return (wall / UI["batches"] * 1e3,
+                None if names is None else lstm_kernels(names), calls)
+
+    # the StatsListener at frequency 1 into a file storage and, through
+    # the remote router, into the UI server's storage
+    remote = storage.InMemoryStatsStorage()
+    server.attach(remote)
+    fst = storage.FileStatsStorage(os.path.join(tmp, "stats.bin"))
+    router = RemoteUIStatsStorageRouter(f"http://127.0.0.1:{server.port}")
+    cfg = stats.StatsUpdateConfiguration()
+    listener = stats.StatsListener(_Tee(fst, router), cfg,
+                                   session_id="charrnn_ui")
+    try:
+        _, base_kernels, base_calls = turn(None, True)
+        ms1, kernels1, calls1 = turn(listener, True)
+        # the last report against the model's own tensors, fetched now
+        last = fst.get_latest_update("charrnn_ui", stats.TYPE_ID, "single")
+        want_params = _summaries_now(stats._named_params(net), cfg)
+        want_grads = _summaries_now(stats._named_grads(net), cfg)
+        params_equal = codec.encode(last.content["params"]) == \
+            codec.encode(want_params)
+        grads_equal = codec.encode(last.content["gradients"]) == \
+            codec.encode(want_grads)
+        router.flush()
+        deadline = time.monotonic() + 60
+        while (len(_stored_records(remote)) < len(_stored_records(fst))
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+    finally:
+        router.close()
+    reports = fst.get_all_updates_after("charrnn_ui", stats.TYPE_ID,
+                                        "single", -1)
+    remote_equal = _stored_records(remote) == _stored_records(fst)
+    fst.close()
+    mem = last.content["memory"]
+    # unprofiled runs, the runs without a listener first and last
+    ms = {"none": turn(None, False)[0]}
+    for f in UI["frequencies"]:
+        lst = stats.StatsListener(
+            storage.InMemoryStatsStorage(),
+            stats.StatsUpdateConfiguration(reporting_frequency=f),
+            session_id=f"charrnn_f{f}")
+        ms[f"frequency_{f}"] = turn(lst, False)[0]
+    ms["none_again"] = turn(None, False)[0]
+    bare = (ms["none"] + ms["none_again"]) / 2
+    want_launches = (2 * windows * UI["batches"],
+                     2 * CHARRNN["seq_len"] * UI["batches"])
+    rec = {"config": dict(CHARRNN, path="the fused loop"),
+           "batches": UI["batches"], "reports": len(reports),
+           "updates": UI["batches"] * windows,
+           "kernel_launches": {"lstm_cell_fwd": kernels1[0],
+                               "lstm_cell_bwd": kernels1[1],
+                               "counted_by": "torch.profiler, the run "
+                               "with the listener"},
+           "kernel_launches_without_listener": {
+               "lstm_cell_fwd": base_kernels[0],
+               "lstm_cell_bwd": base_kernels[1]},
+           "wrapper_calls": {"with_listener": list(calls1),
+                             "without": list(base_calls)},
+           "ms_per_batch": ms, "ms_per_batch_profiled_frequency_1": ms1,
+           "listener_ms_per_batch": {
+               k: v - bare for k, v in ms.items()
+               if k.startswith("frequency")},
+           "last_report_params_equal": params_equal,
+           "last_report_gradients_equal": grads_equal,
+           "memory": {k: mem[k] for k in sorted(mem)},
+           "remote_records": len(_stored_records(remote)),
+           "remote_equal_file": remote_equal,
+           "remote_dropped": router.dropped}
+    # a replay calls no wrapper: the profile counts the kernels, the same
+    # with and without the listener
+    assert kernels1 == base_kernels == want_launches, rec
+    assert calls1 == base_calls == (0, 0), rec
+    assert len(reports) == UI["batches"] * windows, rec
+    assert params_equal and grads_equal, rec
+    assert 0 < mem["device0_bytes_in_use"] <= mem["device0_bytes_limit"], rec
+    assert remote_equal and router.dropped == 0, rec
+    return rec
+
+
+def ui_lenet(server):
+    """LeNet on the fixture's digits with a ConvolutionalIterationListener
+    into the UI server's storage: the served PNG against the CPU port's
+    grid from the same parameters. Returns (record, the net)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.ui import conv_listener, storage
+    from deeplearning4j_tpu_torch.utils.pngio import decode_png
+
+    train, _, feats, labels = lenet_images()
+    n = UI["lenet_batches"] * UI["lenet_batch"]
+    st = storage.InMemoryStatsStorage()
+    server.attach(st)
+    probe = train.features[:1]
+    net = MultiLayerNetwork(zoo.lenet_mnist(), device=DEVICE).init()
+    net.set_listeners([conv_listener.ConvolutionalIterationListener(
+        st, probe, frequency=1, session_id="lenet_ui")])
+    net.fit(ArrayDataSetIterator(feats[:n], labels[:n], UI["lenet_batch"]))
+    net.set_listeners([])
+    status, ctype, body = _http(server.port,
+                                "/train/activations?sessionId=lenet_ui")
+    assert status == 200 and ctype == "image/png", (status, ctype)
+    got = decode_png(body).astype(np.int64)
+    cpu = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    cpu.set_params(net.params())
+    maps = conv_listener.ConvolutionalIterationListener(
+        storage.InMemoryStatsStorage(), probe)._conv_activation(cpu)
+    want = conv_listener.activations_to_grid(maps).astype(np.int64)
+    grey = int(np.abs(got - want).max()) if got.shape == want.shape else None
+    rec = {"config": "zoo.lenet_mnist on tests/fixtures/real_mnist",
+           "batches": UI["lenet_batches"], "batch": UI["lenet_batch"],
+           "reports": len(st.get_all_updates_after(
+               "lenet_ui", conv_listener.TYPE_ID, "worker_0", -1)),
+           "png_bytes": len(body), "grid_shape": list(got.shape),
+           "max_grey_level_diff_vs_cpu": grey}
+    assert grey is not None and grey <= 1, rec
+    assert rec["reports"] == net.iteration == UI["lenet_batches"], rec
+    return rec, net
+
+
+UI_GETS = ["/", "/train", "/train/overview", "/train/sessions", "/metrics",
+           "/train/metrics/data", "/serve/data",
+           "/train/overview/data?sessionId=charrnn_ui",
+           "/train/model/data?sessionId=charrnn_ui",
+           "/train/system/data?sessionId=charrnn_ui",
+           "/train/histogram/data?sessionId=charrnn_ui",
+           "/train/flow/data?sessionId=charrnn_ui",
+           "/train/tsne/data", "/train/activations",
+           "/train/activations?sessionId=lenet_ui"]
+
+
+def phase_ui(card):
+    """The training UI on the card (the module docstring's phase 29)."""
+    import tempfile
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    t0 = time.perf_counter()
+    server = UIServer(port=0).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            charrnn = ui_charrnn(tmp, server)
+        lenet, net = ui_lenet(server)
+        statuses = {p: _http(server.port, p)[0] for p in UI_GETS}
+    finally:
+        server.stop()
+    rec = {"phase": "ui", "charrnn": charrnn, "lenet": lenet,
+           "get_statuses": statuses, "card": card,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    assert set(statuses.values()) == {200}, statuses
+    rec["lenet_net"] = net
+    return rec
+
+
+def phase_streaming(card, lenet):
+    """The serve route and the HTTP server on the card (the module
+    docstring's phase 30); ``lenet``: phase ``ui``'s LeNet."""
+    import json as _json
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.streaming import (
+        DL4JServeRoute, InferenceHTTPServer, MessageBroker, TopicConsumer,
+        TopicPublisher, deserialize_array, serialize_array)
+    t0 = time.perf_counter()
+    c = STREAMING
+    conf = TransformerConfig(**SLICE)
+    lm = TransformerLM(conf, device=DEVICE).init()
+    rng = np.random.RandomState(SEED + 41)
+    rows = rng.randint(0, conf.vocab_size,
+                       (c["messages"], 1, c["row"])).astype(np.int32)
+    lat, preds = [], []
+    with MessageBroker() as broker:
+        with DL4JServeRoute(lm, "127.0.0.1", broker.port) as route, \
+                TopicConsumer("127.0.0.1", broker.port, "dl4j-out",
+                              timeout=300) as out, \
+                TopicPublisher("127.0.0.1", broker.port, "dl4j-in") as pub:
+            pub.publish(serialize_array(rows[0]))       # warm-up
+            out.poll()
+            torch.cuda.synchronize()
+            reset_launches()                  # the route's path starts here
+            t_run = time.perf_counter()
+            for r in rows:
+                t_msg = time.perf_counter()
+                pub.publish(serialize_array(r))
+                preds.append(deserialize_array(out.poll()))
+                lat.append(time.perf_counter() - t_msg)
+            wall = time.perf_counter() - t_run
+            pub.publish(b"poison!")
+            deadline = time.monotonic() + 60
+            while route.errors < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            launches = read_launches()        # ... and ends here
+            served, errors, last_error = route.served, route.errors, \
+                route.last_error
+    bitwise = all(np.array_equal(p, lm.output(r)) for p, r in zip(preds, rows))
+    route_rec = {"messages": c["messages"], "tokens_per_message": c["row"],
+                 "served": served, "errors": errors,
+                 "last_error": repr(last_error),
+                 "messages_per_s": c["messages"] / wall,
+                 "latency_s_p50": float(np.percentile(lat, 50)),
+                 "latency_s_p99": float(np.percentile(lat, 99)),
+                 "prediction_bytes": int(preds[0].nbytes),
+                 "kernel_launches": dict(zip(FLASH, launches)),
+                 "predictions_bitwise_output": bitwise}
+    # the HTTP server: /predict on phase ui's LeNet, /generate on the LM
+    x = np.random.RandomState(SEED + 42).rand(8, 28, 28, 1).astype(
+        np.float32)
+    prompt = rng.randint(0, conf.vocab_size, (1, c["prompt"])).astype(
+        np.int32)
+    with InferenceHTTPServer(lenet) as srv:
+        s_pred, _, body = _http(srv.port, "/predict", serialize_array(x))
+        pred = deserialize_array(body) if s_pred == 200 else None
+    with InferenceHTTPServer(lm) as srv:
+        s_gen, _, gbody = _http(srv.port, "/generate", _json.dumps(
+            {"prompt": prompt.tolist(), "n_new": c["n_new"],
+             "temperature": 0.0}).encode(), timeout=300)
+        s_bad, _, bad = _http(srv.port, "/generate", b"garbage")
+        http_errors = srv.errors
+    gen = np.asarray(_json.loads(gbody)["tokens"]) if s_gen == 200 else None
+    want_gen = lm.generate(prompt, c["n_new"], temperature=0.0)
+    http_rec = {"predict_status": s_pred,
+                "predict_bitwise_output": pred is not None and bool(
+                    np.array_equal(pred, lenet.output(x))),
+                "generate_status": s_gen,
+                "generate_equals_direct": gen is not None and bool(
+                    np.array_equal(gen, want_gen)),
+                "garbage_status": s_bad, "garbage_body": bad.decode()[:120],
+                "errors": http_errors}
+    rec = {"phase": "streaming", "config": SLICE, "route": route_rec,
+           "http": http_rec, "card": card,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    assert bitwise and served == c["messages"] + 1, rec
+    assert errors == 1 and isinstance(last_error, ValueError) \
+        and "magic" in str(last_error), rec
+    assert launches == (c["messages"] * conf.n_layers, 0, 0), rec
+    assert http_rec["predict_bitwise_output"], rec
+    assert http_rec["generate_equals_direct"], rec
+    assert s_bad == 400 and http_errors == 1, rec
+    return rec
+
+
+def nlp_lm(ids, vocab_size, rng):
+    """The slice's LM at the BPE vocabulary, trained on rows of ``ids``:
+    one warm-up and NLP_TEXT["steps"] timed ``fit_batch`` steps at batch
+    32 x 512, then the f32 two-layer check card against CPU on 2 rows."""
+    import math
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    c = NLP_TEXT
+    conf = TransformerConfig(**dict(SLICE, vocab_size=vocab_size))
+    t = conf.max_len
+    starts = rng.randint(0, len(ids) - t, (c["steps"] + 1, c["batch"]))
+    batches = [torch.from_numpy(ids[s[:, None] + np.arange(t)]).to(DEVICE)
+               for s in starts]
+    lm = TransformerLM(conf, device=DEVICE).init()
+    losses = [float(lm.fit_batch(batches[0]))]
+    torch.cuda.synchronize()
+    reset_launches()                          # the LM's path starts here
+    t0 = time.perf_counter()
+    scores = [lm.fit_batch(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                # ... and ends here
+    losses += [float(s) for s in scores]
+    rows = ids[rng.randint(0, len(ids) - CPU_CHECK_T - 1, 2)[:, None]
+               + np.arange(CPU_CHECK_T + 1)]
+    rec = {"vocab_size": conf.vocab_size, "batch": c["batch"],
+           "tokens_per_row": t, "steps": c["steps"], "losses": losses,
+           "step_ms": wall / c["steps"] * 1e3,
+           "tokens_per_s": c["batch"] * (t - 1) * c["steps"] / wall,
+           "kernel_launches": dict(zip(FLASH, launches))}
+    del lm, batches
+    torch.cuda.empty_cache()
+    rec["f32_card_vs_cpu"] = train_card_vs_cpu(conf, rng,
+                                               torch.from_numpy(rows))
+    assert all(math.isfinite(x) for x in losses), rec
+    assert losses[-1] < losses[0], rec
+    assert launches == (c["steps"] * conf.n_layers,) * 3, rec
+    return rec
+
+
+def nlp_tfidf():
+    """TF-IDF vectors of the treebank fixture's sentences (labelled by
+    whether the gold tree holds a PP) through a dense classifier on the
+    card and on the CPU from the same parameters."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nlp import trees
+    from deeplearning4j_tpu_torch.nlp.vectorizer import TfidfVectorizer
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    with open(_repo_path("tests", "fixtures", "mini_treebank.txt")) as f:
+        lines = [ln.strip() for ln in f
+                 if ln.strip() and not ln.startswith("#")]
+    sents = [" ".join(trees.Tree.from_bracket(ln).yield_()) for ln in lines]
+    tv = TfidfVectorizer().fit(sents)
+    x = tv.transform_documents(sents)
+    y = np.eye(2, dtype=np.float32)[[int("(PP" in ln) for ln in lines]]
+    conf = (NeuralNetConfiguration.Builder().seed(SEED + 43)
+            .learning_rate(0.1).list()
+            .layer(DenseLayer(n_in=x.shape[1], n_out=NLP_TEXT["tfidf_hidden"],
+                              activation="relu"))
+            .layer(OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+            .build())
+    card = MultiLayerNetwork(conf, device=DEVICE).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    cpu.set_params(card.params())
+    for _ in range(NLP_TEXT["tfidf_epochs"]):
+        for net in (card, cpu):
+            net.fit(DataSet(x, y))
+    got, want = card.output(x), cpu.output(x)
+    err = float(np.abs(got - want).max())
+    rec = {"sentences": len(sents), "vocabulary": tv.vocab.num_words(),
+           "epochs": NLP_TEXT["tfidf_epochs"],
+           "train_accuracy": float((got.argmax(1) == y.argmax(1)).mean()),
+           "card_vs_cpu_max_abs_err": err}
+    assert np.isfinite(got).all() and err <= NLP_TFIDF_TOL, rec
+    return rec
+
+
+def nlp_word2vec():
+    """Word2Vec on the card over the Japanese and the Korean tokenizers'
+    streams, and TreeVectorizer with the Japanese one as its lookup."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import trees
+    from deeplearning4j_tpu_torch.nlp.japanese import JapaneseTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.korean import KoreanTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    c = NLP_TEXT
+    rec, models = {}, {}
+    for lang, factory, texts in (("japanese", JapaneseTokenizerFactory(),
+                                  JA_TEXTS),
+                                 ("korean", KoreanTokenizerFactory(),
+                                  KO_TEXTS)):
+        corpus = texts * c["w2v_copies"]
+        w2v = Word2Vec(tokenizer_factory=factory,
+                       layer_size=c["w2v_layer_size"], window=2,
+                       min_word_frequency=1, epochs=c["w2v_epochs"],
+                       batch_size=64, seed=SEED + 44, device=DEVICE)
+        t0 = time.perf_counter()
+        w2v.fit_corpus(corpus)
+        seconds = time.perf_counter() - t0
+        tokens = {tok for text in corpus
+                  for tok in factory.create(text).get_tokens()}
+        table = w2v.lookup_table.all_vectors()
+        rec[lang] = {"sentences": len(corpus), "vocabulary": len(tokens),
+                     "fit_s": seconds,
+                     "vocab_equals_tokenizer":
+                         set(w2v.vocab.words()) == tokens,
+                     "table_finite": bool(np.isfinite(table).all())}
+        assert rec[lang]["vocab_equals_tokenizer"] and \
+            rec[lang]["table_finite"], rec
+        models[lang] = w2v
+    w2v = models["japanese"]
+    table = w2v.lookup_table.all_vectors()
+    tv = trees.TreeVectorizer(lookup=w2v)
+    leaves = [leaf for t in tv.get_trees(" ".join(JA_TEXTS))
+              for leaf in t.leaves()]
+    attached = 0
+    for leaf in leaves:
+        i = w2v.vocab.index_of(leaf.value)
+        if i < 0:
+            assert leaf.vector is None, leaf.value
+        else:
+            assert np.array_equal(leaf.vector, table[i]), leaf.value
+            attached += 1
+    rec["tree_vectorizer"] = {"leaves": len(leaves),
+                              "vectors_attached": attached}
+    assert attached >= 3, rec
+    return rec
+
+
+def phase_nlp_text(card):
+    """The text modules feeding models on the card (the module
+    docstring's phase 31)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.bpe import BpeTokenizer
+    t0 = time.perf_counter()
+    with open(_repo_path("SURVEY.md")) as f:
+        text = f.read()
+    t_bpe = time.perf_counter()
+    bpe = BpeTokenizer.train(text.splitlines(),
+                             vocab_size=NLP_TEXT["bpe_vocab"])
+    bpe_s = time.perf_counter() - t_bpe
+    ids = np.asarray(bpe.encode(text), np.int64)
+    assert bpe.decode(bpe.encode("the port")) == "the port"
+    rec = {"phase": "nlp_text", "card": card,
+           "bpe": {"corpus": "SURVEY.md", "chars": len(text),
+                   "vocab_size": bpe.vocab_size(), "merges": len(bpe.merges),
+                   "ids": int(ids.size), "train_s": bpe_s}}
+    rng = np.random.RandomState(SEED + 45)
+    rec["lm"] = nlp_lm(ids, bpe.vocab_size(), rng)
+    rec["tfidf"] = nlp_tfidf()
+    rec["word2vec"] = nlp_word2vec()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
 def main():
     try:
         import torch
@@ -10458,6 +11023,9 @@ def main():
     pp = phase_pp(card)
     phase_sp(card)
     phase_ep(card)
+    ui = phase_ui(card)
+    st = phase_streaming(card, ui.pop("lenet_net"))
+    nt = phase_nlp_text(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -10529,6 +11097,7 @@ def main():
         pp's a rank, a stage each) and the kernel at the ViT's shape."""
         return {"launches_vit": vt["kernel_launches"][name],
                 "launches_moe": mo["kernel_launches"][name],
+                "launches_nlp_text": nt["lm"]["kernel_launches"][name],
                 "launches_dp": dp_flash[name],
                 "launches_dp_world2_rank0": dp_world2(name),
                 "launches_pp_by_rank": [r[name] for r in
@@ -10560,6 +11129,8 @@ def main():
          "launches_serve": sl["kernel_launches"],
          "launches_attention": at["kernel_launches"]["flash_attn_fwd"],
          "launches_lm_persist": lp["kernel_launches"]["flash_attn_fwd"],
+         "launches_streaming":
+             st["route"]["kernel_launches"]["flash_attn_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -10604,6 +11175,7 @@ def main():
          "launches_records": rr["kernel_launches"]["lstm_cell_fwd"],
          "launches_transfer": tf["kernel_launches"]["lstm_cell_fwd"],
          "launches_dp": dp_lstm["lstm_cell_fwd"],
+         "launches_ui": ui["charrnn"]["kernel_launches"]["lstm_cell_fwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_fwd"),
          **scaleout_launches("lstm_cell_fwd"),
          **elastic_launches("lstm_cell_fwd"),
@@ -10629,6 +11201,7 @@ def main():
          "launches_records": rr["kernel_launches"]["lstm_cell_bwd"],
          "launches_transfer": tf["kernel_launches"]["lstm_cell_bwd"],
          "launches_dp": dp_lstm["lstm_cell_bwd"],
+         "launches_ui": ui["charrnn"]["kernel_launches"]["lstm_cell_bwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_bwd"),
          **scaleout_launches("lstm_cell_bwd"),
          **elastic_launches("lstm_cell_bwd"),

@@ -1,9 +1,10 @@
 """NLP: Word2Vec, ParagraphVectors and GloVe over SequenceVectors (and
 distributed SequenceVectors and Word2Vec, ``nlp/distributed.py``), the
 vocabulary and its Huffman coding, the tokenizer and sentence-iterator
-pipeline, and WordVectorSerializer (the reference's ``nlp/`` package; the
-vectorizers, the parsers and the other tokenizers are not ported yet:
-ROADMAP.md, queue 1, "The rest")."""
+pipeline, WordVectorSerializer, bag-of-words and tf-idf vectorizers, the
+BPE tokenizer, the analysis pipeline, constituency trees and the PCFG
+parser, and the Japanese and Korean tokenizers: the port of the
+reference's ``nlp/`` package."""
 
 from deeplearning4j_tpu_torch.nlp.text import (  # noqa: F401
     BasicLineIterator, CollectionSentenceIterator, CommonPreprocessor,
@@ -23,3 +24,10 @@ from deeplearning4j_tpu_torch.nlp.glove import (  # noqa: F401
     AbstractCoOccurrences, Glove)
 from deeplearning4j_tpu_torch.nlp.serializer import (  # noqa: F401
     VectorsConfiguration, WordVectorSerializer)
+from deeplearning4j_tpu_torch.nlp.vectorizer import (  # noqa: F401
+    BagOfWordsVectorizer, TfidfVectorizer)
+from deeplearning4j_tpu_torch.nlp.pcfg import Pcfg, PcfgParser  # noqa: F401
+from deeplearning4j_tpu_torch.nlp.trees import (  # noqa: F401
+    BinarizeTreeTransformer, CollapseUnaries, ContextLabelRetriever,
+    HeadWordFinder, Tree, TreeParser, TreeVectorizer)
+from deeplearning4j_tpu_torch.nlp.bpe import BpeTokenizer  # noqa: F401

@@ -6,8 +6,8 @@ same shape inference with automatic preprocessor insertion, and the same
 JSON: ``to_json`` writes what the reference writes and ``from_json`` reads
 the reference's JSON, so one string builds a net in either package
 (``to_yaml``/``from_yaml`` likewise, through PyYAML, imported when they
-are called). A layer or preprocessor type this package does not have yet raises
-``NotImplementedError`` naming ROADMAP.md.
+are called). An unknown layer type raises ``ValueError`` naming the known
+types; an unknown preprocessor type raises ``KeyError``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ normalization and the l1/l2 score term.
 Functions of dicts of tensors that return new dicts, as the reference's
 pure functions do; the train step applies them. Updates are subtracted
 from the parameters. ``iteration`` may be a Python int or a 0-dim device
-tensor. The reference's ``optax:*`` rules are not ported: they raise.
+tensor. An ``optax:<name>`` rule dispatches to ``ops/optax_adapter.py``.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 loopback by default (an unauthenticated endpoint is exposed only on
 request), served from a daemon thread that ``stop()`` joins, and a
 handler base with quiet, length-framed responses. The serving ingress
-(``serving/ingress.py``) is built on it.
+(``serving/ingress.py``) and the streaming inference endpoint
+(``streaming/routes.py``) are built on it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ class QuietJSONHandler(BaseHTTPRequestHandler):
         self._send(json.dumps(obj).encode(), "application/json", status,
                    headers)
 
+    def _bytes(self, data: bytes, content_type="application/octet-stream",
+               status: int = 200):
+        self._send(data, content_type, status)
+
     def _read_body(self) -> bytes:
         return self.rfile.read(int(self.headers.get("Content-Length", 0)))
 
@@ -65,3 +70,9 @@ class BackgroundHTTPServer:
             self._httpd.shutdown()
             self._thread.join(timeout=5)
         self._httpd.server_close()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()

@@ -147,7 +147,13 @@ def _port_sources():
                 "parallel/pipeline_parallel.py",
                 "parallel/pp_transformer.py", "parallel/sp_transformer.py",
                 "parallel/expert_parallel.py",
-                "parallel/ep_transformer.py"):
+                "parallel/ep_transformer.py", "ui/codec.py",
+                "ui/storage.py", "ui/stats.py", "ui/conv_listener.py",
+                "ui/server.py", "streaming/__init__.py",
+                "streaming/serde.py", "streaming/broker.py",
+                "streaming/routes.py", "nlp/vectorizer.py", "nlp/bpe.py",
+                "nlp/analysis.py", "nlp/trees.py", "nlp/pcfg.py",
+                "nlp/japanese.py", "nlp/korean.py"):
         assert PKG / mod in files, mod
     return files
 
