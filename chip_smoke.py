@@ -492,7 +492,36 @@ Phases, each fatal on failure:
    tokenizers' streams, each vocabulary the tokenizer's own tokens;
    ``TreeVectorizer`` with the Japanese Word2Vec as its lookup, each
    leaf's vector the bits of the table's row;
-32. order_check — the narrow ResNet's f32 check of phase ``resnet50``
+32. watch — the port's runtime watchers (``testing/``) on the card,
+   within 90 s: (a) lockwatch and leakwatch over the slice's LM behind
+   ``InferenceServer`` (16 concurrent 512-token requests, served rows
+   equal to ``output()`` of their batch bitwise and 8 forward launches a batch,
+   no backward), a ``ContinuousLM`` over it (``warm_start()``, then 8
+   sampled generations at temperature 0.8 with seeds 0-7) and the serve
+   route (4 messages), everything shut down: zero lock-order
+   inversions (the edge count printed, and the edges that take the
+   device's graph lock) and nothing left live; (b) compilewatch: the
+   warm-up's captures equal ``len(graph_inventory())`` and its budget
+   (3 x KV rungs + 2 x prefill rungs + 1), all of the decode pool's
+   family, and the generations capture and build nothing inside
+   ``steady()``; the full-width char-RNN fits 2 fused batches (the
+   window graph, attributed to ``models/_layered.py``'s family), then 4
+   at K 4 inside ``steady()``, profiled: nothing captured or built, 32
+   sequence and 1,600 backward LSTM kernels, no wrapper call; (c)
+   rngwatch over all of the above and a dropout MLN's 2 fused and 2
+   per-batch steps: no stream drawn at two sites (the draws it sees are
+   the eager ones: a draw inside a capture, decode's replayed Gumbel
+   noise among them, is skipped), and the 8 seeds give 8 distinct rows;
+   (d) on the card's
+   process, each watcher catches its fixture's defect at its line
+   (``tests/fixtures/lockwatch/inversion.py``, ``leakwatch/leaky.py``,
+   ``torch_watch/recapture.py`` on the card, ``torch_watch/
+   rng_reuse.py`` with a CUDA generator) and stays clean on the clean
+   twins; (e) requests/s (32 requests a turn), decode tokens/s and the
+   char-RNN's ms a batch (12 batches a turn) bare, with the four
+   watchers and with lockwatch alone, 3 turns each in rotation, each
+   with servers of its own, beside the bare turns' spread;
+33. order_check — the narrow ResNet's f32 check of phase ``resnet50``
    again, after phases ``decode``, ``serve_scale``, ``word2vec``,
    ``attention``, ``keras``, ``lm_persist``, ``records``, ``glove``,
    ``deepwalk`` and those above.
@@ -10962,6 +10991,557 @@ def phase_nlp_text(card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# watch: the runtime watchers over the card's serving and char-RNN paths
+# ---------------------------------------------------------------------------
+WATCH = dict(generations=8, temperature=0.8, prompt=32, n_new=16, slots=8,
+             chunk=8, messages=4, row=128, charrnn_warmup=2,
+             charrnn_batches=4, fuse_k=4, mln=(256, 512, 10),
+             mln_batch=64, mln_batches=2, cost_turns=3, cost_groups=3,
+             cost_request_copies=2, budget_s=90.0)
+
+# (e)'s configurations: the watchers installed in each cost turn
+WATCH_COST_CONFIGS = {
+    "bare": (),
+    "watched": ("lockwatch", "leakwatch", "compilewatch", "rngwatch"),
+    "lockwatch_only": ("lockwatch",)}
+
+
+def _fixture(*parts):
+    """A module of ``tests/fixtures`` loaded by its path: the JAX
+    package's lockwatch and leakwatch fixtures import nothing of either
+    package, the torch fixtures only the port. Returns (module, path)."""
+    import importlib.util
+    path = _repo_path("tests", "fixtures", *parts)
+    name = "watch_fixture_" + "_".join(parts).replace(".py", "")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path
+
+
+def _watchers(on, which=WATCH_COST_CONFIGS["watched"]):
+    """Install (``on``) or uninstall the port's runtime watchers named in
+    ``which``, then drop the device locks (no program runs meanwhile).
+    The next program makes its device's RLock anew: watched when
+    lockwatch is installed, raw when it is not. A lock made under
+    lockwatch stays wrapped after ``uninstall()`` and would keep its
+    bookkeeping on every later replay and capture."""
+    import importlib
+    from deeplearning4j_tpu_torch.models import _cuda_graph
+    for name in which:
+        w = importlib.import_module("deeplearning4j_tpu_torch.testing."
+                                    + name)
+        (w.install if on else w.uninstall)()
+    with _cuda_graph._LOCK:
+        _cuda_graph._DEVICE_LOCKS.clear()
+
+
+def watch_serve_turn(lm, rows):
+    """One InferenceServer over ``lm`` (made, warmed and stopped here)
+    answering ``rows`` as concurrent requests, the flash counts set to 0
+    just before the requests and read just after: (requests/s, the
+    served rows, the batches ``output()`` ran as (tokens, logits), the
+    (forward, dQ, dK/dV) launches)."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    srv = InferenceServer(lm, buckets=(BUCKET,), device=DEVICE)
+    batches = []
+    served_output = lm.output
+
+    def recording_output(x):
+        y = served_output(x)
+        batches.append((x, y))
+        return y
+    lm.output = recording_output
+    try:
+        srv.warm_start([(rows[0].size,)])
+        torch.cuda.synchronize()
+        del batches[:]
+        reset_launches()                       # the main path starts here
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(rows)) as pool:
+            served = list(pool.map(lambda x: srv.infer(x, timeout=600),
+                                   rows))
+        wall = time.perf_counter() - t0
+        launches = read_launches()             # ... and ends here
+    finally:
+        srv.stop()
+        del lm.output                          # back to the class method
+    return len(rows) / wall, served, batches, launches
+
+
+def watch_decode_turn(lm, prompts, steady=None):
+    """A ContinuousLM over ``lm``: ``warm_start()``, then the sampled
+    generations (temperature WATCH["temperature"], seed i for prompt i)
+    as concurrent submits, inside ``steady`` if given. Returns (the
+    decode inventory, the slot pool's budget, tokens/s, the rows)."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import ContinuousLM
+    srv = ContinuousLM(lm, slots=WATCH["slots"], chunk=WATCH["chunk"],
+                       device=DEVICE)
+    try:
+        srv.warm_start()
+        torch.cuda.synchronize()
+        inventory = srv.graph_inventory()
+        budget = 3 * len(srv._kv_ladder) + 2 * len(srv._prefill_ladder) + 1
+        with steady() if steady else nullcontext():
+            t0 = time.perf_counter()
+            futs = [srv.submit(p, WATCH["n_new"],
+                               temperature=WATCH["temperature"], seed=i)
+                    for i, p in enumerate(prompts)]
+            rows = [f.result(300) for f in futs]
+            wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    return inventory, budget, len(prompts) * WATCH["n_new"] / wall, rows
+
+
+def watch_route(lm, rows):
+    """The phase-``streaming`` serve route over ``lm`` answering ``rows``
+    (after a warm-up message), shut down: whether each prediction is
+    ``output()`` of its message, bitwise, and the messages served."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.streaming import (
+        DL4JServeRoute, MessageBroker, TopicConsumer, TopicPublisher,
+        deserialize_array, serialize_array)
+    preds = []
+    with MessageBroker() as broker:
+        with DL4JServeRoute(lm, "127.0.0.1", broker.port) as route, \
+                TopicConsumer("127.0.0.1", broker.port, "dl4j-out",
+                              timeout=300) as out, \
+                TopicPublisher("127.0.0.1", broker.port, "dl4j-in") as pub:
+            pub.publish(serialize_array(rows[0]))       # warm-up
+            out.poll()
+            for r in rows:
+                pub.publish(serialize_array(r))
+                preds.append(deserialize_array(out.poll()))
+            served = route.served
+    bitwise = all(np.array_equal(p, lm.output(r)) for p, r in zip(preds, rows))
+    return bitwise, served
+
+
+def watch_charrnn_turn(net, data, steady=None, profile=False):
+    """``net.fit`` over ``data`` (one fused group of WATCH["fuse_k"]),
+    inside ``steady`` if given, the LSTM counts set to 0 just before and
+    read just after: (ms a batch, the profile's (sequence, backward)
+    kernels or None, the wrappers' counts)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
+    with steady() if steady else nullcontext():
+        reset_launches()                       # this path starts here
+        if profile:
+            wall, names, _ = profiled(
+                lambda: net.fit(ListDataSetIterator(data)))
+            kernels = lstm_kernels(names)
+        else:
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator(data))
+            torch.cuda.synchronize()
+            wall, kernels = time.perf_counter() - t0, None
+        calls = read_lstm_launches()           # ... and ends here
+    return wall / len(data) * 1e3, kernels, calls
+
+
+def _watch_mln():
+    """A small MLN with dropout (WATCH["mln"]: inputs, hidden, classes),
+    its data: the fused loop's masks come from the device draw counter."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn import layers as players
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        NeuralNetConfiguration)
+    n_in, hidden, n_out = WATCH["mln"]
+    conf = (NeuralNetConfiguration.Builder().seed(SEED + 50)
+            .learning_rate(0.05).updater("sgd").list()
+            .layer(players.DenseLayer(n_in=n_in, n_out=hidden,
+                                      activation="relu", dropout=0.5))
+            .layer(players.OutputLayer(n_out=n_out, activation="softmax",
+                                       loss="mcxent"))
+            .build())
+    rng = np.random.RandomState(SEED + 50)
+    data = [DataSet(rng.randn(WATCH["mln_batch"], n_in).astype(np.float32),
+                    np.eye(n_out, dtype=np.float32)[
+                        rng.randint(0, n_out, WATCH["mln_batch"])])
+            for _ in range(WATCH["mln_batches"])]
+    return MultiLayerNetwork(conf, device=DEVICE).init(), data
+
+
+def watch_controls(tmp):
+    """Phase watch (d): each watcher catches its defect on the card's
+    process at the fixture's line, and each clean twin stays clean.
+    Returns the record; the watchers are installed and reset here."""
+    import threading
+    import warnings
+    import torch
+    from deeplearning4j_tpu_torch.testing import (compilewatch, leakwatch,
+                                                  lockwatch, rngwatch)
+    rec = {}
+    # lockwatch: the reference's inversion fixture
+    lockwatch.reset()
+    inv_mod, inv_path = _fixture("lockwatch", "inversion.py")
+    inv = inv_mod.Inverted()
+    inv.forward()
+    clean = len(lockwatch.violations())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        inv.backward()
+    rec["lockwatch"] = {"clean_twin_violations": clean, "caught": [
+        [os.path.relpath(s.rsplit(":", 1)[0], _repo_path()) + ":"
+         + s.rsplit(":", 1)[1] for s in v["locks"]]
+        for v in lockwatch.violations()]}
+    lockwatch.reset()
+    # leakwatch: the reference's leak fixture
+    leaky, _ = _fixture("leakwatch", "leaky.py")
+    src = os.path.join(tmp, "src.txt")
+    with open(src, "w") as f:
+        f.write("hello\n")
+    snap = leakwatch.snapshot()
+    leaky.copy_first_line(src, os.path.join(tmp, "dst.txt"))
+    leaky.open_socket().close()
+    evt = threading.Event()
+    t = leaky.start_waiter(evt)
+    evt.set()
+    t.join(5)
+    clean = len(leakwatch.live(since=snap))
+    snap = leakwatch.snapshot()
+    try:
+        leaky.copy_first_line(os.path.join(tmp, "missing.txt"),
+                              os.path.join(tmp, "dst2.txt"))
+    except OSError as e:
+        err = e
+    sock = leaky.open_socket()
+    evt = threading.Event()
+    t = leaky.start_waiter(evt)
+    caught = sorted([r.kind, os.path.relpath(r.site.rsplit(":", 1)[0],
+                                             _repo_path())
+                     + ":" + r.site.rsplit(":", 1)[1]]
+                    for r in leakwatch.live(since=snap))
+    sock.close()
+    evt.set()
+    t.join(5)
+    err.__traceback__.tb_next.tb_frame.f_locals["out"].close()
+    del err
+    rec["leakwatch"] = {"clean_twin_live": clean, "caught": caught,
+                        "live_after_release": len(leakwatch.live(
+                            since=snap))}
+    leakwatch.reset()
+    # compilewatch: a StaticGraph built anew on every call
+    recap, recap_path = _fixture("torch_watch", "recapture.py")
+    compilewatch.extend_watch_paths(recap_path)
+    d = recap.Doubler(DEVICE)
+    d.reuse()                                  # captures once: warm-up
+    snap = compilewatch.snapshot()
+    with compilewatch.steady():
+        d.reuse()
+        d.reuse()
+    clean = len(compilewatch.events(since=snap))
+    snap = compilewatch.snapshot()
+    with compilewatch.steady():
+        d.rebuild_each_call()
+        d.rebuild_each_call()
+    torch.cuda.synchronize()
+    right = bool(torch.equal(d.y, d.x * 2))
+    try:
+        compilewatch.assert_clean(since=snap)
+        raised = False
+    except AssertionError:
+        raised = True
+    rec["compilewatch"] = {
+        "clean_twin_events": clean,
+        "caught": compilewatch.counts_by_family(since=snap),
+        "steady_gate_raised": raised, "values_right": right}
+    compilewatch.reset()
+    # rngwatch: a CUDA generator's state drawn twice
+    rngw, _ = _fixture("torch_watch", "rng_reuse.py")
+    rngwatch.reset()
+    rngw.draw_on(device=DEVICE)
+    rngw.two_models_one_seed(device=DEVICE)
+    clean = len(rngwatch.violations())
+    rngw.draw_twice(device=DEVICE)
+    rec["rngwatch"] = {"clean_twins_violations": clean, "caught": [
+        [os.path.relpath(v["first"][1][0], _repo_path()) + ":"
+         + str(v["first"][1][1]),
+         os.path.relpath(v["second"][1][0], _repo_path()) + ":"
+         + str(v["second"][1][1])] for v in rngwatch.violations()]}
+    rngwatch.reset()
+    return rec
+
+
+def _watch_control_holds(ctl):
+    """The positive controls' holds: each defect at its fixture line."""
+    def at(parts, text, offset=0):
+        path = _repo_path("tests", "fixtures", *parts)
+        with open(path) as f:
+            lines = f.read().splitlines()
+        hit, = [i + 1 for i, line in enumerate(lines) if text in line]
+        return "/".join(("tests", "fixtures") + parts) + f":{hit + offset}"
+    inv = ("lockwatch", "inversion.py")
+    leak = ("leakwatch", "leaky.py")
+    rec = ("torch_watch", "recapture.py")
+    rng = ("torch_watch", "rng_reuse.py")
+    assert ctl["lockwatch"] == {"clean_twin_violations": 0, "caught": [
+        [at(inv, "self._beta_lock = threading.Lock()"),
+         at(inv, "self._alpha_lock = threading.Lock()")]]}, ctl
+    assert ctl["leakwatch"] == {"clean_twin_live": 0, "caught": [
+        ["file", at(leak, "out = open(dst")],
+        ["socket", at(leak, "s = socket.socket()")],
+        ["thread", at(leak, "t = threading.Thread(")]],
+        "live_after_release": 0}, ctl
+    assert ctl["compilewatch"] == {
+        "clean_twin_events": 0,
+        "caught": {at(rec, "StaticGraph(self._run, self.device)()"): 2},
+        "steady_gate_raised": True, "values_right": True}, ctl
+    # draw_twice: the draw after get_state(), then the one after set_state()
+    assert ctl["rngwatch"] == {"clean_twins_violations": 0, "caught": [
+        [at(rng, "state = g.get_state()", 1),
+         at(rng, "# the same state")]]}, ctl
+
+
+def phase_watch(card):
+    """The runtime watchers on the card (the module docstring's phase
+    32): (a) lockwatch and leakwatch over InferenceServer, ContinuousLM
+    and the serve route at the slice's width; (b) compilewatch over the
+    decode pool's warm-up and steady generations and over the char-RNN's
+    fused fit; (c) rngwatch over (a)'s sampled generations and a dropout
+    MLN's fused and per-batch steps; (d) each watcher's positive control;
+    (e) the watchers' cost on serving, decode and the char-RNN."""
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.testing import (compilewatch, leakwatch,
+                                                  lockwatch, rngwatch)
+    t0 = time.perf_counter()
+    conf = TransformerConfig(**SLICE)
+    lm = TransformerLM(conf, device=DEVICE).init()
+    rng = np.random.RandomState(SEED + 60)
+    rows = [rng.randint(0, conf.vocab_size, conf.max_len).astype(np.int32)
+            for _ in range(N_REQUESTS)]
+    prompts = [rng.randint(1, conf.vocab_size, WATCH["prompt"]).astype(
+        np.int32) for _ in range(WATCH["generations"])]
+    messages = rng.randint(0, conf.vocab_size, (WATCH["messages"], 1,
+                                                WATCH["row"])).astype(
+        np.int32)
+    cr_conf = zoo.char_rnn(vocab_size=CHARRNN["vocab_size"],
+                           hidden=CHARRNN["hidden"],
+                           tbptt_length=CHARRNN["tbptt_length"],
+                           learning_rate=CHARRNN["learning_rate"])
+    cr_data, _ = markov_batches(WATCH["charrnn_warmup"]
+                                + WATCH["charrnn_batches"],
+                                np.random.RandomState(SEED + 61))
+    warm, timed = (cr_data[:WATCH["charrnn_warmup"]],
+                   cr_data[WATCH["charrnn_warmup"]:])
+    windows = CHARRNN["seq_len"] // CHARRNN["tbptt_length"]
+    fuse_k = mock.patch.dict(os.environ, {
+        "DL4J_TORCH_FUSE_STEPS": str(WATCH["fuse_k"])})
+    rec = {"phase": "watch", "config": dict(WATCH, slice=SLICE,
+                                            charrnn=CHARRNN), "card": card}
+
+    _watchers(True)
+    try:
+        for w in (lockwatch, compilewatch, rngwatch):
+            w.reset()
+        leak_snap = leakwatch.snapshot()
+        cw_snap = compilewatch.snapshot()
+        # (a) serving
+        rps, served, batches, launches = watch_serve_turn(lm, rows)
+        max_err = 0.0
+        for x, y in batches:
+            max_err = max(max_err, float(np.abs(lm.output(x) - y).max()))
+        for tok, got in zip(rows, served):
+            hits = [y[j] for x, y in batches for j in range(len(x))
+                    if np.array_equal(x[j], tok)]
+            assert hits, "a served row came from no dispatched batch"
+            max_err = max(max_err, float(np.abs(got - hits[0]).max()))
+        cw_warm = compilewatch.snapshot()
+        inventory, budget, dec_tps, gen_rows = watch_decode_turn(
+            lm, prompts, steady=compilewatch.steady)
+        decode_families = compilewatch.counts_by_family(since=cw_warm)
+        steady_events = [e.describe() for e in compilewatch.events(
+            since=cw_warm) if e.steady]
+        route_bitwise, route_served = watch_route(lm, list(messages))
+        # (b) the char-RNN: warm-up (captures the window graph), then the
+        # steady group, profiled: a replay calls no wrapper
+        with fuse_k:
+            net = MultiLayerNetwork(cr_conf, device=DEVICE).init()
+            cw_cr = compilewatch.snapshot()
+            watch_charrnn_turn(net, warm)
+            cr_families = compilewatch.counts_by_family(since=cw_cr)
+            cw_cr_steady = compilewatch.snapshot()
+            _, cr_kernels, cr_calls = watch_charrnn_turn(
+                net, timed, steady=compilewatch.steady, profile=True)
+            cr_ms_watched = watch_charrnn_turn(
+                net, timed, steady=compilewatch.steady)[0]
+            cr_steady_events = len(compilewatch.events(since=cw_cr_steady))
+        # (c) a dropout MLN: 2 fused batches, then 2 per batch
+        mln, mln_data = _watch_mln()
+        from deeplearning4j_tpu_torch.datasets.dataset import (
+            ListDataSetIterator)
+        with mock.patch.dict(os.environ, {"DL4J_TORCH_FUSE_STEPS": str(
+                WATCH["mln_batches"])}):
+            mln.fit(ListDataSetIterator(mln_data))
+        with mock.patch.dict(os.environ, {"DL4J_TORCH_FUSE_STEPS": "1"}):
+            mln.fit(ListDataSetIterator(mln_data))
+        torch.cuda.synchronize()
+        del net, mln
+        # the gates, every server and route shut down
+        leaks = [r.describe() for r in leakwatch.live(since=leak_snap)]
+        edges = lockwatch.edges()
+        repo = _repo_path()
+        def label(site):
+            path, line = site.rsplit(":", 1)
+            return (os.path.relpath(path, repo) if path.startswith(repo)
+                    else path) + ":" + line
+        edge_labels = sorted([label(a), label(b)] for a, b in edges)
+        graph_lock_edges = [e for e in edge_labels
+                            if any("_cuda_graph.py" in s for s in e)]
+        rec["gates"] = {
+            "lock_inversions": len(lockwatch.violations()),
+            "lock_edges": len(edges),
+            "lock_edge_sites": edge_labels[:50],
+            "lock_edges_with_the_graph_lock": graph_lock_edges,
+            "live_after_shutdown": leaks,
+            "leak_sites_observed": len(leakwatch.observed_sites()),
+            "steady_events": steady_events,
+            "charrnn_steady_events": cr_steady_events,
+            "rng_violations": len(rngwatch.violations()),
+            "rng_consumptions": rngwatch.consumptions(),
+            "rng_skipped_in_capture": rngwatch.skipped(),
+            "rng_generations": len(rngwatch.generations())}
+        lock_report = lockwatch.report()
+        rng_report = rngwatch.report()
+        cw_all = compilewatch.counts_by_family(since=cw_snap)
+        # (d) positive controls
+        with tempfile.TemporaryDirectory() as tmp:
+            controls = watch_controls(tmp)
+    finally:
+        _watchers(False)
+        for w in (lockwatch, leakwatch, compilewatch, rngwatch):
+            w.reset()
+    watched_s = time.perf_counter() - t0
+
+    # (e) cost: turns of each configuration of WATCH_COST_CONFIGS in
+    # rotation after the gated run; each turn makes its own servers (a
+    # lock is watched when it is made under lockwatch), serves
+    # WATCH["cost_request_copies"] copies of the requests and fits
+    # WATCH["cost_groups"] groups
+    turns = {k: {"serving": [], "decode": [], "charrnn": []}
+             for k in WATCH_COST_CONFIGS}
+    cost_rows = rows * WATCH["cost_request_copies"]
+    with fuse_k:
+        net = MultiLayerNetwork(cr_conf, device=DEVICE).init()
+        watch_charrnn_turn(net, warm)
+        for _ in range(WATCH["cost_turns"]):
+            for key, which in WATCH_COST_CONFIGS.items():
+                _watchers(True, which)
+                try:
+                    turns[key]["serving"].append(
+                        watch_serve_turn(lm, cost_rows)[0])
+                    turns[key]["charrnn"].append(watch_charrnn_turn(
+                        net, timed * WATCH["cost_groups"])[0])
+                    turns[key]["decode"].append(
+                        watch_decode_turn(lm, prompts)[2])
+                finally:
+                    _watchers(False)
+                    for w in (lockwatch, leakwatch, compilewatch, rngwatch):
+                        w.reset()
+    del net
+
+    def cost(part, rate):
+        """Each configuration's turns, mean and range, its cost against
+        the bare turns' mean (the rate's fall, or the time's rise), and
+        the bare turns' own spread, (max - min) / mean: a cost inside
+        that spread is not resolved by this many turns."""
+        bare = np.mean(turns["bare"][part])
+        out = {"bare_spread": float(np.ptp(turns["bare"][part]) / bare)}
+        for key in WATCH_COST_CONFIGS:
+            got = turns[key][part]
+            mean = float(np.mean(got))
+            out[key] = {"turns": got, "mean": mean, "min": min(got),
+                        "max": max(got)}
+            if key != "bare":
+                out[key]["cost"] = bare / mean - 1 if rate \
+                    else mean / bare - 1
+        return out
+    serve_cost = cost("serving", rate=True)
+    dec_cost = cost("decode", rate=True)
+    cr_cost = cost("charrnn", rate=False)
+    cr_cost["gated_run_ms_per_batch"] = cr_ms_watched
+    dec_cost["gated_run_tokens_per_s"] = dec_tps
+    serve_cost["gated_run_requests_per_s"] = rps
+    want_cr = (2 * windows * WATCH["charrnn_batches"],
+               2 * CHARRNN["seq_len"] * WATCH["charrnn_batches"])
+    inv = compilewatch.inventory()
+    decode_site, = [f for f, what in inv.items()
+                    if what == "capture: StaticGraph in _SlotPool.run"]
+    layered, = [f for f, what in inv.items()
+                if what == "capture: torch.cuda.graph in _WindowGraph.capture"]
+    rec.update({
+        "serving": {"requests": N_REQUESTS, "batches": len(batches),
+                    "requests_per_s": rps,
+                    "kernel_launches": dict(zip(FLASH, launches)),
+                    "served_vs_output_max_abs_err": max_err},
+        "decode": {"inventory_size": len(inventory), "budget": budget,
+                   "warm_start_captures_by_family": decode_families,
+                   "tokens_per_s": dec_tps,
+                   "rows": len(gen_rows), "distinct_rows": len(
+                       {tuple(r.tolist()) for r in gen_rows})},
+        "route": {"messages": WATCH["messages"], "served": route_served,
+                  "predictions_bitwise_output": route_bitwise},
+        "charrnn": {"batches": WATCH["charrnn_batches"],
+                    "fuse_k": WATCH["fuse_k"],
+                    "warmup_captures_by_family": cr_families,
+                    "kernel_launches": {
+                        "lstm_cell_fwd": cr_kernels[0],
+                        "lstm_cell_bwd": cr_kernels[1],
+                        "counted_by": "torch.profiler, the steady run"},
+                    "wrapper_calls": list(cr_calls)},
+        "compile_events_by_family": cw_all,
+        "controls": controls,
+        "cost": {"serving_requests": len(cost_rows),
+                 "serving_requests_per_s": serve_cost,
+                 "decode_tokens_per_s": dec_cost,
+                 "charrnn_ms_per_batch": cr_cost},
+        "kernel_launches": {"flash_attn_fwd": launches[0],
+                            "lstm_cell_fwd": cr_kernels[0],
+                            "lstm_cell_bwd": cr_kernels[1]},
+        "watched_seconds": watched_s,
+        "seconds": time.perf_counter() - t0})
+    emit(rec)
+    g = rec["gates"]
+    assert g["lock_inversions"] == 0, lock_report
+    assert g["live_after_shutdown"] == [], g["live_after_shutdown"]
+    assert max_err == 0.0, max_err
+    assert rec["decode"]["distinct_rows"] == WATCH["generations"], \
+        rec["decode"]
+    assert launches == (conf.n_layers * len(batches), 0, 0) \
+        and len(batches) > 0, (launches, len(batches))
+    assert len(inventory) == budget and decode_families == {
+        decode_site: budget}, (len(inventory), budget, decode_families)
+    assert g["steady_events"] == [] and g["charrnn_steady_events"] == 0, g
+    assert route_bitwise and route_served == WATCH["messages"] + 1, \
+        rec["route"]
+    # the warm-up's programs: the window graph (and, in a process that
+    # has not launched them yet, the LSTM kernels' loads)
+    assert cr_families.get(layered, 0) >= 1 and all(
+        f == layered or f.startswith("load:lstm_cell_")
+        for f in cr_families), cr_families
+    assert tuple(cr_kernels) == want_cr and tuple(cr_calls) == (0, 0), \
+        (cr_kernels, cr_calls, want_cr)
+    assert g["rng_violations"] == 0, rng_report
+    assert g["rng_consumptions"] > 0, g
+    _watch_control_holds(controls)
+    assert rec["seconds"] <= WATCH["budget_s"], rec["seconds"]
+    return rec
+
+
 def main():
     try:
         import torch
@@ -11026,6 +11606,7 @@ def main():
     ui = phase_ui(card)
     st = phase_streaming(card, ui.pop("lenet_net"))
     nt = phase_nlp_text(card)
+    wt = phase_watch(card)
     phase_order_check(card)
 
     # the flash kernels at the TransformerLM train path's shape, the LSTM
@@ -11131,6 +11712,7 @@ def main():
          "launches_lm_persist": lp["kernel_launches"]["flash_attn_fwd"],
          "launches_streaming":
              st["route"]["kernel_launches"]["flash_attn_fwd"],
+         "launches_watch": wt["kernel_launches"]["flash_attn_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -11176,6 +11758,7 @@ def main():
          "launches_transfer": tf["kernel_launches"]["lstm_cell_fwd"],
          "launches_dp": dp_lstm["lstm_cell_fwd"],
          "launches_ui": ui["charrnn"]["kernel_launches"]["lstm_cell_fwd"],
+         "launches_watch": wt["kernel_launches"]["lstm_cell_fwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_fwd"),
          **scaleout_launches("lstm_cell_fwd"),
          **elastic_launches("lstm_cell_fwd"),
@@ -11202,6 +11785,7 @@ def main():
          "launches_transfer": tf["kernel_launches"]["lstm_cell_bwd"],
          "launches_dp": dp_lstm["lstm_cell_bwd"],
          "launches_ui": ui["charrnn"]["kernel_launches"]["lstm_cell_bwd"],
+         "launches_watch": wt["kernel_launches"]["lstm_cell_bwd"],
          "launches_dp_world2_rank0": dp_world2("lstm_cell_bwd"),
          **scaleout_launches("lstm_cell_bwd"),
          **elastic_launches("lstm_cell_bwd"),

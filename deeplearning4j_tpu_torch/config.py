@@ -21,7 +21,7 @@ import warnings
 from dataclasses import dataclass
 
 __all__ = ["Knob", "KNOBS", "env_flag", "env_int", "env_float", "env_is_set",
-           "env_str"]
+           "env_str", "knob_table_md"]
 
 
 @dataclass(frozen=True)
@@ -60,6 +60,15 @@ _declare("DL4J_TORCH_COLLECTIVE_TIMEOUT", "float", 300.0,
          "(parallel/coordinator.py): a round not completed within it "
          "fails on every waiter with CollectiveTimeoutError instead of "
          "hanging. Counterpart: DL4J_TPU_COLLECTIVE_TIMEOUT.")
+_declare("DL4J_TORCH_COMPILEWATCH", "flag", False,
+         "Under the pytest plugin testing/pytest_watch.py (pytest -p "
+         "deeplearning4j_tpu_torch.testing.pytest_watch), install the "
+         "runtime program watcher (testing/compilewatch.py): "
+         "records the in-repo stack of every CUDA-graph capture and every "
+         "kernel build or load, attributes each capture to the program "
+         "family of its site, and fails a test that captures or builds "
+         "inside a steady() region. Test-only overhead, off by default. "
+         "Counterpart: DL4J_TPU_COMPILEWATCH.")
 _declare("DL4J_TORCH_CONNECT_RETRIES", "int", 3,
          "Extra connection attempts (exponential backoff) a collective "
          "client makes before giving up on the coordinator. Counterpart: "
@@ -131,6 +140,13 @@ _declare("DL4J_TORCH_FUSE_TBPTT", "flag", True,
          "Let tBPTT models take the fused loop (each window's train step "
          "one captured CUDA graph on the card); 0 keeps them on the "
          "per-batch host window loop. Counterpart: DL4J_TPU_FUSE_TBPTT.")
+_declare("DL4J_TORCH_LEAKWATCH", "flag", False,
+         "Under the pytest plugin testing/pytest_watch.py, install the "
+         "runtime resource-leak watcher (testing/leakwatch.py): "
+         "wraps the Thread/socket/open/TemporaryDirectory constructors, "
+         "keys what in-repo code creates by its creation site, and fails a "
+         "test that leaves one live. Test-only overhead, off by default. "
+         "Counterpart: DL4J_TPU_LEAKWATCH.")
 _declare("DL4J_TORCH_LM_ATTN", "str", "auto",
          "TransformerLM block attention route when block_size is set: "
          "'scan' takes the plain blockwise recurrence (CPU tensors only: "
@@ -144,6 +160,13 @@ _declare("DL4J_TORCH_MEM_BUDGET", "int", 17179869184,
          "derives its default slot width from: half of it, less the "
          "parameters, over one slot's KV bytes. Counterpart: "
          "DL4J_TPU_MEM_BUDGET.")
+_declare("DL4J_TORCH_LOCKWATCH", "flag", False,
+         "Under the pytest plugin testing/pytest_watch.py, install the "
+         "runtime lock-order validator (testing/lockwatch.py) for the "
+         "session: it wraps threading.Lock/RLock and fails the run on an "
+         "ABBA inversion, with both acquisition stacks. Test-only "
+         "overhead, off by default. "
+         "Counterpart: DL4J_TPU_LOCKWATCH.")
 _declare("DL4J_TORCH_LSTM_KERNEL", "str", "auto",
          "LSTM time-step route: 'builtin' differentiates the plain "
          "recurrence (LSTM._scan_builtin) by autograd, on CPU tensors only "
@@ -178,6 +201,14 @@ _declare("DL4J_TORCH_REFORM_TIMEOUT", "float", 30.0,
          "with whoever arrived (if at least DL4J_TORCH_ELASTIC_MIN_WORKERS, "
          "a driver among them) or fails every arrival with "
          "CollectiveTimeoutError. Counterpart: DL4J_TPU_REFORM_TIMEOUT.")
+_declare("DL4J_TORCH_RNGWATCH", "flag", False,
+         "Under the pytest plugin testing/pytest_watch.py, install the "
+         "runtime random-stream watcher (testing/rngwatch.py): "
+         "wraps torch.Generator seeding, the samplers handed a generator "
+         "and the counter-keyed draws, and fails a test that draws one "
+         "generator state or one (seed, counter, stream) key at two "
+         "sites, with both stacks. Reading a state syncs the device: "
+         "test-only, off by default. Counterpart: DL4J_TPU_RNGWATCH.")
 _declare("DL4J_TORCH_ROUTER_HEARTBEAT_S", "float", 0.25,
          "Heartbeat interval (seconds) of ReplicaRouter: each beat checks "
          "every replica's health, sets router.replicas_healthy and the "
@@ -352,3 +383,28 @@ def env_str(name):
     """String knob: the raw value, or the declared default when unset."""
     knob = KNOBS[name]
     return os.environ.get(name, knob.default)
+
+
+def knob_table_md():
+    """The knob table as GitHub markdown: the body of
+    ``docs/CONFIG_TORCH.md``. Regenerate with ``python -m
+    deeplearning4j_tpu_torch.config > docs/CONFIG_TORCH.md``;
+    tests/test_torch_config.py keeps the file in sync."""
+    rows = ["| Variable | Type | Default | Description |",
+            "| --- | --- | --- | --- |"]
+    for name in sorted(KNOBS):
+        k = KNOBS[name]
+        default = "*(unset)*" if k.default is None else f"`{k.default}`"
+        rows.append(f"| `{k.name}` | {k.kind} | {default} | {k.doc} |")
+    return "\n".join(rows)
+
+
+if __name__ == "__main__":
+    print("# Environment knobs of the PyTorch port")
+    print()
+    print("Every knob `deeplearning4j_tpu_torch` reads, generated from the")
+    print("registry in `deeplearning4j_tpu_torch/config.py` (`python -m")
+    print("deeplearning4j_tpu_torch.config > docs/CONFIG_TORCH.md`). The JAX")
+    print("package's table is `docs/CONFIG.md`.")
+    print()
+    print(knob_table_md())

@@ -114,12 +114,6 @@ def is_pytree_model(net):
                                  _PYTREE_FAMILY.values()))
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
-        "queue 1, \"The rest\")")
-
-
 def _np_bytes(arr):
     buf = io.BytesIO()
     np.save(buf, np.asarray(arr))
@@ -337,7 +331,11 @@ def model_entries(net, save_updater=True, normalizer=None):
     if is_pytree_model(net):
         return _transformer_entries(net, save_updater, normalizer)
     if not isinstance(net, (MultiLayerNetwork, ComputationGraph)):
-        raise _not_ported(f"the {type(net).__name__} archive")
+        # the reference fails here with an AttributeError (net.params_list)
+        raise TypeError(
+            f"no model archive for a {type(net).__name__}: write_model "
+            "takes a MultiLayerNetwork, a ComputationGraph or a model of "
+            "the pytree family (TransformerLM, MoETransformerLM, ViT)")
     graph = isinstance(net, ComputationGraph)
     slots = net.layer_names if graph else range(len(net.layers))
     entries = {

@@ -58,7 +58,10 @@
   module; without CUDA their trainers refuse the CPU unless asked for
   it, their grids form no process group there, and a PP step on the CPU
   (flash attention's route, one stage) loads no kernel and counts no
-  launch.
+  launch;
+- the runtime watchers (``testing/lockwatch.py``, ``leakwatch.py``,
+  ``compilewatch.py``, ``rngwatch.py``) and cluster provisioning
+  (``provisioning/``) are scanned like every module.
 """
 
 import ast
@@ -153,7 +156,10 @@ def _port_sources():
                 "streaming/serde.py", "streaming/broker.py",
                 "streaming/routes.py", "nlp/vectorizer.py", "nlp/bpe.py",
                 "nlp/analysis.py", "nlp/trees.py", "nlp/pcfg.py",
-                "nlp/japanese.py", "nlp/korean.py"):
+                "nlp/japanese.py", "nlp/korean.py",
+                "provisioning/__init__.py", "provisioning/cluster.py",
+                "testing/lockwatch.py", "testing/leakwatch.py",
+                "testing/compilewatch.py", "testing/rngwatch.py"):
         assert PKG / mod in files, mod
     return files
 

@@ -363,21 +363,11 @@ def _named_items(path):
 
 
 def test_not_ported_messages_name_roadmap_items():
-    titles = _queue1_titles()
-    assert "The rest" in titles and "Persistence gaps" not in titles
-    named = set()
+    """The port is whole: ROADMAP.md's queue 1 holds no numbered title
+    left to port, and no message of the package names queue 1 (a
+    not-ported refusal would name the item it waits for)."""
+    assert _queue1_titles() == []
     for path in sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py")):
-        for item in _named_items(path):
-            item = " ".join(item.split()).rstrip(".")
-            named.add(item)
-            assert any(" ".join(t.split()).startswith(item)
-                       for t in titles), \
-                (str(path.relative_to(REPO)), item, titles)
-    # data and model parallelism are ported whole: their titles left the
-    # queue, and no message names them
-    assert "The rest" in named
-    assert "Model parallelism" not in named and \
-        "Model parallelism" not in titles
-    assert "Data parallelism" not in named and \
-        "Data parallelism" not in titles
-    assert "Pretraining" not in named and "Pretraining" not in titles
+        assert not _named_items(path), str(path.relative_to(REPO))
+        assert "queue 1" not in path.read_text(), \
+            str(path.relative_to(REPO))
