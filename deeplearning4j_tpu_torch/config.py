@@ -289,8 +289,11 @@ _declare("DL4J_TORCH_TRANSFER_STAGE_BYTES", "int", 256 * 1024 * 1024,
          "on queued batches). Counterpart: DL4J_TPU_TRANSFER_STAGE_BYTES.")
 _declare("DL4J_TORCH_TRACE_DIR", "str", "",
          "Directory for Chrome trace-event span files (obs/tracing.py, "
-         "one trace_<pid>.json per process); empty disables span "
-         "recording. Counterpart: DL4J_TPU_TRACE_DIR.")
+         "one trace_<pid>.json per process, stamped on the profiler's "
+         "Unix-epoch clock); empty writes no file. Spans record while "
+         "this is set or a torch.profiler profile runs (then also as "
+         "host ranges of that profile, device spans timed by CUDA "
+         "events), and not otherwise. Counterpart: DL4J_TPU_TRACE_DIR.")
 _declare("DL4J_TORCH_TUNE_CACHE_DIR", "str", "~/.dl4j_torch/tune",
          "Directory the autotuner's decisions persist in (one JSON file a "
          "model and backend, committed by atomic_io's tmp+fsync+rename); "

@@ -793,8 +793,10 @@ class TransformerLM(PlanStateMixin, nn.Module):
     def _value_and_grad(self, tokens, targets, mask, rng=None):
         """(loss, gradient tree) at the current parameters."""
         leaves = _flatten(self.params)
-        loss = self._loss(self.params, tokens, targets, mask, rng)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with obs.span("fit.forward", device=self.device):
+            loss = self._loss(self.params, tokens, targets, mask, rng)
+        with obs.span("fit.backward", device=self.device):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), _unflatten(dict(zip(leaves, grads)))
 
     def _apply_update(self, grads):
@@ -834,7 +836,8 @@ class TransformerLM(PlanStateMixin, nn.Module):
         if plan is not None:
             return self._sharded_step(plan, tokens, targets, mask, rng)
         loss, grads = self._value_and_grad(tokens, targets, mask, rng)
-        self._apply_update(grads)
+        with obs.span("fit.update", device=self.device):
+            self._apply_update(grads)
         return loss
 
     # ---- data parallelism ------------------------------------------------
@@ -966,26 +969,30 @@ class TransformerLM(PlanStateMixin, nn.Module):
         (inputs = tokens[:, :-1], targets = tokens[:, 1:]). Returns the
         loss, also kept as ``score_``: a device scalar, read lazily (the
         host loop never waits for the card)."""
-        if self.params is None:
-            self.init()
-        if self.opt_state is None:
-            self.opt_state = _fresh_opt_state(self.conf, self.params)
-        tokens = self._device_tokens(tokens)
-        if targets is None:
-            tokens, targets = tokens[:, :-1], tokens[:, 1:]
-        else:
-            targets = self._device_tokens(targets)
-        if mask is not None:
-            mask = torch.as_tensor(np.asarray(mask), device=self.device)
-        plan = self._dp()
-        if plan is not None:   # this rank's rows of the global batch
-            tokens, targets, mask = (
-                multihost.take_rows(a, plan.rank, plan.n)
-                for a in (tokens, targets, mask))
-        self.score_ = self._train_step(tokens, targets, mask)
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
-        return self.score_
+        with obs.span("fit.step"):
+            if self.params is None:
+                self.init()
+            if self.opt_state is None:
+                self.opt_state = _fresh_opt_state(self.conf, self.params)
+            with obs.span("fit.input_copy", device=self.device):
+                tokens = self._device_tokens(tokens)
+                if targets is not None:
+                    targets = self._device_tokens(targets)
+                if mask is not None:
+                    mask = torch.as_tensor(np.asarray(mask),
+                                           device=self.device)
+            if targets is None:
+                tokens, targets = tokens[:, :-1], tokens[:, 1:]
+            plan = self._dp()
+            if plan is not None:   # this rank's rows of the global batch
+                tokens, targets, mask = (
+                    multihost.take_rows(a, plan.rank, plan.n)
+                    for a in (tokens, targets, mask))
+            self.score_ = self._train_step(tokens, targets, mask)
+            with obs.span("fit.listeners"):
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration)
+            return self.score_
 
     def fit(self, data, *, epochs=1):
         """Train over ``data``: one token batch (array) or an iterable of

@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerLM, _adamw_apply, _flatten, _fresh_opt_state, _layer_norm,
@@ -229,8 +230,10 @@ class ViT(nn.Module):
     def _value_and_grad(self, x, y, rng=None):
         """(loss, gradient tree) at the current parameters."""
         leaves = _flatten(self.params)
-        loss = self._loss(self.params, x, y, rng)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with obs.span("fit.forward", device=self.device):
+            loss = self._loss(self.params, x, y, rng)
+        with obs.span("fit.backward", device=self.device):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), _unflatten(dict(zip(leaves, grads)))
 
     def _train_step(self, x, y):
@@ -246,8 +249,9 @@ class ViT(nn.Module):
             rng = self._rng
         loss, grads = self._value_and_grad(x, y, rng)
         t = self.iteration + 1
-        _adamw_apply(c, self.params, grads, self.opt_state, t,
-                     c.learning_rate)
+        with obs.span("fit.update", device=self.device):
+            _adamw_apply(c, self.params, grads, self.opt_state, t,
+                         c.learning_rate)
         self.iteration = t
         return loss
 
@@ -271,15 +275,18 @@ class ViT(nn.Module):
         """One step. x: [B, S, S, C] floats; y: [B, n_classes] one-hot or
         [B] int class ids. Returns the loss, also kept as ``score_``: a
         device scalar, read lazily."""
-        if self.params is None:
-            self.init()
-        if self.opt_state is None:
-            self.opt_state = _fresh_opt_state(self.conf, self.params)
-        self.score_ = self._train_step(self._device_images(x),
-                                       self._device_labels(y))
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
-        return self.score_
+        with obs.span("fit.step"):
+            if self.params is None:
+                self.init()
+            if self.opt_state is None:
+                self.opt_state = _fresh_opt_state(self.conf, self.params)
+            with obs.span("fit.input_copy", device=self.device):
+                x, y = self._device_images(x), self._device_labels(y)
+            self.score_ = self._train_step(x, y)
+            with obs.span("fit.listeners"):
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration)
+            return self.score_
 
     def fit(self, data, *, epochs=1):
         """Train over a DataSetIterator (``reset()`` honoured) or an

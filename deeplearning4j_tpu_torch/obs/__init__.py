@@ -10,9 +10,14 @@ One import surface for instrumented subsystems::
     _REQS.inc()
 
 ``obs.metrics`` aggregates Counters/Gauges/Histograms process-wide and
-exports them as one JSON-able snapshot. ``obs.tracing`` records
-Chrome-trace-event spans with thread ids (``DL4J_TORCH_TRACE_DIR``).
-Neither imports torch, and both record host scalars only.
+exports them as one JSON-able snapshot. ``obs.tracing`` records spans:
+Chrome-trace-event spans with thread ids while ``DL4J_TORCH_TRACE_DIR``
+is set, and, while a ``torch.profiler`` profile records, host ranges in
+that profile too. A span can also time its body on the device's stream
+(``span(name, device=dev)``, a CUDA event pair resolved without a
+synchronize into ``<name>.device_seconds``). Span files and profiles
+share one clock, the profiler's (Unix epoch). Neither module imports
+torch.
 """
 
 from deeplearning4j_tpu_torch.obs import metrics, tracing

@@ -62,9 +62,10 @@ without cleanup (with ``queue-overflow`` and ``expire-deadline`` from
 from __future__ import annotations
 
 import hashlib
+import itertools
 import logging
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 
 import numpy as np
@@ -125,9 +126,14 @@ _PREFILL_SECONDS = obs.histogram(
     "(decode chunks interleaved between prefill windows included)")
 _TTFT_SECONDS = obs.histogram(
     "serve.ttft_seconds",
-    "Submit-to-first-token latency, recorded when the chunk holding a "
-    "request's first sampled token has been dispatched (dispatch clock: "
-    "it can lead the card's completion by the chunk in flight)")
+    "Submit-to-first-token latency, recorded once the chunk that sampled "
+    "a request's first token is done: at the next out fetch (for a "
+    "streamed request, the one that delivers the token), or at the first "
+    "scheduler pass that finds the chunk's end event complete, whichever "
+    "comes first")
+_QUEUE_WAIT = obs.histogram(
+    "serve.queue_wait_seconds",
+    "Submit-to-admission wait of a request in the queue (host clock)")
 _PREFILL_WINDOWS = obs.counter(
     "serve.prefill_windows_total",
     "Chunked-prefill window dispatches (compute + prefix inject)")
@@ -267,9 +273,12 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
+_REQ_IDS = itertools.count(1)   # the id a request's spans carry as req
+
+
 class _GenRequest:
     __slots__ = ("prompt", "n_new", "temp", "top_k", "top_p", "seed",
-                 "future", "t0", "deadline", "on_tokens", "emitted")
+                 "future", "t0", "deadline", "on_tokens", "emitted", "rid")
 
     def __init__(self, prompt, n_new, temp, top_k, top_p, seed,
                  deadline=None, on_tokens=None):
@@ -284,6 +293,7 @@ class _GenRequest:
         self.deadline = deadline     # absolute monotonic, None = none
         self.on_tokens = on_tokens   # streaming callback
         self.emitted = 0             # sampled tokens already streamed
+        self.rid = next(_REQ_IDS)
 
 
 class _Stage:
@@ -456,6 +466,9 @@ class ContinuousLM(ServingFrontEnd):
         # slots mid-prefill (admitted inactive): slot -> [request, plan,
         # next window index, admit time]
         self._prefilling = {}
+        # dispatched chunks that sampled first tokens, oldest first:
+        # (the chunk's end event, None on the CPU; its requests)
+        self._first_tokens = deque()
         self._free = []
 
     # ---- client surface ------------------------------------------------
@@ -572,6 +585,7 @@ class ContinuousLM(ServingFrontEnd):
                                       "generation completed"))
         self._slot_req.clear()
         self._prefilling.clear()
+        self._first_tokens.clear()
         self._slots = None
         self._pool = None
         self._free = []
@@ -698,6 +712,7 @@ class ContinuousLM(ServingFrontEnd):
         self._pool = _SlotPool(self.lm, s, self._seed)
         self._slot_req = {}
         self._prefilling = {}
+        self._first_tokens.clear()
         self._free = list(range(s))
         _SLOTS_G.set(s)
 
@@ -715,12 +730,14 @@ class ContinuousLM(ServingFrontEnd):
         ``plen - 1`` and sets the row live. Shorter prompts teacher-force
         through the shared decode chunk."""
         c = self.lm.conf
+        _QUEUE_WAIT.record(time.monotonic() - r.t0)
         span = r.prompt.size - 1
         use_prefill = bool(self._prefill_ladder) \
             and span >= self._prefill_ladder[0]
-        self._pool.admit(admit_record(
-            c, slot, r.prompt, r.prompt.size, r.n_new, r.temp, r.top_k,
-            r.top_p, not use_prefill, r.seed))
+        with obs.span("serve.admit", req=r.rid):
+            self._pool.admit(admit_record(
+                c, slot, r.prompt, r.prompt.size, r.n_new, r.temp, r.top_k,
+                r.top_p, not use_prefill, r.seed))
         if use_prefill:
             self._prefilling[slot] = [r, self._plan_prefill(span), 0,
                                       time.monotonic()]
@@ -777,7 +794,9 @@ class ContinuousLM(ServingFrontEnd):
             _PREFIX_HITS.inc()
         elif cache is not None:
             _PREFIX_MISSES.inc()
-        kp, vp = self._pool.prefill(W, entry is not None, stage, entry)
+        with obs.span("serve.prefill_window", device=self.device,
+                      req=r.rid, rung=W, inject=entry is not None):
+            kp, vp = self._pool.prefill(W, entry is not None, stage, entry)
         _PREFILL_WINDOWS.inc()
         if cache is not None and entry is None:
             cache.put(key, kp.clone(), vp.clone(), start, n, W)
@@ -842,35 +861,74 @@ class ContinuousLM(ServingFrontEnd):
                     time.sleep(self._wait)
                     continue
                 self._bind_slots(s)
-            self._fill_free_slots()
-            self._pump_prefill()
-            if not self._slot_req:
-                continue
-            if self._replica_fault():
-                return   # kill-replica: hard crash, no cleanup
-            spec = faults.fire("slow-request")
-            if spec is not None:
-                time.sleep(spec.param_float(0.05))
-            rung = self._select_rung()
-            self._pool.decode(self._chunk, rung, self._select_mode())
-            _KV_WINDOW_G.set(rung)
-            _STEPS.inc(self._chunk * len(self._slot_req))
-            _OCCUPANCY.record(len(self._slot_req) / self._slots)
-            _ACTIVE_G.set(len(self._slot_req))
-            done, now = [], None
-            for slot, rec in self._slot_req.items():
-                old = rec[1]
-                rec[1] += self._chunk
-                plen = rec[0].prompt.size
-                if old < plen <= rec[1]:   # the first sampled token's chunk
-                    if now is None:
-                        now = time.monotonic()
-                    _TTFT_SECONDS.record(now - rec[0].t0)
-                if rec[1] >= rec[2]:
-                    done.append(slot)
-            self._stream_emit()
-            if done:
-                self._complete(done)
+            with obs.span("serve.iteration"):
+                if not self._iteration():
+                    return   # kill-replica: hard crash, no cleanup
+
+    def _iteration(self):
+        """One scheduler pass: admit into free slots, one prefill window,
+        one decode chunk, then stream and complete. False when the
+        kill-replica fault ends the loop."""
+        self._record_first_tokens()
+        self._fill_free_slots()
+        self._pump_prefill()
+        if not self._slot_req:
+            return True
+        if self._replica_fault():
+            return False
+        spec = faults.fire("slow-request")
+        if spec is not None:
+            time.sleep(spec.param_float(0.05))
+        rung = self._select_rung()
+        mode = self._select_mode()
+        with obs.span("serve.decode_chunk", device=self.device, rung=rung,
+                      mode=mode, active=len(self._slot_req)):
+            self._pool.decode(self._chunk, rung, mode)
+        _KV_WINDOW_G.set(rung)
+        _STEPS.inc(self._chunk * len(self._slot_req))
+        _OCCUPANCY.record(len(self._slot_req) / self._slots)
+        _ACTIVE_G.set(len(self._slot_req))
+        done, first = [], []
+        for slot, rec in self._slot_req.items():
+            old = rec[1]
+            rec[1] += self._chunk
+            if old < rec[0].prompt.size <= rec[1]:   # samples its first token
+                first.append(rec[0])
+            if rec[1] >= rec[2]:
+                done.append(slot)
+        if first:
+            end = None
+            if captures_graphs(self.device):
+                end = torch.cuda.Event()
+                end.record(torch.cuda.current_stream(self.device))
+            self._first_tokens.append((end, first))
+        self._stream_emit()
+        if done:
+            self._complete(done)
+        return True
+
+    def _record_first_tokens(self, fetched=False):
+        """Record ``serve.ttft_seconds`` for the requests whose first
+        token's chunk is done: every one after an ``out`` fetch
+        (``fetched``), else those whose chunk's end event has completed,
+        oldest first. Never waits for the device."""
+        now = None
+        while self._first_tokens:
+            end, reqs = self._first_tokens[0]
+            if not fetched and end is not None and not end.query():
+                return
+            self._first_tokens.popleft()
+            now = now or time.monotonic()
+            for r in reqs:
+                _TTFT_SECONDS.record(now - r.t0)
+
+    def _out_rows(self):
+        """The ``out`` rows on the host (every first token sampled so far
+        is on the host with them)."""
+        with obs.span("serve.out_fetch"):
+            out_host = self._pool.out_rows()
+        self._record_first_tokens(fetched=True)
+        return out_host
 
     def _stream_emit(self):
         """Incremental delivery to streaming requests: one ``out`` fetch
@@ -887,7 +945,7 @@ class ContinuousLM(ServingFrontEnd):
                 pend.append((slot, r, have))
         if not pend:
             return
-        out_host = self._pool.out_rows()
+        out_host = self._out_rows()
         for slot, r, have in pend:
             try:
                 r.on_tokens(out_host[slot, r.emitted:have].astype(np.int32))
@@ -899,7 +957,7 @@ class ContinuousLM(ServingFrontEnd):
         """Fetch ``out`` ONCE for this chunk's completions, resolve their
         futures, then refill each freed row from the queue or park it
         inactive."""
-        out_host = self._pool.out_rows()
+        out_host = self._out_rows()
         now = time.monotonic()
         for slot in done:
             r, _, _ = self._slot_req.pop(slot)

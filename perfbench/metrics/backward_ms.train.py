@@ -1,0 +1,14 @@
+"""Device ms a step of the backward (``torch.autograd.grad``): the port's
+``fit.backward`` span, timed between CUDA events on the training stream
+into ``fit.backward.device_seconds``. Spans record only while a profile
+runs, so the histogram holds the traced steps, one observation a step.
+None where the program has no such span."""
+
+
+def read(m):
+    from deeplearning4j_tpu_torch.obs import metrics, tracing
+    # device spans still pending land in their histograms first
+    getattr(tracing, "resolve_device_spans", lambda: None)()
+    h = metrics.metrics_snapshot()["histograms"].get(
+        "fit.backward.device_seconds")
+    return h["sum"] / h["count"] * 1e3 if h and h["count"] else None
